@@ -1,0 +1,164 @@
+"""Analytic DM-SR scene generator (``dmnerf_tpu/data/synthetic.py``).
+
+A set of colored spheres (one instance label each) over a sky gradient, ray-traced
+with the DM-SR loader's ray convention (K with negative fy and fz = -1), so a NeRF
+fit to these images against ``rays_from_K`` is geometrically consistent.
+
+``write_dmsr_scene`` writes a DM-SR directory ({train,test}/rgbs, transforms.json,
+semantic_instance, ins_rgb.hdf5, objs_info.json, color_dict.json);
+``build_dmsr_scene`` builds in memory the SceneData that writing and then
+``load_dmsr`` would give, PNG quantization included, without imageio or h5py.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+
+from dmnerf_tpu_torch.data.dmsr import demo_view_poses, dmsr_intrinsics
+from dmnerf_tpu_torch.data.scene import SceneData
+
+
+def _look_at(eye: np.ndarray, target: np.ndarray, up=np.array([0.0, 0.0, 1.0])) -> np.ndarray:
+    fwd = target - eye
+    fwd = fwd / np.linalg.norm(fwd)
+    right = np.cross(fwd, up)
+    right = right / np.linalg.norm(right)
+    true_up = np.cross(right, fwd)
+    c2w = np.eye(4, dtype=np.float32)
+    # the camera looks along -z in the blender/DM-SR convention
+    c2w[:3, 0], c2w[:3, 1], c2w[:3, 2] = right, true_up, -fwd
+    c2w[:3, 3] = eye
+    return c2w
+
+
+def default_spec(n_objects: int = 4, seed: int = 0):
+    rng = np.random.RandomState(seed)
+    centers = rng.uniform(-1.2, 1.2, size=(n_objects, 3)).astype(np.float32)
+    centers[:, 2] = rng.uniform(-0.5, 0.5, size=n_objects)
+    radii = rng.uniform(0.35, 0.6, size=n_objects).astype(np.float32)
+    colors = rng.uniform(0.2, 0.95, size=(n_objects, 3)).astype(np.float32)
+    return {"centers": centers, "radii": radii, "colors": colors}
+
+
+def render_view(c2w: np.ndarray, H: int, W: int, K: np.ndarray, spec) -> tuple:
+    """Returns (rgb [H,W,3] float in [0,1], label [H,W] int). Label 0 = background,
+    sphere k has label k+1."""
+    j, i = np.meshgrid(np.arange(H, dtype=np.float32), np.arange(W, dtype=np.float32), indexing="ij")
+    dirs = np.stack(
+        [(i - K[0, 2]) / K[0, 0], (j - K[1, 2]) / K[1, 1], K[2, 2] * np.ones_like(i)], -1
+    )
+    rays_d = dirs @ c2w[:3, :3].T
+    rays_o = np.broadcast_to(c2w[:3, 3], rays_d.shape)
+
+    d_norm = rays_d / np.linalg.norm(rays_d, axis=-1, keepdims=True)
+    best_t = np.full((H, W), np.inf, np.float32)
+    label = np.zeros((H, W), np.int32)
+    rgb = np.empty((H, W, 3), np.float32)
+    rgb[:] = 0.25 + 0.35 * (d_norm[..., 2:3] * 0.5 + 0.5)
+
+    light = np.array([0.4, -0.3, 0.85])
+    light = light / np.linalg.norm(light)
+    for k in range(len(spec["radii"])):
+        c, r, col = spec["centers"][k], spec["radii"][k], spec["colors"][k]
+        oc = rays_o - c
+        b = np.sum(oc * d_norm, -1)
+        disc = b * b - (np.sum(oc * oc, -1) - r * r)
+        hit = disc > 0
+        t = -b - np.sqrt(np.maximum(disc, 0))
+        hit &= (t > 1e-3) & (t < best_t)
+        if not hit.any():
+            continue
+        p = rays_o[hit] + d_norm[hit] * t[hit, None]
+        n = (p - c) / r
+        shade = 0.35 + 0.65 * np.maximum(n @ light, 0)
+        rgb[hit] = np.clip(col * shade[:, None], 0, 1)
+        label[hit] = k + 1
+        best_t[hit] = t[hit]
+    return rgb, label
+
+
+def _dmsr_scene(n_train, n_test, H, W, n_objects, ins_num, seed, radius):
+    """Everything a DM-SR directory holds, in memory: per split a list of
+    (c2w, rgb uint8, label uint8), the camera angle, the palette and objs_info."""
+    spec = default_spec(n_objects, seed)
+    focal = float(W)  # ~53deg fov
+    angle_x = float(2.0 * np.arctan(W / (2.0 * focal)))
+    K = np.array([[focal, 0, W * 0.5], [0, -focal, H * 0.5], [0, 0, -1]], np.float32)
+
+    splits = {}
+    for split, count, phase in [("train", n_train, 0.0), ("test", n_test, 0.13)]:
+        frames = []
+        for t in range(count):
+            ang = phase + 2 * np.pi * t / max(count, 1)
+            eye = np.array([radius * np.cos(ang), radius * np.sin(ang), 1.6 + 0.4 * np.sin(2 * ang)])
+            c2w = _look_at(eye.astype(np.float32), np.zeros(3, np.float32))
+            rgb, label = render_view(c2w, H, W, K, spec)
+            frames.append((c2w, (rgb * 255).astype(np.uint8), label.astype(np.uint8)))
+        splits[split] = frames
+
+    rng = np.random.RandomState(seed + 1)
+    palette = rng.randint(0, 255, size=(ins_num, 3)).astype(np.uint8)
+    objs_info = {
+        "objects": [
+            {"obj_name": f"sphere_{k}", "tar_id": k + 1, "mani_mode": "translation",
+             "obj_center": spec["centers"][k].tolist(), "distance": [0.5]}
+            for k in range(n_objects)
+        ],
+        "view_id": 0,
+        "ins_map": {str(k + 1): k + 1 for k in range(n_objects)},
+    }
+    return spec, splits, angle_x, palette, objs_info
+
+
+def write_dmsr_scene(out_dir: str, n_train: int = 12, n_test: int = 4, H: int = 64,
+                     W: int = 64, n_objects: int = 4, ins_num: int = 8, seed: int = 0,
+                     radius: float = 4.0):
+    """Writes a DM-SR-format scene; returns the spec. ins_num >= n_objects + 1."""
+    import h5py
+    import imageio.v2 as imageio
+
+    spec, splits, angle_x, palette, objs_info = _dmsr_scene(
+        n_train, n_test, H, W, n_objects, ins_num, seed, radius)
+    for split, frames in splits.items():
+        rgb_dir = os.path.join(out_dir, split, "rgbs")
+        ins_dir = os.path.join(out_dir, split, "semantic_instance")
+        os.makedirs(rgb_dir, exist_ok=True)
+        os.makedirs(ins_dir, exist_ok=True)
+        for t, (c2w, rgb, label) in enumerate(frames):
+            imageio.imwrite(os.path.join(rgb_dir, f"{t:04d}.png"), rgb)
+            imageio.imwrite(os.path.join(ins_dir, f"{t:04d}.png"), label)
+        with open(os.path.join(out_dir, split, "transforms.json"), "w") as f:
+            json.dump({"camera_angle_x": angle_x,
+                       "frames": [{"transform_matrix": c2w.tolist()} for c2w, _, _ in frames]}, f)
+    with h5py.File(os.path.join(out_dir, "ins_rgb.hdf5"), "w") as f:
+        f.create_dataset("datasets", data=palette)
+    with open(os.path.join(out_dir, "objs_info.json"), "w") as f:
+        json.dump(objs_info, f)
+    with open(os.path.join(out_dir, "color_dict.json"), "w") as f:
+        json.dump({str(lbl): int(lbl) for lbl in range(ins_num)}, f)
+    return spec
+
+
+def build_dmsr_scene(n_train: int = 12, n_test: int = 4, H: int = 64, W: int = 64,
+                     n_objects: int = 4, ins_num: int = 8, seed: int = 0,
+                     radius: float = 4.0, testskip: int = 1, views: int = 720) -> SceneData:
+    """The SceneData that ``write_dmsr_scene`` followed by ``load_dmsr`` gives, for
+    a config with this ``testskip`` and ``views``, built in memory."""
+    _, splits, angle_x, palette, objs_info = _dmsr_scene(
+        n_train, n_test, H, W, n_objects, ins_num, seed, radius)
+    skip = testskip if testskip != 0 else 1
+    frames = splits["train"] + splits["test"][::skip]
+    images = (np.stack([rgb for _, rgb, _ in frames]) / 255.0).astype(np.float32)
+    poses = np.stack([c2w for c2w, _, _ in frames]).astype(np.float32)
+    n_tr = len(splits["train"])
+    return SceneData(
+        images=images, poses=poses, H=H, W=W, K=dmsr_intrinsics(H, W, angle_x),
+        i_train=np.arange(n_tr), i_test=np.arange(n_tr, len(frames)),
+        gt_labels=np.stack([label for _, _, label in frames]).astype(np.int32),
+        ins_rgbs=palette, ins_num=len(palette), objs=objs_info["objects"],
+        view_poses=demo_view_poses(poses, objs_info["view_id"], views),
+        ins_map=objs_info["ins_map"],
+    )
