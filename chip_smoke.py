@@ -4,9 +4,9 @@
 
 0. Requires a CUDA card of capability 9.0 and prints its name and power limit.
    TF32 is off, so the fp32 plain path is really fp32.
-1. Builds every kernel of the render path from dmnerf_tpu_torch/kernels/csrc with
-   nvcc (sm_90a), one process per source, and prints the build time and the
-   compiler's register report.
+1. Builds every kernel of the render and train paths from
+   dmnerf_tpu_torch/kernels/csrc with nvcc (sm_90a), one process per source, all
+   started together, and prints the build time and the compiler's register report.
 2. Kernel phase, at the flagship model's width (configs/test/dmsr/study.txt:
    D=8, W=256, skips (4,), multires 10/4, ins_num 32) with seeded random weights
    and points along rays between near and far: the fused PE+MLP kernel on a fine
@@ -24,6 +24,26 @@
    launch count must be 2 x chunks x views, and one view rendered with the plain
    PyTorch query on the card must agree with the kernel's render (rgb PSNR >= 40 dB,
    at most 1% of pixels with another argmax instance label).
+4. Backward kernel phase, at the flagship width and the training shapes
+   (configs/train/dmsr/study.txt: N_train 3072; fine 3072 x 192 points, coarse
+   3072 x 64, both through the full model): each parameter's gradient of
+   sum(tanh(raw) * w) through the kernels (K1 forward, K2 backward, mapped through
+   pack_params by autograd) against fp32 autograd of the plain PyTorch query,
+   max|d| / max|ref| <= 2e-2 per parameter (bench.py:397-401), with the bf16 plain
+   version's error printed beside it; an instance-only loss gives exactly zero trunk,
+   rgb and density gradients; two runs are bit-identical. Median times of K2, of the
+   plain fp32 autograd backward, of the backward through the bf16 addmm chain (the
+   library yardstick), of K1 at the same shapes, and the bound: the backward's own
+   matrix FLOPs over 989 TFLOP/s, or bytes over 3.35 TB/s, whichever is larger.
+5. Train phase: the flagship train config (N_train 3072, N_samples 64,
+   N_importance 128, over_penalize with tolerance = deta_w = 0.05, lrate 5e-4,
+   perturb on) for 20 steps through dmnerf_tpu_torch.train on a synthetic DM-SR scene
+   built in memory (256x256, 4 train views, 4 objects, ins_num 32, near 1, far 8).
+   Exactly 2 launches of each kernel per step, every logged loss finite (the
+   instance loss included), and one step's full-loss gradients through the kernels
+   within 2e-2 per parameter of the plain PyTorch query's, from the same parameters,
+   batch and draws. Prints the steady ms per step and rays/s, and the host time of
+   the two Hungarian assignments of a step.
 
 The line before the last is a JSON object with each kernel's numbers; the last
 line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -45,6 +65,8 @@ KERNEL_TOL = 5e-3            # kernel vs fp32 plain: max|d| <= 5e-3 * max(scale,
 STUB_TOL = 1e-5              # stub sigma vs full sigma: <= 1e-5 * max(sigma scale, 1)
 MIN_PSNR_DB = 40.0           # kernel render vs plain render, rgb
 MAX_LABEL_FLIP = 0.01        # share of pixels whose argmax instance label differs
+GRAD_TOL = 2e-2              # parameter gradient, max|d| / max|ref| per parameter
+TRAIN_STEPS = 20
 SEED = 0
 
 
@@ -76,6 +98,18 @@ def query_macs(params) -> int:
     Ed = params["rgb_hid_w"].shape[0] - params["rgb_feat_w"].shape[1]
     C = params["ins_out_w"].shape[1]
     return macs + W * (Hr + Hi + 1) + Ed * Hr + Hr * 3 + Hi * C
+
+
+def backward_macs(params) -> int:
+    """Multiply-accumulates per point of the backward's own products: dW (the
+    forward's products) and dX into the trunk, which the instance head does not
+    reach: every trunk layer but the first into h, the head's rgb block and sigma
+    into h, and the output layer into the head's activations."""
+    D = sum(1 for k in params if k.startswith("trunk_") and k.endswith("_w"))
+    W = params["density_w"].shape[0]
+    Hr, Hi = params["rgb_hid_w"].shape[1], params["ins_hid_w"].shape[1]
+    C = params["ins_out_w"].shape[1]
+    return query_macs(params) + (D - 1) * W * W + W * (Hr + 1) + Hr * 3 + Hi * C
 
 
 def library_query(packed, pts, viewdirs):
@@ -260,6 +294,222 @@ def slice_phase(cfg, device):
     return launches
 
 
+
+def _leaf_grads(query, params, pts, dirs, w):
+    """Gradients of sum(tanh(raw) * w) with respect to every parameter."""
+    import torch
+
+    pp = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    raw = query(pp, pts, dirs)
+    grads = torch.autograd.grad((torch.tanh(raw) * w).sum(), list(pp.values()))
+    return dict(zip(pp, grads))
+
+
+def _plain16_leaf_grads(params, args, pts, dirs, w):
+    """The same gradients through the bf16 plain versions of both kernels."""
+    import torch
+
+    from dmnerf_tpu_torch.kernels.fused_mlp import fused_query_bwd_ref, fused_query_ref, pack_params
+
+    pp = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    packed = pack_params(pp, *args)
+    with torch.no_grad():
+        raw = fused_query_ref(packed, pts, dirs, torch.bfloat16)
+        dw, db = fused_query_bwd_ref(packed, pts, dirs, (1.0 - torch.tanh(raw) ** 2) * w,
+                                     torch.bfloat16)
+    torch.autograd.backward([packed.w, packed.b], [dw, db])
+    return {k: v.grad for k, v in pp.items()}
+
+
+def _rel_err(got, want):
+    """max over parameters of max|d| / max|ref|, the largest max|d|, and the largest
+    max|ref| (the gradients' scale)."""
+    rel = max(float((got[k] - want[k]).abs().max()) / max(float(want[k].abs().max()), 1e-30)
+              for k in want)
+    return (rel, max(float((got[k] - want[k]).abs().max()) for k in want),
+            max(float(want[k].abs().max()) for k in want))
+
+
+def bwd_kernel_phase(cfg, device):
+    import dataclasses
+
+    import torch
+
+    from dmnerf_tpu_torch.core.pipeline import make_fused_query_fn, make_torch_query_fn
+    from dmnerf_tpu_torch.kernels import runtime
+    from dmnerf_tpu_torch.kernels.fused_mlp import fused_query, fused_query_bwd, pack_params
+    from dmnerf_tpu_torch.test import init_params
+
+    pc, pf = init_params(cfg, device)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    args = (cfg.multires, cfg.multires_views, cfg.netdepth, tuple(cfg.skips))
+    N = cfg.N_train
+    cases = [("fine", pf, *_points(N, cfg.N_samples + cfg.N_importance, cfg.near, cfg.far, gen, device)),
+             ("coarse", pc, *_points(N, cfg.N_samples, cfg.near, cfg.far, gen, device))]
+    results = {}
+    for name, params, pts, dirs in cases:
+        packed = pack_params(params, *args)
+        w = torch.linspace(0.5, 1.5, packed.c4, device=device)
+        kernel = _leaf_grads(make_fused_query_fn(*args), params, pts, dirs, w)
+        plain = _leaf_grads(make_torch_query_fn(*args), params, pts, dirs, w)
+        rel, err, scale = _rel_err(kernel, plain)
+        rel16, err16, _ = _rel_err(_plain16_leaf_grads(params, args, pts, dirs, w), plain)
+        worst = max(plain, key=lambda k: float((kernel[k] - plain[k]).abs().max())
+                    / max(float(plain[k].abs().max()), 1e-30))
+        if not all(torch.isfinite(v).all() for v in kernel.values()):
+            raise AssertionError(f"{name}: kernel gradients are not finite")
+
+        # the wall: an instance-only loss reaches no trunk, rgb or density parameter
+        pp = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+        fused_query(pack_params(pp, *args), pts, dirs)[..., 4:].sum().backward()
+        leaks = [k for k, v in pp.items() if k.startswith(("trunk_", "rgb_", "density"))
+                 and v.grad is not None and int(torch.count_nonzero(v.grad)) > 0]
+        if leaks or float(pp["ins_out_w"].grad.abs().sum()) == 0:
+            raise AssertionError(f"{name}: instance-head wall broken: {leaks}")
+
+        with torch.no_grad():
+            raw = fused_query(packed, pts, dirs)
+        g = ((1.0 - torch.tanh(raw) ** 2) * w).contiguous()
+        first, second = fused_query_bwd(packed, pts, dirs, g), fused_query_bwd(packed, pts, dirs, g)
+        same = torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+        ms = _time_ms(lambda: fused_query_bwd(packed, pts, dirs, g), reps=5)
+        with torch.no_grad():
+            fwd_ms = _time_ms(lambda: fused_query(packed, pts, dirs))
+        pp = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+        raw32 = make_torch_query_fn(*args)(pp, pts, dirs)
+        plain_ms = _time_ms(lambda: torch.autograd.grad(raw32, list(pp.values()), g,
+                                                        retain_graph=True), reps=5)
+        del raw32
+        lib = dataclasses.replace(packed, w_bf16=packed.w_bf16.detach().clone().requires_grad_(True),
+                                  b=packed.b.detach().clone().requires_grad_(True))
+        raw16 = library_query(lib, pts, dirs)
+        library_ms = _time_ms(lambda: torch.autograd.grad(raw16, [lib.w_bf16, lib.b], g,
+                                                          retain_graph=True), reps=5)
+        del raw16
+
+        P = pts.shape[0] * pts.shape[1]
+        flops = 2.0 * backward_macs(params) * P
+        nbytes = (pts.numel() * 4 + dirs.numel() * 4 + g.numel() * 4 + packed.w_bf16.numel() * 2
+                  + packed.b.numel() * 4 + packed.w.numel() * 4 + packed.b.numel() * 4)
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        r = dict(points=P, max_rel_err=rel, max_abs_err=err, grad_scale=scale, worst_param=worst,
+                 max_rel_err_bf16_plain=rel16, max_abs_err_bf16_plain=err16, bit_identical=same,
+                 ms=ms, fwd_ms=fwd_ms, plain_ms=plain_ms, library_ms=library_ms,
+                 bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                 gflop=flops / 1e9, tflops=flops / (ms * 1e-3) / 1e12)
+        print(f"[bwd] {name}: {json.dumps(r)}", flush=True)
+        if rel > GRAD_TOL or not same:
+            raise AssertionError(f"{name}: K2 gradient max rel err {rel:.3e} (want <= {GRAD_TOL}), "
+                                 f"bit-identical repeats: {same}")
+        results[name] = r
+        del kernel, plain
+        torch.cuda.empty_cache()
+    runtime.reset_launches()
+    return results
+
+
+def train_phase(device):
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dmnerf_tpu_torch.configs import load_config
+    from dmnerf_tpu_torch.core.pipeline import make_query_fn, make_torch_query_fn, render_rays
+    from dmnerf_tpu_torch.core.sampling import z_val_sample
+    from dmnerf_tpu_torch.data.samplers import make_full_sampler
+    from dmnerf_tpu_torch.data.synthetic import build_dmsr_scene
+    from dmnerf_tpu_torch.kernels import runtime
+    from dmnerf_tpu_torch.objfield.hungarian import masked_assignment
+    from dmnerf_tpu_torch.render.trainstep import compute_losses, create_train_state, make_train_step
+    from dmnerf_tpu_torch.train import train
+
+    scene = build_dmsr_scene(n_train=4, n_test=1, H=256, W=256, n_objects=4, ins_num=32, seed=SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = load_config(os.path.join(REPO, "configs", "train", "dmsr", "study.txt"),
+                          near=1.0, far=8.0, ins_num=scene.ins_num, lrate=5e-4, perturb=1.0,
+                          N_iters=TRAIN_STEPS, i_print=1, i_save=10 ** 9, i_test=10 ** 9,
+                          basedir=tmp, expname="chip_smoke")
+        runtime.reset_launches()
+        t0 = time.time()
+        state = train(cfg, scene, device)
+        torch.cuda.synchronize()
+        train_s = time.time() - t0
+        launches = dict(runtime.LAUNCHES)
+        with open(os.path.join(cfg.log_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+    for name in ("fused_mlp_fwd", "fused_mlp_bwd"):
+        if launches[name] != 2 * TRAIN_STEPS:
+            raise AssertionError(f"{name} launched {launches[name]} times in {TRAIN_STEPS} train "
+                                 f"steps, want 2 per step")
+    keys = ("total_loss", "rgb_loss", "ins_loss", "emptiness_loss", "psnr_fine")
+    if len(recs) != TRAIN_STEPS or not all(np.isfinite(r[k]) for r in recs for k in keys):
+        raise AssertionError(f"train losses not all finite over {len(recs)} logged steps")
+
+    # one step's gradients, kernel query vs plain query: same parameters, batch, draws
+    sampler = make_full_sampler(scene.images, scene.gt_labels, scene.poses, scene.K,
+                                scene.i_train, cfg.N_train, device=device)
+    batch = sampler(torch.Generator().manual_seed(SEED + 3))
+    gdev = torch.Generator(device=device).manual_seed(SEED + 4)
+    u_z = torch.rand((cfg.N_train, cfg.N_samples), generator=gdev, device=device)
+    u_pdf = torch.rand((cfg.N_train, cfg.N_importance), generator=gdev, device=device)
+    z = z_val_sample(cfg.N_train, cfg.near, cfg.far, cfg.N_samples, device=device)
+
+    def step_grads(query_fn):
+        pc = {k: v.detach().clone().requires_grad_(True) for k, v in state.params_coarse.items()}
+        pf = {k: v.detach().clone().requires_grad_(True) for k, v in state.params_fine.items()}
+        info = render_rays(pc, pf, batch.rays_o, batch.rays_d, z, query_fn,
+                           N_importance=cfg.N_importance, perturb=True, u_z=u_z, u_pdf=u_pdf)
+        total, aux = compute_losses(cfg, info, batch, None)
+        grads = torch.autograd.grad(total, [*pc.values(), *pf.values()])
+        names = [f"coarse.{k}" for k in pc] + [f"fine.{k}" for k in pf]
+        return dict(zip(names, grads)), {k: float(v) for k, v in aux.items()}
+
+    gk, aux_k = step_grads(make_query_fn(cfg))
+    gp, aux_p = step_grads(make_torch_query_fn(cfg.multires, cfg.multires_views, cfg.netdepth,
+                                               tuple(cfg.skips)))
+    rel, err, _ = _rel_err(gk, gp)
+    worst = max(gp, key=lambda k: float((gk[k] - gp[k]).abs().max())
+                / max(float(gp[k].abs().max()), 1e-30))
+
+    # steady steps, host clock around synchronised steps
+    st = create_train_state(cfg, state.params_coarse, state.params_fine, state.step)
+    step_fn = make_train_step(cfg)
+    gb, gs = torch.Generator().manual_seed(SEED + 5), torch.Generator(device=device).manual_seed(SEED + 6)
+    times = []
+    for i in range(13):
+        b = sampler(gb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(st, b, generator=gs)
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+
+    # the host side of a step's two assignments: one copy of [2, C, C] costs + solves
+    cost = torch.rand((2, cfg.ins_num, cfg.ins_num), generator=gdev, device=device)
+    hung = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        masked_assignment(cost, min(5, cfg.ins_num))
+        hung.append((time.perf_counter() - t0) * 1e3)
+
+    out = dict(steps=TRAIN_STEPS, launches=launches, train_s=train_s,
+               first=recs[0], last=recs[-1],
+               kernel_vs_plain=dict(max_rel_err=rel, max_abs_err=err, worst_param=worst,
+                                    total_kernel=aux_k["total_loss"], total_plain=aux_p["total_loss"],
+                                    ins_kernel=aux_k["ins_loss"], ins_plain=aux_p["ins_loss"]),
+               step_ms=step_ms, step_ms_range=[min(times), max(times)],
+               rays_per_s=cfg.N_train / (step_ms * 1e-3), hungarian_host_ms=statistics.median(hung))
+    print(f"[train] {json.dumps(out)}", flush=True)
+    if rel > GRAD_TOL:
+        raise AssertionError(f"train step gradients, kernel vs plain query: max rel err {rel:.3e} "
+                             f"(want <= {GRAD_TOL}) at {worst}")
+    return launches, out
+
 def main() -> int:
     import torch
 
@@ -292,16 +542,35 @@ def main() -> int:
     device = torch.device("cuda")
     cfg = load_config(os.path.join(REPO, "configs", "test", "dmsr", "study.txt"), ins_num=32)
     kres = kernel_phase(cfg, device)
-    launches = slice_phase(cfg, device)
+    render_launches = slice_phase(cfg, device)
+    train_cfg = load_config(os.path.join(REPO, "configs", "train", "dmsr", "study.txt"),
+                            ins_num=32, near=1.0, far=8.0)
+    bres = bwd_kernel_phase(train_cfg, device)
+    train_launches, _ = train_phase(device)
 
-    fine = kres["fine"]
+    for name in runtime.KERNELS:
+        if render_launches[name] + train_launches[name] == 0:
+            raise AssertionError(f"{name} was never launched on the main paths")
+    fine, bfine = kres["fine"], bres["fine"]
+    by_path = {name: {"render": render_launches[name], "train": train_launches[name]}
+               for name in runtime.KERNELS}
     kernels = [{
         "name": "fused_mlp_fwd", "route": "cuda",
         "source": "dmnerf_tpu_torch/kernels/csrc/fused_mlp_fwd.cu",
         "replaces": "dmnerf_tpu/kernels/fused_mlp.py:507",
-        "launches": launches["fused_mlp_fwd"], "max_abs_err": fine["max_abs_err"],
+        "launches": render_launches["fused_mlp_fwd"], "launches_by_path": by_path["fused_mlp_fwd"],
+        "max_abs_err": fine["max_abs_err"],
         "ms": fine["ms"], "plain_ms": fine["plain_ms"], "bound_ms": fine["bound_ms"],
         "bound_by": fine["bound_by"], "library_ms": fine["library_ms"],
+    }, {
+        "name": "fused_mlp_bwd", "route": "cuda",
+        "source": "dmnerf_tpu_torch/kernels/csrc/fused_mlp_bwd.cu",
+        "replaces": "dmnerf_tpu/kernels/fused_mlp.py:520",
+        "launches": train_launches["fused_mlp_bwd"], "launches_by_path": by_path["fused_mlp_bwd"],
+        "max_abs_err": bfine["max_abs_err"], "grad_scale": bfine["grad_scale"],
+        "max_rel_err": bfine["max_rel_err"],
+        "ms": bfine["ms"], "plain_ms": bfine["plain_ms"], "bound_ms": bfine["bound_ms"],
+        "bound_by": bfine["bound_by"], "library_ms": bfine["library_ms"],
     }]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

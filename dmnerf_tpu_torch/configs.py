@@ -6,7 +6,7 @@ files are ``key = value`` lines plus bare flags; the released vocabulary drift i
 accepted: ``over_penalize`` == ``penalize``, ``editor_val`` == ``mani_eval``,
 ``editor_mode`` == ``mani_mode``, ``editor_demo`` == ``mani_demo``.
 
-In this package ``use_pallas`` selects the hand-written Hopper kernel for the point
+In this package ``use_pallas`` selects the hand-written Hopper kernels for the point
 query. The Pallas knobs (``pallas_pe_mode``, ``pallas_tile_fwd``,
 ``pallas_tile_bwd``) and the JAX-only switches (``data_axis``, ``multihost``,
 ``steps_per_dispatch``, ``debug_nans``, ``profile_*``) are parsed so that config

@@ -54,8 +54,8 @@ def make_torch_query_fn(multires: int = 10, multires_views: int = 4, D: int = 8,
 
 def make_fused_query_fn(multires: int = 10, multires_views: int = 4, D: int = 8,
                         skips=(4,)) -> QueryFn:
-    """The fused PE + MLP query (kernels.fused_mlp): the Hopper kernel for CUDA
-    tensors, its fp32 plain version for CPU tensors."""
+    """The fused PE + MLP query (kernels.fused_mlp): the Hopper kernels (forward and
+    parameter backward) for CUDA tensors, their fp32 plain versions for CPU tensors."""
     from dmnerf_tpu_torch.kernels.fused_mlp import fused_query, pack_params
 
     def prepare(params):
@@ -90,9 +90,12 @@ def render_rays(
     u_z: Optional[torch.Tensor] = None,
     u_pdf: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
-    """Forward only. The draws are random when ``perturb`` and a generator or
-    injected uniforms (``u_z`` for the jitter, ``u_pdf`` for sample_pdf) are given;
-    otherwise the pass is deterministic, as the reference's perturb == 0."""
+    """The coarse + fine render; gradients flow to both parameter dicts through the
+    queries, except across the walls: the instance head's detached trunk feature,
+    the detached instance-composite weights and the detached fine z. The draws are
+    random when ``perturb`` and a generator or injected uniforms (``u_z`` for the
+    jitter, ``u_pdf`` for sample_pdf) are given; otherwise the pass is
+    deterministic, as the reference's perturb == 0."""
     viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
 
     randomized = perturb and (generator is not None or u_z is not None)

@@ -1,6 +1,7 @@
-"""The fused PE + DM-NeRF MLP forward for one point query: a hand-written Hopper
-kernel (``csrc/fused_mlp_fwd.cu``), its plain PyTorch version, the wrapper that
-picks between them, and the host-side packing both consume.
+"""The fused PE + DM-NeRF MLP point query and its parameter backward: two
+hand-written Hopper kernels (``csrc/fused_mlp_fwd.cu``, ``csrc/fused_mlp_bwd.cu``),
+their plain PyTorch versions, the wrappers that pick between them, the autograd
+function that joins them, and the host-side packing they consume.
 
 It computes what the JAX package's ``_fwd_kernel_pet`` computes
 (``dmnerf_tpu/kernels/fused_mlp.py:507``): the point embedding
@@ -32,6 +33,15 @@ exact zeros. Sigma has a layer of its own so that the sigma stub's sigma column 
 the same product as the full model's. Embedding widths pad to multiples of 16
 (63 -> 64, 27 -> 32), head widths are runtime values (Hr = Hi = 8 and C = 1 for the
 sigma stub).
+
+Gradients. ``fused_query`` is a ``torch.autograd.Function`` whose differentiable
+inputs are ``Packed.w`` and ``Packed.b``; autograd over ``pack_params`` (permutes,
+concatenations, block copies and the ``M1`` products) carries them back to the
+parameter dict, which is the product rule the JAX package writes out in
+``_unpack_grads``. Its backward is the JAX package's ``_backward_core``
+(``dmnerf_tpu/kernels/fused_mlp.py:536``): the head's ins columns feed ``dW`` but
+send nothing into the trunk, nothing goes into ``ed``, ``pts`` or ``viewdirs``, and
+bias gradients are fp32 sums of the fp32 cotangents.
 """
 
 from __future__ import annotations
@@ -148,6 +158,7 @@ class Packed:
     multires: int
     multires_views: int
     width: int               # W
+    hr: int                  # rgb hidden width: the head columns that reach the trunk
     ep: int                  # padded point-embedding width
     edp: int                 # padded viewdir-embedding width
     c4: int                  # output channels, 4 + C
@@ -219,9 +230,9 @@ def pack_params(params: Params, multires: int, multires_views: int, D: int,
         w_off += K * N + pad_w
         b_off += N
     w = torch.cat(ws)
-    return Packed(w=w, w_bf16=w.to(torch.bfloat16), b=torch.cat(bs), layers=tuple(layers),
-                  multires=multires, multires_views=multires_views, width=W,
-                  ep=ep, edp=edp, c4=c4)
+    return Packed(w=w, w_bf16=w.detach().to(torch.bfloat16), b=torch.cat(bs),
+                  layers=tuple(layers), multires=multires, multires_views=multires_views,
+                  width=W, hr=Hr, ep=ep, edp=edp, c4=c4)
 
 
 # ---------------------------------------------------------------------------
@@ -244,12 +255,38 @@ def view_embedding(packed: Packed, viewdirs: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Plain version and wrapper
+# Plain versions
 # ---------------------------------------------------------------------------
+
+def _rounder(act_dtype):
+    """Identity for fp32; a round trip through ``act_dtype`` otherwise."""
+    if act_dtype == torch.float32:
+        return lambda t: t
+    return lambda t: t.to(act_dtype).float()
+
+
+def _weights(packed: Packed, act_dtype) -> torch.Tensor:
+    """The packed weights as the plain versions read them: detached, because their
+    gradient is ``fused_query_bwd``'s to give (autograd through the fused head
+    product would send the instance head's cotangent into the trunk)."""
+    return packed.w.detach() if act_dtype == torch.float32 else packed.w_bf16.float()
+
+
+def _block(w_all: torch.Tensor, layer: Layer) -> torch.Tensor:
+    return w_all[layer.w_off:layer.w_off + layer.K * layer.N].view(layer.K, layer.N)
+
+
+def _embeddings(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor, rnd):
+    """Point embedding [P, EP] and per-point viewdir embedding [P, EDP], rounded."""
+    N, S, _ = pts.shape
+    e = rnd(_embedding(pts.reshape(N * S, 3).float(), packed.multires, packed.ep))
+    ed = rnd(view_embedding(packed, viewdirs.float())).repeat_interleave(S, dim=0)
+    return e, ed
+
 
 def fused_query_ref(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor,
                     act_dtype=torch.float32) -> torch.Tensor:
-    """The kernel's function in torch ops over the same packed layout.
+    """The forward kernel's function in torch ops over the same packed layout.
 
     pts [N, S, 3], viewdirs [N, 3] -> raw [N, S, 4+C] fp32. With
     ``act_dtype=float32`` this is the CPU path and the fp32 yardstick. With
@@ -257,19 +294,12 @@ def fused_query_ref(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor,
     where the kernel does and keeps fp32 products and sums, so it differs from the
     kernel only in the order of the fp32 sums (run it with TF32 off)."""
     N, S, _ = pts.shape
-    if act_dtype == torch.float32:
-        def rnd(t):
-            return t
-    else:
-        def rnd(t):
-            return t.to(act_dtype).float()
-    w_all = packed.w if act_dtype == torch.float32 else packed.w_bf16.float()
-    x = pts.reshape(N * S, 3).float()
-    e = rnd(_embedding(x, packed.multires, packed.ep))
-    ed = rnd(view_embedding(packed, viewdirs.float())).repeat_interleave(S, dim=0)
+    rnd = _rounder(act_dtype)
+    w_all = _weights(packed, act_dtype)
+    e, ed = _embeddings(packed, pts, viewdirs, rnd)
     h = sigma = None
     for layer in packed.layers:
-        w = w_all[layer.w_off:layer.w_off + layer.K * layer.N].view(layer.K, layer.N)
+        w = _block(w_all, layer)
         b = packed.bias(layer)
         if layer.kind == "sigma":
             sigma = h @ w[:, :1] + b[:1]
@@ -287,16 +317,93 @@ def fused_query_ref(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor,
     raise ValueError("packed layer table has no output layer")
 
 
-def _check_kernel_inputs(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor) -> None:
+def _split_layers(packed: Packed):
+    """(trunk layers, sigma, head, out) of a packed table."""
+    *trunk, sig, head, out = packed.layers
+    if (sig.kind, head.kind, out.kind) != ("sigma", "head", "out"):
+        raise ValueError("packed layer table does not end in sigma, head, out")
+    return trunk, sig, head, out
+
+
+def fused_query_bwd_ref(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor,
+                        g: torch.Tensor, act_dtype=torch.float32):
+    """The backward kernel's function in torch ops: the parameter cotangents
+    ``(dw, db)`` of ``fused_query`` in ``Packed.w`` / ``Packed.b`` layout, fp32, for
+    the output cotangent g [N, S, 4+C]. It walks the layer table as the JAX package's
+    ``_backward_core`` walks its layers: out, head, sigma, then the trunk in reverse
+    through the ReLU masks. Only the head's rgb columns and sigma send a cotangent
+    into the trunk (the instance head's detach); nothing goes into ``ed``.
+
+    With ``bfloat16`` it rounds where the kernel does: embeddings, weights and
+    activations, and each cotangent once before it enters a product. Bias gradients
+    are sums of the unrounded fp32 cotangents either way."""
+    rnd = _rounder(act_dtype)
+    w_all = _weights(packed, act_dtype)
+    trunk, sig, head, out = _split_layers(packed)
+    W, hr = packed.width, packed.hr
+    e, ed = _embeddings(packed, pts, viewdirs, rnd)
+    P = e.shape[0]
+
+    ins, hs = [], []   # each trunk layer's input and post-ReLU output
+    h = None
+    for layer in trunk:
+        a = {"emb0": e, "plain": h}.get(layer.kind)
+        if layer.kind == "split":
+            a = torch.cat([h, e], dim=-1)
+        h = rnd(torch.relu(a @ _block(w_all, layer) + packed.bias(layer)))
+        ins.append(a)
+        hs.append(h)
+    a_head = torch.cat([ed, h], dim=-1)
+    hh = rnd(torch.relu(a_head @ _block(w_all, head) + packed.bias(head)))
+
+    dw = torch.zeros_like(w_all)
+    db = torch.zeros_like(packed.b.detach())
+
+    def put(layer, a, d, d_c):
+        dw[layer.w_off:layer.w_off + layer.K * layer.N] = (a.t() @ d_c).reshape(-1)
+        db[layer.b_off:layer.b_off + layer.N] = d.sum(0)
+
+    g = g.reshape(P, packed.c4).float()
+    d_out = torch.zeros((P, out.N), dtype=torch.float32, device=g.device)
+    d_out[:, :packed.c4] = g
+    d_out[:, 3] = 0.0                      # sigma's column belongs to the sigma layer
+    d_out_c = rnd(d_out)
+    put(out, hh, d_out, d_out_c)
+    d_hh = (d_out_c @ _block(w_all, out).t()) * (hh > 0)
+    d_hh_c = rnd(d_hh)
+    put(head, a_head, d_hh, d_hh_c)
+    d_sig = torch.zeros((P, sig.N), dtype=torch.float32, device=g.device)
+    d_sig[:, 0] = g[:, 3]
+    d_sig_c = rnd(d_sig)
+    put(sig, h, d_sig, d_sig_c)
+
+    # the wall: the ins columns [hr, hr+Hi) of the head reach dW only
+    d_h = d_hh_c[:, :hr] @ _block(w_all, head)[packed.edp:, :hr].t() \
+        + d_sig_c @ _block(w_all, sig).t()
+    for i in range(len(trunk) - 1, -1, -1):
+        d = d_h * (hs[i] > 0)
+        d_c = rnd(d)
+        put(trunk[i], ins[i], d, d_c)
+        if trunk[i].kind != "emb0":
+            d_h = d_c @ _block(w_all, trunk[i])[:W].t()
+    return dw, db
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_kernel_inputs(name: str, packed: Packed, pts: torch.Tensor,
+                         viewdirs: torch.Tensor) -> None:
     dev = pts.device
     if torch.cuda.get_device_capability(dev) != (9, 0):
-        raise RuntimeError(f"fused_mlp_fwd is built for sm_90a; device {dev} is "
+        raise RuntimeError(f"{name} is built for sm_90a; device {dev} is "
                            f"sm_{''.join(map(str, torch.cuda.get_device_capability(dev)))}")
-    for name, t, dt in (("pts", pts, torch.float32), ("viewdirs", viewdirs, torch.float32),
+    for what, t, dt in (("pts", pts, torch.float32), ("viewdirs", viewdirs, torch.float32),
                         ("packed.w_bf16", packed.w_bf16, torch.bfloat16),
                         ("packed.b", packed.b, torch.float32)):
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"{name}: want a contiguous {dt} tensor on {dev}, got "
+            raise ValueError(f"{what}: want a contiguous {dt} tensor on {dev}, got "
                              f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
     if pts.dim() != 3 or pts.shape[-1] != 3 or viewdirs.shape != (pts.shape[0], 3):
         raise ValueError(f"want pts [N, S, 3] and viewdirs [N, 3], got "
@@ -313,26 +420,25 @@ def _check_kernel_inputs(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tens
                              f"within {_ACT_COLS} activation columns: {layer}")
 
 
-def fused_query(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
-    """Point query pts [N, S, 3], viewdirs [N, 3] -> raw [N, S, 4+C] fp32.
+def _layer_table(layers, extra=lambda layer: ()) -> list:
+    table = []
+    for layer in layers:
+        table += [layer.a_col, layer.K, layer.N, layer.w_off, layer.b_off, *extra(layer)]
+    return table
 
-    CUDA tensors go through the Hopper kernel, CPU tensors through the fp32 plain
-    version; there is no fallback from one to the other. Forward only: parameters
-    that require a gradient are refused."""
-    if packed.w.requires_grad or packed.b.requires_grad:
-        raise ValueError("fused_query is forward-only; its parameters require a gradient")
+
+def _forward(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
+    """Forward routing: the fp32 plain version for CPU tensors, K1 for CUDA tensors."""
     if pts.device.type == "cpu":
         return fused_query_ref(packed, pts, viewdirs, torch.float32)
-    _check_kernel_inputs(packed, pts, viewdirs)
+    _check_kernel_inputs("fused_mlp_fwd", packed, pts, viewdirs)
     N, S, _ = pts.shape
     P = N * S
     edr = view_embedding(packed, viewdirs).to(torch.bfloat16).contiguous()
     out = torch.empty((P, packed.c4), dtype=torch.float32, device=pts.device)
     if P == 0:
         return out.reshape(N, S, packed.c4)
-    table = []
-    for layer in packed.layers:
-        table += [layer.a_col, layer.K, layer.N, layer.w_off, layer.b_off, _EPI.get(layer.kind, 0)]
+    table = _layer_table(packed.layers, lambda layer: (_EPI.get(layer.kind, 0),))
     c_table = (ctypes.c_int * len(table))(*table)
     lib = runtime.load("fused_mlp_fwd")
     fn = lib.dmnerf_fused_mlp_fwd
@@ -347,3 +453,162 @@ def fused_query(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor) -> to
         raise RuntimeError(f"fused_mlp_fwd launch failed: cudaError {err}")
     runtime.LAUNCHES["fused_mlp_fwd"] += 1
     return out.reshape(N, S, packed.c4)
+
+
+# tiling of csrc/fused_mlp_bwd.cu's dW kernel
+_DW_TILE_F, _DW_TILE_N, _DW_POINTS = 128, 128, 32
+_DW_CTAS_PER_SM = 4
+
+
+def _flat(blocks: Sequence[torch.Tensor]):
+    """Row-major blocks in one flat buffer, each starting 64-element aligned, and
+    their offsets."""
+    parts, offs, off = [], [], 0
+    for t in blocks:
+        t = t.contiguous().reshape(-1)
+        pad = _round_up(t.numel(), 64) - t.numel()
+        parts += [t, t.new_zeros(pad)]
+        offs.append(off)
+        off += t.numel() + pad
+    return torch.cat(parts), offs
+
+
+def _bwd_plan(packed: Packed, N: int, S: int, n_sms: int):
+    """Host tables of csrc/fused_mlp_bwd.cu: the stash and cotangent layouts, the
+    transposed weight blocks of the backward-data walk, and the dW jobs."""
+    trunk, sig, head, out = _split_layers(packed)
+    P, W, ep, edp, hr = N * S, packed.width, packed.ep, packed.edp, packed.hr
+    if hr % 16 or hr + 16 > _N_MAX:
+        raise ValueError(f"backward kernel wants the rgb hidden width % 16 == 0 and "
+                         f"<= {_N_MAX - 16}, got {hr}")
+    # stash (bf16): e [P, EP], each trunk layer's output [P, W], the head's [P, nh]
+    e_off, off = 0, P * ep
+    h_off = []
+    for _ in trunk:
+        h_off.append(off)
+        off += P * W
+    head_off, stash_size = off, off + P * head.N
+    # cotangents d_pre (bf16), one [P, N] block per layer
+    dpre_off, off = [], 0
+    for layer in packed.layers:
+        dpre_off.append(off)
+        off += P * layer.N
+    dpre_size = off
+    li = {layer: i for i, layer in enumerate(packed.layers)}
+
+    wb = packed.w_bf16
+    D = len(trunk)
+    wt, wt_off = _flat([_block(wb, out).t(),
+                        torch.cat([_block(wb, head)[edp:edp + W, :hr].t(), _block(wb, sig).t()]),
+                        *(_block(wb, trunk[i])[:W].t() for i in range(D - 1, 0, -1))])
+    # backward-data steps: (K, N, wt_off, mask_off, dpre_off, b_off, sigma_after)
+    steps = [(out.N, head.N, wt_off[0], head_off, dpre_off[li[head]], head.b_off, 1),
+             (hr + 16, W, wt_off[1], h_off[D - 1], dpre_off[D - 1], trunk[D - 1].b_off, 0)]
+    for k, i in enumerate(range(D - 1, 0, -1)):
+        steps.append((W, W, wt_off[2 + k], h_off[i - 1], dpre_off[i - 1], trunk[i - 1].b_off, 0))
+
+    # dW jobs: A = up to two column segments (src 0 stash, 1 edr; off, ld, width, row div)
+    def seg(src, o, width, div=1):
+        return (src, o, width, width, div)
+    none = (0, 0, 0, 0, 1)
+    jobs = []
+    for i, layer in enumerate(trunk):
+        if layer.kind == "emb0":
+            segs = (seg(0, e_off, ep), none)
+        elif layer.kind == "split":
+            segs = (seg(0, h_off[i - 1], W), seg(0, e_off, ep))
+        else:
+            segs = (seg(0, h_off[i - 1], W), none)
+        jobs.append((layer, segs))
+    jobs += [(sig, (seg(0, h_off[D - 1], W), none)),
+             (head, (seg(1, 0, edp, S), seg(0, h_off[D - 1], W))),
+             (out, (seg(0, head_off, head.N), none))]
+    dw_rows, n_tiles = [], 0
+    for layer, segs in jobs:
+        if segs[0][2] + segs[1][2] != layer.K:
+            raise ValueError(f"dW segments do not cover K of {layer}")
+        dw_rows += [layer.K, layer.N, layer.w_off, dpre_off[li[layer]], *segs[0], *segs[1]]
+        n_tiles += -(-layer.K // _DW_TILE_F) * -(-layer.N // _DW_TILE_N)
+    n_chunks = max(1, min(-(-P // _DW_POINTS), -(-_DW_CTAS_PER_SM * n_sms // n_tiles)))
+    chunk = _round_up(-(-P // n_chunks), _DW_POINTS)
+    n_chunks = -(-P // chunk)
+
+    fwd = _layer_table([*trunk, head], lambda layer: (head_off if layer is head
+                                                      else h_off[li[layer]],))
+    header = [P, S, packed.multires, edp, edp + W, ep, packed.c4, out.N, hr,
+              packed.b.numel(), packed.w.numel(), out.b_off, sig.b_off,
+              dpre_off[li[out]], dpre_off[li[sig]], n_chunks, chunk,
+              D + 1, len(steps), len(jobs)]
+    table = header + fwd + [v for st in steps for v in st] + dw_rows
+    return dict(table=table, wt=wt, stash_size=stash_size, dpre_size=dpre_size,
+                n_chunks=n_chunks)
+
+
+def fused_query_bwd(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor,
+                    g: torch.Tensor):
+    """Parameter cotangents ``(dw, db)`` of ``fused_query`` for the output cotangent
+    g [N, S, 4+C] fp32, in ``Packed.w`` / ``Packed.b`` layout. CUDA tensors go
+    through the Hopper kernel (K2), CPU tensors through ``fused_query_bwd_ref`` in
+    fp32; there is no fallback from one to the other."""
+    if pts.device.type == "cpu":
+        return fused_query_bwd_ref(packed, pts, viewdirs, g, torch.float32)
+    _check_kernel_inputs("fused_mlp_bwd", packed, pts, viewdirs)
+    N, S, _ = pts.shape
+    if g.shape != (N, S, packed.c4) or g.dtype != torch.float32 or g.device != pts.device \
+            or not g.is_contiguous():
+        raise ValueError(f"g: want a contiguous float32 [{N}, {S}, {packed.c4}] tensor on "
+                         f"{pts.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
+    dev = pts.device
+    dw = torch.zeros(packed.w.shape, dtype=torch.float32, device=dev)
+    db = torch.zeros(packed.b.shape, dtype=torch.float32, device=dev)
+    if N * S == 0:
+        return dw, db
+    plan = _bwd_plan(packed, N, S, torch.cuda.get_device_properties(dev).multi_processor_count)
+    edr = view_embedding(packed, viewdirs).to(torch.bfloat16).contiguous()
+    stash = torch.empty(plan["stash_size"], dtype=torch.bfloat16, device=dev)
+    dpre = torch.empty(plan["dpre_size"], dtype=torch.bfloat16, device=dev)
+    n_ctas = -(-(N * S) // 128)
+    dbpart = torch.empty((n_ctas, db.numel()), dtype=torch.float32, device=dev)
+    dwpart = torch.empty((plan["n_chunks"], dw.numel()), dtype=torch.float32, device=dev)
+    table = plan["table"]
+    c_table = (ctypes.c_longlong * len(table))(*table)
+    fn = runtime.load("fused_mlp_bwd").dmnerf_fused_mlp_bwd
+    fn.argtypes = [ctypes.c_void_p] * 14
+    fn.restype = ctypes.c_int
+    err = fn(pts.data_ptr(), edr.data_ptr(), packed.w_bf16.data_ptr(), packed.b.data_ptr(),
+             plan["wt"].data_ptr(), g.data_ptr(), stash.data_ptr(), dpre.data_ptr(),
+             dbpart.data_ptr(), dwpart.data_ptr(), dw.data_ptr(), db.data_ptr(),
+             ctypes.addressof(c_table), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_bwd launch failed: cudaError {err}")
+    runtime.LAUNCHES["fused_mlp_bwd"] += 1
+    return dw, db
+
+
+class _FusedQuery(torch.autograd.Function):
+    """raw = query(w, b): differentiable in ``Packed.w`` and ``Packed.b`` only. The
+    points and viewdirs get no cotangent, as in the JAX package, whose callers stop
+    their gradient (``dmnerf_tpu/kernels/fused_mlp.py:905``)."""
+
+    @staticmethod
+    def forward(ctx, w, b, packed, pts, viewdirs):
+        ctx.packed = packed
+        ctx.save_for_backward(pts, viewdirs)
+        return _forward(packed, pts, viewdirs)
+
+    @staticmethod
+    def backward(ctx, g):
+        pts, viewdirs = ctx.saved_tensors
+        dw, db = fused_query_bwd(ctx.packed, pts, viewdirs, g.contiguous())
+        return dw, db, None, None, None
+
+
+def fused_query(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
+    """Point query pts [N, S, 3], viewdirs [N, 3] -> raw [N, S, 4+C] fp32.
+
+    CUDA tensors go through the Hopper kernels (K1 forward, K2 backward), CPU
+    tensors through their fp32 plain versions; there is no fallback from one to the
+    other. Gradients flow into ``packed.w`` and ``packed.b`` when they require one;
+    under ``torch.no_grad`` (the render path) nothing is recorded and the backward
+    kernel never runs."""
+    return _FusedQuery.apply(packed.w, packed.b, packed, pts, viewdirs)

@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-KERNELS = ("fused_mlp_fwd",)
+KERNELS = ("fused_mlp_fwd", "fused_mlp_bwd")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

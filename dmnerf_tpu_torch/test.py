@@ -73,7 +73,7 @@ def load_params(cfg: Config, device=None):
     device = resolve_device(device)
     if cfg.ft_path:
         path, step = resolve_ckpt_path(cfg.ft_path)
-        pc, pf, loaded = load_checkpoint(path, device)
+        pc, pf, loaded, _ = load_checkpoint(path, device)
         if loaded != step:
             raise ValueError(f"checkpoint {path} carries step={loaded}, its name says {step}")
         print(f"[test] loaded checkpoint step {step} from ft_path {cfg.ft_path}")
@@ -82,7 +82,7 @@ def load_params(cfg: Config, device=None):
         restored = restore_checkpoint(cfg.log_dir, device)
         if restored is not None:
             print(f"[test] loaded checkpoint step {restored[2]} from {cfg.log_dir}")
-            return restored
+            return restored[:3]
         print(f"[test] WARNING: no checkpoint under {cfg.log_dir}; using init params")
     pc, pf = init_params(cfg, device)
     return pc, pf, 0

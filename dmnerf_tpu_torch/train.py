@@ -1,0 +1,135 @@
+"""Training entry point (``dmnerf_tpu/train.py``).
+
+One entry point for every dataset (a config field). Per step: a random train image's
+ray batch (data.samplers), the coarse + fine render with gradients, RGB MSE +
+Hungarian instance loss (+ the emptiness penalizer), Adam with exponential LR decay
+(render.trainstep). Every ``i_print`` steps a line and a ``metrics.jsonl`` record,
+every ``i_save`` a checkpoint with the Adam state, every ``i_test`` an evaluation of
+up to 10 random test views. A run resumes from its latest checkpoint; ``ft_path``
+wins over resume.
+
+Steps run one by one. ``steps_per_dispatch`` packs TPU dispatches in the JAX package
+and leaves the trajectory unchanged, so it changes nothing here. ``multihost``,
+``profile_dir`` and ScanNet's crop-sampler scenes raise NotImplementedError.
+
+Usage:  python -m dmnerf_tpu_torch.train --config configs/train/dmsr/study.txt [key=value ...]
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from dmnerf_tpu_torch.configs import Config, dump_config, parse_cli
+from dmnerf_tpu_torch.data.samplers import make_full_sampler
+from dmnerf_tpu_torch.data.scene import SceneData, load_scene
+from dmnerf_tpu_torch.render.evaluation import render_test
+from dmnerf_tpu_torch.render.trainstep import TrainState, create_train_state, make_train_step
+from dmnerf_tpu_torch.test import init_params
+from dmnerf_tpu_torch.utils.checkpoint import (
+    load_checkpoint, resolve_ckpt_path, restore_checkpoint, save_checkpoint)
+from dmnerf_tpu_torch.utils.device import resolve_device
+from dmnerf_tpu_torch.utils.metrics_log import MetricsLogger
+
+
+def _state_from(cfg: Config, loaded) -> TrainState:
+    pc, pf, step, opt_state = loaded
+    state = create_train_state(cfg, pc, pf, step)
+    if opt_state is not None:
+        state.opt.load_state_dict(opt_state)
+    return state
+
+
+def _save(log_dir: str, state: TrainState) -> str:
+    return save_checkpoint(log_dir, state.params_coarse, state.params_fine, state.step,
+                           state.opt.state_dict())
+
+
+def train(cfg: Config, scene: Optional[SceneData] = None, device=None) -> TrainState:
+    """Train on ``device`` (default: the CUDA card) and return the final state."""
+    device = resolve_device(device)
+    if cfg.multihost or os.environ.get("DMNERF_MULTIHOST", "") == "1":
+        raise NotImplementedError("multi-host training is not ported yet "
+                                  "(ROADMAP.md queue 1, 'Multi-GPU')")
+    if cfg.profile_dir is not None:
+        raise NotImplementedError("profile_dir is not ported yet (ROADMAP.md queue 1, "
+                                  "'Tools and bench')")
+    if scene is None:
+        scene = load_scene(cfg)
+    if scene.crop_mask is not None and scene.ins_indices is not None:
+        raise NotImplementedError("the crop sampler is not ported yet (ROADMAP.md queue 1, "
+                                  "'Replica and ScanNet')")
+    if cfg.steps_per_dispatch > 1:
+        print(f"[train] steps_per_dispatch={cfg.steps_per_dispatch} packs TPU dispatches in the "
+              "JAX package; here the same steps run one by one")
+    cfg = cfg.replace(ins_num=scene.ins_num)
+    log_dir = cfg.log_dir
+    os.makedirs(log_dir, exist_ok=True)
+    dump_config(cfg, log_dir)
+    logger = MetricsLogger(log_dir)
+
+    state = create_train_state(cfg, *init_params(cfg, device))
+    if cfg.resume:
+        restored = restore_checkpoint(log_dir, device)
+        if restored is not None:
+            state = _state_from(cfg, restored)
+            print(f"[train] resumed from step {state.step}")
+    if cfg.ft_path:
+        # the exact checkpoint the path names, never a silent substitute
+        path, step = resolve_ckpt_path(cfg.ft_path)
+        state = _state_from(cfg, load_checkpoint(path, device))
+        if state.step != step:
+            raise ValueError(f"checkpoint {path} carries step={state.step}, its name says {step}")
+        print(f"[train] fine-tuning from {cfg.ft_path} (step {state.step})")
+
+    sampler = make_full_sampler(scene.images, scene.gt_labels, scene.poses, scene.K,
+                                scene.i_train, cfg.N_train, device=device)
+    step_fn = make_train_step(cfg)
+    gen_batch = torch.Generator().manual_seed(cfg.seed + 1)
+    gen_step = torch.Generator(device=device).manual_seed(cfg.seed + 2)
+
+    t_last = time.time()
+    rays_done = 0
+    for i in range(state.step, cfg.N_iters):
+        aux = step_fn(state, sampler(gen_batch), generator=gen_step)
+        rays_done += cfg.N_train
+
+        if i % cfg.i_print == 0:
+            aux = {k: float(v) for k, v in aux.items()}
+            dt = time.time() - t_last
+            rays_s = rays_done / dt if dt > 0 else 0.0
+            rays_done, t_last = 0, time.time()
+            print(f"[TRAIN] Iter: {i} F_PSNR: {aux['psnr_fine']:.3f} C_PSNR: "
+                  f"{aux['psnr_coarse']:.3f} Total: {aux['total_loss']:.4f} RGB: "
+                  f"{aux['rgb_loss']:.4f} Ins: {aux['ins_loss']:.4f} Reg: "
+                  f"{aux['emptiness_loss']:.4f} rays/s: {rays_s:,.0f}")
+            logger.log(i, {**aux, "rays_per_sec": rays_s})
+
+        if i > 0 and i % cfg.i_save == 0:
+            print(f"[train] checkpoint {_save(log_dir, state)}")
+
+        if i > 0 and i % cfg.i_test == 0 and len(scene.i_test) > 0:
+            n_views = min(10, len(scene.i_test))
+            sel = np.random.default_rng(i).choice(len(scene.i_test), size=n_views, replace=False)
+            ids = scene.i_test[sel]
+            render_test(cfg, state.params_coarse, state.params_fine, scene.poses[ids], scene.hwk,
+                        gt_imgs=scene.images[ids], gt_labels=scene.gt_labels[ids],
+                        ins_rgbs=scene.ins_rgbs, savedir=os.path.join(log_dir, f"testset_{i:06d}"),
+                        crop_mask=scene.crop_mask, device=device)
+
+    _save(log_dir, state)
+    logger.close()
+    return state
+
+
+def main(argv=None):
+    train(parse_cli(sys.argv[1:] if argv is None else argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,15 +1,16 @@
-"""Checkpoints as ``torch.save`` files of ``{params_coarse, params_fine, step}``.
+"""Checkpoints as ``torch.save`` files of ``{params_coarse, params_fine, step,
+opt_state}``; ``opt_state`` is the Adam ``state_dict`` of a training run (None for
+parameters saved without one), and callers that only render ignore it.
 
 A run keeps them as ``<run>/checkpoints/<step>.pt``, written zero-padded
-(``000100.pt``); the reader takes padded and unpadded names alike. Optimizer state
-joins the payload with the training slice of the port.
+(``000100.pt``); the reader takes padded and unpadded names alike.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -20,13 +21,25 @@ def _ckpt_path(log_dir: str, step: int) -> str:
     return os.path.join(log_dir, "checkpoints", f"{step:06d}.pt")
 
 
-def save_checkpoint(log_dir: str, params_coarse: Dict, params_fine: Dict, step: int) -> str:
+def _to_cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+def save_checkpoint(log_dir: str, params_coarse: Dict, params_fine: Dict, step: int,
+                    opt_state: Optional[Dict] = None) -> str:
     path = _ckpt_path(log_dir, step)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     payload = {
         "step": int(step),
-        "params_coarse": {k: v.detach().cpu() for k, v in params_coarse.items()},
-        "params_fine": {k: v.detach().cpu() for k, v in params_fine.items()},
+        "params_coarse": _to_cpu(params_coarse),
+        "params_fine": _to_cpu(params_fine),
+        "opt_state": _to_cpu(opt_state),
     }
     tmp = path + ".tmp"
     torch.save(payload, tmp)
@@ -66,13 +79,15 @@ def resolve_ckpt_path(ft_path: str) -> Tuple[str, int]:
     return steps[step], step
 
 
-def load_checkpoint(path: str, device) -> Tuple[Dict, Dict, int]:
+def load_checkpoint(path: str, device) -> Tuple[Dict, Dict, int, Optional[Dict]]:
+    """(params_coarse, params_fine, step, opt_state) of one checkpoint file."""
     payload = torch.load(path, map_location=device, weights_only=True)
-    return payload["params_coarse"], payload["params_fine"], int(payload["step"])
+    return (payload["params_coarse"], payload["params_fine"], int(payload["step"]),
+            payload.get("opt_state"))
 
 
 def restore_checkpoint(log_dir: str, device):
-    """(params_coarse, params_fine, step) of the latest step under ``log_dir``, or
-    None if there is none."""
+    """(params_coarse, params_fine, step, opt_state) of the latest step under
+    ``log_dir``, or None if there is none."""
     steps = _steps(log_dir)
     return load_checkpoint(steps[max(steps)], device) if steps else None

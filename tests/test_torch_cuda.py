@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain version, at narrow
-widths and at the flagship's, with ragged point counts. These tests need a CUDA card
+widths and at the flagship's, with ragged point counts; the backward kernel's
+instance-head wall and its bit-identical repeats. These tests need a CUDA card
 of capability 9.0 and skip without one; they import no JAX, so they run on a machine
 that has none:
 
@@ -13,7 +14,8 @@ torch = pytest.importorskip("torch")
 
 from dmnerf_tpu_torch.core.mlp import init_dm_nerf, sigma_stub_params  # noqa: E402
 from dmnerf_tpu_torch.kernels import runtime  # noqa: E402
-from dmnerf_tpu_torch.kernels.fused_mlp import fused_query, fused_query_ref, pack_params  # noqa: E402
+from dmnerf_tpu_torch.kernels.fused_mlp import (  # noqa: E402
+    fused_query, fused_query_bwd, fused_query_bwd_ref, fused_query_ref, pack_params)
 
 SHAPES = [
     # (multires, multires_views, D, W, skips, ins_num, N, S)
@@ -75,3 +77,77 @@ def test_fused_mlp_fwd_refuses_what_it_cannot_hold(cuda):
     params, args, pts, dirs = _inputs(SHAPES[1], cuda)
     with pytest.raises(ValueError, match="contiguous"):
         fused_query(pack_params(params, *args), pts.transpose(0, 1), dirs)
+
+
+def _cotangent(packed, pts, seed=0):
+    rng = np.random.RandomState(seed)
+    g = rng.randn(*pts.shape[:2], packed.c4).astype(np.float32)
+    return torch.from_numpy(g).to(pts.device)
+
+
+def _block_errs(packed, got, want):
+    """(max|d|, max|want|) of each packed layer's dW and db block."""
+    out = []
+    for layer in packed.layers:
+        for sl in (slice(layer.w_off, layer.w_off + layer.K * layer.N), None):
+            g_, w_ = (got[0][sl], want[0][sl]) if sl is not None else \
+                (got[1][layer.b_off:layer.b_off + layer.N], want[1][layer.b_off:layer.b_off + layer.N])
+            out.append((layer, float((g_ - w_).abs().max()), float(w_.abs().max())))
+    return out
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fused_mlp_bwd_matches_plain(cuda, shape):
+    """K2 against its plain version, block by packed layer, relative to the block's
+    largest entry. With a random cotangent: within 5e-3 of the bf16 plain version
+    (the same roundings; only the order of fp32 sums differs, and a sum that lands
+    on the other side of a bf16 rounding moves one cotangent by 2^-8). With the
+    cotangent of sum(tanh(raw) * w) (the JAX package's gradient gate, bench.py:388-401):
+    the kernel's error against the fp32 plain version is at most the bf16 plain
+    version's plus 5e-3, so all of it is bf16 rounding. (At these few hundred points
+    that rounding alone can exceed the 2e-2 gate, which chip_smoke.py holds at the
+    training shapes.)"""
+    params, args, pts, dirs = _inputs(shape, cuda)
+    packed = pack_params(params, *args)
+    g = _cotangent(packed, pts)
+    runtime.reset_launches()
+    got = fused_query_bwd(packed, pts, dirs, g)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["fused_mlp_bwd"] == 1
+    assert torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
+    ref16 = fused_query_bwd_ref(packed, pts, dirs, g, torch.bfloat16)
+    for layer, err, scale in _block_errs(packed, got, ref16):
+        assert err <= 5e-3 * max(scale, 1e-6), (layer, err, scale)
+
+    raw = fused_query_ref(packed, pts, dirs, torch.float32)
+    w = torch.linspace(0.5, 1.5, raw.shape[-1], device=cuda)
+    g = ((1.0 - torch.tanh(raw) ** 2) * w).contiguous()
+    ref32 = fused_query_bwd_ref(packed, pts, dirs, g, torch.float32)
+    kernel = _block_errs(packed, fused_query_bwd(packed, pts, dirs, g), ref32)
+    plain16 = _block_errs(packed, fused_query_bwd_ref(packed, pts, dirs, g, torch.bfloat16), ref32)
+    for (layer, err, scale), (_, err16, _) in zip(kernel, plain16):
+        assert err <= err16 + 5e-3 * max(scale, 1e-6), (layer, err, err16, scale)
+
+
+def test_fused_mlp_bwd_wall(cuda):
+    """An instance-only loss gives exactly zero trunk, rgb and density gradients
+    through the kernel, and a nonzero instance head gradient."""
+    params, args, pts, dirs = _inputs(SHAPES[0], cuda, seed=2)
+    params = {k: v.requires_grad_(True) for k, v in params.items()}
+    runtime.reset_launches()
+    raw = fused_query(pack_params(params, *args), pts, dirs)
+    raw[..., 4:].sum().backward()
+    assert runtime.LAUNCHES == {"fused_mlp_fwd": 1, "fused_mlp_bwd": 1}
+    for k, v in params.items():
+        if k.startswith(("trunk_", "rgb_", "density")):
+            assert v.grad is None or int(torch.count_nonzero(v.grad)) == 0, k
+    assert float(params["ins_out_w"].grad.abs().sum()) > 0
+
+
+def test_fused_mlp_bwd_repeats_bit_identical(cuda):
+    params, args, pts, dirs = _inputs(SHAPES[2], cuda, seed=3)
+    packed = pack_params(params, *args)
+    g = _cotangent(packed, pts, seed=3)
+    first = fused_query_bwd(packed, pts, dirs, g)
+    second = fused_query_bwd(packed, pts, dirs, g)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])

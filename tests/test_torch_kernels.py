@@ -1,8 +1,11 @@
 """dmnerf_tpu_torch.kernels.fused_mlp on the CPU: packing vs the JAX _pack, the
-kernel's fp32 plain version vs the Pallas kernel (interpret mode, pe_mode
+forward kernel's fp32 plain version vs the Pallas kernel (interpret mode, pe_mode
 'kernel_t') and the XLA query at 2e-5 on the CASES of tests/test_kernels.py, the
-sigma stub's exact sigma column, and the guards: no JAX import, no fallback, no
-gradients, no silent CPU.
+backward's plain version vs the Pallas backward (jax.grad through the interpret-mode
+kernel) and vs autograd of the plain PyTorch query at atol 3e-5 / rtol 3e-4
+(tests/test_kernels.py:64-71), the instance-head gradient wall, the sigma stub's
+exact sigma column, and the guards: no JAX import, no fallback, gradients that flow
+only when asked for, no silent CPU.
 
 The CUDA kernel itself runs only on the card: tests/test_torch_cuda.py."""
 
@@ -20,11 +23,13 @@ from dmnerf_tpu.core.mlp import init_dm_nerf, rgb_stub_params, sigma_stub_params
 from dmnerf_tpu.core.pipeline import make_xla_query_fn  # noqa: E402
 from dmnerf_tpu.kernels import fused_mlp as jfm  # noqa: E402
 from dmnerf_tpu_torch.core import mlp as tmlp  # noqa: E402
+from dmnerf_tpu_torch.core.pipeline import make_fused_query_fn, make_torch_query_fn  # noqa: E402
 from dmnerf_tpu_torch.kernels import fused_mlp as tfm  # noqa: E402
 from dmnerf_tpu_torch.kernels import runtime  # noqa: E402
 
 torch.set_num_threads(2)
 TOL = dict(atol=2e-5, rtol=2e-5)
+GRAD_TOL = dict(atol=3e-5, rtol=3e-4)
 CASES = [
     # (multires, multires_views, D, W, skips, ins_num), as tests/test_kernels.py
     (4, 2, 2, 32, (0,), 4),
@@ -130,6 +135,13 @@ def test_import_guard():
         "for m in pkgutil.walk_packages(dmnerf_tpu_torch.__path__, 'dmnerf_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "for m in ('dmnerf_tpu_torch.train', 'dmnerf_tpu_torch.render.trainstep',\n"
+        "          'dmnerf_tpu_torch.objfield.losses', 'dmnerf_tpu_torch.objfield.hungarian',\n"
+        "          'dmnerf_tpu_torch.objfield.penalizer', 'dmnerf_tpu_torch.data.samplers'):\n"
+        "    assert m in sys.modules, m\n"
+        "from dmnerf_tpu_torch.kernels import runtime\n"
+        "assert runtime.KERNELS == ('fused_mlp_fwd', 'fused_mlp_bwd')\n"
+        "assert (runtime.CSRC / 'fused_mlp_bwd.cu').exists()\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'dmnerf_tpu')]\n"
         "assert not bad, bad\n"
         "print(len([k for k in sys.modules if k.startswith('dmnerf_tpu_torch')]))\n"
@@ -140,7 +152,7 @@ def test_import_guard():
     out = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 26
 
 
 def test_cpu_wrapper_takes_the_plain_version():
@@ -151,16 +163,102 @@ def test_cpu_wrapper_takes_the_plain_version():
     got = tfm.fused_query(packed, torch.from_numpy(pts), torch.from_numpy(dirs))
     want = tfm.fused_query_ref(packed, torch.from_numpy(pts), torch.from_numpy(dirs))
     assert torch.equal(got, want)
-    assert runtime.LAUNCHES == {"fused_mlp_fwd": 0}
+    dw, db = tfm.fused_query_bwd(packed, torch.from_numpy(pts), torch.from_numpy(dirs),
+                                 torch.ones_like(got))
+    want_dw, want_db = tfm.fused_query_bwd_ref(packed, torch.from_numpy(pts),
+                                               torch.from_numpy(dirs), torch.ones_like(got))
+    assert torch.equal(dw, want_dw) and torch.equal(db, want_db)
+    assert runtime.LAUNCHES == {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0}
 
 
-def test_wrapper_refuses_parameters_that_require_grad():
+def _tanh_loss_grads(query, params, pts, dirs):
+    """Parameter gradients of sum(tanh(raw) * w), w = linspace(0.5, 1.5) over the
+    channels, so every head contributes (tests/test_kernels.py:56-62)."""
+    pp = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    raw = query(pp, torch.from_numpy(pts), torch.from_numpy(dirs))
+    w = torch.from_numpy(np.linspace(0.5, 1.5, raw.shape[-1]).astype(np.float32))
+    (torch.tanh(raw) * w).sum().backward()
+    return {k: v.grad.numpy() for k, v in pp.items()}
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_plain_backward_matches_pallas_backward(case):
+    """autograd through the fused query on the CPU (fused_query_bwd_ref, mapped to the
+    parameter dict by autograd over pack_params) vs jax.grad through the Pallas
+    kernel_t backward in interpret mode, and vs autograd of the plain PyTorch query,
+    at atol 3e-5 / rtol 3e-4."""
+    mr, mrv, D, W, skips, ins = case
+    jp, pts, dirs = _setup(*case)
+    q_pal = jfm.make_pallas_query_fn(mr, mrv, D, skips, tile_fwd=16, tile_bwd=16,
+                                     interpret=True, pe_mode="kernel_t")
+    w = jnp.asarray(np.linspace(0.5, 1.5, 4 + ins + 1), jnp.float32)
+    want = jax.grad(lambda p: jnp.sum(jnp.tanh(q_pal(p, jnp.asarray(pts), jnp.asarray(dirs))) * w))(jp)
+    runtime.reset_launches()
+    got = _tanh_loss_grads(make_fused_query_fn(mr, mrv, D, skips), _torch(jp), pts, dirs)
+    plain = _tanh_loss_grads(make_torch_query_fn(mr, mrv, D, skips), _torch(jp), pts, dirs)
+    assert runtime.LAUNCHES == {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0}
+    assert set(got) == set(want) == set(plain)
+    for k in sorted(want):
+        np.testing.assert_allclose(got[k], np.asarray(want[k]), **GRAD_TOL, err_msg=k)
+        np.testing.assert_allclose(got[k], plain[k], **GRAD_TOL, err_msg=k)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_instance_gradient_wall(case):
+    """An instance-only loss gives exactly zero trunk, rgb and density gradients, and
+    a nonzero instance head gradient, through the fused query (autograd over
+    pack_params) and in the plain backward's packed layout itself."""
+    mr, mrv, D, W, skips, ins = case
+    jp, pts, dirs = _setup(*case)
+    pp = {k: v.requires_grad_(True) for k, v in _torch(jp).items()}
+    raw = make_fused_query_fn(mr, mrv, D, skips)(pp, torch.from_numpy(pts), torch.from_numpy(dirs))
+    raw[..., 4:].sum().backward()
+    for k, v in pp.items():
+        if k.startswith(("trunk_", "rgb_", "density")):
+            assert v.grad is None or int(torch.count_nonzero(v.grad)) == 0, k
+    assert float(pp["ins_out_w"].grad.abs().sum()) > 0
+
+    packed = tfm.pack_params(_torch(jp), mr, mrv, D, skips)
+    g = torch.zeros(raw.shape)
+    g[..., 4:] = 1.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dw, db = tfm.fused_query_bwd_ref(packed, torch.from_numpy(pts), torch.from_numpy(dirs),
+                                         g, dtype)
+        *trunk, sig, head, out = packed.layers
+        for layer in (*trunk, sig):
+            assert not dw[layer.w_off:layer.w_off + layer.K * layer.N].any(), layer
+            assert not db[layer.b_off:layer.b_off + layer.N].any(), layer
+        head_w = dw[head.w_off:head.w_off + head.K * head.N].view(head.K, head.N)
+        assert not head_w[:, :packed.hr].any() and not db[head.b_off:head.b_off + packed.hr].any()
+        assert head_w[packed.edp:, packed.hr:].any()
+
+
+def test_gradients_flow_and_the_render_path_stays_forward(monkeypatch):
+    """Parameters that require a gradient get one through fused_query; under
+    torch.no_grad (the render path) nothing is recorded and the backward never runs."""
     mr, mrv, D, W, skips, ins = CASES[0]
     jp, pts, dirs = _setup(*CASES[0])
     params = {k: v.requires_grad_(True) for k, v in _torch(jp).items()}
     packed = tfm.pack_params(params, mr, mrv, D, skips)
-    with pytest.raises(ValueError, match="forward-only"):
-        tfm.fused_query(packed, torch.from_numpy(pts), torch.from_numpy(dirs))
+    raw = tfm.fused_query(packed, torch.from_numpy(pts), torch.from_numpy(dirs))
+    assert raw.requires_grad
+    raw.sum().backward()
+    assert all(v.grad is not None for v in params.values())
+
+    from dmnerf_tpu_torch.configs import Config
+    from dmnerf_tpu_torch.render.renderer import make_image_renderer
+
+    def no_backward(*args, **kwargs):
+        raise AssertionError("the render path ran the backward")
+
+    monkeypatch.setattr(tfm, "fused_query_bwd", no_backward)
+    cfg = Config(netdepth=D, netwidth=W, multires=mr, multires_views=mrv, skips=skips,
+                 ins_num=ins, N_samples=6, N_importance=4, N_test=8, near=2.0, far=6.0)
+    runtime.reset_launches()
+    out = make_image_renderer(cfg)(params, params, torch.zeros(10, 3),
+                                   torch.from_numpy(np.tile(dirs[:1], (10, 1))))
+    assert not any(v.requires_grad for v in out.values())
+    assert runtime.LAUNCHES == {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0}
 
 
 def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch, tmp_path):
