@@ -4,20 +4,22 @@
 
 0. Requires a CUDA card of capability 9.0 and prints its name and power limit.
    TF32 is off, so the fp32 plain path is really fp32.
-1. Builds every kernel of the render and train paths from
+1. Builds every kernel of the render, train and manipulation paths (K1-K4) from
    dmnerf_tpu_torch/kernels/csrc with nvcc (sm_90a), one process per source, all
    started together, and prints the build time and the compiler's register report.
 2. Kernel phase, at the flagship model's width (configs/test/dmsr/study.txt:
    D=8, W=256, skips (4,), multires 10/4, ins_num 32) with seeded random weights
-   and points along rays between near and far: the fused PE+MLP kernel on a fine
-   chunk (2048 x 192 points, full model) and a coarse chunk (2048 x 64, sigma
-   stub), held against its plain version in fp32 (max|d| <= 5e-3 * max(scale, 1))
-   and in bf16 (printed); the stub's sigma column against the full model's, both
-   from the kernel (within 1e-5 * max(sigma scale, 1)). Median times of the
-   kernel, the fp32 plain version and a bf16 torch.matmul chain over the same
-   packed layers (the library yardstick, used nowhere in the port), beside the
-   bound: executed matrix FLOPs over the card's 989 TFLOP/s bf16 peak, or bytes
-   over 3.35 TB/s, whichever is larger.
+   and points along rays between near and far, once for K1 (pe_mode 'kernel_t',
+   per-ray viewdirs) and once for K3 (pe_mode 'kernel', per-point directions): the
+   fused PE+MLP kernel on a fine chunk (2048 x 192 points, full model) and a coarse
+   chunk (2048 x 64, sigma stub), and for K3 also a fine chunk through the rgb stub
+   (the manipulation's label queries), held against its plain version in fp32
+   (max|d| <= 5e-3 * max(scale, 1)) and in bf16 (printed); the stubs' sigma column
+   against the full model's, both from the kernel (within 1e-5 * max(sigma scale,
+   1)). Median times of the kernel, the fp32 plain version and a bf16 torch.addmm
+   chain over the same packed layers (the library yardstick, used nowhere in the
+   port), beside the bound: executed matrix FLOPs over the card's 989 TFLOP/s bf16
+   peak, or bytes over 3.35 TB/s, whichever is larger.
 3. Slice phase: a synthetic DM-SR scene built in memory (256x256, 2 test views,
    4 objects, ins_num 32, near 1, far 8) rendered by the port's render_test with
    seeded full-width weights. Every map must be finite and in range, the kernel's
@@ -26,9 +28,10 @@
    at most 1% of pixels with another argmax instance label).
 4. Backward kernel phase, at the flagship width and the training shapes
    (configs/train/dmsr/study.txt: N_train 3072; fine 3072 x 192 points, coarse
-   3072 x 64, both through the full model): each parameter's gradient of
-   sum(tanh(raw) * w) through the kernels (K1 forward, K2 backward, mapped through
-   pack_params by autograd) against fp32 autograd of the plain PyTorch query,
+   3072 x 64, both through the full model), once for K2 and once for K4: each
+   parameter's gradient of sum(tanh(raw) * w) through the kernels (K1 forward, K2
+   backward, or K3 / K4, mapped through pack_params by autograd) against fp32
+   autograd of the plain PyTorch query,
    max|d| / max|ref| <= 2e-2 per parameter (bench.py:397-401), with the bf16 plain
    version's error printed beside it; an instance-only loss gives exactly zero trunk,
    rgb and density gradients; two runs are bit-identical. Median times of K2, of the
@@ -44,9 +47,24 @@
    within 2e-2 per parameter of the plain PyTorch query's, from the same parameters,
    batch and draws. Prints the steady ms per step and rays/s, and the host time of
    the two Hungarian assignments of a step.
+6. Train phase under pallas_pe_mode = kernel: the same for 5 steps, with exactly 2
+   launches of K3 and of K4 per step and none of K1 or K2.
+7. Manipulation phase, on a synthetic DM-SR scene built in memory (256x256, 4
+   objects, ins_num 32, near 1, far 8) at the flagship manipulation config
+   (configs/manipulation/dmsr/manipulation_translation/study.txt: N_test 2048,
+   N_samples 64, N_importance 128; target_label 1, an object of the scene):
+   manipulator_eval over 2 views with K = 1 under pallas_pe_mode = kernel (exactly
+   chunks x (3 + 3K) K3 launches per view) against the manipulated ground truth, and
+   manipulator_demo over 2 frames with K = 2 (a translation and a sin deform) under
+   the default mode (chunks x 9 K1 launches per frame). Every map finite and in
+   range; one manipulated view with deterministic draws through the kernel query and
+   through the plain PyTorch query on the card, its rgb and labels held to the render
+   phase's bars (the target bundle's coarse rgb is printed beside them). Prints ms per
+   manipulated view and rays/s.
 
-The line before the last is a JSON object with each kernel's numbers; the last
-line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
+The line before the last is a JSON object with each kernel's numbers and its
+launches on each path; the last line is {"ok": true, "device": {...}}. Any failure
+raises and exits non-zero.
 """
 
 from __future__ import annotations
@@ -67,6 +85,7 @@ MIN_PSNR_DB = 40.0           # kernel render vs plain render, rgb
 MAX_LABEL_FLIP = 0.01        # share of pixels whose argmax instance label differs
 GRAD_TOL = 2e-2              # parameter gradient, max|d| / max|ref| per parameter
 TRAIN_STEPS = 20
+KPE_TRAIN_STEPS = 5
 SEED = 0
 
 
@@ -112,17 +131,21 @@ def backward_macs(params) -> int:
     return query_macs(params) + (D - 1) * W * W + W * (Hr + 1) + Hr * 3 + Hi * C
 
 
-def library_query(packed, pts, viewdirs):
+def library_query(packed, pts, viewdirs, mode="kernel_t"):
     """The same function as one bf16 torch.addmm per packed layer (cuBLAS), for
-    library_ms only."""
+    library_ms only; the viewdir embedding per ray, repeated ('kernel_t'), or of the
+    per-point directions ('kernel')."""
     import torch
 
-    from dmnerf_tpu_torch.kernels.fused_mlp import _embedding, view_embedding
+    from dmnerf_tpu_torch.kernels.fused_mlp import _embedding, _point_dirs, view_embedding
 
     N, S, _ = pts.shape
     bf = torch.bfloat16
     e = _embedding(pts.reshape(N * S, 3), packed.multires, packed.ep).to(bf)
-    ed = view_embedding(packed, viewdirs).to(bf).repeat_interleave(S, dim=0)
+    if mode == "kernel":
+        ed = _embedding(_point_dirs(viewdirs, S), packed.multires_views, packed.edp).to(bf)
+    else:
+        ed = view_embedding(packed, viewdirs).to(bf).repeat_interleave(S, dim=0)
     b_all = packed.b.to(bf)
     h = sigma = None
     for layer in packed.layers:
@@ -144,6 +167,33 @@ def library_query(packed, pts, viewdirs):
     raise ValueError("packed layer table has no output layer")
 
 
+def _plain_fwd(mode, packed, pts, dirs, dtype):
+    """The plain version of the forward kernel of ``mode``, raw [N, S, 4+C]."""
+    from dmnerf_tpu_torch.kernels.fused_mlp import _point_dirs, fused_query_kpe_ref, fused_query_ref
+
+    if mode == "kernel_t":
+        return fused_query_ref(packed, pts, dirs, dtype)
+    N, S, _ = pts.shape
+    return fused_query_kpe_ref(packed, pts.reshape(N * S, 3), _point_dirs(dirs, S),
+                               dtype).reshape(N, S, -1)
+
+
+def _bwd(mode, packed, pts, dirs, g, plain_dtype=None):
+    """(dw, db) of the backward kernel of ``mode`` (K2 / K4), or of its plain version in
+    ``plain_dtype``."""
+    from dmnerf_tpu_torch.kernels import fused_mlp as fm
+
+    if mode == "kernel_t":
+        if plain_dtype is None:
+            return fm.fused_query_bwd(packed, pts, dirs, g)
+        return fm.fused_query_bwd_ref(packed, pts, dirs, g, plain_dtype)
+    N, S, _ = pts.shape
+    args = (packed, pts.reshape(N * S, 3), fm._point_dirs(dirs, S), g.reshape(N * S, -1))
+    if plain_dtype is None:
+        return fm.fused_query_kpe_bwd(*args)
+    return fm.fused_query_kpe_bwd_ref(*args, plain_dtype)
+
+
 def _points(n_rays, n_samples, near, far, gen, device):
     """Rays from a camera at radius 4 looking at the origin; samples between near
     and far, sorted (fine-pass-like when random, coarse-like when linspace)."""
@@ -157,12 +207,13 @@ def _points(n_rays, n_samples, near, far, gen, device):
     return pts.contiguous().to(device), d.contiguous().to(device)
 
 
-def kernel_phase(cfg, device):
+def kernel_phase(cfg, device, mode="kernel_t"):
+    """K1 (mode 'kernel_t') or K3 (mode 'kernel') against its plain version, timed."""
     import torch
 
-    from dmnerf_tpu_torch.core.mlp import sigma_stub_params
+    from dmnerf_tpu_torch.core.mlp import rgb_stub_params, sigma_stub_params
     from dmnerf_tpu_torch.kernels import runtime
-    from dmnerf_tpu_torch.kernels.fused_mlp import fused_query, fused_query_ref, pack_params
+    from dmnerf_tpu_torch.kernels.fused_mlp import fused_query, pack_params
     from dmnerf_tpu_torch.test import init_params
 
     pc, pf = init_params(cfg, device)
@@ -176,14 +227,18 @@ def kernel_phase(cfg, device):
         ("coarse_stub", sigma_stub_params(pc), pack_params(sigma_stub_params(pc), *args),
          coarse_pts, coarse_dirs),
     ]
+    if mode == "kernel":
+        cases.append(("fine_rgb_stub", rgb_stub_params(pf), pack_params(rgb_stub_params(pf), *args),
+                      fine_pts, fine_dirs))
+    tag = "kernel" if mode == "kernel_t" else "kernel kpe"
     results = {}
     with torch.no_grad():
         for name, params, packed, pts, dirs in cases:
-            got = fused_query(packed, pts, dirs)
+            got = fused_query(packed, pts, dirs, mode)
             torch.cuda.synchronize()
-            ref32 = fused_query_ref(packed, pts, dirs, torch.float32)
-            ref16 = fused_query_ref(packed, pts, dirs, torch.bfloat16)
-            lib = library_query(packed, pts, dirs)
+            ref32 = _plain_fwd(mode, packed, pts, dirs, torch.float32)
+            ref16 = _plain_fwd(mode, packed, pts, dirs, torch.bfloat16)
+            lib = library_query(packed, pts, dirs, mode)
             scale = float(ref32.abs().max())
             err32 = float((got - ref32).abs().max())
             err16 = float((got - ref16).abs().max())
@@ -194,31 +249,43 @@ def kernel_phase(cfg, device):
                 raise AssertionError(f"{name}: kernel shape {tuple(got.shape)} vs {tuple(ref32.shape)}")
             P = pts.shape[0] * pts.shape[1]
             flops = 2.0 * query_macs(params) * P
-            nbytes = (pts.numel() * 4 + dirs.numel() * 4 + packed.w_bf16.numel() * 2
+            # K3 reads a direction per point, K1 a viewdir per ray
+            n_dirs = P if mode == "kernel" else dirs.shape[0]
+            nbytes = (pts.numel() * 4 + n_dirs * 12 + packed.w_bf16.numel() * 2
                       + packed.b.numel() * 4 + got.numel() * 4)
-            ms = _time_ms(lambda: fused_query(packed, pts, dirs))
-            plain_ms = _time_ms(lambda: fused_query_ref(packed, pts, dirs, torch.float32), reps=5)
-            library_ms = _time_ms(lambda: library_query(packed, pts, dirs))
+            ms = _time_ms(lambda: fused_query(packed, pts, dirs, mode))
+            plain_ms = _time_ms(lambda: _plain_fwd(mode, packed, pts, dirs, torch.float32), reps=5)
+            library_ms = _time_ms(lambda: library_query(packed, pts, dirs, mode))
             t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
             r = dict(points=P, out_scale=scale, max_abs_err=err32, max_abs_err_bf16_plain=err16,
                      library_max_abs_err=errlib, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                      bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
                      gflop=flops / 1e9, mbytes=nbytes / 1e6, tflops=flops / (ms * 1e-3) / 1e12)
-            print(f"[kernel] {name}: {json.dumps(r)}", flush=True)
+            print(f"[{tag}] {name}: {json.dumps(r)}", flush=True)
             if err32 > KERNEL_TOL * max(scale, 1.0):
                 raise AssertionError(f"{name}: kernel vs fp32 plain max|d| {err32:.3e} > "
                                      f"{KERNEL_TOL} * max({scale:.3e}, 1)")
             results[name] = r
 
-        # the sigma stub's sigma column vs the full coarse model's, both through the kernel
-        full = fused_query(pack_params(pc, *args), coarse_pts, coarse_dirs)[..., 3]
-        stub = fused_query(cases[1][2], coarse_pts, coarse_dirs)[..., 3]
-        sig_scale = float(full.abs().max())
-        stub_err = float((stub - full).abs().max())
-        print(f"[kernel] stub sigma vs full sigma: max|d| {stub_err:.3e} at sigma scale "
-              f"{sig_scale:.3e}", flush=True)
-        if stub_err > STUB_TOL * max(sig_scale, 1.0):
-            raise AssertionError(f"stub sigma max|d| {stub_err:.3e} > {STUB_TOL} * max({sig_scale:.3e}, 1)")
+        # the stubs' sigma column vs the full model's, both through the kernel
+        stubs = [("sigma stub", cases[1][2], pack_params(pc, *args), coarse_pts, coarse_dirs)]
+        if mode == "kernel":
+            stubs.append(("rgb stub", cases[2][2], cases[0][2], fine_pts, fine_dirs))
+        for what, stub_packed, full_packed, pts, dirs in stubs:
+            full_raw = fused_query(full_packed, pts, dirs, mode)
+            stub_raw = fused_query(stub_packed, pts, dirs, mode)
+            full, stub = full_raw[..., 3], stub_raw[..., 3]
+            sig_scale = float(full.abs().max())
+            stub_err = float((stub - full).abs().max())
+            extra = ""
+            if what == "rgb stub":
+                ins_err = float((stub_raw[..., 4:] - full_raw[..., 4:]).abs().max())
+                extra = f"; instance logits max|d| {ins_err:.3e}"
+            print(f"[{tag}] {what} sigma vs full sigma: max|d| {stub_err:.3e} at sigma scale "
+                  f"{sig_scale:.3e}{extra}", flush=True)
+            if stub_err > STUB_TOL * max(sig_scale, 1.0):
+                raise AssertionError(f"{what} sigma max|d| {stub_err:.3e} > {STUB_TOL} * "
+                                     f"max({sig_scale:.3e}, 1)")
     runtime.reset_launches()
     return results
 
@@ -294,7 +361,6 @@ def slice_phase(cfg, device):
     return launches
 
 
-
 def _leaf_grads(query, params, pts, dirs, w):
     """Gradients of sum(tanh(raw) * w) with respect to every parameter."""
     import torch
@@ -305,18 +371,18 @@ def _leaf_grads(query, params, pts, dirs, w):
     return dict(zip(pp, grads))
 
 
-def _plain16_leaf_grads(params, args, pts, dirs, w):
-    """The same gradients through the bf16 plain versions of both kernels."""
+def _plain16_leaf_grads(params, args, pts, dirs, w, mode):
+    """The same gradients through the bf16 plain versions of both kernels of ``mode``."""
     import torch
 
-    from dmnerf_tpu_torch.kernels.fused_mlp import fused_query_bwd_ref, fused_query_ref, pack_params
+    from dmnerf_tpu_torch.kernels.fused_mlp import pack_params
 
     pp = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
     packed = pack_params(pp, *args)
     with torch.no_grad():
-        raw = fused_query_ref(packed, pts, dirs, torch.bfloat16)
-        dw, db = fused_query_bwd_ref(packed, pts, dirs, (1.0 - torch.tanh(raw) ** 2) * w,
-                                     torch.bfloat16)
+        raw = _plain_fwd(mode, packed, pts, dirs, torch.bfloat16)
+        dw, db = _bwd(mode, packed, pts, dirs, (1.0 - torch.tanh(raw) ** 2) * w,
+                      plain_dtype=torch.bfloat16)
     torch.autograd.backward([packed.w, packed.b], [dw, db])
     return {k: v.grad for k, v in pp.items()}
 
@@ -330,14 +396,16 @@ def _rel_err(got, want):
             max(float(want[k].abs().max()) for k in want))
 
 
-def bwd_kernel_phase(cfg, device):
+def bwd_kernel_phase(cfg, device, mode="kernel_t"):
+    """K2 (mode 'kernel_t') or K4 (mode 'kernel') against fp32 autograd of the plain
+    query, its wall, its repeats and its times."""
     import dataclasses
 
     import torch
 
     from dmnerf_tpu_torch.core.pipeline import make_fused_query_fn, make_torch_query_fn
     from dmnerf_tpu_torch.kernels import runtime
-    from dmnerf_tpu_torch.kernels.fused_mlp import fused_query, fused_query_bwd, pack_params
+    from dmnerf_tpu_torch.kernels.fused_mlp import fused_query, pack_params
     from dmnerf_tpu_torch.test import init_params
 
     pc, pf = init_params(cfg, device)
@@ -346,14 +414,15 @@ def bwd_kernel_phase(cfg, device):
     N = cfg.N_train
     cases = [("fine", pf, *_points(N, cfg.N_samples + cfg.N_importance, cfg.near, cfg.far, gen, device)),
              ("coarse", pc, *_points(N, cfg.N_samples, cfg.near, cfg.far, gen, device))]
+    tag = "bwd" if mode == "kernel_t" else "bwd kpe"
     results = {}
     for name, params, pts, dirs in cases:
         packed = pack_params(params, *args)
         w = torch.linspace(0.5, 1.5, packed.c4, device=device)
-        kernel = _leaf_grads(make_fused_query_fn(*args), params, pts, dirs, w)
+        kernel = _leaf_grads(make_fused_query_fn(*args, mode), params, pts, dirs, w)
         plain = _leaf_grads(make_torch_query_fn(*args), params, pts, dirs, w)
         rel, err, scale = _rel_err(kernel, plain)
-        rel16, err16, _ = _rel_err(_plain16_leaf_grads(params, args, pts, dirs, w), plain)
+        rel16, err16, _ = _rel_err(_plain16_leaf_grads(params, args, pts, dirs, w, mode), plain)
         worst = max(plain, key=lambda k: float((kernel[k] - plain[k]).abs().max())
                     / max(float(plain[k].abs().max()), 1e-30))
         if not all(torch.isfinite(v).all() for v in kernel.values()):
@@ -361,21 +430,21 @@ def bwd_kernel_phase(cfg, device):
 
         # the wall: an instance-only loss reaches no trunk, rgb or density parameter
         pp = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
-        fused_query(pack_params(pp, *args), pts, dirs)[..., 4:].sum().backward()
+        fused_query(pack_params(pp, *args), pts, dirs, mode)[..., 4:].sum().backward()
         leaks = [k for k, v in pp.items() if k.startswith(("trunk_", "rgb_", "density"))
                  and v.grad is not None and int(torch.count_nonzero(v.grad)) > 0]
         if leaks or float(pp["ins_out_w"].grad.abs().sum()) == 0:
             raise AssertionError(f"{name}: instance-head wall broken: {leaks}")
 
         with torch.no_grad():
-            raw = fused_query(packed, pts, dirs)
+            raw = fused_query(packed, pts, dirs, mode)
         g = ((1.0 - torch.tanh(raw) ** 2) * w).contiguous()
-        first, second = fused_query_bwd(packed, pts, dirs, g), fused_query_bwd(packed, pts, dirs, g)
+        first, second = _bwd(mode, packed, pts, dirs, g), _bwd(mode, packed, pts, dirs, g)
         same = torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
-        ms = _time_ms(lambda: fused_query_bwd(packed, pts, dirs, g), reps=5)
+        ms = _time_ms(lambda: _bwd(mode, packed, pts, dirs, g), reps=5)
         with torch.no_grad():
-            fwd_ms = _time_ms(lambda: fused_query(packed, pts, dirs))
+            fwd_ms = _time_ms(lambda: fused_query(packed, pts, dirs, mode))
         pp = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
         raw32 = make_torch_query_fn(*args)(pp, pts, dirs)
         plain_ms = _time_ms(lambda: torch.autograd.grad(raw32, list(pp.values()), g,
@@ -383,14 +452,15 @@ def bwd_kernel_phase(cfg, device):
         del raw32
         lib = dataclasses.replace(packed, w_bf16=packed.w_bf16.detach().clone().requires_grad_(True),
                                   b=packed.b.detach().clone().requires_grad_(True))
-        raw16 = library_query(lib, pts, dirs)
+        raw16 = library_query(lib, pts, dirs, mode)
         library_ms = _time_ms(lambda: torch.autograd.grad(raw16, [lib.w_bf16, lib.b], g,
                                                           retain_graph=True), reps=5)
         del raw16
 
         P = pts.shape[0] * pts.shape[1]
         flops = 2.0 * backward_macs(params) * P
-        nbytes = (pts.numel() * 4 + dirs.numel() * 4 + g.numel() * 4 + packed.w_bf16.numel() * 2
+        n_dirs = P if mode == "kernel" else dirs.shape[0]
+        nbytes = (pts.numel() * 4 + n_dirs * 12 + g.numel() * 4 + packed.w_bf16.numel() * 2
                   + packed.b.numel() * 4 + packed.w.numel() * 4 + packed.b.numel() * 4)
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         r = dict(points=P, max_rel_err=rel, max_abs_err=err, grad_scale=scale, worst_param=worst,
@@ -398,9 +468,9 @@ def bwd_kernel_phase(cfg, device):
                  ms=ms, fwd_ms=fwd_ms, plain_ms=plain_ms, library_ms=library_ms,
                  bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
                  gflop=flops / 1e9, tflops=flops / (ms * 1e-3) / 1e12)
-        print(f"[bwd] {name}: {json.dumps(r)}", flush=True)
+        print(f"[{tag}] {name}: {json.dumps(r)}", flush=True)
         if rel > GRAD_TOL or not same:
-            raise AssertionError(f"{name}: K2 gradient max rel err {rel:.3e} (want <= {GRAD_TOL}), "
+            raise AssertionError(f"{tag} {name}: gradient max rel err {rel:.3e} (want <= {GRAD_TOL}), "
                                  f"bit-identical repeats: {same}")
         results[name] = r
         del kernel, plain
@@ -409,7 +479,9 @@ def bwd_kernel_phase(cfg, device):
     return results
 
 
-def train_phase(device):
+def train_phase(device, pe_mode=None, steps=TRAIN_STEPS):
+    """``steps`` flagship training steps through dmnerf_tpu_torch.train under
+    ``pe_mode``: launches, losses, one step's gradients vs the plain query, step ms."""
     import tempfile
 
     import numpy as np
@@ -429,8 +501,8 @@ def train_phase(device):
     with tempfile.TemporaryDirectory() as tmp:
         cfg = load_config(os.path.join(REPO, "configs", "train", "dmsr", "study.txt"),
                           near=1.0, far=8.0, ins_num=scene.ins_num, lrate=5e-4, perturb=1.0,
-                          N_iters=TRAIN_STEPS, i_print=1, i_save=10 ** 9, i_test=10 ** 9,
-                          basedir=tmp, expname="chip_smoke")
+                          N_iters=steps, i_print=1, i_save=10 ** 9, i_test=10 ** 9,
+                          basedir=tmp, expname="chip_smoke", pallas_pe_mode=pe_mode)
         runtime.reset_launches()
         t0 = time.time()
         state = train(cfg, scene, device)
@@ -439,12 +511,15 @@ def train_phase(device):
         launches = dict(runtime.LAUNCHES)
         with open(os.path.join(cfg.log_dir, "metrics.jsonl")) as f:
             recs = [json.loads(line) for line in f]
-    for name in ("fused_mlp_fwd", "fused_mlp_bwd"):
-        if launches[name] != 2 * TRAIN_STEPS:
-            raise AssertionError(f"{name} launched {launches[name]} times in {TRAIN_STEPS} train "
-                                 f"steps, want 2 per step")
+    pair = ("fused_mlp_fwd", "fused_mlp_bwd") if pe_mode is None else \
+        ("fused_mlp_fwd_kpe", "fused_mlp_bwd_kpe")
+    for name in runtime.KERNELS:
+        want = 2 * steps if name in pair else 0
+        if launches[name] != want:
+            raise AssertionError(f"{name} launched {launches[name]} times in {steps} train "
+                                 f"steps under pallas_pe_mode={pe_mode}, want {want}")
     keys = ("total_loss", "rgb_loss", "ins_loss", "emptiness_loss", "psnr_fine")
-    if len(recs) != TRAIN_STEPS or not all(np.isfinite(r[k]) for r in recs for k in keys):
+    if len(recs) != steps or not all(np.isfinite(r[k]) for r in recs for k in keys):
         raise AssertionError(f"train losses not all finite over {len(recs)} logged steps")
 
     # one step's gradients, kernel query vs plain query: same parameters, batch, draws
@@ -497,18 +572,142 @@ def train_phase(device):
         masked_assignment(cost, min(5, cfg.ins_num))
         hung.append((time.perf_counter() - t0) * 1e3)
 
-    out = dict(steps=TRAIN_STEPS, launches=launches, train_s=train_s,
+    out = dict(steps=steps, pe_mode=pe_mode, launches=launches, train_s=train_s,
                first=recs[0], last=recs[-1],
                kernel_vs_plain=dict(max_rel_err=rel, max_abs_err=err, worst_param=worst,
                                     total_kernel=aux_k["total_loss"], total_plain=aux_p["total_loss"],
                                     ins_kernel=aux_k["ins_loss"], ins_plain=aux_p["ins_loss"]),
                step_ms=step_ms, step_ms_range=[min(times), max(times)],
                rays_per_s=cfg.N_train / (step_ms * 1e-3), hungarian_host_ms=statistics.median(hung))
-    print(f"[train] {json.dumps(out)}", flush=True)
+    print(f"[train{'' if pe_mode is None else ' kpe'}] {json.dumps(out)}", flush=True)
     if rel > GRAD_TOL:
         raise AssertionError(f"train step gradients, kernel vs plain query: max rel err {rel:.3e} "
                              f"(want <= {GRAD_TOL}) at {worst}")
     return launches, out
+
+
+def _check_maps(what, **maps):
+    """Every map finite and in [0, 1]."""
+    import torch
+
+    for k, v in maps.items():
+        v = torch.as_tensor(v)
+        if not torch.isfinite(v).all() or float(v.min()) < 0 or float(v.max()) > 1:
+            raise AssertionError(f"{what} {k} map not finite in [0, 1]")
+
+
+def mani_phase(device):
+    """The manipulation path: manipulator_eval under pallas_pe_mode = kernel (K3),
+    manipulator_demo under the default mode (K1), and one manipulated view with
+    deterministic draws through the kernel query and the plain PyTorch query."""
+    import numpy as np
+    import torch
+
+    from dmnerf_tpu_torch.configs import load_config
+    from dmnerf_tpu_torch.core.pipeline import make_torch_query_fn
+    from dmnerf_tpu_torch.core.rays import rays_from_K
+    from dmnerf_tpu_torch.data.synthetic import build_dmsr_mani_scene, build_dmsr_scene
+    from dmnerf_tpu_torch.kernels import runtime
+    from dmnerf_tpu_torch.render.mani_eval import manipulator_demo, manipulator_eval
+    from dmnerf_tpu_torch.render.manipulator import make_manipulator_renderer
+    from dmnerf_tpu_torch.test import init_params
+    from dmnerf_tpu_torch.tools.pose_gen import demo_poses, eval_poses
+
+    H = W = 256
+    n_views = 2
+    scene = build_dmsr_mani_scene("translation", n_test=n_views, H=H, W=W, n_objects=4,
+                                  ins_num=32, seed=SEED)
+    cfg = load_config(os.path.join(REPO, "configs", "manipulation", "dmsr",
+                                   "manipulation_translation", "study.txt"),
+                      near=1.0, far=8.0, ins_num=scene.ins_num, target_label=1, perturb=0.0,
+                      pallas_pe_mode="kernel")
+    pc, pf = init_params(cfg, device)
+    chunks = -(-H * W // cfg.N_test)
+    trans_dicts = eval_poses(cfg)["transformations"]
+
+    def expect(launches, name, want, what):
+        for k in runtime.KERNELS:
+            if launches[k] != (want if k == name else 0):
+                raise AssertionError(f"{what}: {k} launched {launches[k]} times, want "
+                                     f"{want if k == name else 0}")
+
+    # manipulator_eval: K = 1 under pe_mode 'kernel'
+    runtime.reset_launches()
+    ev = manipulator_eval(cfg, pc, pf, scene.poses, scene.hwk, trans_dicts, None, scene.ins_rgbs,
+                          gt_rgbs=scene.images, gt_labels=scene.gt_labels, device=device)
+    eval_launches = dict(runtime.LAUNCHES)
+    expect(eval_launches, "fused_mlp_fwd_kpe", chunks * (3 + 3 * 1) * n_views, "mani_eval")
+    for img in ev["images"]:
+        _check_maps("mani_eval", rgb=img)
+
+    # manipulator_demo: K = 2 (a translation and a sin deform) under the default mode
+    base = build_dmsr_scene(n_train=1, n_test=1, H=H, W=W, n_objects=4, ins_num=32, seed=SEED,
+                            views=2)
+    objs = [dict(base.objs[0]),
+            {"obj_name": "sphere_1", "tar_id": 2, "mani_mode": "deform", "deform_func": "sin"}]
+    demo_cfg = cfg.replace(pallas_pe_mode=None, views=2)
+    runtime.reset_launches()
+    dm = manipulator_demo(demo_cfg, pc, pf, base.hwk, demo_poses(objs, 2), None, base.ins_rgbs,
+                          objs, base.view_poses, base.ins_map, device=device)
+    demo_launches = dict(runtime.LAUNCHES)
+    expect(demo_launches, "fused_mlp_fwd", chunks * (3 + 3 * 2) * 2, "mani_demo")
+    for img in dm["images"]:
+        _check_maps("mani_demo", rgb=img)
+
+    # one manipulated view, deterministic draws: the kernel query vs the plain query
+    K = torch.as_tensor(scene.K, device=device)
+    pose = scene.poses[0]
+    trans = np.asarray(trans_dicts[0]["transformation"], np.float32)
+    rays = [rays_from_K(H, W, K, torch.as_tensor(c2w, device=device))
+            for c2w in (pose, trans @ pose)]
+    (oo, od), (to, td) = [(o.reshape(-1, 3), d.reshape(-1, 3)) for o, d in rays]
+    args = (pc, pf, oo, od, to[None], td[None], (1,))
+    run_k = make_manipulator_renderer(cfg, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ours = run_k(*args)
+    torch.cuda.synchronize()
+    det_ms = (time.perf_counter() - t0) * 1e3
+    plain_q = make_torch_query_fn(cfg.multires, cfg.multires_views, cfg.netdepth, tuple(cfg.skips))
+    plain = make_manipulator_renderer(cfg, 1, query_fn=plain_q)(*args)
+    for name, out in (("kernel", ours), ("plain", plain)):
+        _check_maps(f"manipulated view ({name})", rgb=out["rgb"], ins=out["ins"])
+    psnrs = {}
+    for k in ("rgb", "tar_rgb"):
+        mse = float(torch.mean((ours[k].double() - plain[k].double()) ** 2))
+        psnrs[k] = float("inf") if mse == 0 else float(-10.0 * np.log10(mse))
+    flip = float((ours["ins"].argmax(-1) != plain["ins"].argmax(-1)).float().mean())
+    # tar_rgb, the target bundle's 64-sample coarse composite, is printed and not held to
+    # the bar: its last sample's distance is 1e10, so its weight jumps with the sign of a
+    # near-zero sigma, and bf16 rounding alone moves a few rays by up to 0.5
+    tar_off = float(((ours["tar_rgb"] - plain["tar_rgb"]).abs().amax(-1) > 1e-2).float().mean())
+
+    ms = [t * 1e3 for t in ev["times"]]
+    demo_ms = [t * 1e3 for t in dm["times"]]
+    out = dict(H=H, W=W, chunks_per_view=chunks, eval_launches=eval_launches,
+               demo_launches=demo_launches, psnr=ev["psnrs"], ssim=ev["ssims"],
+               ap=[list(a) for a in ev["aps"]], eval_ms_per_view=ms,
+               eval_rays_per_s=[H * W / (t * 1e-3) for t in ms], demo_ms_per_frame=demo_ms,
+               demo_rays_per_s=[H * W / (t * 1e-3) for t in demo_ms],
+               deterministic_view_ms=det_ms,
+               kernel_vs_plain=dict(rgb_psnr_db=psnrs["rgb"], label_flip_share=flip,
+                                    tar_rgb_psnr_db=psnrs["tar_rgb"],
+                                    tar_rgb_rays_off_1e2=tar_off))
+    print(f"[mani] {json.dumps(out)}", flush=True)
+    if psnrs["rgb"] < MIN_PSNR_DB or flip > MAX_LABEL_FLIP:
+        raise AssertionError(f"manipulated view, kernel vs plain: rgb PSNR {psnrs['rgb']:.2f} dB "
+                             f"(want >= {MIN_PSNR_DB}), label flips {flip:.4f} (want <= "
+                             f"{MAX_LABEL_FLIP})")
+    return eval_launches, demo_launches
+
+
+def _entry(name, replaces, launches, by_path, res, **extra):
+    return {"name": name, "route": "cuda", "source": f"dmnerf_tpu_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches, "launches_by_path": by_path[name],
+            "max_abs_err": res["max_abs_err"], **extra,
+            "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
+
 
 def main() -> int:
     import torch
@@ -542,36 +741,38 @@ def main() -> int:
     device = torch.device("cuda")
     cfg = load_config(os.path.join(REPO, "configs", "test", "dmsr", "study.txt"), ins_num=32)
     kres = kernel_phase(cfg, device)
+    kres_kpe = kernel_phase(cfg, device, "kernel")
+    torch.cuda.empty_cache()
     render_launches = slice_phase(cfg, device)
     train_cfg = load_config(os.path.join(REPO, "configs", "train", "dmsr", "study.txt"),
                             ins_num=32, near=1.0, far=8.0)
     bres = bwd_kernel_phase(train_cfg, device)
+    bres_kpe = bwd_kernel_phase(train_cfg, device, "kernel")
     train_launches, _ = train_phase(device)
+    torch.cuda.empty_cache()
+    kpe_train_launches, _ = train_phase(device, "kernel", KPE_TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    eval_launches, demo_launches = mani_phase(device)
 
+    paths = {"render": render_launches, "train": train_launches, "train_kpe": kpe_train_launches,
+             "mani_eval": eval_launches, "mani_demo": demo_launches}
+    by_path = {name: {path: n[name] for path, n in paths.items()} for name in runtime.KERNELS}
     for name in runtime.KERNELS:
-        if render_launches[name] + train_launches[name] == 0:
+        if sum(by_path[name].values()) == 0:
             raise AssertionError(f"{name} was never launched on the main paths")
-    fine, bfine = kres["fine"], bres["fine"]
-    by_path = {name: {"render": render_launches[name], "train": train_launches[name]}
-               for name in runtime.KERNELS}
-    kernels = [{
-        "name": "fused_mlp_fwd", "route": "cuda",
-        "source": "dmnerf_tpu_torch/kernels/csrc/fused_mlp_fwd.cu",
-        "replaces": "dmnerf_tpu/kernels/fused_mlp.py:507",
-        "launches": render_launches["fused_mlp_fwd"], "launches_by_path": by_path["fused_mlp_fwd"],
-        "max_abs_err": fine["max_abs_err"],
-        "ms": fine["ms"], "plain_ms": fine["plain_ms"], "bound_ms": fine["bound_ms"],
-        "bound_by": fine["bound_by"], "library_ms": fine["library_ms"],
-    }, {
-        "name": "fused_mlp_bwd", "route": "cuda",
-        "source": "dmnerf_tpu_torch/kernels/csrc/fused_mlp_bwd.cu",
-        "replaces": "dmnerf_tpu/kernels/fused_mlp.py:520",
-        "launches": train_launches["fused_mlp_bwd"], "launches_by_path": by_path["fused_mlp_bwd"],
-        "max_abs_err": bfine["max_abs_err"], "grad_scale": bfine["grad_scale"],
-        "max_rel_err": bfine["max_rel_err"],
-        "ms": bfine["ms"], "plain_ms": bfine["plain_ms"], "bound_ms": bfine["bound_ms"],
-        "bound_by": bfine["bound_by"], "library_ms": bfine["library_ms"],
-    }]
+    kernels = [
+        _entry("fused_mlp_fwd", "dmnerf_tpu/kernels/fused_mlp.py:507", render_launches["fused_mlp_fwd"],
+               by_path, kres["fine"]),
+        _entry("fused_mlp_bwd", "dmnerf_tpu/kernels/fused_mlp.py:520", train_launches["fused_mlp_bwd"],
+               by_path, bres["fine"], grad_scale=bres["fine"]["grad_scale"],
+               max_rel_err=bres["fine"]["max_rel_err"]),
+        _entry("fused_mlp_fwd_kpe", "dmnerf_tpu/kernels/fused_mlp.py:462",
+               eval_launches["fused_mlp_fwd_kpe"], by_path, kres_kpe["fine"]),
+        _entry("fused_mlp_bwd_kpe", "dmnerf_tpu/kernels/fused_mlp.py:481",
+               kpe_train_launches["fused_mlp_bwd_kpe"], by_path, bres_kpe["fine"],
+               grad_scale=bres_kpe["fine"]["grad_scale"], max_rel_err=bres_kpe["fine"]["max_rel_err"]),
+    ]
+    print(f"[done] {time.time() - t0:.1f} s from the build on", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

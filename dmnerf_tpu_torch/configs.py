@@ -7,10 +7,15 @@ accepted: ``over_penalize`` == ``penalize``, ``editor_val`` == ``mani_eval``,
 ``editor_mode`` == ``mani_mode``, ``editor_demo`` == ``mani_demo``.
 
 In this package ``use_pallas`` selects the hand-written Hopper kernels for the point
-query. The Pallas knobs (``pallas_pe_mode``, ``pallas_tile_fwd``,
-``pallas_tile_bwd``) and the JAX-only switches (``data_axis``, ``multihost``,
-``steps_per_dispatch``, ``debug_nans``, ``profile_*``) are parsed so that config
-files stay interchangeable, and have no effect here.
+query, and ``pallas_pe_mode`` picks the kernel pair as it picks the Pallas pair in
+the JAX package: ``None`` or ``'kernel_t'`` the per-ray viewdir table kernels (K1
+forward, K2 backward), ``'kernel'`` the per-point in-kernel embedding kernels (K3,
+K4). ``'outside'`` is a valid value whose kernels are not ported yet: making its query
+raises NotImplementedError; any other value is refused here. The tile knobs
+(``pallas_tile_fwd``, ``pallas_tile_bwd``) size the TPU's grid tiles and the
+JAX-only switches (``data_axis``, ``multihost``, ``steps_per_dispatch``,
+``debug_nans``, ``profile_*``) are parsed so that config files stay interchangeable,
+and have no effect here.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ from __future__ import annotations
 import dataclasses
 import os
 from typing import Optional, Tuple
+
+PE_MODES = (None, "kernel_t", "kernel", "outside")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,7 +109,7 @@ class Config:
     # additions of the JAX package, kept for config-file compatibility
     precision: str = "float32"
     use_pallas: bool = True       # here: the hand-written Hopper point-query kernel
-    pallas_pe_mode: Optional[str] = None   # no effect in this package
+    pallas_pe_mode: Optional[str] = None   # None | 'kernel_t' | 'kernel' | 'outside'
     pallas_tile_fwd: Optional[int] = None  # no effect in this package
     pallas_tile_bwd: Optional[int] = None  # no effect in this package
     data_axis: int = 1
@@ -116,6 +123,9 @@ class Config:
     steps_per_dispatch: int = 1
 
     def __post_init__(self):
+        if self.pallas_pe_mode not in PE_MODES:
+            raise ValueError(f"pallas_pe_mode must be one of {PE_MODES}, got "
+                             f"{self.pallas_pe_mode!r}")
         if self.steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {self.steps_per_dispatch}")
         # a zero-width penalizer Gaussian is exp(-0/0) = NaN: refuse it at config time

@@ -6,8 +6,9 @@
 
 The point query is pluggable: ``make_torch_query_fn`` is the plain PyTorch path
 (the analogue of the JAX package's ``make_xla_query_fn``), and ``make_query_fn``
-picks the fused Hopper kernel from the config. A ``QueryFn`` takes prepared
-parameters; ``prepare`` runs once per render (for the kernel: the packing).
+picks the fused Hopper kernels from the config, the pair named by
+``cfg.pallas_pe_mode`` (``kernels.fused_mlp.resolve_pe_mode``). A ``QueryFn`` takes
+prepared parameters; ``prepare`` runs once per render (for the kernel: the packing).
 """
 
 from __future__ import annotations
@@ -53,25 +54,31 @@ def make_torch_query_fn(multires: int = 10, multires_views: int = 4, D: int = 8,
 
 
 def make_fused_query_fn(multires: int = 10, multires_views: int = 4, D: int = 8,
-                        skips=(4,)) -> QueryFn:
-    """The fused PE + MLP query (kernels.fused_mlp): the Hopper kernels (forward and
-    parameter backward) for CUDA tensors, their fp32 plain versions for CPU tensors."""
-    from dmnerf_tpu_torch.kernels.fused_mlp import fused_query, pack_params
+                        skips=(4,), pe_mode: Optional[str] = None) -> QueryFn:
+    """The fused PE + MLP query (kernels.fused_mlp): the Hopper kernels of
+    ``pe_mode`` (forward and parameter backward) for CUDA tensors, their fp32 plain
+    versions for CPU tensors."""
+    from dmnerf_tpu_torch.kernels.fused_mlp import fused_query, pack_params, resolve_pe_mode
+
+    mode = resolve_pe_mode(pe_mode)
 
     def prepare(params):
         return pack_params(params, multires, multires_views, D, tuple(skips))
 
-    return QueryFn(fused_query, prepare)
+    def query(packed, pts, viewdirs):
+        return fused_query(packed, pts, viewdirs, mode)
+
+    return QueryFn(query, prepare)
 
 
 def make_query_fn(cfg) -> QueryFn:
-    """Config-driven choice: the fused kernel path when ``cfg.use_pallas`` and the
-    positional encoding is on, the plain PyTorch path otherwise (the identity
-    embedding, i_embed = -1). The fused path itself routes by the device of the
-    tensors it is given."""
+    """Config-driven choice: the fused kernel path of ``cfg.pallas_pe_mode`` when
+    ``cfg.use_pallas`` and the positional encoding is on, the plain PyTorch path
+    otherwise (the identity embedding, i_embed = -1). The fused path itself routes by
+    the device of the tensors it is given."""
     if cfg.use_pallas and cfg.i_embed == 0 and cfg.multires > 0 and cfg.multires_views > 0:
         return make_fused_query_fn(cfg.multires, cfg.multires_views, cfg.netdepth,
-                                   tuple(cfg.skips))
+                                   tuple(cfg.skips), cfg.pallas_pe_mode)
     mr = cfg.multires if cfg.i_embed == 0 else -1
     mrv = cfg.multires_views if cfg.i_embed == 0 else -1
     return make_torch_query_fn(mr, mrv, cfg.netdepth, tuple(cfg.skips))

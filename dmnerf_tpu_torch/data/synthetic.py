@@ -5,9 +5,12 @@ with the DM-SR loader's ray convention (K with negative fy and fz = -1), so a Ne
 fit to these images against ``rays_from_K`` is geometrically consistent.
 
 ``write_dmsr_scene`` writes a DM-SR directory ({train,test}/rgbs, transforms.json,
-semantic_instance, ins_rgb.hdf5, objs_info.json, color_dict.json);
-``build_dmsr_scene`` builds in memory the SceneData that writing and then
-``load_dmsr`` would give, PNG quantization included, without imageio or h5py.
+semantic_instance, ins_rgb.hdf5, objs_info.json, color_dict.json) and, for each of
+its ``mani_modes``, the manipulated ground truth (indoor_{mode}_test/, the test views
+re-rendered with object 0 moved: translation by -0.25 in y, scale by 1.2; rotation
+leaves a sphere as it is). ``build_dmsr_scene`` and ``build_dmsr_mani_scene`` build in
+memory the SceneData that writing and then ``load_dmsr`` / ``load_dmsr_mani`` would
+give, PNG quantization included, without imageio or h5py.
 """
 
 from __future__ import annotations
@@ -80,13 +83,17 @@ def render_view(c2w: np.ndarray, H: int, W: int, K: np.ndarray, spec) -> tuple:
     return rgb, label
 
 
+def _render_K(H: int, W: int) -> np.ndarray:
+    focal = float(W)  # ~53deg fov
+    return np.array([[focal, 0, W * 0.5], [0, -focal, H * 0.5], [0, 0, -1]], np.float32)
+
+
 def _dmsr_scene(n_train, n_test, H, W, n_objects, ins_num, seed, radius):
     """Everything a DM-SR directory holds, in memory: per split a list of
     (c2w, rgb uint8, label uint8), the camera angle, the palette and objs_info."""
     spec = default_spec(n_objects, seed)
-    focal = float(W)  # ~53deg fov
-    angle_x = float(2.0 * np.arctan(W / (2.0 * focal)))
-    K = np.array([[focal, 0, W * 0.5], [0, -focal, H * 0.5], [0, 0, -1]], np.float32)
+    K = _render_K(H, W)
+    angle_x = float(2.0 * np.arctan(W / (2.0 * float(W))))
 
     splits = {}
     for split, count, phase in [("train", n_train, 0.0), ("test", n_test, 0.13)]:
@@ -113,23 +120,43 @@ def _dmsr_scene(n_train, n_test, H, W, n_objects, ins_num, seed, radius):
     return spec, splits, angle_x, palette, objs_info
 
 
+def _mani_gt_frames(spec, c2ws, H: int, W: int, mode: str):
+    """(rgb uint8, label uint8) of each view with the manipulation of ``mode`` applied
+    to object 0 of the scene spec."""
+    spec2 = {k: v.copy() for k, v in spec.items()}
+    if mode == "translation":
+        spec2["centers"][0] += np.array([0, -0.25, 0], np.float32)
+    elif mode == "scale":
+        spec2["radii"][0] *= 1.2
+    frames = []
+    for c2w in c2ws:
+        rgb, label = render_view(c2w, H, W, _render_K(H, W), spec2)
+        frames.append(((rgb * 255).astype(np.uint8), label.astype(np.uint8)))
+    return frames
+
+
+def _write_frames(root: str, frames) -> None:
+    import imageio.v2 as imageio
+
+    os.makedirs(os.path.join(root, "rgbs"), exist_ok=True)
+    os.makedirs(os.path.join(root, "semantic_instance"), exist_ok=True)
+    for t, (rgb, label) in enumerate(frames):
+        imageio.imwrite(os.path.join(root, "rgbs", f"{t:04d}.png"), rgb)
+        imageio.imwrite(os.path.join(root, "semantic_instance", f"{t:04d}.png"), label)
+
+
 def write_dmsr_scene(out_dir: str, n_train: int = 12, n_test: int = 4, H: int = 64,
                      W: int = 64, n_objects: int = 4, ins_num: int = 8, seed: int = 0,
-                     radius: float = 4.0):
-    """Writes a DM-SR-format scene; returns the spec. ins_num >= n_objects + 1."""
+                     radius: float = 4.0, mani_modes=None):
+    """Writes a DM-SR-format scene; returns the spec. ins_num >= n_objects + 1. With
+    ``mani_modes``, also the top-level transforms.json (the test split's) and the
+    manipulated ground truth of each mode, which ``load_dmsr_mani`` reads."""
     import h5py
-    import imageio.v2 as imageio
 
     spec, splits, angle_x, palette, objs_info = _dmsr_scene(
         n_train, n_test, H, W, n_objects, ins_num, seed, radius)
     for split, frames in splits.items():
-        rgb_dir = os.path.join(out_dir, split, "rgbs")
-        ins_dir = os.path.join(out_dir, split, "semantic_instance")
-        os.makedirs(rgb_dir, exist_ok=True)
-        os.makedirs(ins_dir, exist_ok=True)
-        for t, (c2w, rgb, label) in enumerate(frames):
-            imageio.imwrite(os.path.join(rgb_dir, f"{t:04d}.png"), rgb)
-            imageio.imwrite(os.path.join(ins_dir, f"{t:04d}.png"), label)
+        _write_frames(os.path.join(out_dir, split), [(rgb, label) for _, rgb, label in frames])
         with open(os.path.join(out_dir, split, "transforms.json"), "w") as f:
             json.dump({"camera_angle_x": angle_x,
                        "frames": [{"transform_matrix": c2w.tolist()} for c2w, _, _ in frames]}, f)
@@ -139,6 +166,16 @@ def write_dmsr_scene(out_dir: str, n_train: int = 12, n_test: int = 4, H: int = 
         json.dump(objs_info, f)
     with open(os.path.join(out_dir, "color_dict.json"), "w") as f:
         json.dump({str(lbl): int(lbl) for lbl in range(ins_num)}, f)
+    if mani_modes:
+        # the manipulated-GT loader reads the poses from a top-level transforms.json
+        with open(os.path.join(out_dir, "test", "transforms.json")) as f:
+            meta = json.load(f)
+        with open(os.path.join(out_dir, "transforms.json"), "w") as f:
+            json.dump(meta, f)
+        c2ws = [np.array(fr["transform_matrix"], np.float32) for fr in meta["frames"]]
+        for mode in mani_modes:
+            _write_frames(os.path.join(out_dir, f"indoor_{mode}_test"),
+                          _mani_gt_frames(spec, c2ws, H, W, mode))
     return spec
 
 
@@ -161,4 +198,24 @@ def build_dmsr_scene(n_train: int = 12, n_test: int = 4, H: int = 64, W: int = 6
         ins_rgbs=palette, ins_num=len(palette), objs=objs_info["objects"],
         view_poses=demo_view_poses(poses, objs_info["view_id"], views),
         ins_map=objs_info["ins_map"],
+    )
+
+
+def build_dmsr_mani_scene(mode: str, n_test: int = 4, H: int = 64, W: int = 64,
+                          n_objects: int = 4, ins_num: int = 8, seed: int = 0,
+                          radius: float = 4.0, testskip: int = 1) -> SceneData:
+    """The SceneData that ``write_dmsr_scene(mani_modes=[mode])`` followed by
+    ``load_dmsr_mani`` gives, for a config with this ``mani_mode`` and ``testskip``,
+    built in memory."""
+    spec, splits, angle_x, palette, _ = _dmsr_scene(0, n_test, H, W, n_objects, ins_num,
+                                                    seed, radius)
+    skip = testskip if testskip != 0 else 1
+    c2ws = [c2w for c2w, _, _ in splits["test"]][::skip]
+    frames = _mani_gt_frames(spec, c2ws, H, W, mode)
+    return SceneData(
+        images=(np.stack([rgb for rgb, _ in frames]) / 255.0).astype(np.float32),
+        poses=np.stack(c2ws).astype(np.float32), H=H, W=W,
+        K=dmsr_intrinsics(H, W, angle_x), i_train=np.arange(0), i_test=np.arange(len(frames)),
+        gt_labels=np.stack([label for _, label in frames]).astype(np.int32),
+        ins_rgbs=palette, ins_num=len(palette),
     )

@@ -1,0 +1,155 @@
+// Fused positional encoding + DM-NeRF MLP forward for one point query, sm_90a: the
+// kernel template behind two entry points.
+//
+//  * fused_mlp_fwd.cu (K1) replaces the JAX package's Pallas TPU kernel
+//    _fwd_kernel_pet (dmnerf_tpu/kernels/fused_mlp.py:507), pe_mode 'kernel_t': the
+//    viewdir embedding comes per ray ([N, EDP] bf16) and point p reads row p / S.
+//  * fused_mlp_fwd_kpe.cu (K3) replaces _fwd_kernel (:462, with _embed_pair :354),
+//    pe_mode 'kernel': the kernel takes each point's own direction ([P, 3] fp32) and
+//    embeds it, as it embeds the point.
+// The two differ only in how the ed columns of a row are filled (build_rows). What
+// they compute is set out in dmnerf_tpu_torch/kernels/fused_mlp.py, whose
+// fused_query_ref / fused_query_kpe_ref are their plain versions and whose
+// pack_params builds the layer table and weights they read.
+//
+// Bound. Per fine point of the flagship model (D=8, W=256, ins_num 32) the layers
+// execute 564,864 multiply-accumulates, 1.13 MFLOP, against 4 * (3 + 3) bytes in (K3;
+// K1 reads 12 + 64 / S) and 37 * 4 bytes out: about 7,000 FLOP per byte, far above the
+// card's 295 bf16 FLOP/byte. The kernel is bound by its executed FLOPs over the
+// 989 TFLOP/s bf16 tensor-core peak.
+//
+// Design. What it does about that bound: every product runs on the tensor cores
+// (bf16 mma.sync m16n8k16, fp32 accumulators), and nothing but the points, the
+// directions (or the per-ray viewdir embedding) and the output touches device
+// memory: the embeddings and every activation stay in shared memory.
+//  * A CTA takes BM = 128 points. Its 8 warps tile each layer's [128, N] output as
+//    2 x 4 warp tiles of 64 x 64, accumulators in registers.
+//  * One shared-memory row per point holds [ed | h | e] in bf16: the viewdir
+//    embedding, the hidden activation and the point embedding. Each layer reads a
+//    contiguous run of that row (e; h; [h | e] at a skip; [ed | h] for the head) and
+//    writes its ReLU output back over h after a barrier.
+//  * The weights (about 1.1 MB in bf16) do not fit in shared memory. Each layer
+//    streams them from L2 in 64-row K slices with cp.async, double-buffered.
+//  * Embeddings are computed per element in true fp32 (embed_rows: exact phases,
+//    accurate sincosf), then rounded to bf16.
+//  * Sigma is a layer of its own ([W, 16], column 0) kept in fp32 in shared
+//    memory; the output layer writes it into column 3.
+//  * Rows past the ragged tail compute on zeros and are never stored.
+// wgmma, TMA and warp specialisation are left for later work.
+#pragma once
+
+#include "fused_mlp_common.cuh"
+
+namespace {
+
+using namespace dmnerf;
+
+constexpr size_t FWD_SMEM_BYTES =
+    (size_t)BM * LDA * 2 + (size_t)2 * KB * LDB * 2 + (size_t)BM * 4;
+
+enum Epilogue { EPI_RELU = 0, EPI_SIGMA = 1, EPI_OUT = 2 };
+
+struct Layer {
+  int a_col, K, N, w_off, b_off, epi;
+};
+
+struct Net {
+  int n_layers;
+  int multires;        // point-embedding octaves
+  int multires_views;  // viewdir-embedding octaves (per-point directions only)
+  int h_col;           // first column of h (= width of the viewdir embedding)
+  int e_col;           // first column of the point embedding
+  int e_width;         // padded point-embedding width
+  int c4;              // output columns, 4 + C
+  Layer layers[MAX_LAYERS];
+};
+
+template <bool PER_POINT_DIRS>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_mlp_fwd_kernel(const float* __restrict__ pts, const void* __restrict__ ed_src,
+                     const __nv_bfloat16* __restrict__ weights, const float* __restrict__ biases,
+                     float* __restrict__ out, long long P, int S, const Net net) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* stage = act + BM * LDA;
+  float* sigma = reinterpret_cast<float*>(stage + 2 * KB * LDB);
+
+  const int tid = threadIdx.x;
+  const long long p0 = (long long)blockIdx.x * BM;
+  build_rows<PER_POINT_DIRS>(act, pts, ed_src, p0, P, S, net.multires, net.multires_views,
+                             net.h_col, net.e_col, net.e_width);
+  __syncthreads();
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wm = warp >> 2, wn = warp & 3;   // warp tile rows wm*64, cols wn*64
+  const int g = lane >> 2, t4 = lane & 3;    // accumulator fragment coordinates
+
+  for (int l = 0; l < net.n_layers; ++l) {
+    const Layer L = net.layers[l];
+    float acc[4][8][4];
+    tile_product(acc, act, LDA, L.a_col, weights + L.w_off, L.K, L.N, stage);
+
+    const float* bias = biases + L.b_off;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = wn * 64 + j * 8 + t4 * 2;
+        if (col >= L.N) continue;
+        const float b0 = bias[col], b1 = bias[col + 1];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = wm * 64 + i * 16 + g + half * 8;
+          const float v0 = acc[i][j][2 * half] + b0, v1 = acc[i][j][2 * half + 1] + b1;
+          if (L.epi == EPI_RELU) {
+            *reinterpret_cast<__nv_bfloat162*>(act + row * LDA + net.h_col + col) =
+                __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+          } else if (L.epi == EPI_SIGMA) {
+            if (col == 0) sigma[row] = v0;
+          } else {
+            const long long p = p0 + row;
+            if (p < P) {
+              float* o = out + p * net.c4;
+              if (col < net.c4) o[col] = col == 3 ? sigma[row] : v0;
+              if (col + 1 < net.c4) o[col + 1] = col + 1 == 3 ? sigma[row] : v1;
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Launch on `stream`; returns cudaGetLastError() (0 when the launch was accepted).
+// `table` holds n_layers rows of (a_col, K, N, w_off, b_off, epilogue).
+template <bool PER_POINT_DIRS>
+int launch_fused_mlp_fwd(const float* pts, const void* ed_src, const void* weights,
+                         const float* biases, float* out, long long P, int S, const int* table,
+                         int n_layers, int multires, int multires_views, int h_col, int e_col,
+                         int e_width, int c4, void* stream) {
+  if (n_layers < 1 || n_layers > MAX_LAYERS || P <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
+  Net net;
+  net.n_layers = n_layers;
+  net.multires = multires;
+  net.multires_views = multires_views;
+  net.h_col = h_col;
+  net.e_col = e_col;
+  net.e_width = e_width;
+  net.c4 = c4;
+  for (int l = 0; l < n_layers; ++l) {
+    const int* t = table + 6 * l;
+    net.layers[l] = Layer{t[0], t[1], t[2], t[3], t[4], t[5]};
+  }
+  cudaError_t err = cudaFuncSetAttribute(fused_mlp_fwd_kernel<PER_POINT_DIRS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)FWD_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const long long grid = (P + BM - 1) / BM;
+  fused_mlp_fwd_kernel<PER_POINT_DIRS><<<(unsigned)grid, THREADS, FWD_SMEM_BYTES,
+                                         (cudaStream_t)stream>>>(
+      pts, ed_src, reinterpret_cast<const __nv_bfloat16*>(weights), biases, out, P, S, net);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

@@ -1,12 +1,21 @@
-"""The fused PE + DM-NeRF MLP point query and its parameter backward: two
-hand-written Hopper kernels (``csrc/fused_mlp_fwd.cu``, ``csrc/fused_mlp_bwd.cu``),
-their plain PyTorch versions, the wrappers that pick between them, the autograd
-function that joins them, and the host-side packing they consume.
+"""The fused PE + DM-NeRF MLP point query and its parameter backward: two pairs of
+hand-written Hopper kernels, their plain PyTorch versions, the wrappers that pick
+between them, the autograd function that joins them, and the host-side packing they
+consume. The pair follows the JAX package's ``pe_mode`` (``resolve_pe_mode``):
 
-It computes what the JAX package's ``_fwd_kernel_pet`` computes
-(``dmnerf_tpu/kernels/fused_mlp.py:507``): the point embedding
-``[x | sin(2^f x) | cos(2^f x)]`` in fp32, the ReLU trunk with the embedding
-re-injected at each skip layer, and the fused head
+  'kernel_t'  K1 ``csrc/fused_mlp_fwd.cu``, K2 ``csrc/fused_mlp_bwd.cu``: the viewdir
+              embedding is built per ray on the host and the kernels read row p / S
+              (``_fwd_kernel_pet`` / ``_bwd_kernel_pet``, ``dmnerf_tpu/kernels/
+              fused_mlp.py:507,520``); plain versions ``fused_query_ref`` /
+              ``fused_query_bwd_ref``.
+  'kernel'    K3 ``csrc/fused_mlp_fwd_kpe.cu``, K4 ``csrc/fused_mlp_bwd_kpe.cu``: each
+              point carries its own direction and the kernels embed it as they embed
+              the point (``_fwd_kernel`` / ``_bwd_kernel`` with ``_embed_pair``,
+              :462,481,354); plain versions ``fused_query_kpe_ref`` /
+              ``fused_query_kpe_bwd_ref``.
+
+Both pairs compute the point embedding ``[x | sin(2^f x) | cos(2^f x)]`` in fp32, the
+ReLU trunk with the embedding re-injected at each skip layer, and the fused head
 
     pre1 = h @ M1 + b1,   M1 = [Wrf·Wrh1 | Wif·Wih | Wd]
     rh   = relu(pre1[:, :Hr] + ed @ Wrh2),   ih = relu(pre1[:, Hr:Hr+Hi])
@@ -34,10 +43,10 @@ the same product as the full model's. Embedding widths pad to multiples of 16
 (63 -> 64, 27 -> 32), head widths are runtime values (Hr = Hi = 8 and C = 1 for the
 sigma stub).
 
-Gradients. ``fused_query`` is a ``torch.autograd.Function`` whose differentiable
-inputs are ``Packed.w`` and ``Packed.b``; autograd over ``pack_params`` (permutes,
-concatenations, block copies and the ``M1`` products) carries them back to the
-parameter dict, which is the product rule the JAX package writes out in
+Gradients. ``fused_query`` goes through a ``torch.autograd.Function`` whose
+differentiable inputs are ``Packed.w`` and ``Packed.b``; autograd over
+``pack_params`` (permutes, concatenations, block copies and the ``M1`` products)
+carries them back to the parameter dict, which is the product rule the JAX package writes out in
 ``_unpack_grads``. Its backward is the JAX package's ``_backward_core``
 (``dmnerf_tpu/kernels/fused_mlp.py:536``): the head's ins columns feed ``dW`` but
 send nothing into the trunk, nothing goes into ``ed``, ``pts`` or ``viewdirs``, and
@@ -57,11 +66,26 @@ from dmnerf_tpu_torch.kernels import runtime
 
 Params = dict
 
-# activation row layout and tiling of csrc/fused_mlp_fwd.cu
+# activation row layout and tiling of csrc/fused_mlp_common.cuh
 _ACT_COLS = 352        # widest [ed | h | e] row the kernel holds
 _N_MAX = 256           # widest layer output the kernel holds
 _MAX_LAYERS = 20
 _EPI = {"sigma": 1, "out": 2}   # every other layer: ReLU into h
+
+
+def resolve_pe_mode(pe_mode) -> str:
+    """The kernel pair of a config's ``pallas_pe_mode``: None and 'kernel_t' give K1/K2,
+    'kernel' gives K3/K4. 'outside' (K5-K7) is not ported and raises; it never runs
+    another pair in its place."""
+    if pe_mode in (None, "kernel_t"):
+        return "kernel_t"
+    if pe_mode == "kernel":
+        return "kernel"
+    if pe_mode == "outside":
+        raise NotImplementedError(
+            "pallas_pe_mode 'outside' needs K5-K7 (_fwd_kernel_pe, _bwd_kernel_pe, "
+            "make_pe_pallas), which are not ported yet: ROADMAP.md queue 2")
+    raise ValueError(f"unknown pallas_pe_mode {pe_mode!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -277,26 +301,26 @@ def _block(w_all: torch.Tensor, layer: Layer) -> torch.Tensor:
 
 
 def _embeddings(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor, rnd):
-    """Point embedding [P, EP] and per-point viewdir embedding [P, EDP], rounded."""
+    """Point embedding [P, EP] and per-point viewdir embedding [P, EDP] of a K1/K2
+    query (pts [N, S, 3], viewdirs [N, 3]): the viewdir embedding per ray, repeated."""
     N, S, _ = pts.shape
     e = rnd(_embedding(pts.reshape(N * S, 3).float(), packed.multires, packed.ep))
     ed = rnd(view_embedding(packed, viewdirs.float())).repeat_interleave(S, dim=0)
     return e, ed
 
 
-def fused_query_ref(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor,
-                    act_dtype=torch.float32) -> torch.Tensor:
-    """The forward kernel's function in torch ops over the same packed layout.
+def _embeddings_kpe(packed: Packed, pts: torch.Tensor, dirs: torch.Tensor, rnd):
+    """The same of a K3/K4 query (pts, dirs [P, 3]): each point's own direction
+    embedded, as the JAX package's ``_embed_pair``."""
+    e = rnd(_embedding(pts.float(), packed.multires, packed.ep))
+    ed = rnd(_embedding(dirs.float(), packed.multires_views, packed.edp))
+    return e, ed
 
-    pts [N, S, 3], viewdirs [N, 3] -> raw [N, S, 4+C] fp32. With
-    ``act_dtype=float32`` this is the CPU path and the fp32 yardstick. With
-    ``bfloat16`` it rounds embeddings, weights and post-ReLU activations to bf16
-    where the kernel does and keeps fp32 products and sums, so it differs from the
-    kernel only in the order of the fp32 sums (run it with TF32 off)."""
-    N, S, _ = pts.shape
+
+def _walk_fwd(packed: Packed, e: torch.Tensor, ed: torch.Tensor, act_dtype) -> torch.Tensor:
+    """The layer table over the embeddings e [P, EP], ed [P, EDP] -> raw [P, 4+C]."""
     rnd = _rounder(act_dtype)
     w_all = _weights(packed, act_dtype)
-    e, ed = _embeddings(packed, pts, viewdirs, rnd)
     h = sigma = None
     for layer in packed.layers:
         w = _block(w_all, layer)
@@ -312,9 +336,32 @@ def fused_query_ref(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor,
         if layer.kind == "out":
             out = a @ w + b
             out[:, 3:4] = sigma
-            return out[:, :packed.c4].reshape(N, S, packed.c4)
+            return out[:, :packed.c4]
         h = rnd(torch.relu(a @ w + b))
     raise ValueError("packed layer table has no output layer")
+
+
+def fused_query_ref(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor,
+                    act_dtype=torch.float32) -> torch.Tensor:
+    """K1's function in torch ops over the same packed layout.
+
+    pts [N, S, 3], viewdirs [N, 3] -> raw [N, S, 4+C] fp32. With
+    ``act_dtype=float32`` this is the CPU path and the fp32 yardstick. With
+    ``bfloat16`` it rounds embeddings, weights and post-ReLU activations to bf16
+    where the kernel does and keeps fp32 products and sums, so it differs from the
+    kernel only in the order of the fp32 sums (run it with TF32 off)."""
+    N, S, _ = pts.shape
+    e, ed = _embeddings(packed, pts, viewdirs, _rounder(act_dtype))
+    return _walk_fwd(packed, e, ed, act_dtype).reshape(N, S, packed.c4)
+
+
+def fused_query_kpe_ref(packed: Packed, pts: torch.Tensor, dirs: torch.Tensor,
+                        act_dtype=torch.float32) -> torch.Tensor:
+    """K3's function: pts [P, 3], dirs [P, 3] (one direction per point) -> raw
+    [P, 4+C] fp32, the layer walk of ``fused_query_ref`` over ``_embed_pair``'s
+    embeddings, with the same roundings per ``act_dtype``."""
+    e, ed = _embeddings_kpe(packed, pts, dirs, _rounder(act_dtype))
+    return _walk_fwd(packed, e, ed, act_dtype)
 
 
 def _split_layers(packed: Packed):
@@ -325,23 +372,13 @@ def _split_layers(packed: Packed):
     return trunk, sig, head, out
 
 
-def fused_query_bwd_ref(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor,
-                        g: torch.Tensor, act_dtype=torch.float32):
-    """The backward kernel's function in torch ops: the parameter cotangents
-    ``(dw, db)`` of ``fused_query`` in ``Packed.w`` / ``Packed.b`` layout, fp32, for
-    the output cotangent g [N, S, 4+C]. It walks the layer table as the JAX package's
-    ``_backward_core`` walks its layers: out, head, sigma, then the trunk in reverse
-    through the ReLU masks. Only the head's rgb columns and sigma send a cotangent
-    into the trunk (the instance head's detach); nothing goes into ``ed``.
-
-    With ``bfloat16`` it rounds where the kernel does: embeddings, weights and
-    activations, and each cotangent once before it enters a product. Bias gradients
-    are sums of the unrounded fp32 cotangents either way."""
+def _walk_bwd(packed: Packed, e: torch.Tensor, ed: torch.Tensor, g: torch.Tensor, act_dtype):
+    """Parameter cotangents (dw, db) over the embeddings e [P, EP], ed [P, EDP] for the
+    output cotangent g [P, 4+C]: the JAX package's ``_backward_core``."""
     rnd = _rounder(act_dtype)
     w_all = _weights(packed, act_dtype)
     trunk, sig, head, out = _split_layers(packed)
     W, hr = packed.width, packed.hr
-    e, ed = _embeddings(packed, pts, viewdirs, rnd)
     P = e.shape[0]
 
     ins, hs = [], []   # each trunk layer's input and post-ReLU output
@@ -389,25 +426,50 @@ def fused_query_bwd_ref(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tenso
     return dw, db
 
 
+def fused_query_bwd_ref(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor,
+                        g: torch.Tensor, act_dtype=torch.float32):
+    """K2's function in torch ops: the parameter cotangents ``(dw, db)`` of
+    ``fused_query`` in ``Packed.w`` / ``Packed.b`` layout, fp32, for the output
+    cotangent g [N, S, 4+C]. It walks the layer table as the JAX package's
+    ``_backward_core`` walks its layers: out, head, sigma, then the trunk in reverse
+    through the ReLU masks. Only the head's rgb columns and sigma send a cotangent
+    into the trunk (the instance head's detach); nothing goes into ``ed``.
+
+    With ``bfloat16`` it rounds where the kernel does: embeddings, weights and
+    activations, and each cotangent once before it enters a product. Bias gradients
+    are sums of the unrounded fp32 cotangents either way."""
+    e, ed = _embeddings(packed, pts, viewdirs, _rounder(act_dtype))
+    return _walk_bwd(packed, e, ed, g, act_dtype)
+
+
+def fused_query_kpe_bwd_ref(packed: Packed, pts: torch.Tensor, dirs: torch.Tensor,
+                            g: torch.Tensor, act_dtype=torch.float32):
+    """K4's function: ``fused_query_bwd_ref``'s walk for pts, dirs [P, 3] and the
+    output cotangent g [P, 4+C], over ``_embed_pair``'s embeddings. Nothing goes into
+    ``pts`` or ``dirs`` (the JAX package returns zeros for them)."""
+    e, ed = _embeddings_kpe(packed, pts, dirs, _rounder(act_dtype))
+    return _walk_bwd(packed, e, ed, g, act_dtype)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
 def _check_kernel_inputs(name: str, packed: Packed, pts: torch.Tensor,
-                         viewdirs: torch.Tensor) -> None:
+                         dirs: torch.Tensor) -> None:
+    """Device, types and contiguity of a launch, and the packed table's fit to the
+    kernels' tiling. ``dirs`` is the per-ray viewdirs (K1, K2) or the per-point
+    directions (K3, K4); the callers check the shapes."""
     dev = pts.device
     if torch.cuda.get_device_capability(dev) != (9, 0):
         raise RuntimeError(f"{name} is built for sm_90a; device {dev} is "
                            f"sm_{''.join(map(str, torch.cuda.get_device_capability(dev)))}")
-    for what, t, dt in (("pts", pts, torch.float32), ("viewdirs", viewdirs, torch.float32),
+    for what, t, dt in (("pts", pts, torch.float32), ("viewdirs", dirs, torch.float32),
                         ("packed.w_bf16", packed.w_bf16, torch.bfloat16),
                         ("packed.b", packed.b, torch.float32)):
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{what}: want a contiguous {dt} tensor on {dev}, got "
                              f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
-    if pts.dim() != 3 or pts.shape[-1] != 3 or viewdirs.shape != (pts.shape[0], 3):
-        raise ValueError(f"want pts [N, S, 3] and viewdirs [N, 3], got "
-                         f"{tuple(pts.shape)} and {tuple(viewdirs.shape)}")
     if packed.edp + packed.width + packed.ep > _ACT_COLS or packed.width % 16:
         raise ValueError(f"kernel holds [ed | h | e] rows of at most {_ACT_COLS} columns with "
                          f"W % 16 == 0; got {packed.edp} + {packed.width} + {packed.ep}")
@@ -420,6 +482,18 @@ def _check_kernel_inputs(name: str, packed: Packed, pts: torch.Tensor,
                              f"within {_ACT_COLS} activation columns: {layer}")
 
 
+def _check_ray_shapes(pts: torch.Tensor, viewdirs: torch.Tensor) -> None:
+    if pts.dim() != 3 or pts.shape[-1] != 3 or viewdirs.shape != (pts.shape[0], 3):
+        raise ValueError(f"want pts [N, S, 3] and viewdirs [N, 3], got "
+                         f"{tuple(pts.shape)} and {tuple(viewdirs.shape)}")
+
+
+def _check_point_shapes(pts: torch.Tensor, dirs: torch.Tensor) -> None:
+    if pts.dim() != 2 or pts.shape[-1] != 3 or dirs.shape != pts.shape:
+        raise ValueError(f"want pts [P, 3] and dirs [P, 3], got "
+                         f"{tuple(pts.shape)} and {tuple(dirs.shape)}")
+
+
 def _layer_table(layers, extra=lambda layer: ()) -> list:
     table = []
     for layer in layers:
@@ -427,35 +501,60 @@ def _layer_table(layers, extra=lambda layer: ()) -> list:
     return table
 
 
+def _launch_fwd(name: str, packed: Packed, pts: torch.Tensor, ed_src: torch.Tensor,
+                P: int, S: int) -> torch.Tensor:
+    """One launch of K1 (``ed_src`` the per-ray viewdir embedding [P / S, EDP] bf16) or
+    K3 (``ed_src`` the directions [P, 3] fp32); returns raw [P, 4+C]."""
+    out = torch.empty((P, packed.c4), dtype=torch.float32, device=pts.device)
+    if P == 0:
+        return out
+    table = _layer_table(packed.layers, lambda layer: (_EPI.get(layer.kind, 0),))
+    c_table = (ctypes.c_int * len(table))(*table)
+    fn = getattr(runtime.load(name), f"dmnerf_{name}")
+    stream = torch.cuda.current_stream(pts.device).cuda_stream
+    common = (packed.w_bf16.data_ptr(), packed.b.data_ptr(), out.data_ptr(), P)
+    dims = (packed.edp, packed.edp + packed.width, packed.ep, packed.c4)
+    if name == "fused_mlp_fwd":
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p] \
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        args = (pts.data_ptr(), ed_src.data_ptr(), *common, S, c_table, len(packed.layers),
+                packed.multires, *dims, stream)
+    else:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p] \
+            + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        args = (pts.data_ptr(), ed_src.data_ptr(), *common, c_table, len(packed.layers),
+                packed.multires, packed.multires_views, *dims, stream)
+    fn.restype = ctypes.c_int
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    runtime.LAUNCHES[name] += 1
+    return out
+
+
 def _forward(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
-    """Forward routing: the fp32 plain version for CPU tensors, K1 for CUDA tensors."""
+    """K1 routing: the fp32 plain version for CPU tensors, the kernel for CUDA tensors.
+    pts [N, S, 3], viewdirs [N, 3] -> raw [N, S, 4+C]."""
     if pts.device.type == "cpu":
         return fused_query_ref(packed, pts, viewdirs, torch.float32)
     _check_kernel_inputs("fused_mlp_fwd", packed, pts, viewdirs)
+    _check_ray_shapes(pts, viewdirs)
     N, S, _ = pts.shape
-    P = N * S
     edr = view_embedding(packed, viewdirs).to(torch.bfloat16).contiguous()
-    out = torch.empty((P, packed.c4), dtype=torch.float32, device=pts.device)
-    if P == 0:
-        return out.reshape(N, S, packed.c4)
-    table = _layer_table(packed.layers, lambda layer: (_EPI.get(layer.kind, 0),))
-    c_table = (ctypes.c_int * len(table))(*table)
-    lib = runtime.load("fused_mlp_fwd")
-    fn = lib.dmnerf_fused_mlp_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p] \
-        + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(pts.data_ptr(), edr.data_ptr(), packed.w_bf16.data_ptr(), packed.b.data_ptr(),
-             out.data_ptr(), P, S, c_table, len(packed.layers), packed.multires,
-             packed.edp, packed.edp + packed.width, packed.ep, packed.c4,
-             torch.cuda.current_stream(pts.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_mlp_fwd launch failed: cudaError {err}")
-    runtime.LAUNCHES["fused_mlp_fwd"] += 1
-    return out.reshape(N, S, packed.c4)
+    return _launch_fwd("fused_mlp_fwd", packed, pts, edr, N * S, S).reshape(N, S, packed.c4)
 
 
-# tiling of csrc/fused_mlp_bwd.cu's dW kernel
+def _forward_kpe(packed: Packed, pts: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """K3 routing: the fp32 plain version for CPU tensors, the kernel for CUDA tensors.
+    pts [P, 3], dirs [P, 3] -> raw [P, 4+C]."""
+    if pts.device.type == "cpu":
+        return fused_query_kpe_ref(packed, pts, dirs, torch.float32)
+    _check_kernel_inputs("fused_mlp_fwd_kpe", packed, pts, dirs)
+    _check_point_shapes(pts, dirs)
+    return _launch_fwd("fused_mlp_fwd_kpe", packed, pts, dirs, pts.shape[0], 1)
+
+
+# tiling of csrc/fused_mlp_bwd.cuh's dW kernel
 _DW_TILE_F, _DW_TILE_N, _DW_POINTS = 128, 128, 32
 _DW_CTAS_PER_SM = 4
 
@@ -473,16 +572,22 @@ def _flat(blocks: Sequence[torch.Tensor]):
     return torch.cat(parts), offs
 
 
-def _bwd_plan(packed: Packed, N: int, S: int, n_sms: int):
-    """Host tables of csrc/fused_mlp_bwd.cu: the stash and cotangent layouts, the
-    transposed weight blocks of the backward-data walk, and the dW jobs."""
+def _bwd_plan(packed: Packed, N: int, S: int, n_sms: int, per_point_dirs: bool = False):
+    """Host tables of csrc/fused_mlp_bwd.cuh: the stash and cotangent layouts, the
+    transposed weight blocks of the backward-data walk, and the dW jobs. With
+    ``per_point_dirs`` (K4) the stash also holds each point's viewdir embedding, which
+    the head's dW job reads in place of K2's per-ray table."""
     trunk, sig, head, out = _split_layers(packed)
     P, W, ep, edp, hr = N * S, packed.width, packed.ep, packed.edp, packed.hr
     if hr % 16 or hr + 16 > _N_MAX:
         raise ValueError(f"backward kernel wants the rgb hidden width % 16 == 0 and "
                          f"<= {_N_MAX - 16}, got {hr}")
-    # stash (bf16): e [P, EP], each trunk layer's output [P, W], the head's [P, nh]
+    # stash (bf16): e [P, EP], (K4) ed [P, EDP], each trunk layer's output [P, W], the
+    # head's [P, nh]
     e_off, off = 0, P * ep
+    ed_off = -1
+    if per_point_dirs:
+        ed_off, off = off, off + P * edp
     h_off = []
     for _ in trunk:
         h_off.append(off)
@@ -507,7 +612,8 @@ def _bwd_plan(packed: Packed, N: int, S: int, n_sms: int):
     for k, i in enumerate(range(D - 1, 0, -1)):
         steps.append((W, W, wt_off[2 + k], h_off[i - 1], dpre_off[i - 1], trunk[i - 1].b_off, 0))
 
-    # dW jobs: A = up to two column segments (src 0 stash, 1 edr; off, ld, width, row div)
+    # dW jobs: A = up to two column segments (src 0 stash, 1 K2's per-ray table; off,
+    # width, ld, row div)
     def seg(src, o, width, div=1):
         return (src, o, width, width, div)
     none = (0, 0, 0, 0, 1)
@@ -521,7 +627,8 @@ def _bwd_plan(packed: Packed, N: int, S: int, n_sms: int):
             segs = (seg(0, h_off[i - 1], W), none)
         jobs.append((layer, segs))
     jobs += [(sig, (seg(0, h_off[D - 1], W), none)),
-             (head, (seg(1, 0, edp, S), seg(0, h_off[D - 1], W))),
+             (head, (seg(0, ed_off, edp) if per_point_dirs else seg(1, 0, edp, S),
+                     seg(0, h_off[D - 1], W))),
              (out, (seg(0, head_off, head.N), none))]
     dw_rows, n_tiles = [], 0
     for layer, segs in jobs:
@@ -538,33 +645,31 @@ def _bwd_plan(packed: Packed, N: int, S: int, n_sms: int):
     header = [P, S, packed.multires, edp, edp + W, ep, packed.c4, out.N, hr,
               packed.b.numel(), packed.w.numel(), out.b_off, sig.b_off,
               dpre_off[li[out]], dpre_off[li[sig]], n_chunks, chunk,
-              D + 1, len(steps), len(jobs)]
+              D + 1, len(steps), len(jobs), packed.multires_views, ed_off]
     table = header + fwd + [v for st in steps for v in st] + dw_rows
     return dict(table=table, wt=wt, stash_size=stash_size, dpre_size=dpre_size,
                 n_chunks=n_chunks)
 
 
-def fused_query_bwd(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor,
-                    g: torch.Tensor):
-    """Parameter cotangents ``(dw, db)`` of ``fused_query`` for the output cotangent
-    g [N, S, 4+C] fp32, in ``Packed.w`` / ``Packed.b`` layout. CUDA tensors go
-    through the Hopper kernel (K2), CPU tensors through ``fused_query_bwd_ref`` in
-    fp32; there is no fallback from one to the other."""
-    if pts.device.type == "cpu":
-        return fused_query_bwd_ref(packed, pts, viewdirs, g, torch.float32)
-    _check_kernel_inputs("fused_mlp_bwd", packed, pts, viewdirs)
-    N, S, _ = pts.shape
-    if g.shape != (N, S, packed.c4) or g.dtype != torch.float32 or g.device != pts.device \
+def _check_cotangent(g: torch.Tensor, shape, device) -> None:
+    if g.shape != shape or g.dtype != torch.float32 or g.device != device \
             or not g.is_contiguous():
-        raise ValueError(f"g: want a contiguous float32 [{N}, {S}, {packed.c4}] tensor on "
-                         f"{pts.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
+        raise ValueError(f"g: want a contiguous float32 {list(shape)} tensor on {device}, "
+                         f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+
+
+def _launch_bwd(name: str, packed: Packed, pts: torch.Tensor, ed_src: torch.Tensor,
+                g: torch.Tensor, N: int, S: int):
+    """One call of K2 (``ed_src`` the per-ray viewdir embedding [N, EDP] bf16, S points
+    a ray) or K4 (``ed_src`` the directions [P, 3] fp32, S = 1): its five device
+    launches, and (dw, db)."""
     dev = pts.device
     dw = torch.zeros(packed.w.shape, dtype=torch.float32, device=dev)
     db = torch.zeros(packed.b.shape, dtype=torch.float32, device=dev)
     if N * S == 0:
         return dw, db
-    plan = _bwd_plan(packed, N, S, torch.cuda.get_device_properties(dev).multi_processor_count)
-    edr = view_embedding(packed, viewdirs).to(torch.bfloat16).contiguous()
+    plan = _bwd_plan(packed, N, S, torch.cuda.get_device_properties(dev).multi_processor_count,
+                     per_point_dirs=name == "fused_mlp_bwd_kpe")
     stash = torch.empty(plan["stash_size"], dtype=torch.bfloat16, device=dev)
     dpre = torch.empty(plan["dpre_size"], dtype=torch.bfloat16, device=dev)
     n_ctas = -(-(N * S) // 128)
@@ -572,43 +677,93 @@ def fused_query_bwd(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor,
     dwpart = torch.empty((plan["n_chunks"], dw.numel()), dtype=torch.float32, device=dev)
     table = plan["table"]
     c_table = (ctypes.c_longlong * len(table))(*table)
-    fn = runtime.load("fused_mlp_bwd").dmnerf_fused_mlp_bwd
+    fn = getattr(runtime.load(name), f"dmnerf_{name}")
     fn.argtypes = [ctypes.c_void_p] * 14
     fn.restype = ctypes.c_int
-    err = fn(pts.data_ptr(), edr.data_ptr(), packed.w_bf16.data_ptr(), packed.b.data_ptr(),
+    err = fn(pts.data_ptr(), ed_src.data_ptr(), packed.w_bf16.data_ptr(), packed.b.data_ptr(),
              plan["wt"].data_ptr(), g.data_ptr(), stash.data_ptr(), dpre.data_ptr(),
              dbpart.data_ptr(), dwpart.data_ptr(), dw.data_ptr(), db.data_ptr(),
              ctypes.addressof(c_table), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"fused_mlp_bwd launch failed: cudaError {err}")
-    runtime.LAUNCHES["fused_mlp_bwd"] += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    runtime.LAUNCHES[name] += 1
     return dw, db
+
+
+def fused_query_bwd(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor,
+                    g: torch.Tensor):
+    """Parameter cotangents ``(dw, db)`` of the K1 query for the output cotangent
+    g [N, S, 4+C] fp32, in ``Packed.w`` / ``Packed.b`` layout. CUDA tensors go
+    through the Hopper kernel (K2), CPU tensors through ``fused_query_bwd_ref`` in
+    fp32; there is no fallback from one to the other."""
+    if pts.device.type == "cpu":
+        return fused_query_bwd_ref(packed, pts, viewdirs, g, torch.float32)
+    _check_kernel_inputs("fused_mlp_bwd", packed, pts, viewdirs)
+    _check_ray_shapes(pts, viewdirs)
+    N, S, _ = pts.shape
+    _check_cotangent(g, (N, S, packed.c4), pts.device)
+    edr = view_embedding(packed, viewdirs).to(torch.bfloat16).contiguous()
+    return _launch_bwd("fused_mlp_bwd", packed, pts, edr, g, N, S)
+
+
+def fused_query_kpe_bwd(packed: Packed, pts: torch.Tensor, dirs: torch.Tensor,
+                        g: torch.Tensor):
+    """Parameter cotangents ``(dw, db)`` of the K3 query (pts, dirs [P, 3]) for the
+    output cotangent g [P, 4+C] fp32. CUDA tensors go through the Hopper kernel (K4),
+    CPU tensors through ``fused_query_kpe_bwd_ref`` in fp32; there is no fallback."""
+    if pts.device.type == "cpu":
+        return fused_query_kpe_bwd_ref(packed, pts, dirs, g, torch.float32)
+    _check_kernel_inputs("fused_mlp_bwd_kpe", packed, pts, dirs)
+    _check_point_shapes(pts, dirs)
+    P = pts.shape[0]
+    _check_cotangent(g, (P, packed.c4), pts.device)
+    return _launch_bwd("fused_mlp_bwd_kpe", packed, pts, dirs, g, P, 1)
+
+
+def _point_dirs(viewdirs: torch.Tensor, S: int) -> torch.Tensor:
+    """Per-ray viewdirs [N, 3] broadcast to one direction per point [N * S, 3], as the
+    JAX package's 'kernel' query does (``dmnerf_tpu/kernels/fused_mlp.py:918``)."""
+    return viewdirs[:, None, :].expand(viewdirs.shape[0], S, 3).reshape(-1, 3).contiguous()
 
 
 class _FusedQuery(torch.autograd.Function):
     """raw = query(w, b): differentiable in ``Packed.w`` and ``Packed.b`` only. The
     points and viewdirs get no cotangent, as in the JAX package, whose callers stop
-    their gradient (``dmnerf_tpu/kernels/fused_mlp.py:905``)."""
+    their gradient (``dmnerf_tpu/kernels/fused_mlp.py:905``) or whose backward
+    returns zeros for them (:819-820). ``pe_mode`` picks the pair: 'kernel_t' K1/K2,
+    'kernel' K3/K4 over per-point directions."""
 
     @staticmethod
-    def forward(ctx, w, b, packed, pts, viewdirs):
-        ctx.packed = packed
+    def forward(ctx, w, b, packed, pts, viewdirs, pe_mode):
+        ctx.packed, ctx.pe_mode = packed, pe_mode
         ctx.save_for_backward(pts, viewdirs)
-        return _forward(packed, pts, viewdirs)
+        if pe_mode == "kernel_t":
+            return _forward(packed, pts, viewdirs)
+        N, S, _ = pts.shape
+        raw = _forward_kpe(packed, pts.reshape(N * S, 3), _point_dirs(viewdirs, S))
+        return raw.reshape(N, S, packed.c4)
 
     @staticmethod
     def backward(ctx, g):
         pts, viewdirs = ctx.saved_tensors
-        dw, db = fused_query_bwd(ctx.packed, pts, viewdirs, g.contiguous())
-        return dw, db, None, None, None
+        packed = ctx.packed
+        if ctx.pe_mode == "kernel_t":
+            dw, db = fused_query_bwd(packed, pts, viewdirs, g.contiguous())
+        else:
+            N, S, _ = pts.shape
+            dw, db = fused_query_kpe_bwd(packed, pts.reshape(N * S, 3), _point_dirs(viewdirs, S),
+                                         g.reshape(N * S, packed.c4).contiguous())
+        return dw, db, None, None, None, None
 
 
-def fused_query(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
+def fused_query(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor,
+                pe_mode=None) -> torch.Tensor:
     """Point query pts [N, S, 3], viewdirs [N, 3] -> raw [N, S, 4+C] fp32.
 
-    CUDA tensors go through the Hopper kernels (K1 forward, K2 backward), CPU
-    tensors through their fp32 plain versions; there is no fallback from one to the
-    other. Gradients flow into ``packed.w`` and ``packed.b`` when they require one;
-    under ``torch.no_grad`` (the render path) nothing is recorded and the backward
-    kernel never runs."""
-    return _FusedQuery.apply(packed.w, packed.b, packed, pts, viewdirs)
+    ``pe_mode`` (``resolve_pe_mode``) picks the kernel pair: None or 'kernel_t' K1
+    forward / K2 backward, 'kernel' K3 / K4. CUDA tensors go through the Hopper
+    kernels, CPU tensors through their fp32 plain versions; there is no fallback from
+    one to the other. Gradients flow into ``packed.w`` and ``packed.b`` when they
+    require one; under ``torch.no_grad`` (the render path) nothing is recorded and
+    the backward kernel never runs."""
+    return _FusedQuery.apply(packed.w, packed.b, packed, pts, viewdirs, resolve_pe_mode(pe_mode))

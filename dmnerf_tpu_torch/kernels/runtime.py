@@ -1,10 +1,11 @@
 """Build, load and count the hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` is compiled with nvcc for ``sm_90a`` into a shared library
-with a plain C interface and loaded with ctypes. The build happens at first use,
-into ``build/kernels/`` at the root of the checkout, under a file name keyed by a
-hash of the source and the flags, so an edited source is rebuilt and an unchanged
-one is not. Nothing is built or loaded when a module is imported.
+with a plain C interface and loaded with ctypes. The sources of a kernel pair share
+their code through the headers ``csrc/*.cuh``. The build happens at first use, into
+``build/kernels/`` at the root of the checkout, under a file name keyed by a hash of
+the source, the headers and the flags, so an edited source or header is rebuilt and
+an unchanged one is not. Nothing is built or loaded when a module is imported.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run resets it with
 ``reset_launches()`` and reads it afterwards to show which kernels ran.
@@ -25,7 +26,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-KERNELS = ("fused_mlp_fwd", "fused_mlp_bwd")
+# K1, K2 (pe_mode 'kernel_t') and K3, K4 (pe_mode 'kernel')
+KERNELS = ("fused_mlp_fwd", "fused_mlp_bwd", "fused_mlp_fwd_kpe", "fused_mlp_bwd_kpe")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -48,6 +50,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -1,9 +1,13 @@
 """Evaluation entry point (``dmnerf_tpu/test.py``), dispatched on config flags.
 
-``render`` renders the test views and evaluates them. The other modes of the JAX
-entry point (``mani_eval``, ``mani_demo``, ``mesh``) are not ported yet and raise.
+``render`` renders the test views and evaluates them; ``mani_eval`` renders the
+manipulated test views of ``mani_mode`` against the manipulated ground truth
+(``indoor_{mani_mode}_test``); ``mani_demo`` renders the objects of objs_info.json
+moving over ``views`` frames. ``mesh`` is not ported yet and raises. The query's
+kernel pair follows ``pallas_pe_mode``.
 
 Usage:  python -m dmnerf_tpu_torch.test --config configs/test/dmsr/study.txt [key=value ...]
+        [--device cpu]    (default: the CUDA card; without one it raises)
 """
 
 from __future__ import annotations
@@ -23,8 +27,6 @@ from dmnerf_tpu_torch.utils.checkpoint import load_checkpoint, resolve_ckpt_path
 from dmnerf_tpu_torch.utils.device import resolve_device
 
 _NOT_PORTED = {
-    "mani_eval": "ROADMAP.md queue 1, 'Manipulation'",
-    "mani_demo": "ROADMAP.md queue 1, 'Manipulation'",
     "mesh": "ROADMAP.md queue 1, 'Mesh'",
 }
 
@@ -93,7 +95,12 @@ def run_test(cfg: Config, device=None) -> None:
     for mode, item in _NOT_PORTED.items():
         if getattr(cfg, mode):
             raise NotImplementedError(f"test mode {mode!r} is not ported yet ({item})")
-    scene = load_scene(cfg)
+    if cfg.mani_eval:
+        from dmnerf_tpu_torch.data.dmsr_mani import load_dmsr_mani
+
+        scene = load_dmsr_mani(cfg)
+    else:
+        scene = load_scene(cfg)
     cfg = cfg.replace(ins_num=scene.ins_num, perturb=0.0)
     params_coarse, params_fine, iteration = load_params(cfg, device)
     color_dict = load_color_dict(cfg)
@@ -110,12 +117,52 @@ def run_test(cfg: Config, device=None) -> None:
             color_dict=color_dict, device=device,
         )
         print("Rendering Done", savedir)
+
+    elif cfg.mani_eval:
+        from dmnerf_tpu_torch.data.dmsr_mani import load_mani_poses
+        from dmnerf_tpu_torch.render.mani_eval import manipulator_eval
+        from dmnerf_tpu_torch.tools.pose_gen import generate_poses_eval
+
+        generate_poses_eval(cfg)
+        savedir = os.path.join(cfg.log_dir, f"mani_eval_{iteration:06d}")
+        os.makedirs(savedir, exist_ok=True)
+        manipulator_eval(
+            cfg, params_coarse, params_fine, scene.poses, scene.hwk,
+            trans_dicts=load_mani_poses(cfg.datadir), save_dir=savedir,
+            ins_rgbs=scene.ins_rgbs, gt_rgbs=scene.images, gt_labels=scene.gt_labels,
+            color_dict=color_dict, device=device,
+        )
+        print("Manipulating Done", savedir)
+
+    elif cfg.mani_demo:
+        from dmnerf_tpu_torch.data.dmsr_mani import load_obj_poses
+        from dmnerf_tpu_torch.render.mani_eval import manipulator_demo
+        from dmnerf_tpu_torch.tools.pose_gen import generate_poses_demo
+
+        generate_poses_demo(scene.objs, cfg)
+        savedir = os.path.join(cfg.log_dir, f"mani_demo_{iteration:06d}")
+        os.makedirs(savedir, exist_ok=True)
+        manipulator_demo(
+            cfg, params_coarse, params_fine, scene.hwk,
+            objs_trans=load_obj_poses(cfg.datadir), save_dir=savedir,
+            ins_rgbs=scene.ins_rgbs, objs=scene.objs, view_poses=scene.view_poses,
+            ins_map=scene.ins_map, color_dict=color_dict, device=device,
+        )
+        print("Manipulating Done", savedir)
     else:
         print("no eval mode selected (render / mani_eval / mani_demo / mesh)")
 
 
 def main(argv=None):
-    run_test(parse_cli(sys.argv[1:] if argv is None else argv))
+    argv = list(sys.argv[1:] if argv is None else argv)
+    device = None
+    if "--device" in argv:
+        i = argv.index("--device")
+        if i + 1 == len(argv):
+            raise SystemExit("--device needs a value, e.g. --device cpu")
+        device = argv[i + 1]
+        del argv[i:i + 2]
+    run_test(parse_cli(argv), device)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: each against its plain version, at narrow
-widths and at the flagship's, with ragged point counts; the backward kernel's
-instance-head wall and its bit-identical repeats. These tests need a CUDA card
-of capability 9.0 and skip without one; they import no JAX, so they run on a machine
-that has none:
+widths and at the flagship's, with ragged point counts; the backward kernels'
+instance-head wall and their bit-identical repeats. K1/K2 take per-ray viewdirs
+(pe_mode 'kernel_t'), K3/K4 per-point directions (pe_mode 'kernel'). These tests
+need a CUDA card of capability 9.0 and skip without one; they import no JAX, so they
+run on a machine that has none:
 
     python -m pytest tests/test_torch_cuda.py -q
 """
@@ -12,10 +13,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from dmnerf_tpu_torch.core.mlp import init_dm_nerf, sigma_stub_params  # noqa: E402
+from dmnerf_tpu_torch.core.mlp import init_dm_nerf, rgb_stub_params, sigma_stub_params  # noqa: E402
 from dmnerf_tpu_torch.kernels import runtime  # noqa: E402
 from dmnerf_tpu_torch.kernels.fused_mlp import (  # noqa: E402
-    fused_query, fused_query_bwd, fused_query_bwd_ref, fused_query_ref, pack_params)
+    _forward_kpe, _point_dirs, fused_query, fused_query_bwd, fused_query_bwd_ref,
+    fused_query_kpe_bwd, fused_query_kpe_bwd_ref, fused_query_kpe_ref, fused_query_ref,
+    pack_params)
 
 SHAPES = [
     # (multires, multires_views, D, W, skips, ins_num, N, S)
@@ -137,7 +140,8 @@ def test_fused_mlp_bwd_wall(cuda):
     runtime.reset_launches()
     raw = fused_query(pack_params(params, *args), pts, dirs)
     raw[..., 4:].sum().backward()
-    assert runtime.LAUNCHES == {"fused_mlp_fwd": 1, "fused_mlp_bwd": 1}
+    assert runtime.LAUNCHES == {"fused_mlp_fwd": 1, "fused_mlp_bwd": 1, "fused_mlp_fwd_kpe": 0,
+                                "fused_mlp_bwd_kpe": 0}
     for k, v in params.items():
         if k.startswith(("trunk_", "rgb_", "density")):
             assert v.grad is None or int(torch.count_nonzero(v.grad)) == 0, k
@@ -150,4 +154,84 @@ def test_fused_mlp_bwd_repeats_bit_identical(cuda):
     g = _cotangent(packed, pts, seed=3)
     first = fused_query_bwd(packed, pts, dirs, g)
     second = fused_query_bwd(packed, pts, dirs, g)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+def _flat(pts, dirs):
+    """The K3/K4 inputs of a [N, S] query: pts [P, 3] and one direction per point."""
+    return pts.reshape(-1, 3).contiguous(), _point_dirs(dirs, pts.shape[1])
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fused_mlp_fwd_kpe_matches_plain(cuda, shape):
+    params, args, pts, dirs = _inputs(shape, cuda)
+    for p in (params, rgb_stub_params(params)):
+        packed = pack_params(p, *args)
+        fp, fd = _flat(pts, dirs)
+        runtime.reset_launches()
+        got = _forward_kpe(packed, fp, fd)
+        torch.cuda.synchronize()
+        assert runtime.LAUNCHES["fused_mlp_fwd_kpe"] == 1 and runtime.LAUNCHES["fused_mlp_fwd"] == 0
+        ref32 = fused_query_kpe_ref(packed, fp, fd, torch.float32)
+        ref16 = fused_query_kpe_ref(packed, fp, fd, torch.bfloat16)
+        assert got.shape == ref32.shape and torch.isfinite(got).all()
+        scale = float(ref32.abs().max())
+        assert float((got - ref32).abs().max()) <= 5e-3 * max(scale, 1.0)
+        assert float((got - ref16).abs().max()) <= 1e-3 * max(scale, 1.0)
+        # through fused_query, and against K1 on the same rays (the same function)
+        via = fused_query(packed, pts, dirs, "kernel")
+        assert torch.equal(via.reshape(-1, packed.c4), got)
+        k1 = fused_query(packed, pts, dirs)
+        assert float((k1.reshape(-1, packed.c4) - got).abs().max()) <= 1e-3 * max(scale, 1.0)
+
+
+@pytest.mark.parametrize("shape", SHAPES[:1])
+def test_fused_mlp_fwd_kpe_stub_sigma_exact(cuda, shape):
+    params, args, pts, dirs = _inputs(shape, cuda, seed=1)
+    fp, fd = _flat(pts, dirs)
+    full = _forward_kpe(pack_params(params, *args), fp, fd)[:, 3]
+    for stub in (sigma_stub_params(params), rgb_stub_params(params)):
+        got = _forward_kpe(pack_params(stub, *args), fp, fd)[:, 3]
+        assert float((got - full).abs().max()) <= 1e-5 * max(float(full.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fused_mlp_bwd_kpe_matches_plain(cuda, shape):
+    """K4 against its bf16 plain version, block by packed layer, as K2's test: within
+    5e-3 of each block's scale (the same roundings, another order of fp32 sums)."""
+    params, args, pts, dirs = _inputs(shape, cuda)
+    packed = pack_params(params, *args)
+    fp, fd = _flat(pts, dirs)
+    g = _cotangent(packed, pts).reshape(-1, packed.c4)
+    runtime.reset_launches()
+    got = fused_query_kpe_bwd(packed, fp, fd, g)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["fused_mlp_bwd_kpe"] == 1 and runtime.LAUNCHES["fused_mlp_bwd"] == 0
+    assert torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
+    ref16 = fused_query_kpe_bwd_ref(packed, fp, fd, g, torch.bfloat16)
+    for layer, err, scale in _block_errs(packed, got, ref16):
+        assert err <= 5e-3 * max(scale, 1e-6), (layer, err, scale)
+
+
+def test_fused_mlp_bwd_kpe_wall_and_repeats(cuda):
+    """pe_mode 'kernel' through autograd: an instance-only loss gives exactly zero
+    trunk, rgb and density gradients (K3 forward, K4 backward, one launch each), and
+    two K4 calls on the same inputs are bit-identical."""
+    params, args, pts, dirs = _inputs(SHAPES[0], cuda, seed=2)
+    params = {k: v.requires_grad_(True) for k, v in params.items()}
+    runtime.reset_launches()
+    raw = fused_query(pack_params(params, *args), pts, dirs, "kernel")
+    raw[..., 4:].sum().backward()
+    assert runtime.LAUNCHES == {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0, "fused_mlp_fwd_kpe": 1,
+                                "fused_mlp_bwd_kpe": 1}
+    for k, v in params.items():
+        if k.startswith(("trunk_", "rgb_", "density")):
+            assert v.grad is None or int(torch.count_nonzero(v.grad)) == 0, k
+    assert float(params["ins_out_w"].grad.abs().sum()) > 0
+
+    params, args, pts, dirs = _inputs(SHAPES[2], cuda, seed=3)
+    packed = pack_params(params, *args)
+    fp, fd = _flat(pts, dirs)
+    g = _cotangent(packed, pts, seed=3).reshape(-1, packed.c4)
+    first, second = fused_query_kpe_bwd(packed, fp, fd, g), fused_query_kpe_bwd(packed, fp, fd, g)
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])

@@ -1,7 +1,8 @@
 """The port's eval entry point (dmnerf_tpu_torch.test) vs the JAX one on the CPU: render
 mode on a 32x32 DM-SR scene, from a port checkpoint converted from the JAX
 checkpoint's parameters, reproduces the JAX test_results.txt rows (LPIPS NaN on both
-sides, weights absent); plus the checkpoint resolver and the modes not ported yet."""
+sides, weights absent); plus the checkpoint resolver and the mode not ported yet
+(mesh; the manipulation modes are in tests/test_torch_manipulator.py)."""
 
 import os
 
@@ -85,7 +86,7 @@ def test_checkpoint_resolution(env, tmp_path, capsys):
     assert step == 0 and "using init params" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("mode", ["mani_eval", "mani_demo", "mesh"])
+@pytest.mark.parametrize("mode", ["mesh"])
 def test_modes_not_ported_raise(env, mode):
     _, tcfg = env
     with pytest.raises(NotImplementedError, match="ROADMAP"):

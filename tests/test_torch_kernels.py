@@ -140,8 +140,9 @@ def test_import_guard():
         "          'dmnerf_tpu_torch.objfield.penalizer', 'dmnerf_tpu_torch.data.samplers'):\n"
         "    assert m in sys.modules, m\n"
         "from dmnerf_tpu_torch.kernels import runtime\n"
-        "assert runtime.KERNELS == ('fused_mlp_fwd', 'fused_mlp_bwd')\n"
-        "assert (runtime.CSRC / 'fused_mlp_bwd.cu').exists()\n"
+        "assert runtime.KERNELS == ('fused_mlp_fwd', 'fused_mlp_bwd', 'fused_mlp_fwd_kpe',\n"
+        "                           'fused_mlp_bwd_kpe')\n"
+        "assert all((runtime.CSRC / f'{k}.cu').exists() for k in runtime.KERNELS)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'dmnerf_tpu')]\n"
         "assert not bad, bad\n"
         "print(len([k for k in sys.modules if k.startswith('dmnerf_tpu_torch')]))\n"
@@ -168,7 +169,7 @@ def test_cpu_wrapper_takes_the_plain_version():
     want_dw, want_db = tfm.fused_query_bwd_ref(packed, torch.from_numpy(pts),
                                                torch.from_numpy(dirs), torch.ones_like(got))
     assert torch.equal(dw, want_dw) and torch.equal(db, want_db)
-    assert runtime.LAUNCHES == {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0}
+    assert not any(runtime.LAUNCHES.values())
 
 
 def _tanh_loss_grads(query, params, pts, dirs):
@@ -196,7 +197,7 @@ def test_plain_backward_matches_pallas_backward(case):
     runtime.reset_launches()
     got = _tanh_loss_grads(make_fused_query_fn(mr, mrv, D, skips), _torch(jp), pts, dirs)
     plain = _tanh_loss_grads(make_torch_query_fn(mr, mrv, D, skips), _torch(jp), pts, dirs)
-    assert runtime.LAUNCHES == {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0}
+    assert not any(runtime.LAUNCHES.values())
     assert set(got) == set(want) == set(plain)
     for k in sorted(want):
         np.testing.assert_allclose(got[k], np.asarray(want[k]), **GRAD_TOL, err_msg=k)
@@ -258,7 +259,7 @@ def test_gradients_flow_and_the_render_path_stays_forward(monkeypatch):
     out = make_image_renderer(cfg)(params, params, torch.zeros(10, 3),
                                    torch.from_numpy(np.tile(dirs[:1], (10, 1))))
     assert not any(v.requires_grad for v in out.values())
-    assert runtime.LAUNCHES == {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0}
+    assert not any(runtime.LAUNCHES.values())
 
 
 def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch, tmp_path):
@@ -277,3 +278,106 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch, tmp_path):
             call()
     pc, pf = init_params(cfg, device="cpu")
     assert pc["trunk_0_w"].device.type == "cpu"
+
+
+# ---- pe_mode 'kernel': K3 / K4 plain versions against the Pallas _fwd_kernel /
+# _bwd_kernel pair (interpret mode) ----
+
+@pytest.mark.parametrize("case", CASES)
+def test_kpe_plain_fp32_matches_pallas_kernel_mode(case):
+    """K3's plain version (per-point directions embedded as _embed_pair does) vs the
+    Pallas pe_mode='kernel' query, through fused_query and directly, at 2e-5."""
+    mr, mrv, D, W, skips, ins = case
+    jp, pts, dirs = _setup(*case)
+    q_pal = jfm.make_pallas_query_fn(mr, mrv, D, skips, tile_fwd=16, tile_bwd=16,
+                                     interpret=True, pe_mode="kernel")
+    want = np.asarray(q_pal(jp, jnp.asarray(pts), jnp.asarray(dirs)))
+    packed = tfm.pack_params(_torch(jp), mr, mrv, D, skips)
+    got = tfm.fused_query(packed, torch.from_numpy(pts), torch.from_numpy(dirs), "kernel")
+    np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
+    N, S, _ = pts.shape
+    flat = tfm.fused_query_kpe_ref(packed, torch.from_numpy(pts.reshape(-1, 3)),
+                                   torch.from_numpy(np.repeat(dirs, S, axis=0)))
+    np.testing.assert_allclose(flat.numpy().reshape(N, S, -1), want, **TOL)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_kpe_plain_backward_matches_pallas_kernel_mode(case):
+    """autograd through fused_query(pe_mode='kernel') on the CPU (K4's plain version,
+    mapped to the parameter dict by autograd over pack_params) vs jax.grad through the
+    Pallas pe_mode='kernel' backward in interpret mode, at atol 3e-5 / rtol 3e-4."""
+    mr, mrv, D, W, skips, ins = case
+    jp, pts, dirs = _setup(*case)
+    q_pal = jfm.make_pallas_query_fn(mr, mrv, D, skips, tile_fwd=16, tile_bwd=16,
+                                     interpret=True, pe_mode="kernel")
+    w = jnp.asarray(np.linspace(0.5, 1.5, 4 + ins + 1), jnp.float32)
+    want = jax.grad(lambda p: jnp.sum(jnp.tanh(q_pal(p, jnp.asarray(pts), jnp.asarray(dirs))) * w))(jp)
+    runtime.reset_launches()
+    got = _tanh_loss_grads(make_fused_query_fn(mr, mrv, D, skips, "kernel"), _torch(jp), pts, dirs)
+    assert not any(runtime.LAUNCHES.values())
+    assert set(got) == set(want)
+    for k in sorted(want):
+        np.testing.assert_allclose(got[k], np.asarray(want[k]), **GRAD_TOL, err_msg=k)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_kpe_stub_columns_exact_and_wall(case):
+    """pe_mode='kernel': the stubs' sigma (and the rgb stub's instance) columns are
+    bit-equal to the full model's, the two pairs agree in fp32 on the CPU, and an
+    instance-only cotangent reaches no trunk, sigma or rgb block of K4's plain version."""
+    mr, mrv, D, W, skips, ins = case
+    jp, pts, dirs = _setup(*case)
+    args = (mr, mrv, D, skips)
+    pts_t, dirs_t = torch.from_numpy(pts), torch.from_numpy(dirs)
+    full = tfm.fused_query(tfm.pack_params(_torch(jp), *args), pts_t, dirs_t, "kernel")
+    sig = tfm.fused_query(tfm.pack_params(_torch(sigma_stub_params(jp)), *args), pts_t, dirs_t,
+                          "kernel")
+    rgb = tfm.fused_query(tfm.pack_params(_torch(rgb_stub_params(jp)), *args), pts_t, dirs_t,
+                          "kernel")
+    assert torch.equal(sig[..., 3], full[..., 3])
+    assert torch.equal(rgb[..., 3:], full[..., 3:])
+    kt = tfm.fused_query(tfm.pack_params(_torch(jp), *args), pts_t, dirs_t, "kernel_t")
+    torch.testing.assert_close(full, kt, atol=1e-6, rtol=1e-6)
+
+    packed = tfm.pack_params(_torch(jp), *args)
+    g = torch.zeros(full.shape).reshape(-1, full.shape[-1])
+    g[:, 4:] = 1.0
+    S = pts.shape[1]
+    dw, db = tfm.fused_query_kpe_bwd_ref(packed, pts_t.reshape(-1, 3),
+                                         tfm._point_dirs(dirs_t, S), g, torch.bfloat16)
+    *trunk, sig_l, head, out = packed.layers
+    for layer in (*trunk, sig_l):
+        assert not dw[layer.w_off:layer.w_off + layer.K * layer.N].any(), layer
+    head_w = dw[head.w_off:head.w_off + head.K * head.N].view(head.K, head.N)
+    assert not head_w[:, :packed.hr].any() and head_w[packed.edp:, packed.hr:].any()
+
+
+def test_pe_mode_routing(monkeypatch):
+    """pallas_pe_mode picks the pair: None / 'kernel_t' the K1/K2 plain versions on the
+    CPU, 'kernel' the K3/K4 ones; 'outside' raises NotImplementedError (its kernels are
+    not ported) and an unknown mode is refused by the config."""
+    from dmnerf_tpu_torch.configs import Config
+    from dmnerf_tpu_torch.core.pipeline import make_query_fn
+
+    mr, mrv, D, W, skips, ins = CASES[0]
+    jp, pts, dirs = _setup(*CASES[0])
+    calls = []
+    for name in ("fused_query_ref", "fused_query_bwd_ref", "fused_query_kpe_ref",
+                 "fused_query_kpe_bwd_ref"):
+        fn = getattr(tfm, name)
+        monkeypatch.setattr(tfm, name, lambda *a, _fn=fn, _name=name, **k:
+                            calls.append(_name) or _fn(*a, **k))
+    kw = dict(netdepth=D, netwidth=W, multires=mr, multires_views=mrv, skips=skips, ins_num=ins)
+    for mode, want in ((None, ["fused_query_ref", "fused_query_bwd_ref"]),
+                       ("kernel_t", ["fused_query_ref", "fused_query_bwd_ref"]),
+                       ("kernel", ["fused_query_kpe_ref", "fused_query_kpe_bwd_ref"])):
+        calls.clear()
+        q = make_query_fn(Config(pallas_pe_mode=mode, **kw))
+        pp = {k: v.requires_grad_(True) for k, v in _torch(jp).items()}
+        q(pp, torch.from_numpy(pts), torch.from_numpy(dirs)).sum().backward()
+        assert calls == want, (mode, calls)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
+        make_query_fn(Config(pallas_pe_mode="outside", **kw))
+    with pytest.raises(ValueError, match="pallas_pe_mode"):
+        Config(pallas_pe_mode="kernel_tt")
+    assert make_query_fn(Config(pallas_pe_mode="outside", use_pallas=False, **kw)) is not None

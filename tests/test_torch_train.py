@@ -201,7 +201,7 @@ def trajectories(scene):
 def test_train_step_matches_jax_per_step(trajectories):
     rows, state, launches = trajectories
     assert state.step == len(rows)
-    assert launches == {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0}
+    assert not any(launches.values())
     for i, (ours, ref) in enumerate(rows[:5]):
         for k in ("total_loss", "rgb_loss", "ins_loss", "emptiness_loss"):
             assert np.isfinite(ours[k])
