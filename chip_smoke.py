@@ -4,7 +4,7 @@
 
 0. Requires a CUDA card of capability 9.0 and prints its name and power limit.
    TF32 is off, so the fp32 plain path is really fp32.
-1. Builds every kernel of the render, train and manipulation paths (K1-K4) from
+1. Builds every kernel of the render, train and manipulation paths (K1-K7) from
    dmnerf_tpu_torch/kernels/csrc with nvcc (sm_90a), one process per source, all
    started together, and prints the build time and the compiler's register report.
 2. Kernel phase, at the flagship model's width (configs/test/dmsr/study.txt:
@@ -61,6 +61,31 @@
    through the plain PyTorch query on the card, its rgb and labels held to the render
    phase's bars (the target bundle's coarse rgb is printed beside them). Prints ms per
    manipulated view and rays/s.
+8. pe_mode 'outside' kernel phase (K7, K5) at the flagship width, points between
+   ScanNet's near 0 and far 9.5: K7 then K5 on the fine render chunk (2048 x 192,
+   full model) and the coarse one (2048 x 64, sigma stub) against the fp32 plain
+   version (max|d| <= 5e-3 * max(scale, 1)), the stub's sigma against the full
+   model's (1e-5), K7 against its plain version (x lanes bit-equal to bf16(x), sin and
+   cos lanes within 4e-3, pad column zero), and K5 over K7 against K1 on the same
+   points and per-ray viewdirs (max|d| and the count of differing elements: one
+   function, embed_rows, builds both embeddings). Median times of K7, K5, their plain
+   versions and the bf16 addmm chain, beside their bounds.
+9. pe_mode 'outside' backward phase (K6) at the training shapes (fine 3072 x 192,
+   coarse 3072 x 64), as phase 4.
+10. ScanNet train phase: configs/train/scannet/scene0010_00.txt under pallas_pe_mode
+   = outside (N_train 3072 of which N_ins 921 labelled, N_samples 64, N_importance 128,
+   crop 640x480, weakly_value 1.0, over_penalize, tolerance = deta_w = 0.05) for 5
+   steps through dmnerf_tpu_torch.train on a synthetic ScanNet scene built in memory
+   (640x480, 8 train and 1 test frame, 6 objects, half the labelled pixels dropped to
+   -1, near 0, far 9.5): exactly 2 launches each of K7, K5 and K6 a step and none of
+   K1-K4, every logged loss finite (the instance loss over the labelled suffix
+   included), one step's gradients within 2e-2 of the plain query's; steady ms per
+   step and rays/s.
+11. ScanNet render phase: the test view, 640x480 (150 chunks of 2048 rays), through
+   render_test with the crop mask under pallas_pe_mode = outside, with the weights of
+   the ScanNet train phase: exactly 2 K7 and 2 K5 launches a chunk, every map finite
+   and in range, and the same view through the plain PyTorch query on the card held
+   to the render phase's bars. Prints ms per view.
 
 The line before the last is a JSON object with each kernel's numbers and its
 launches on each path; the last line is {"ok": true, "device": {...}}. Any failure
@@ -86,6 +111,7 @@ MAX_LABEL_FLIP = 0.01        # share of pixels whose argmax instance label diffe
 GRAD_TOL = 2e-2              # parameter gradient, max|d| / max|ref| per parameter
 TRAIN_STEPS = 20
 KPE_TRAIN_STEPS = 5
+SCANNET_TRAIN_STEPS = 5
 SEED = 0
 
 
@@ -133,8 +159,8 @@ def backward_macs(params) -> int:
 
 def library_query(packed, pts, viewdirs, mode="kernel_t"):
     """The same function as one bf16 torch.addmm per packed layer (cuBLAS), for
-    library_ms only; the viewdir embedding per ray, repeated ('kernel_t'), or of the
-    per-point directions ('kernel')."""
+    library_ms only; the viewdir embedding per ray, repeated ('kernel_t', 'outside'),
+    or of the per-point directions ('kernel')."""
     import torch
 
     from dmnerf_tpu_torch.kernels.fused_mlp import _embedding, _point_dirs, view_embedding
@@ -146,6 +172,15 @@ def library_query(packed, pts, viewdirs, mode="kernel_t"):
         ed = _embedding(_point_dirs(viewdirs, S), packed.multires_views, packed.edp).to(bf)
     else:
         ed = view_embedding(packed, viewdirs).to(bf).repeat_interleave(S, dim=0)
+    return library_chain(packed, e, ed).reshape(N, S, packed.c4)
+
+
+def library_chain(packed, e, ed):
+    """The layer chain alone over bf16 embeddings e [P, EP], ed [P, EDP] -> raw
+    [P, 4+C], one bf16 torch.addmm per packed layer (K5's library yardstick)."""
+    import torch
+
+    bf = torch.bfloat16
     b_all = packed.b.to(bf)
     h = sigma = None
     for layer in packed.layers:
@@ -161,26 +196,51 @@ def library_query(packed, pts, viewdirs, mode="kernel_t"):
             sigma = y[:, :1]
         elif layer.kind == "out":
             y[:, 3:4] = sigma
-            return y[:, :packed.c4].float().reshape(N, S, packed.c4)
+            return y[:, :packed.c4].float()
         else:
             h = torch.relu(y)
     raise ValueError("packed layer table has no output layer")
 
 
+def _plain_embedded(packed, pts, dirs, dtype):
+    """The plain versions of the 'outside' embeddings in ``dtype``: K7's e [P, EP] and
+    the per-point viewdir table ed [P, EDP]."""
+    from dmnerf_tpu_torch.kernels import fused_mlp as fm
+
+    N, S, _ = pts.shape
+    return (fm.pe_points_ref(packed, pts.reshape(N * S, 3), dtype),
+            fm.point_view_embedding(packed, dirs, S, dtype))
+
+
+def _kernel_embedded(packed, pts, dirs):
+    """K7's e and the bf16 per-point viewdir table, as the 'outside' query builds them."""
+    import torch
+
+    from dmnerf_tpu_torch.kernels import fused_mlp as fm
+
+    N, S, _ = pts.shape
+    return (fm.pe_points(packed, pts.reshape(N * S, 3).contiguous()),
+            fm.point_view_embedding(packed, dirs, S, torch.bfloat16))
+
+
 def _plain_fwd(mode, packed, pts, dirs, dtype):
-    """The plain version of the forward kernel of ``mode``, raw [N, S, 4+C]."""
-    from dmnerf_tpu_torch.kernels.fused_mlp import _point_dirs, fused_query_kpe_ref, fused_query_ref
+    """The plain version of the forward kernel(s) of ``mode``, raw [N, S, 4+C]."""
+    from dmnerf_tpu_torch.kernels.fused_mlp import (
+        _point_dirs, fused_query_kpe_ref, fused_query_pe_ref, fused_query_ref)
 
     if mode == "kernel_t":
         return fused_query_ref(packed, pts, dirs, dtype)
     N, S, _ = pts.shape
+    if mode == "outside":
+        return fused_query_pe_ref(packed, *_plain_embedded(packed, pts, dirs, dtype),
+                                  dtype).reshape(N, S, -1)
     return fused_query_kpe_ref(packed, pts.reshape(N * S, 3), _point_dirs(dirs, S),
                                dtype).reshape(N, S, -1)
 
 
 def _bwd(mode, packed, pts, dirs, g, plain_dtype=None):
-    """(dw, db) of the backward kernel of ``mode`` (K2 / K4), or of its plain version in
-    ``plain_dtype``."""
+    """(dw, db) of the backward kernel of ``mode`` (K2 / K4 / K6 over K7's embedding), or
+    of its plain version in ``plain_dtype``."""
     from dmnerf_tpu_torch.kernels import fused_mlp as fm
 
     if mode == "kernel_t":
@@ -188,6 +248,12 @@ def _bwd(mode, packed, pts, dirs, g, plain_dtype=None):
             return fm.fused_query_bwd(packed, pts, dirs, g)
         return fm.fused_query_bwd_ref(packed, pts, dirs, g, plain_dtype)
     N, S, _ = pts.shape
+    if mode == "outside":
+        if plain_dtype is None:
+            return fm.fused_query_pe_bwd(packed, *_kernel_embedded(packed, pts, dirs),
+                                         g.reshape(N * S, -1))
+        return fm.fused_query_pe_bwd_ref(packed, *_plain_embedded(packed, pts, dirs, plain_dtype),
+                                         g.reshape(N * S, -1), plain_dtype)
     args = (packed, pts.reshape(N * S, 3), fm._point_dirs(dirs, S), g.reshape(N * S, -1))
     if plain_dtype is None:
         return fm.fused_query_kpe_bwd(*args)
@@ -286,6 +352,106 @@ def kernel_phase(cfg, device, mode="kernel_t"):
             if stub_err > STUB_TOL * max(sig_scale, 1.0):
                 raise AssertionError(f"{what} sigma max|d| {stub_err:.3e} > {STUB_TOL} * "
                                      f"max({sig_scale:.3e}, 1)")
+    runtime.reset_launches()
+    return results
+
+
+def kernel_pe_phase(cfg, device):
+    """K7 then K5 (pe_mode 'outside') against their plain versions and against K1,
+    timed. Points between ScanNet's near 0 and far 9.5."""
+    import torch
+
+    from dmnerf_tpu_torch.core.mlp import sigma_stub_params
+    from dmnerf_tpu_torch.kernels import fused_mlp as fm
+    from dmnerf_tpu_torch.kernels import runtime
+    from dmnerf_tpu_torch.test import init_params
+
+    near, far = 0.0, 9.5
+    pc, pf = init_params(cfg, device)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    args = (cfg.multires, cfg.multires_views, cfg.netdepth, tuple(cfg.skips))
+    N = cfg.N_test
+    fine_pts, fine_dirs = _points(N, cfg.N_samples + cfg.N_importance, near, far, gen, device)
+    coarse_pts, coarse_dirs = _points(N, cfg.N_samples, near, far, gen, device)
+    stub = sigma_stub_params(pc)
+    cases = [("fine", pf, fm.pack_params(pf, *args), fine_pts, fine_dirs),
+             ("coarse_stub", stub, fm.pack_params(stub, *args), coarse_pts, coarse_dirs)]
+    results = {}
+    with torch.no_grad():
+        for name, params, packed, pts, dirs in cases:
+            P = pts.shape[0] * pts.shape[1]
+            x = pts.reshape(P, 3).contiguous()
+            e, ed = _kernel_embedded(packed, pts, dirs)
+            got = fm._forward_pe(packed, e, ed).reshape(pts.shape[0], pts.shape[1], -1)
+            torch.cuda.synchronize()
+            if not torch.equal(fm.fused_query(packed, pts, dirs, "outside"), got):
+                raise AssertionError(f"{name}: fused_query(pe_mode='outside') is not K7 then K5")
+
+            # K7 against its plain version
+            e32 = fm.pe_points_ref(packed, x, torch.float32)
+            n = 3 * (1 + 2 * packed.multires)
+            x_exact = torch.equal(e[:, :3], x.to(torch.bfloat16))
+            sincos_err = float((e[:, 3:n].float() - e32[:, 3:n]).abs().max())
+            pad_zero = not bool(e[:, n:].any())
+            k7_bytes = x.numel() * 4 + e.numel() * 2
+            k7 = dict(points=P, x_lanes_bit_equal=x_exact, sincos_max_abs_err=sincos_err,
+                      pad_zero=pad_zero, max_abs_err=sincos_err,
+                      ms=_time_ms(lambda: fm.pe_points(packed, x)),
+                      plain_ms=_time_ms(lambda: fm.pe_points_ref(packed, x, torch.float32), reps=5),
+                      bound_ms=k7_bytes / PEAK_BYTES * 1e3, bound_by="bytes", library_ms=None,
+                      mbytes=k7_bytes / 1e6)
+            k7["gbytes_per_s"] = k7_bytes / (k7["ms"] * 1e-3) / 1e9
+            print(f"[kernel pe] {name} K7: {json.dumps(k7)}", flush=True)
+            if not (x_exact and pad_zero and sincos_err <= 4e-3):
+                raise AssertionError(f"{name}: K7 vs plain: x lanes bit-equal {x_exact}, pad zero "
+                                     f"{pad_zero}, sin/cos max|d| {sincos_err:.3e} (want <= 4e-3)")
+
+            # K5 over K7's embedding against the fp32 and bf16 plain versions and K1
+            ref32 = _plain_fwd("outside", packed, pts, dirs, torch.float32)
+            ref16 = _plain_fwd("outside", packed, pts, dirs, torch.bfloat16)
+            k1 = fm.fused_query(packed, pts, dirs)
+            scale = float(ref32.abs().max())
+            err32 = float((got - ref32).abs().max())
+            if not torch.isfinite(got).all() or got.shape != ref32.shape:
+                raise AssertionError(f"{name}: K5 output not finite or of shape {tuple(got.shape)}")
+            flops = 2.0 * query_macs(params) * P
+            nbytes = (e.numel() * 2 + ed.numel() * 2 + packed.w_bf16.numel() * 2
+                      + packed.b.numel() * 4 + got.numel() * 4)
+            t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+            e_f, ed_f = e.float(), ed.float()
+            k5 = dict(points=P, out_scale=scale, max_abs_err=err32,
+                      max_abs_err_bf16_plain=float((got - ref16).abs().max()),
+                      vs_k1_max_abs_diff=float((got - k1).abs().max()),
+                      vs_k1_differing=int((got != k1).sum()), elements=got.numel(),
+                      library_max_abs_err=float((library_chain(packed, e, ed).reshape(got.shape)
+                                                 - ref32).abs().max()),
+                      ms=_time_ms(lambda: fm._forward_pe(packed, e, ed)),
+                      plain_ms=_time_ms(lambda: fm.fused_query_pe_ref(packed, e_f, ed_f,
+                                                                      torch.float32), reps=5),
+                      library_ms=_time_ms(lambda: library_chain(packed, e, ed)),
+                      query_ms=_time_ms(lambda: fm.fused_query(packed, pts, dirs, "outside")),
+                      k1_ms=_time_ms(lambda: fm.fused_query(packed, pts, dirs)),
+                      bound_ms=max(t_ops, t_bytes),
+                      bound_by="operations" if t_ops >= t_bytes else "bytes",
+                      gflop=flops / 1e9, mbytes=nbytes / 1e6)
+            k5["tflops"] = flops / (k5["ms"] * 1e-3) / 1e12
+            print(f"[kernel pe] {name} K5: {json.dumps(k5)}", flush=True)
+            if err32 > KERNEL_TOL * max(scale, 1.0):
+                raise AssertionError(f"{name}: K5 vs fp32 plain max|d| {err32:.3e} > "
+                                     f"{KERNEL_TOL} * max({scale:.3e}, 1)")
+            results[name] = dict(k7=k7, k5=k5)
+            del e, ed, e_f, ed_f
+
+        # the stub's sigma column vs the full model's, both through K7 then K5
+        full = fm.fused_query(fm.pack_params(pc, *args), coarse_pts, coarse_dirs, "outside")[..., 3]
+        stub_sig = fm.fused_query(cases[1][2], coarse_pts, coarse_dirs, "outside")[..., 3]
+        sig_scale = float(full.abs().max())
+        stub_err = float((stub_sig - full).abs().max())
+        print(f"[kernel pe] sigma stub sigma vs full sigma: max|d| {stub_err:.3e} at sigma scale "
+              f"{sig_scale:.3e}", flush=True)
+        if stub_err > STUB_TOL * max(sig_scale, 1.0):
+            raise AssertionError(f"sigma stub sigma max|d| {stub_err:.3e} > {STUB_TOL} * "
+                                 f"max({sig_scale:.3e}, 1)")
     runtime.reset_launches()
     return results
 
@@ -397,13 +563,16 @@ def _rel_err(got, want):
 
 
 def bwd_kernel_phase(cfg, device, mode="kernel_t"):
-    """K2 (mode 'kernel_t') or K4 (mode 'kernel') against fp32 autograd of the plain
-    query, its wall, its repeats and its times."""
+    """K2 (mode 'kernel_t'), K4 (mode 'kernel') or K6 (mode 'outside', over K7's
+    embedding) against fp32 autograd of the plain query, its wall, its repeats and its
+    times (K6's over embeddings made once, as the train step's backward reuses the
+    forward's)."""
     import dataclasses
 
     import torch
 
     from dmnerf_tpu_torch.core.pipeline import make_fused_query_fn, make_torch_query_fn
+    from dmnerf_tpu_torch.kernels import fused_mlp as fm
     from dmnerf_tpu_torch.kernels import runtime
     from dmnerf_tpu_torch.kernels.fused_mlp import fused_query, pack_params
     from dmnerf_tpu_torch.test import init_params
@@ -414,7 +583,7 @@ def bwd_kernel_phase(cfg, device, mode="kernel_t"):
     N = cfg.N_train
     cases = [("fine", pf, *_points(N, cfg.N_samples + cfg.N_importance, cfg.near, cfg.far, gen, device)),
              ("coarse", pc, *_points(N, cfg.N_samples, cfg.near, cfg.far, gen, device))]
-    tag = "bwd" if mode == "kernel_t" else "bwd kpe"
+    tag = {"kernel_t": "bwd", "kernel": "bwd kpe", "outside": "bwd pe"}[mode]
     results = {}
     for name, params, pts, dirs in cases:
         packed = pack_params(params, *args)
@@ -442,7 +611,17 @@ def bwd_kernel_phase(cfg, device, mode="kernel_t"):
         first, second = _bwd(mode, packed, pts, dirs, g), _bwd(mode, packed, pts, dirs, g)
         same = torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
-        ms = _time_ms(lambda: _bwd(mode, packed, pts, dirs, g), reps=5)
+        P = pts.shape[0] * pts.shape[1]
+        if mode == "outside":
+            e, ed = _kernel_embedded(packed, pts, dirs)
+            g_flat = g.reshape(P, -1)
+            ms = _time_ms(lambda: fm.fused_query_pe_bwd(packed, e, ed, g_flat), reps=5)
+            in_bytes = e.numel() * 2 + ed.numel() * 2
+            del e, ed
+        else:
+            ms = _time_ms(lambda: _bwd(mode, packed, pts, dirs, g), reps=5)
+            # K4 reads a direction per point, K2 a viewdir per ray
+            in_bytes = pts.numel() * 4 + (P if mode == "kernel" else dirs.shape[0]) * 12
         with torch.no_grad():
             fwd_ms = _time_ms(lambda: fused_query(packed, pts, dirs, mode))
         pp = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
@@ -457,10 +636,8 @@ def bwd_kernel_phase(cfg, device, mode="kernel_t"):
                                                           retain_graph=True), reps=5)
         del raw16
 
-        P = pts.shape[0] * pts.shape[1]
         flops = 2.0 * backward_macs(params) * P
-        n_dirs = P if mode == "kernel" else dirs.shape[0]
-        nbytes = (pts.numel() * 4 + n_dirs * 12 + g.numel() * 4 + packed.w_bf16.numel() * 2
+        nbytes = (in_bytes + g.numel() * 4 + packed.w_bf16.numel() * 2
                   + packed.b.numel() * 4 + packed.w.numel() * 4 + packed.b.numel() * 4)
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         r = dict(points=P, max_rel_err=rel, max_abs_err=err, grad_scale=scale, worst_param=worst,
@@ -479,9 +656,27 @@ def bwd_kernel_phase(cfg, device, mode="kernel_t"):
     return results
 
 
-def train_phase(device, pe_mode=None, steps=TRAIN_STEPS):
+# the kernels each train step launches twice (coarse and fine), per pallas_pe_mode
+STEP_KERNELS = {None: ("fused_mlp_fwd", "fused_mlp_bwd"),
+                "kernel": ("fused_mlp_fwd_kpe", "fused_mlp_bwd_kpe"),
+                "outside": ("fused_pe", "fused_mlp_fwd_pe", "fused_mlp_bwd_pe")}
+
+
+def scannet_scene(cfg):
+    """The synthetic ScanNet scene of the ScanNet phases, built in memory at the
+    config's 640x480: 8 train and 1 test frame, 6 objects, half of the labelled pixels
+    dropped to -1."""
+    from dmnerf_tpu_torch.data.synthetic import build_scannet_scene
+
+    return build_scannet_scene(cfg, n_train=8, n_test=1, H=480, W=640, n_objects=6, seed=SEED,
+                               unlabeled_frac=0.5)
+
+
+def train_phase(device, pe_mode=None, steps=TRAIN_STEPS, dataset="dmsr"):
     """``steps`` flagship training steps through dmnerf_tpu_torch.train under
-    ``pe_mode``: launches, losses, one step's gradients vs the plain query, step ms."""
+    ``pe_mode``, on a synthetic DM-SR scene (configs/train/dmsr/study.txt) or ScanNet
+    scene (configs/train/scannet/scene0010_00.txt, the crop sampler): launches, losses,
+    one step's gradients vs the plain query, step ms."""
     import tempfile
 
     import numpy as np
@@ -490,19 +685,25 @@ def train_phase(device, pe_mode=None, steps=TRAIN_STEPS):
     from dmnerf_tpu_torch.configs import load_config
     from dmnerf_tpu_torch.core.pipeline import make_query_fn, make_torch_query_fn, render_rays
     from dmnerf_tpu_torch.core.sampling import z_val_sample
-    from dmnerf_tpu_torch.data.samplers import make_full_sampler
     from dmnerf_tpu_torch.data.synthetic import build_dmsr_scene
     from dmnerf_tpu_torch.kernels import runtime
     from dmnerf_tpu_torch.objfield.hungarian import masked_assignment
     from dmnerf_tpu_torch.render.trainstep import compute_losses, create_train_state, make_train_step
-    from dmnerf_tpu_torch.train import train
+    from dmnerf_tpu_torch.train import make_sampler, train
 
-    scene = build_dmsr_scene(n_train=4, n_test=1, H=256, W=256, n_objects=4, ins_num=32, seed=SEED)
     with tempfile.TemporaryDirectory() as tmp:
-        cfg = load_config(os.path.join(REPO, "configs", "train", "dmsr", "study.txt"),
-                          near=1.0, far=8.0, ins_num=scene.ins_num, lrate=5e-4, perturb=1.0,
-                          N_iters=steps, i_print=1, i_save=10 ** 9, i_test=10 ** 9,
-                          basedir=tmp, expname="chip_smoke", pallas_pe_mode=pe_mode)
+        run = dict(lrate=5e-4, perturb=1.0, N_iters=steps, i_print=1, i_save=10 ** 9,
+                   i_test=10 ** 9, basedir=tmp, expname="chip_smoke", pallas_pe_mode=pe_mode)
+        if dataset == "scannet":
+            cfg = load_config(os.path.join(REPO, "configs", "train", "scannet", "scene0010_00.txt"),
+                              **run)
+            scene = scannet_scene(cfg)
+            cfg = cfg.replace(ins_num=scene.ins_num)
+        else:
+            scene = build_dmsr_scene(n_train=4, n_test=1, H=256, W=256, n_objects=4, ins_num=32,
+                                     seed=SEED)
+            cfg = load_config(os.path.join(REPO, "configs", "train", "dmsr", "study.txt"),
+                              near=1.0, far=8.0, ins_num=scene.ins_num, **run)
         runtime.reset_launches()
         t0 = time.time()
         state = train(cfg, scene, device)
@@ -511,10 +712,8 @@ def train_phase(device, pe_mode=None, steps=TRAIN_STEPS):
         launches = dict(runtime.LAUNCHES)
         with open(os.path.join(cfg.log_dir, "metrics.jsonl")) as f:
             recs = [json.loads(line) for line in f]
-    pair = ("fused_mlp_fwd", "fused_mlp_bwd") if pe_mode is None else \
-        ("fused_mlp_fwd_kpe", "fused_mlp_bwd_kpe")
     for name in runtime.KERNELS:
-        want = 2 * steps if name in pair else 0
+        want = 2 * steps if name in STEP_KERNELS[pe_mode] else 0
         if launches[name] != want:
             raise AssertionError(f"{name} launched {launches[name]} times in {steps} train "
                                  f"steps under pallas_pe_mode={pe_mode}, want {want}")
@@ -523,8 +722,7 @@ def train_phase(device, pe_mode=None, steps=TRAIN_STEPS):
         raise AssertionError(f"train losses not all finite over {len(recs)} logged steps")
 
     # one step's gradients, kernel query vs plain query: same parameters, batch, draws
-    sampler = make_full_sampler(scene.images, scene.gt_labels, scene.poses, scene.K,
-                                scene.i_train, cfg.N_train, device=device)
+    sampler, n_ins = make_sampler(cfg, scene, device)
     batch = sampler(torch.Generator().manual_seed(SEED + 3))
     gdev = torch.Generator(device=device).manual_seed(SEED + 4)
     u_z = torch.rand((cfg.N_train, cfg.N_samples), generator=gdev, device=device)
@@ -536,7 +734,7 @@ def train_phase(device, pe_mode=None, steps=TRAIN_STEPS):
         pf = {k: v.detach().clone().requires_grad_(True) for k, v in state.params_fine.items()}
         info = render_rays(pc, pf, batch.rays_o, batch.rays_d, z, query_fn,
                            N_importance=cfg.N_importance, perturb=True, u_z=u_z, u_pdf=u_pdf)
-        total, aux = compute_losses(cfg, info, batch, None)
+        total, aux = compute_losses(cfg, info, batch, n_ins)
         grads = torch.autograd.grad(total, [*pc.values(), *pf.values()])
         names = [f"coarse.{k}" for k in pc] + [f"fine.{k}" for k in pf]
         return dict(zip(names, grads)), {k: float(v) for k, v in aux.items()}
@@ -550,7 +748,7 @@ def train_phase(device, pe_mode=None, steps=TRAIN_STEPS):
 
     # steady steps, host clock around synchronised steps
     st = create_train_state(cfg, state.params_coarse, state.params_fine, state.step)
-    step_fn = make_train_step(cfg)
+    step_fn = make_train_step(cfg, N_ins=n_ins)
     gb, gs = torch.Generator().manual_seed(SEED + 5), torch.Generator(device=device).manual_seed(SEED + 6)
     times = []
     for i in range(13):
@@ -572,18 +770,100 @@ def train_phase(device, pe_mode=None, steps=TRAIN_STEPS):
         masked_assignment(cost, min(5, cfg.ins_num))
         hung.append((time.perf_counter() - t0) * 1e3)
 
-    out = dict(steps=steps, pe_mode=pe_mode, launches=launches, train_s=train_s,
+    out = dict(steps=steps, pe_mode=pe_mode, dataset=dataset, N_ins=n_ins,
+               H=scene.H, W=scene.W, ins_num=cfg.ins_num, launches=launches, train_s=train_s,
                first=recs[0], last=recs[-1],
                kernel_vs_plain=dict(max_rel_err=rel, max_abs_err=err, worst_param=worst,
                                     total_kernel=aux_k["total_loss"], total_plain=aux_p["total_loss"],
                                     ins_kernel=aux_k["ins_loss"], ins_plain=aux_p["ins_loss"]),
                step_ms=step_ms, step_ms_range=[min(times), max(times)],
                rays_per_s=cfg.N_train / (step_ms * 1e-3), hungarian_host_ms=statistics.median(hung))
-    print(f"[train{'' if pe_mode is None else ' kpe'}] {json.dumps(out)}", flush=True)
+    tag = "train scannet" if dataset == "scannet" else "train" if pe_mode is None else "train kpe"
+    print(f"[{tag}] {json.dumps(out)}", flush=True)
     if rel > GRAD_TOL:
         raise AssertionError(f"train step gradients, kernel vs plain query: max rel err {rel:.3e} "
                              f"(want <= {GRAD_TOL}) at {worst}")
-    return launches, out
+    return launches, scene, state
+
+
+def render_scannet_phase(device, scene, params_coarse, params_fine):
+    """The ScanNet test view through render_test with the crop mask under pallas_pe_mode
+    = outside (K7, K5), and through the plain PyTorch query on the card, with the
+    weights of the ScanNet train phase. The seeded init weights make a poor yardstick
+    at this scene: their sigma sits near 0, so the last sample's 1e10 distance turns a
+    bf16-sized change of sigma into a whole-ray change, and their instance logits are
+    near-tied. The phase prints their comparison beside the trained one, held to no
+    bar."""
+    import numpy as np
+    import torch
+
+    from dmnerf_tpu_torch.configs import load_config
+    from dmnerf_tpu_torch.core.pipeline import make_torch_query_fn
+    from dmnerf_tpu_torch.core.rays import rays_from_K
+    from dmnerf_tpu_torch.kernels import runtime
+    from dmnerf_tpu_torch.render.evaluation import render_test
+    from dmnerf_tpu_torch.render.renderer import make_image_renderer
+    from dmnerf_tpu_torch.test import init_params
+
+    cfg = load_config(os.path.join(REPO, "configs", "test", "scannet", "scene0010_00.txt"),
+                      pallas_pe_mode="outside", perturb=0.0, ins_num=scene.ins_num)
+    pc = {k: v.detach() for k, v in params_coarse.items()}
+    pf = {k: v.detach() for k, v in params_fine.items()}
+    ids = scene.i_test
+    H, W = scene.H, scene.W
+
+    runtime.reset_launches()
+    res = render_test(cfg, pc, pf, scene.poses[ids], scene.hwk, gt_imgs=scene.images[ids],
+                      gt_labels=scene.gt_labels[ids], ins_rgbs=scene.ins_rgbs, savedir=None,
+                      crop_mask=scene.crop_mask, device=device, verbose=False)
+    launches = dict(runtime.LAUNCHES)
+    chunks = -(-H * W // cfg.N_test)
+    for name in runtime.KERNELS:
+        want = 2 * chunks * len(ids) if name in ("fused_pe", "fused_mlp_fwd_pe") else 0
+        if launches[name] != want:
+            raise AssertionError(f"ScanNet render: {name} launched {launches[name]} times, want "
+                                 f"{want} ({chunks} chunks x {len(ids)} views)")
+    for img in res["images"]:
+        if img.shape != (cfg.crop_height, cfg.crop_width, 3):
+            raise AssertionError(f"ScanNet render: crop image of shape {img.shape}")
+        _check_maps("ScanNet render", rgb=img)
+
+    K = torch.as_tensor(scene.K, device=device)
+    rays_o, rays_d = rays_from_K(H, W, K, torch.as_tensor(scene.poses[ids[0]], device=device))
+    rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+    plain_q = make_torch_query_fn(cfg.multires, cfg.multires_views, cfg.netdepth, tuple(cfg.skips))
+
+    def kernel_vs_plain(pc, pf):
+        ours = make_image_renderer(cfg)(pc, pf, rays_o, rays_d)
+        plain = make_image_renderer(cfg, query_fn=plain_q)(pc, pf, rays_o, rays_d)
+        for name, out in (("kernel", ours), ("plain", plain)):
+            _check_maps(f"ScanNet view ({name})", rgb=out["rgb"], ins=out["ins"])
+            d = out["depth"]
+            if not torch.isfinite(d).all() or float(d.min()) < 0 or float(d.max()) > cfg.far * 1.0001:
+                raise AssertionError(f"ScanNet view ({name}) depth map not finite in [0, far]")
+        mse = float(torch.mean((ours["rgb"].double() - plain["rgb"].double()) ** 2))
+        top2 = plain["ins"].topk(2, dim=-1).values
+        return dict(rgb_psnr_db=float("inf") if mse == 0 else float(-10.0 * np.log10(mse)),
+                    label_flip_share=float((ours["ins"].argmax(-1) != plain["ins"].argmax(-1))
+                                           .float().mean()),
+                    depth_max_abs_err=float((ours["depth"] - plain["depth"]).abs().max()),
+                    plain_label_margin_median=float((top2[:, 0] - top2[:, 1]).median()))
+
+    trained = kernel_vs_plain(pc, pf)
+    init = kernel_vs_plain(*init_params(cfg, device))
+    psnr, flip = trained["rgb_psnr_db"], trained["label_flip_share"]
+
+    ms = [t * 1e3 for t in res["times"]]
+    out = dict(views=len(ids), H=H, W=W, crop=[cfg.crop_height, cfg.crop_width],
+               chunks_per_view=chunks, ins_num=cfg.ins_num, launches=launches,
+               psnr=res["psnrs"], ap=[list(a) for a in res["aps"]], ms_per_view=ms,
+               rays_per_s=[H * W / (t * 1e-3) for t in ms], kernel_vs_plain=trained,
+               init_weights_kernel_vs_plain=init)
+    print(f"[render scannet] {json.dumps(out)}", flush=True)
+    if psnr < MIN_PSNR_DB or flip > MAX_LABEL_FLIP:
+        raise AssertionError(f"ScanNet view, kernel vs plain: rgb PSNR {psnr:.2f} dB (want >= "
+                             f"{MIN_PSNR_DB}), label flips {flip:.4f} (want <= {MAX_LABEL_FLIP})")
+    return launches
 
 
 def _check_maps(what, **maps):
@@ -748,14 +1028,24 @@ def main() -> int:
                             ins_num=32, near=1.0, far=8.0)
     bres = bwd_kernel_phase(train_cfg, device)
     bres_kpe = bwd_kernel_phase(train_cfg, device, "kernel")
-    train_launches, _ = train_phase(device)
+    train_launches, _, _ = train_phase(device)
     torch.cuda.empty_cache()
-    kpe_train_launches, _ = train_phase(device, "kernel", KPE_TRAIN_STEPS)
+    kpe_train_launches, _, _ = train_phase(device, "kernel", KPE_TRAIN_STEPS)
     torch.cuda.empty_cache()
     eval_launches, demo_launches = mani_phase(device)
+    torch.cuda.empty_cache()
+    kres_pe = kernel_pe_phase(cfg, device)
+    bres_pe = bwd_kernel_phase(train_cfg, device, "outside")
+    torch.cuda.empty_cache()
+    scannet_train_launches, scene, state = train_phase(device, "outside", SCANNET_TRAIN_STEPS,
+                                                       "scannet")
+    torch.cuda.empty_cache()
+    scannet_render_launches = render_scannet_phase(device, scene, state.params_coarse,
+                                                   state.params_fine)
 
     paths = {"render": render_launches, "train": train_launches, "train_kpe": kpe_train_launches,
-             "mani_eval": eval_launches, "mani_demo": demo_launches}
+             "mani_eval": eval_launches, "mani_demo": demo_launches,
+             "train_scannet": scannet_train_launches, "render_scannet": scannet_render_launches}
     by_path = {name: {path: n[name] for path, n in paths.items()} for name in runtime.KERNELS}
     for name in runtime.KERNELS:
         if sum(by_path[name].values()) == 0:
@@ -771,6 +1061,14 @@ def main() -> int:
         _entry("fused_mlp_bwd_kpe", "dmnerf_tpu/kernels/fused_mlp.py:481",
                kpe_train_launches["fused_mlp_bwd_kpe"], by_path, bres_kpe["fine"],
                grad_scale=bres_kpe["fine"]["grad_scale"], max_rel_err=bres_kpe["fine"]["max_rel_err"]),
+        _entry("fused_mlp_fwd_pe", "dmnerf_tpu/kernels/fused_mlp.py:471",
+               scannet_render_launches["fused_mlp_fwd_pe"], by_path, kres_pe["fine"]["k5"],
+               vs_k1_differing=kres_pe["fine"]["k5"]["vs_k1_differing"]),
+        _entry("fused_mlp_bwd_pe", "dmnerf_tpu/kernels/fused_mlp.py:494",
+               scannet_train_launches["fused_mlp_bwd_pe"], by_path, bres_pe["fine"],
+               grad_scale=bres_pe["fine"]["grad_scale"], max_rel_err=bres_pe["fine"]["max_rel_err"]),
+        _entry("fused_pe", "dmnerf_tpu/kernels/fused_mlp.py:689",
+               scannet_render_launches["fused_pe"], by_path, kres_pe["fine"]["k7"]),
     ]
     print(f"[done] {time.time() - t0:.1f} s from the build on", flush=True)
     print(smi, flush=True)

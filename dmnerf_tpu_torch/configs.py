@@ -10,8 +10,8 @@ In this package ``use_pallas`` selects the hand-written Hopper kernels for the p
 query, and ``pallas_pe_mode`` picks the kernel pair as it picks the Pallas pair in
 the JAX package: ``None`` or ``'kernel_t'`` the per-ray viewdir table kernels (K1
 forward, K2 backward), ``'kernel'`` the per-point in-kernel embedding kernels (K3,
-K4). ``'outside'`` is a valid value whose kernels are not ported yet: making its query
-raises NotImplementedError; any other value is refused here. The tile knobs
+K4), ``'outside'`` the embedding kernel (K7) and the kernels over precomputed
+embeddings (K5 forward, K6 backward); any other value is refused here. The tile knobs
 (``pallas_tile_fwd``, ``pallas_tile_bwd``) size the TPU's grid tiles and the
 JAX-only switches (``data_axis``, ``multihost``, ``steps_per_dispatch``,
 ``debug_nans``, ``profile_*``) are parsed so that config files stay interchangeable,

@@ -40,8 +40,12 @@ def load_scene(cfg: Config) -> SceneData:
         from dmnerf_tpu_torch.data.dmsr import load_dmsr
 
         return load_dmsr(cfg)
-    if cfg.dataset_type in ("replica", "scannet"):
-        raise NotImplementedError(
-            f"the {cfg.dataset_type} loader is not ported yet (ROADMAP.md queue 1, "
-            "'Replica and ScanNet')")
+    if cfg.dataset_type == "replica":
+        from dmnerf_tpu_torch.data.replica import load_replica
+
+        return load_replica(cfg)
+    if cfg.dataset_type == "scannet":
+        from dmnerf_tpu_torch.data.scannet import load_scannet
+
+        return load_scannet(cfg)
     raise ValueError(f"unknown dataset_type {cfg.dataset_type!r}")

@@ -9,6 +9,6 @@ extern "C" int dmnerf_fused_mlp_bwd(const float* pts, const void* edr, const voi
                                     const float* biases, const void* wt, const float* g,
                                     void* stash, void* dpre, float* dbpart, float* dwpart,
                                     float* dw, float* db, const long long* table, void* stream) {
-  return run_fused_mlp_bwd<false>(pts, edr, weights, biases, wt, g, stash, dpre, dbpart, dwpart,
-                                  dw, db, table, stream);
+  return run_fused_mlp_bwd<ROWS_RAY_TABLE>(pts, edr, weights, biases, wt, g, stash, dpre, dbpart,
+                                           dwpart, dw, db, table, stream);
 }

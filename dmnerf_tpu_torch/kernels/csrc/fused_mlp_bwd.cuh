@@ -1,5 +1,5 @@
 // Parameter backward of the fused positional encoding + DM-NeRF MLP point query,
-// sm_90a: the kernels and the launch sequence behind two entry points.
+// sm_90a: the kernels and the launch sequence behind three entry points.
 //
 //  * fused_mlp_bwd.cu (K2) replaces the JAX package's Pallas TPU kernel
 //    _bwd_kernel_pet (dmnerf_tpu/kernels/fused_mlp.py:520), pe_mode 'kernel_t': the
@@ -7,13 +7,19 @@
 //  * fused_mlp_bwd_kpe.cu (K4) replaces _bwd_kernel (:481), pe_mode 'kernel': the
 //    stash forward embeds each point's own direction and stashes that embedding
 //    beside the point embedding, and the head's dW job reads it from the stash.
-// Both carry _backward_core (:536) and _accumulate_grads (:653). What they compute is
-// set out in dmnerf_tpu_torch/kernels/fused_mlp.py, whose fused_query_bwd_ref /
-// fused_query_kpe_bwd_ref are their plain versions and whose _bwd_plan builds the
-// tables they read. Numerics follow the JAX package: bf16 operands for every product
-// (activations, cotangents cast once, weights), fp32 accumulation, and bias gradients
-// summed from the fp32 cotangents. Nothing flows into the points, the directions or
-// the viewdir embedding (the JAX package returns zeros for them).
+//  * fused_mlp_bwd_pe.cu (K6) replaces _bwd_kernel_pe (:494), pe_mode 'outside': the
+//    point embedding and the per-point viewdir embedding come in as bf16 rows (saved
+//    by the forward), the stash forward copies them into shared memory, and the dW
+//    jobs read both from those input buffers (segment source 2 for e, 1 for ed), so
+//    neither is stashed again.
+// All three carry _backward_core (:536) and _accumulate_grads (:653). What they
+// compute is set out in dmnerf_tpu_torch/kernels/fused_mlp.py, whose
+// fused_query_bwd_ref / fused_query_kpe_bwd_ref / fused_query_pe_bwd_ref are their
+// plain versions and whose _bwd_plan builds the tables they read. Numerics follow the
+// JAX package: bf16 operands for every product (activations, cotangents cast once,
+// weights), fp32 accumulation, and bias gradients summed from the fp32 cotangents.
+// Nothing flows into the points, the directions or the embeddings (the JAX package
+// returns zeros for them).
 //
 // Bound. Per flagship point (D=8, W=256, ins_num 32) the backward's own products
 // are dW, the forward's 564,864 multiply-accumulates, and dX into the trunk,
@@ -26,11 +32,11 @@
 // give bit-identical gradients.
 //  1. fwd_stash_kernel: the forward kernel's trunk and head (fused_mlp_fwd.cuh's code:
 //     128 points a CTA, [ed | h | e] rows in shared memory, weights streamed from
-//     L2 with cp.async, mma.sync bf16) storing the point embedding, the per-point
-//     viewdir embedding (K4 only: 64 B a flagship point) and every post-ReLU
-//     activation, bf16, to a stash in device memory (about 4.7 KB a flagship point:
-//     2.8 GB for 589,824 fine points, on an 80 GB card). The TPU rematerialises per
-//     tile instead, because its 16 GB could not hold the stash.
+//     L2 with cp.async, mma.sync bf16) storing the point embedding (not K6), the
+//     per-point viewdir embedding (K4 only: 64 B a flagship point) and every
+//     post-ReLU activation, bf16, to a stash in device memory (about 4.7 KB a
+//     flagship point: 2.8 GB for 589,824 fine points, on an 80 GB card). The TPU
+//     rematerialises per tile instead, because its 16 GB could not hold the stash.
 //  2. bwd_data_kernel: 128 points a CTA walk the table in reverse. The cotangent
 //     rows of the current layer live in shared memory; each dX product is the same
 //     streamed mma.sync loop against host-transposed bf16 weight blocks. Each
@@ -40,7 +46,7 @@
 //     head's detach); nothing flows into ed.
 //  3. dw_kernel: dW_l = A_l^T d_pre_l, split over the point axis. A CTA owns a
 //     128 x 128 tile of one layer's dW and a fixed range of points, streams 32-point
-//     slices of A_l (stash segments, or K2's per-ray viewdir table) and d_pre_l
+//     slices of A_l (stash segments, the viewdir table, or K6's e) and d_pre_l
 //     through shared memory, and writes an fp32 partial tile.
 //  4. reduce_kernel on the dW partials and 5. on the bias partials: fixed-order
 //     sums over the point ranges and over the CTAs.
@@ -89,7 +95,7 @@ struct BwdNet {
 };
 
 struct Seg {
-  int src;        // 0: stash, 1: the per-ray viewdir table (K2)
+  int src;        // 0: stash, 1: the viewdir table (K2 per ray, K6 per point), 2: e (K6)
   int width, ld, div;
   long long off;
 };
@@ -106,25 +112,11 @@ struct DwNet {
   DwLayer layers[MAX_LAYERS];
 };
 
-// Copy columns [col0, col0 + n) of the CTA's shared-memory rows to rows p0 .. of a
-// row-major [P, n] bf16 array in device memory; rows past P are not stored.
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int lds,
-                                           int col0, int n, long long p0, long long P) {
-  const int chunks = n / 8;
-  for (int c = threadIdx.x; c < BM * chunks; c += THREADS) {
-    const int r = c / chunks, q = c - r * chunks;
-    const long long p = p0 + r;
-    if (p < P)
-      *reinterpret_cast<uint4*>(dst + p * n + q * 8) =
-          *reinterpret_cast<const uint4*>(src + r * lds + col0 + q * 8);
-  }
-}
-
-// ---- launch 1: the forward's trunk and head, storing e (and the per-point ed) and
-// every ReLU output ----
-template <bool PER_POINT_DIRS>
+// ---- launch 1: the forward's trunk and head, storing e (K2, K4), the per-point ed
+// (K4) and every ReLU output ----
+template <Rows ROWS>
 __global__ void __launch_bounds__(THREADS, 1)
-fwd_stash_kernel(const float* __restrict__ pts, const void* __restrict__ ed_src,
+fwd_stash_kernel(const void* __restrict__ pt_src, const void* __restrict__ ed_src,
                  const __nv_bfloat16* __restrict__ weights, const float* __restrict__ biases,
                  __nv_bfloat16* __restrict__ stash, long long P, int S, const FwdNet net) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -133,11 +125,12 @@ fwd_stash_kernel(const float* __restrict__ pts, const void* __restrict__ ed_src,
 
   const int tid = threadIdx.x;
   const long long p0 = (long long)blockIdx.x * BM;
-  build_rows<PER_POINT_DIRS>(act, pts, ed_src, p0, P, S, net.multires, net.multires_views,
-                             net.h_col, net.e_col, net.e_width);
+  build_rows<ROWS>(act, pt_src, ed_src, p0, P, S, net.multires, net.multires_views, net.h_col,
+                   net.e_col, net.e_width);
   __syncthreads();
-  store_rows(stash + net.e_stash_off, act, LDA, net.e_col, net.e_width, p0, P);
-  if (PER_POINT_DIRS) store_rows(stash + net.ed_stash_off, act, LDA, 0, net.h_col, p0, P);
+  if (ROWS != ROWS_EMBEDDED)
+    store_rows(stash + net.e_stash_off, act, LDA, net.e_col, net.e_width, p0, P);
+  if (ROWS == ROWS_POINT_DIRS) store_rows(stash + net.ed_stash_off, act, LDA, 0, net.h_col, p0, P);
 
   const int warp = tid >> 5, lane = tid & 31;
   const int wm = warp >> 2, wn = warp & 3;
@@ -288,7 +281,8 @@ bwd_data_kernel(const float* __restrict__ gout, const __nv_bfloat16* __restrict_
 // ---- launch 3: dW partials, split over the point axis ----
 __global__ void __launch_bounds__(THREADS, 2)
 dw_kernel(const __nv_bfloat16* __restrict__ stash, const __nv_bfloat16* __restrict__ edr,
-          const __nv_bfloat16* __restrict__ dpre, float* __restrict__ dwpart, long long P,
+          const __nv_bfloat16* __restrict__ e_in, const __nv_bfloat16* __restrict__ dpre,
+          float* __restrict__ dwpart, long long P,
           long long total_w, const DwNet net) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);   // [2][KP][LDF]
@@ -319,7 +313,7 @@ dw_kernel(const __nv_bfloat16* __restrict__ stash, const __nv_bfloat16* __restri
       if (p < pend && f < L.K) {
         const Seg sg = f < L.seg[0].width ? L.seg[0] : L.seg[1];
         const int ff = f < L.seg[0].width ? f : f - L.seg[0].width;
-        const __nv_bfloat16* base = sg.src ? edr : stash;
+        const __nv_bfloat16* base = sg.src == 0 ? stash : sg.src == 1 ? edr : e_in;
         cp_async16(dst, base + sg.off + (p / sg.div) * sg.ld + ff);
       } else {
         *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
@@ -441,8 +435,8 @@ reduce_kernel(const float* __restrict__ part, long long R, long long C, float* _
 }
 
 // Launch the five kernels on `stream`; returns the first cudaError (0 when every
-// launch was accepted). `ed_src` is the per-ray viewdir table [P / S, h_col] bf16, or
-// with PER_POINT_DIRS the directions [P, 3] fp32. `table` is the int64 table of
+// launch was accepted). `pt_src` and `ed_src` are build_rows' (Rows). `table` is the
+// int64 table of
 // fused_mlp.py's _bwd_plan:
 //   header  P, S, multires, h_col, e_col, e_width, c4, no, hr, total_b, total_w,
 //           b_out, b_sigma, dpre_out, dpre_sigma, n_chunks, chunk, n_fwd, n_steps, n_dw,
@@ -450,8 +444,8 @@ reduce_kernel(const float* __restrict__ part, long long R, long long C, float* _
 //   n_fwd   rows a_col, K, N, w_off, b_off, stash_off           (trunk layers, head)
 //   n_steps rows K, N, wt_off, mask_off, dpre_off, b_off, sigma_after
 //   n_dw    rows K, N, w_off, dpre_off, then two segments of src, off, width, ld, div
-template <bool PER_POINT_DIRS>
-int run_fused_mlp_bwd(const float* pts, const void* ed_src, const void* weights,
+template <Rows ROWS>
+int run_fused_mlp_bwd(const void* pt_src, const void* ed_src, const void* weights,
                       const float* biases, const void* wt, const float* g, void* stash,
                       void* dpre, float* dbpart, float* dwpart, float* dw, float* db,
                       const long long* table, void* stream) {
@@ -460,7 +454,8 @@ int run_fused_mlp_bwd(const float* pts, const void* ed_src, const void* weights,
   const int S = (int)h[1];
   const int n_fwd = (int)h[17], n_steps = (int)h[18], n_dw = (int)h[19];
   if (P <= 0 || S <= 0 || n_fwd < 1 || n_fwd > MAX_LAYERS || n_steps < 1 ||
-      n_steps > MAX_LAYERS || n_dw < 1 || n_dw > MAX_LAYERS || (PER_POINT_DIRS && h[21] < 0))
+      n_steps > MAX_LAYERS || n_dw < 1 || n_dw > MAX_LAYERS ||
+      (ROWS == ROWS_POINT_DIRS && h[21] < 0) || (ROWS == ROWS_EMBEDDED && S != 1))
     return (int)cudaErrorInvalidValue;
   const long long n_chunks = h[15];
   const long long total_b = h[9], total_w = h[10];
@@ -513,7 +508,7 @@ int run_fused_mlp_bwd(const float* pts, const void* ed_src, const void* weights,
 
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
-  err = cudaFuncSetAttribute(fwd_stash_kernel<PER_POINT_DIRS>,
+  err = cudaFuncSetAttribute(fwd_stash_kernel<ROWS>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(bwd_data_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -524,19 +519,22 @@ int run_fused_mlp_bwd(const float* pts, const void* ed_src, const void* weights,
   if (err != cudaSuccess) return (int)err;
 
   const unsigned grid = (unsigned)((P + BM - 1) / BM);
-  // the dW kernel reads the per-ray table only through K2's head segment (src 1)
+  // the dW kernel reads the viewdir table only through the head segment of K2 and K6
+  // (src 1), and the input e only through K6's segments (src 2)
   const __nv_bfloat16* edr_b =
-      PER_POINT_DIRS ? nullptr : reinterpret_cast<const __nv_bfloat16*>(ed_src);
+      ROWS == ROWS_POINT_DIRS ? nullptr : reinterpret_cast<const __nv_bfloat16*>(ed_src);
+  const __nv_bfloat16* e_b =
+      ROWS == ROWS_EMBEDDED ? reinterpret_cast<const __nv_bfloat16*>(pt_src) : nullptr;
   __nv_bfloat16* stash_b = reinterpret_cast<__nv_bfloat16*>(stash);
   __nv_bfloat16* dpre_b = reinterpret_cast<__nv_bfloat16*>(dpre);
-  fwd_stash_kernel<PER_POINT_DIRS><<<grid, THREADS, FWD_SMEM, st>>>(
-      pts, ed_src, reinterpret_cast<const __nv_bfloat16*>(weights), biases, stash_b, P, S, fwd);
+  fwd_stash_kernel<ROWS><<<grid, THREADS, FWD_SMEM, st>>>(
+      pt_src, ed_src, reinterpret_cast<const __nv_bfloat16*>(weights), biases, stash_b, P, S, fwd);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   bwd_data_kernel<<<grid, THREADS, BWD_SMEM, st>>>(
       g, reinterpret_cast<const __nv_bfloat16*>(wt), stash_b, dpre_b, dbpart, P, bwd);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   dw_kernel<<<dim3((unsigned)tiles, (unsigned)n_chunks), THREADS, DW_SMEM, st>>>(
-      stash_b, edr_b, dpre_b, dwpart, P, total_w, dwn);
+      stash_b, edr_b, e_b, dpre_b, dwpart, P, total_w, dwn);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   reduce_kernel<<<(unsigned)((total_w + 31) / 32), THREADS, 0, st>>>(dwpart, n_chunks, total_w,
                                                                     dw, dwn, 1);

@@ -12,6 +12,6 @@ extern "C" int dmnerf_fused_mlp_bwd_kpe(const float* pts, const float* dirs, con
                                         void* stash, void* dpre, float* dbpart, float* dwpart,
                                         float* dw, float* db, const long long* table,
                                         void* stream) {
-  return run_fused_mlp_bwd<true>(pts, dirs, weights, biases, wt, g, stash, dpre, dbpart, dwpart,
-                                 dw, db, table, stream);
+  return run_fused_mlp_bwd<ROWS_POINT_DIRS>(pts, dirs, weights, biases, wt, g, stash, dpre,
+                                            dbpart, dwpart, dw, db, table, stream);
 }

@@ -1,6 +1,7 @@
 // Shared pieces of the fused PE + DM-NeRF MLP kernels (fused_mlp_fwd.cuh,
-// fused_mlp_bwd.cuh): the tiling, the cp.async / ldmatrix / mma.sync primitives, the
-// streamed layer product and the in-kernel positional encoding.
+// fused_mlp_bwd.cuh, fused_pe.cu): the tiling, the cp.async / ldmatrix / mma.sync
+// primitives, the streamed layer product, the in-kernel positional encoding and the
+// row copies between shared and device memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -125,12 +126,13 @@ __device__ __forceinline__ void tile_product(float (&acc)[4][8][4], const __nv_b
 
 // The embedding [x | sin(2^f x) | cos(2^f x) | 0 pad] of rows p0 .. p0 + BM of a
 // row-major [P, 3] fp32 array, rounded to bf16 into columns [0, width) of the rows
-// at dst (pitch LDA). Lane f*3+c of each half holds channel c at octave f. The phase
+// at dst (pitch ld). Lane f*3+c of each half holds channel c at octave f. The phase
 // x * 2^f is exact and sincosf is the accurate one (no fast math): the phases reach
 // 2^9 * |x| (thousands of radians), where a rounded phase is an O(1) error. Rows past
 // P get the embedding of 0.
 __device__ __forceinline__ void embed_rows(__nv_bfloat16* dst, const float* __restrict__ x,
-                                           long long p0, long long P, int multires, int width) {
+                                           long long p0, long long P, int multires, int width,
+                                           int ld = LDA) {
   const int nf = 3 * multires;
   for (int c = threadIdx.x; c < BM * nf; c += THREADS) {
     const int r = c / nf, j = c - r * nf;
@@ -139,8 +141,8 @@ __device__ __forceinline__ void embed_rows(__nv_bfloat16* dst, const float* __re
     const float v = p < P ? x[p * 3 + ch] : 0.f;
     float s, co;
     sincosf(v * (float)(1u << f), &s, &co);
-    dst[r * LDA + 3 + j] = __float2bfloat16(s);
-    dst[r * LDA + 3 + nf + j] = __float2bfloat16(co);
+    dst[r * ld + 3 + j] = __float2bfloat16(s);
+    dst[r * ld + 3 + nf + j] = __float2bfloat16(co);
   }
   const int tail = width - 3 - 2 * nf;  // identity columns + zero padding
   for (int c = threadIdx.x; c < BM * (3 + tail); c += THREADS) {
@@ -148,12 +150,12 @@ __device__ __forceinline__ void embed_rows(__nv_bfloat16* dst, const float* __re
     const long long p = p0 + r;
     float v = 0.f;
     if (j < 3 && p < P) v = x[p * 3 + j];
-    dst[r * LDA + (j < 3 ? j : 2 * nf + j)] = __float2bfloat16(v);
+    dst[r * ld + (j < 3 ? j : 2 * nf + j)] = __float2bfloat16(v);
   }
 }
 
 // Columns [0, width) of the CTA's rows from a per-ray bf16 table [P / S, width]:
-// point p reads row p / S. Rows past P are zero.
+// point p reads row p / S (S = 1: a per-point table). Rows past P are zero.
 __device__ __forceinline__ void copy_ray_rows(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ table,
                                               long long p0, long long P, int S, int width) {
   const int chunks = width / 8;
@@ -166,21 +168,46 @@ __device__ __forceinline__ void copy_ray_rows(__nv_bfloat16* dst, const __nv_bfl
   }
 }
 
-// The [ed | h | e] rows of a CTA before its first layer (h is left as it is). The
-// point embedding e sits at column e_col, e_width wide. The viewdir embedding ed,
-// h_col wide, is either a row of the per-ray table `ed_src` [P / S, h_col] bf16
-// (PER_POINT_DIRS false: fused_mlp_fwd / fused_mlp_bwd) or the embedding of the
-// point's own direction, `ed_src` [P, 3] fp32 (PER_POINT_DIRS true: the _kpe kernels).
-template <bool PER_POINT_DIRS>
-__device__ __forceinline__ void build_rows(__nv_bfloat16* act, const float* __restrict__ pts,
+// Copy columns [col0, col0 + n) of the CTA's shared-memory rows (pitch lds) to rows
+// p0 .. of a row-major [P, n] bf16 array in device memory; rows past P are not stored.
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int lds,
+                                           int col0, int n, long long p0, long long P) {
+  const int chunks = n / 8;
+  for (int c = threadIdx.x; c < BM * chunks; c += THREADS) {
+    const int r = c / chunks, q = c - r * chunks;
+    const long long p = p0 + r;
+    if (p < P)
+      *reinterpret_cast<uint4*>(dst + p * n + q * 8) =
+          *reinterpret_cast<const uint4*>(src + r * lds + col0 + q * 8);
+  }
+}
+
+// Where the [ed | h | e] rows of a CTA come from, one value per kernel pair:
+//  ROWS_RAY_TABLE   K1 / K2: `pt_src` the points [P, 3] fp32, embedded in the kernel;
+//                   `ed_src` the per-ray viewdir embedding [P / S, h_col] bf16.
+//  ROWS_POINT_DIRS  K3 / K4: `pt_src` the points, `ed_src` each point's own direction
+//                   [P, 3] fp32; both embedded in the kernel.
+//  ROWS_EMBEDDED    K5 / K6: `pt_src` the point embedding e [P, e_width] and `ed_src`
+//                   the per-point viewdir embedding [P, h_col], both bf16, built before
+//                   the launch (e by K7, fused_pe.cu); S is 1.
+enum Rows { ROWS_RAY_TABLE = 0, ROWS_POINT_DIRS = 1, ROWS_EMBEDDED = 2 };
+
+// The [ed | h | e] rows of a CTA before its first layer (h is left as it is): the
+// viewdir embedding in columns [0, h_col), the point embedding in [e_col, e_col +
+// e_width), filled as ROWS says.
+template <Rows ROWS>
+__device__ __forceinline__ void build_rows(__nv_bfloat16* act, const void* pt_src,
                                            const void* ed_src, long long p0, long long P, int S,
                                            int multires, int multires_views, int h_col,
                                            int e_col, int e_width) {
-  if (PER_POINT_DIRS)
+  if (ROWS == ROWS_POINT_DIRS)
     embed_rows(act, static_cast<const float*>(ed_src), p0, P, multires_views, h_col);
   else
     copy_ray_rows(act, static_cast<const __nv_bfloat16*>(ed_src), p0, P, S, h_col);
-  embed_rows(act + e_col, pts, p0, P, multires, e_width);
+  if (ROWS == ROWS_EMBEDDED)
+    copy_ray_rows(act + e_col, static_cast<const __nv_bfloat16*>(pt_src), p0, P, 1, e_width);
+  else
+    embed_rows(act + e_col, static_cast<const float*>(pt_src), p0, P, multires, e_width);
 }
 
 }  // namespace dmnerf

@@ -1,5 +1,5 @@
 // Fused positional encoding + DM-NeRF MLP forward for one point query, sm_90a: the
-// kernel template behind two entry points.
+// kernel template behind three entry points.
 //
 //  * fused_mlp_fwd.cu (K1) replaces the JAX package's Pallas TPU kernel
 //    _fwd_kernel_pet (dmnerf_tpu/kernels/fused_mlp.py:507), pe_mode 'kernel_t': the
@@ -7,21 +7,25 @@
 //  * fused_mlp_fwd_kpe.cu (K3) replaces _fwd_kernel (:462, with _embed_pair :354),
 //    pe_mode 'kernel': the kernel takes each point's own direction ([P, 3] fp32) and
 //    embeds it, as it embeds the point.
-// The two differ only in how the ed columns of a row are filled (build_rows). What
-// they compute is set out in dmnerf_tpu_torch/kernels/fused_mlp.py, whose
-// fused_query_ref / fused_query_kpe_ref are their plain versions and whose
-// pack_params builds the layer table and weights they read.
+//  * fused_mlp_fwd_pe.cu (K5) replaces _fwd_kernel_pe (:471), pe_mode 'outside': the
+//    point embedding (built by K7, fused_pe.cu) and the per-point viewdir embedding
+//    come in as bf16 rows, and the kernel is the matrix-product chain alone.
+// The three differ only in how the ed and e columns of a row are filled (build_rows,
+// Rows). What they compute is set out in dmnerf_tpu_torch/kernels/fused_mlp.py, whose
+// fused_query_ref / fused_query_kpe_ref / fused_query_pe_ref are their plain versions
+// and whose pack_params builds the layer table and weights they read.
 //
 // Bound. Per fine point of the flagship model (D=8, W=256, ins_num 32) the layers
 // execute 564,864 multiply-accumulates, 1.13 MFLOP, against 4 * (3 + 3) bytes in (K3;
-// K1 reads 12 + 64 / S) and 37 * 4 bytes out: about 7,000 FLOP per byte, far above the
-// card's 295 bf16 FLOP/byte. The kernel is bound by its executed FLOPs over the
+// K1 reads 12 + 64 / S, K5 2 * (64 + 32)) and 37 * 4 bytes out: at least 3,300 FLOP
+// per byte, far above the card's 295 bf16 FLOP/byte. The kernel is bound by its executed FLOPs over the
 // 989 TFLOP/s bf16 tensor-core peak.
 //
 // Design. What it does about that bound: every product runs on the tensor cores
 // (bf16 mma.sync m16n8k16, fp32 accumulators), and nothing but the points, the
 // directions (or the per-ray viewdir embedding) and the output touches device
-// memory: the embeddings and every activation stay in shared memory.
+// memory: the embeddings (K5: once they are read) and every activation stay in
+// shared memory.
 //  * A CTA takes BM = 128 points. Its 8 warps tile each layer's [128, N] output as
 //    2 x 4 warp tiles of 64 x 64, accumulators in registers.
 //  * One shared-memory row per point holds [ed | h | e] in bf16: the viewdir
@@ -31,7 +35,7 @@
 //  * The weights (about 1.1 MB in bf16) do not fit in shared memory. Each layer
 //    streams them from L2 in 64-row K slices with cp.async, double-buffered.
 //  * Embeddings are computed per element in true fp32 (embed_rows: exact phases,
-//    accurate sincosf), then rounded to bf16.
+//    accurate sincosf), then rounded to bf16; K5 copies K7's, which embed_rows made.
 //  * Sigma is a layer of its own ([W, 16], column 0) kept in fp32 in shared
 //    memory; the output layer writes it into column 3.
 //  * Rows past the ragged tail compute on zeros and are never stored.
@@ -64,9 +68,9 @@ struct Net {
   Layer layers[MAX_LAYERS];
 };
 
-template <bool PER_POINT_DIRS>
+template <Rows ROWS>
 __global__ void __launch_bounds__(THREADS, 1)
-fused_mlp_fwd_kernel(const float* __restrict__ pts, const void* __restrict__ ed_src,
+fused_mlp_fwd_kernel(const void* __restrict__ pt_src, const void* __restrict__ ed_src,
                      const __nv_bfloat16* __restrict__ weights, const float* __restrict__ biases,
                      float* __restrict__ out, long long P, int S, const Net net) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -76,8 +80,8 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts, const void* __restrict__ ed_
 
   const int tid = threadIdx.x;
   const long long p0 = (long long)blockIdx.x * BM;
-  build_rows<PER_POINT_DIRS>(act, pts, ed_src, p0, P, S, net.multires, net.multires_views,
-                             net.h_col, net.e_col, net.e_width);
+  build_rows<ROWS>(act, pt_src, ed_src, p0, P, S, net.multires, net.multires_views, net.h_col,
+                   net.e_col, net.e_width);
   __syncthreads();
 
   const int warp = tid >> 5, lane = tid & 31;
@@ -123,8 +127,8 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts, const void* __restrict__ ed_
 
 // Launch on `stream`; returns cudaGetLastError() (0 when the launch was accepted).
 // `table` holds n_layers rows of (a_col, K, N, w_off, b_off, epilogue).
-template <bool PER_POINT_DIRS>
-int launch_fused_mlp_fwd(const float* pts, const void* ed_src, const void* weights,
+template <Rows ROWS>
+int launch_fused_mlp_fwd(const void* pt_src, const void* ed_src, const void* weights,
                          const float* biases, float* out, long long P, int S, const int* table,
                          int n_layers, int multires, int multires_views, int h_col, int e_col,
                          int e_width, int c4, void* stream) {
@@ -141,14 +145,13 @@ int launch_fused_mlp_fwd(const float* pts, const void* ed_src, const void* weigh
     const int* t = table + 6 * l;
     net.layers[l] = Layer{t[0], t[1], t[2], t[3], t[4], t[5]};
   }
-  cudaError_t err = cudaFuncSetAttribute(fused_mlp_fwd_kernel<PER_POINT_DIRS>,
+  cudaError_t err = cudaFuncSetAttribute(fused_mlp_fwd_kernel<ROWS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)FWD_SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const long long grid = (P + BM - 1) / BM;
-  fused_mlp_fwd_kernel<PER_POINT_DIRS><<<(unsigned)grid, THREADS, FWD_SMEM_BYTES,
-                                         (cudaStream_t)stream>>>(
-      pts, ed_src, reinterpret_cast<const __nv_bfloat16*>(weights), biases, out, P, S, net);
+  fused_mlp_fwd_kernel<ROWS><<<(unsigned)grid, THREADS, FWD_SMEM_BYTES, (cudaStream_t)stream>>>(
+      pt_src, ed_src, reinterpret_cast<const __nv_bfloat16*>(weights), biases, out, P, S, net);
   return (int)cudaGetLastError();
 }
 

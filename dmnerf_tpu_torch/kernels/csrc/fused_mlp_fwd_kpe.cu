@@ -12,6 +12,7 @@ extern "C" int dmnerf_fused_mlp_fwd_kpe(const float* pts, const float* dirs, con
                                         const int* table, int n_layers, int multires,
                                         int multires_views, int h_col, int e_col, int e_width,
                                         int c4, void* stream) {
-  return launch_fused_mlp_fwd<true>(pts, dirs, weights, biases, out, P, 1, table, n_layers,
-                                    multires, multires_views, h_col, e_col, e_width, c4, stream);
+  return launch_fused_mlp_fwd<ROWS_POINT_DIRS>(pts, dirs, weights, biases, out, P, 1, table,
+                                               n_layers, multires, multires_views, h_col, e_col,
+                                               e_width, c4, stream);
 }

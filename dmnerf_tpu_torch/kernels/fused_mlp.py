@@ -1,7 +1,7 @@
-"""The fused PE + DM-NeRF MLP point query and its parameter backward: two pairs of
+"""The fused PE + DM-NeRF MLP point query and its parameter backward: three sets of
 hand-written Hopper kernels, their plain PyTorch versions, the wrappers that pick
 between them, the autograd function that joins them, and the host-side packing they
-consume. The pair follows the JAX package's ``pe_mode`` (``resolve_pe_mode``):
+consume. The set follows the JAX package's ``pe_mode`` (``resolve_pe_mode``):
 
   'kernel_t'  K1 ``csrc/fused_mlp_fwd.cu``, K2 ``csrc/fused_mlp_bwd.cu``: the viewdir
               embedding is built per ray on the host and the kernels read row p / S
@@ -13,8 +13,15 @@ consume. The pair follows the JAX package's ``pe_mode`` (``resolve_pe_mode``):
               the point (``_fwd_kernel`` / ``_bwd_kernel`` with ``_embed_pair``,
               :462,481,354); plain versions ``fused_query_kpe_ref`` /
               ``fused_query_kpe_bwd_ref``.
+  'outside'   K7 ``csrc/fused_pe.cu`` embeds the points into a bf16 array e [P, EP]
+              (``make_pe_pallas``, :689); the per-ray viewdir embedding is repeated to
+              one bf16 row per point, ed [P, EDP]; K5 ``csrc/fused_mlp_fwd_pe.cu`` and
+              K6 ``csrc/fused_mlp_bwd_pe.cu`` are the matrix-product chain and its
+              backward over those two arrays (``_fwd_kernel_pe`` / ``_bwd_kernel_pe``,
+              :471,494); plain versions ``pe_points_ref``, ``fused_query_pe_ref`` /
+              ``fused_query_pe_bwd_ref``.
 
-Both pairs compute the point embedding ``[x | sin(2^f x) | cos(2^f x)]`` in fp32, the
+Every set computes the point embedding ``[x | sin(2^f x) | cos(2^f x)]`` in fp32, the
 ReLU trunk with the embedding re-injected at each skip layer, and the fused head
 
     pre1 = h @ M1 + b1,   M1 = [Wrf·Wrh1 | Wif·Wih | Wd]
@@ -74,17 +81,12 @@ _EPI = {"sigma": 1, "out": 2}   # every other layer: ReLU into h
 
 
 def resolve_pe_mode(pe_mode) -> str:
-    """The kernel pair of a config's ``pallas_pe_mode``: None and 'kernel_t' give K1/K2,
-    'kernel' gives K3/K4. 'outside' (K5-K7) is not ported and raises; it never runs
-    another pair in its place."""
+    """The kernels of a config's ``pallas_pe_mode``: None and 'kernel_t' give K1/K2,
+    'kernel' gives K3/K4, 'outside' gives K7 then K5/K6. Anything else is refused."""
     if pe_mode in (None, "kernel_t"):
         return "kernel_t"
-    if pe_mode == "kernel":
-        return "kernel"
-    if pe_mode == "outside":
-        raise NotImplementedError(
-            "pallas_pe_mode 'outside' needs K5-K7 (_fwd_kernel_pe, _bwd_kernel_pe, "
-            "make_pe_pallas), which are not ported yet: ROADMAP.md queue 2")
+    if pe_mode in ("kernel", "outside"):
+        return pe_mode
     raise ValueError(f"unknown pallas_pe_mode {pe_mode!r}")
 
 
@@ -278,6 +280,19 @@ def view_embedding(packed: Packed, viewdirs: torch.Tensor) -> torch.Tensor:
     return _embedding(viewdirs, packed.multires_views, packed.edp)
 
 
+def point_view_embedding(packed: Packed, viewdirs: torch.Tensor, S: int,
+                         act_dtype=torch.float32) -> torch.Tensor:
+    """The per-ray viewdir embedding in ``act_dtype``, one row per point [N * S, EDP]:
+    the ed that the 'outside' kernels read (the JAX query's broadcast, :913-914)."""
+    return view_embedding(packed, viewdirs.float()).to(act_dtype).repeat_interleave(S, dim=0)
+
+
+def pe_points_ref(packed: Packed, x: torch.Tensor, act_dtype=torch.float32) -> torch.Tensor:
+    """K7's function: the point embedding [P, EP] of x [P, 3], in kernel lane order with
+    a zero pad column, computed in fp32 and rounded to ``act_dtype`` (K7 gives bf16)."""
+    return _embedding(x.float(), packed.multires, packed.ep).to(act_dtype)
+
+
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
@@ -362,6 +377,15 @@ def fused_query_kpe_ref(packed: Packed, pts: torch.Tensor, dirs: torch.Tensor,
     embeddings, with the same roundings per ``act_dtype``."""
     e, ed = _embeddings_kpe(packed, pts, dirs, _rounder(act_dtype))
     return _walk_fwd(packed, e, ed, act_dtype)
+
+
+def fused_query_pe_ref(packed: Packed, e: torch.Tensor, ed: torch.Tensor,
+                       act_dtype=torch.float32) -> torch.Tensor:
+    """K5's function: the layer walk of ``fused_query_ref`` over given embeddings e
+    [P, EP] and ed [P, EDP] (any float type, rounded to ``act_dtype``) -> raw
+    [P, 4+C] fp32."""
+    rnd = _rounder(act_dtype)
+    return _walk_fwd(packed, rnd(e.float()), rnd(ed.float()), act_dtype)
 
 
 def _split_layers(packed: Packed):
@@ -451,25 +475,41 @@ def fused_query_kpe_bwd_ref(packed: Packed, pts: torch.Tensor, dirs: torch.Tenso
     return _walk_bwd(packed, e, ed, g, act_dtype)
 
 
+def fused_query_pe_bwd_ref(packed: Packed, e: torch.Tensor, ed: torch.Tensor,
+                           g: torch.Tensor, act_dtype=torch.float32):
+    """K6's function: ``fused_query_bwd_ref``'s walk over given embeddings e [P, EP],
+    ed [P, EDP] for the output cotangent g [P, 4+C]. Nothing goes into e or ed (the
+    JAX package returns zeros for them)."""
+    rnd = _rounder(act_dtype)
+    return _walk_bwd(packed, rnd(e.float()), rnd(ed.float()), g, act_dtype)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_kernel_inputs(name: str, packed: Packed, pts: torch.Tensor,
-                         dirs: torch.Tensor) -> None:
-    """Device, types and contiguity of a launch, and the packed table's fit to the
-    kernels' tiling. ``dirs`` is the per-ray viewdirs (K1, K2) or the per-point
-    directions (K3, K4); the callers check the shapes."""
-    dev = pts.device
+def _check_device_inputs(name: str, inputs) -> None:
+    """A launch's card and its tensors' device, type and contiguity: ``inputs`` is
+    (what, tensor, dtype) triples, all on the first one's device."""
+    dev = inputs[0][1].device
     if torch.cuda.get_device_capability(dev) != (9, 0):
         raise RuntimeError(f"{name} is built for sm_90a; device {dev} is "
                            f"sm_{''.join(map(str, torch.cuda.get_device_capability(dev)))}")
-    for what, t, dt in (("pts", pts, torch.float32), ("viewdirs", dirs, torch.float32),
-                        ("packed.w_bf16", packed.w_bf16, torch.bfloat16),
-                        ("packed.b", packed.b, torch.float32)):
+    for what, t, dt in inputs:
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{what}: want a contiguous {dt} tensor on {dev}, got "
                              f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+
+
+def _check_kernel_inputs(name: str, packed: Packed, a: torch.Tensor, b: torch.Tensor,
+                         names=("pts", "viewdirs"), dtype=torch.float32) -> None:
+    """Device, types and contiguity of a query launch, and the packed table's fit to
+    the kernels' tiling. ``a``, ``b`` are the points and the per-ray viewdirs (K1, K2)
+    or the per-point directions (K3, K4), fp32, or the embeddings e and ed (K5, K6),
+    bf16; the callers check the shapes."""
+    _check_device_inputs(name, ((names[0], a, dtype), (names[1], b, dtype),
+                                ("packed.w_bf16", packed.w_bf16, torch.bfloat16),
+                                ("packed.b", packed.b, torch.float32)))
     if packed.edp + packed.width + packed.ep > _ACT_COLS or packed.width % 16:
         raise ValueError(f"kernel holds [ed | h | e] rows of at most {_ACT_COLS} columns with "
                          f"W % 16 == 0; got {packed.edp} + {packed.width} + {packed.ep}")
@@ -494,6 +534,12 @@ def _check_point_shapes(pts: torch.Tensor, dirs: torch.Tensor) -> None:
                          f"{tuple(pts.shape)} and {tuple(dirs.shape)}")
 
 
+def _check_embedding_shapes(packed: Packed, e: torch.Tensor, ed: torch.Tensor) -> None:
+    if e.dim() != 2 or e.shape[1] != packed.ep or ed.shape != (e.shape[0], packed.edp):
+        raise ValueError(f"want e [P, {packed.ep}] and ed [P, {packed.edp}], got "
+                         f"{tuple(e.shape)} and {tuple(ed.shape)}")
+
+
 def _layer_table(layers, extra=lambda layer: ()) -> list:
     table = []
     for layer in layers:
@@ -503,8 +549,10 @@ def _layer_table(layers, extra=lambda layer: ()) -> list:
 
 def _launch_fwd(name: str, packed: Packed, pts: torch.Tensor, ed_src: torch.Tensor,
                 P: int, S: int) -> torch.Tensor:
-    """One launch of K1 (``ed_src`` the per-ray viewdir embedding [P / S, EDP] bf16) or
-    K3 (``ed_src`` the directions [P, 3] fp32); returns raw [P, 4+C]."""
+    """One launch of K1 (``ed_src`` the per-ray viewdir embedding [P / S, EDP] bf16),
+    K3 (``ed_src`` the directions [P, 3] fp32) or K5 (``pts`` the point embedding e
+    [P, EP], ``ed_src`` the per-point viewdir embedding [P, EDP], both bf16); returns
+    raw [P, 4+C]."""
     out = torch.empty((P, packed.c4), dtype=torch.float32, device=pts.device)
     if P == 0:
         return out
@@ -519,6 +567,11 @@ def _launch_fwd(name: str, packed: Packed, pts: torch.Tensor, ed_src: torch.Tens
             + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         args = (pts.data_ptr(), ed_src.data_ptr(), *common, S, c_table, len(packed.layers),
                 packed.multires, *dims, stream)
+    elif name == "fused_mlp_fwd_pe":
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p] \
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        args = (pts.data_ptr(), ed_src.data_ptr(), *common, c_table, len(packed.layers),
+                *dims, stream)
     else:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p] \
             + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -554,6 +607,43 @@ def _forward_kpe(packed: Packed, pts: torch.Tensor, dirs: torch.Tensor) -> torch
     return _launch_fwd("fused_mlp_fwd_kpe", packed, pts, dirs, pts.shape[0], 1)
 
 
+def _forward_pe(packed: Packed, e: torch.Tensor, ed: torch.Tensor) -> torch.Tensor:
+    """K5 routing: the fp32 plain version for CPU tensors, the kernel for CUDA tensors
+    (e [P, EP] and ed [P, EDP] bf16). -> raw [P, 4+C]."""
+    if e.device.type == "cpu":
+        return fused_query_pe_ref(packed, e, ed, torch.float32)
+    _check_kernel_inputs("fused_mlp_fwd_pe", packed, e, ed, ("e", "ed"), torch.bfloat16)
+    _check_embedding_shapes(packed, e, ed)
+    return _launch_fwd("fused_mlp_fwd_pe", packed, e, ed, e.shape[0], 1)
+
+
+def pe_points(packed: Packed, x: torch.Tensor) -> torch.Tensor:
+    """The point embedding e [P, EP] of x [P, 3] fp32: K7 for a CUDA tensor (bf16), the
+    fp32 plain version ``pe_points_ref`` for a CPU tensor; no fallback."""
+    if x.device.type == "cpu":
+        return pe_points_ref(packed, x, torch.float32)
+    _check_device_inputs("fused_pe", (("x", x, torch.float32),))
+    if x.dim() != 2 or x.shape[-1] != 3:
+        raise ValueError(f"want x [P, 3], got {tuple(x.shape)}")
+    if packed.ep % 8 or packed.ep > 256:
+        raise ValueError(f"fused_pe writes rows of a multiple of 8 columns up to 256, got "
+                         f"{packed.ep}")
+    P = x.shape[0]
+    e = torch.empty((P, packed.ep), dtype=torch.bfloat16, device=x.device)
+    if P == 0:
+        return e
+    fn = runtime.load("fused_pe").dmnerf_fused_pe
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), e.data_ptr(), P, packed.multires, packed.ep,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_pe launch failed: cudaError {err}")
+    runtime.LAUNCHES["fused_pe"] += 1
+    return e
+
+
 # tiling of csrc/fused_mlp_bwd.cuh's dW kernel
 _DW_TILE_F, _DW_TILE_N, _DW_POINTS = 128, 128, 32
 _DW_CTAS_PER_SM = 4
@@ -572,21 +662,27 @@ def _flat(blocks: Sequence[torch.Tensor]):
     return torch.cat(parts), offs
 
 
-def _bwd_plan(packed: Packed, N: int, S: int, n_sms: int, per_point_dirs: bool = False):
+def _bwd_plan(packed: Packed, N: int, S: int, n_sms: int, rows: str = "ray_table"):
     """Host tables of csrc/fused_mlp_bwd.cuh: the stash and cotangent layouts, the
-    transposed weight blocks of the backward-data walk, and the dW jobs. With
-    ``per_point_dirs`` (K4) the stash also holds each point's viewdir embedding, which
-    the head's dW job reads in place of K2's per-ray table."""
+    transposed weight blocks of the backward-data walk, and the dW jobs. ``rows`` is
+    the kernel's Rows: 'ray_table' (K2) stashes the point embedding and reads the
+    per-ray viewdir table [N, EDP] (segment source 1, row p / S); 'point_dirs' (K4)
+    also stashes each point's viewdir embedding for the head's dW job; 'embedded' (K6,
+    S = 1) stashes neither and reads e [P, EP] (source 2) and ed [P, EDP] (source 1)
+    from its inputs."""
     trunk, sig, head, out = _split_layers(packed)
     P, W, ep, edp, hr = N * S, packed.width, packed.ep, packed.edp, packed.hr
     if hr % 16 or hr + 16 > _N_MAX:
         raise ValueError(f"backward kernel wants the rgb hidden width % 16 == 0 and "
                          f"<= {_N_MAX - 16}, got {hr}")
-    # stash (bf16): e [P, EP], (K4) ed [P, EDP], each trunk layer's output [P, W], the
-    # head's [P, nh]
-    e_off, off = 0, P * ep
+    if rows not in ("ray_table", "point_dirs", "embedded") or (rows == "embedded" and S != 1):
+        raise ValueError(f"unknown rows {rows!r} for S = {S}")
+    # stash (bf16): e [P, EP] (not K6), (K4) ed [P, EDP], each trunk layer's output
+    # [P, W], the head's [P, nh]
+    e_seg = (2, 0, ep, ep, 1) if rows == "embedded" else (0, 0, ep, ep, 1)
+    off = 0 if rows == "embedded" else P * ep
     ed_off = -1
-    if per_point_dirs:
+    if rows == "point_dirs":
         ed_off, off = off, off + P * edp
     h_off = []
     for _ in trunk:
@@ -612,22 +708,22 @@ def _bwd_plan(packed: Packed, N: int, S: int, n_sms: int, per_point_dirs: bool =
     for k, i in enumerate(range(D - 1, 0, -1)):
         steps.append((W, W, wt_off[2 + k], h_off[i - 1], dpre_off[i - 1], trunk[i - 1].b_off, 0))
 
-    # dW jobs: A = up to two column segments (src 0 stash, 1 K2's per-ray table; off,
-    # width, ld, row div)
+    # dW jobs: A = up to two column segments (src 0 stash, 1 the viewdir table, 2 the
+    # input e; off, width, ld, row div)
     def seg(src, o, width, div=1):
         return (src, o, width, width, div)
     none = (0, 0, 0, 0, 1)
     jobs = []
     for i, layer in enumerate(trunk):
         if layer.kind == "emb0":
-            segs = (seg(0, e_off, ep), none)
+            segs = (e_seg, none)
         elif layer.kind == "split":
-            segs = (seg(0, h_off[i - 1], W), seg(0, e_off, ep))
+            segs = (seg(0, h_off[i - 1], W), e_seg)
         else:
             segs = (seg(0, h_off[i - 1], W), none)
         jobs.append((layer, segs))
     jobs += [(sig, (seg(0, h_off[D - 1], W), none)),
-             (head, (seg(0, ed_off, edp) if per_point_dirs else seg(1, 0, edp, S),
+             (head, (seg(0, ed_off, edp) if rows == "point_dirs" else seg(1, 0, edp, S),
                      seg(0, h_off[D - 1], W))),
              (out, (seg(0, head_off, head.N), none))]
     dw_rows, n_tiles = [], 0
@@ -661,15 +757,18 @@ def _check_cotangent(g: torch.Tensor, shape, device) -> None:
 def _launch_bwd(name: str, packed: Packed, pts: torch.Tensor, ed_src: torch.Tensor,
                 g: torch.Tensor, N: int, S: int):
     """One call of K2 (``ed_src`` the per-ray viewdir embedding [N, EDP] bf16, S points
-    a ray) or K4 (``ed_src`` the directions [P, 3] fp32, S = 1): its five device
-    launches, and (dw, db)."""
+    a ray), K4 (``ed_src`` the directions [P, 3] fp32, S = 1) or K6 (``pts`` the point
+    embedding e [P, EP], ``ed_src`` the per-point viewdir embedding [P, EDP], both
+    bf16, S = 1): its five device launches, and (dw, db)."""
     dev = pts.device
     dw = torch.zeros(packed.w.shape, dtype=torch.float32, device=dev)
     db = torch.zeros(packed.b.shape, dtype=torch.float32, device=dev)
     if N * S == 0:
         return dw, db
+    rows = {"fused_mlp_bwd": "ray_table", "fused_mlp_bwd_kpe": "point_dirs",
+            "fused_mlp_bwd_pe": "embedded"}[name]
     plan = _bwd_plan(packed, N, S, torch.cuda.get_device_properties(dev).multi_processor_count,
-                     per_point_dirs=name == "fused_mlp_bwd_kpe")
+                     rows)
     stash = torch.empty(plan["stash_size"], dtype=torch.bfloat16, device=dev)
     dpre = torch.empty(plan["dpre_size"], dtype=torch.bfloat16, device=dev)
     n_ctas = -(-(N * S) // 128)
@@ -720,6 +819,20 @@ def fused_query_kpe_bwd(packed: Packed, pts: torch.Tensor, dirs: torch.Tensor,
     return _launch_bwd("fused_mlp_bwd_kpe", packed, pts, dirs, g, P, 1)
 
 
+def fused_query_pe_bwd(packed: Packed, e: torch.Tensor, ed: torch.Tensor, g: torch.Tensor):
+    """Parameter cotangents ``(dw, db)`` of the K5 query over the embeddings e [P, EP]
+    and ed [P, EDP] for the output cotangent g [P, 4+C] fp32. CUDA tensors (bf16
+    embeddings) go through the Hopper kernel (K6), CPU tensors through
+    ``fused_query_pe_bwd_ref`` in fp32; there is no fallback."""
+    if e.device.type == "cpu":
+        return fused_query_pe_bwd_ref(packed, e, ed, g, torch.float32)
+    _check_kernel_inputs("fused_mlp_bwd_pe", packed, e, ed, ("e", "ed"), torch.bfloat16)
+    _check_embedding_shapes(packed, e, ed)
+    P = e.shape[0]
+    _check_cotangent(g, (P, packed.c4), e.device)
+    return _launch_bwd("fused_mlp_bwd_pe", packed, e, ed, g, P, 1)
+
+
 def _point_dirs(viewdirs: torch.Tensor, S: int) -> torch.Tensor:
     """Per-ray viewdirs [N, 3] broadcast to one direction per point [N * S, 3], as the
     JAX package's 'kernel' query does (``dmnerf_tpu/kernels/fused_mlp.py:918``)."""
@@ -729,27 +842,39 @@ def _point_dirs(viewdirs: torch.Tensor, S: int) -> torch.Tensor:
 class _FusedQuery(torch.autograd.Function):
     """raw = query(w, b): differentiable in ``Packed.w`` and ``Packed.b`` only. The
     points and viewdirs get no cotangent, as in the JAX package, whose callers stop
-    their gradient (``dmnerf_tpu/kernels/fused_mlp.py:905``) or whose backward
-    returns zeros for them (:819-820). ``pe_mode`` picks the pair: 'kernel_t' K1/K2,
-    'kernel' K3/K4 over per-point directions."""
+    their gradient (``dmnerf_tpu/kernels/fused_mlp.py:905,915``) or whose backward
+    returns zeros for them (:819-820). ``pe_mode`` picks the kernels: 'kernel_t'
+    K1/K2, 'kernel' K3/K4 over per-point directions, 'outside' K7 and K5/K6 over the
+    embeddings, which the forward builds once and saves for the backward, as the JAX
+    rule saves ``(params, e, ed)`` (:846-847)."""
 
     @staticmethod
     def forward(ctx, w, b, packed, pts, viewdirs, pe_mode):
         ctx.packed, ctx.pe_mode = packed, pe_mode
-        ctx.save_for_backward(pts, viewdirs)
         if pe_mode == "kernel_t":
+            ctx.save_for_backward(pts, viewdirs)
             return _forward(packed, pts, viewdirs)
         N, S, _ = pts.shape
+        if pe_mode == "outside":
+            e = pe_points(packed, pts.reshape(N * S, 3).contiguous())
+            ed = point_view_embedding(packed, viewdirs, S, e.dtype)
+            ctx.save_for_backward(e, ed)
+            return _forward_pe(packed, e, ed).reshape(N, S, packed.c4)
+        ctx.save_for_backward(pts, viewdirs)
         raw = _forward_kpe(packed, pts.reshape(N * S, 3), _point_dirs(viewdirs, S))
         return raw.reshape(N, S, packed.c4)
 
     @staticmethod
     def backward(ctx, g):
-        pts, viewdirs = ctx.saved_tensors
         packed = ctx.packed
         if ctx.pe_mode == "kernel_t":
+            pts, viewdirs = ctx.saved_tensors
             dw, db = fused_query_bwd(packed, pts, viewdirs, g.contiguous())
+        elif ctx.pe_mode == "outside":
+            e, ed = ctx.saved_tensors
+            dw, db = fused_query_pe_bwd(packed, e, ed, g.reshape(-1, packed.c4).contiguous())
         else:
+            pts, viewdirs = ctx.saved_tensors
             N, S, _ = pts.shape
             dw, db = fused_query_kpe_bwd(packed, pts.reshape(N * S, 3), _point_dirs(viewdirs, S),
                                          g.reshape(N * S, packed.c4).contiguous())
@@ -760,10 +885,10 @@ def fused_query(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor,
                 pe_mode=None) -> torch.Tensor:
     """Point query pts [N, S, 3], viewdirs [N, 3] -> raw [N, S, 4+C] fp32.
 
-    ``pe_mode`` (``resolve_pe_mode``) picks the kernel pair: None or 'kernel_t' K1
-    forward / K2 backward, 'kernel' K3 / K4. CUDA tensors go through the Hopper
-    kernels, CPU tensors through their fp32 plain versions; there is no fallback from
-    one to the other. Gradients flow into ``packed.w`` and ``packed.b`` when they
-    require one; under ``torch.no_grad`` (the render path) nothing is recorded and
-    the backward kernel never runs."""
+    ``pe_mode`` (``resolve_pe_mode``) picks the kernels: None or 'kernel_t' K1
+    forward / K2 backward, 'kernel' K3 / K4, 'outside' K7 then K5 / K6. CUDA tensors
+    go through the Hopper kernels, CPU tensors through their fp32 plain versions;
+    there is no fallback from one to the other. Gradients flow into ``packed.w`` and
+    ``packed.b`` when they require one; under ``torch.no_grad`` (the render path)
+    nothing is recorded and the backward kernel never runs."""
     return _FusedQuery.apply(packed.w, packed.b, packed, pts, viewdirs, resolve_pe_mode(pe_mode))

@@ -26,8 +26,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# K1, K2 (pe_mode 'kernel_t') and K3, K4 (pe_mode 'kernel')
-KERNELS = ("fused_mlp_fwd", "fused_mlp_bwd", "fused_mlp_fwd_kpe", "fused_mlp_bwd_kpe")
+# K1, K2 (pe_mode 'kernel_t'), K3, K4 (pe_mode 'kernel') and K5, K6, K7 (pe_mode
+# 'outside': the forward and backward over precomputed embeddings, and the embedding)
+KERNELS = ("fused_mlp_fwd", "fused_mlp_bwd", "fused_mlp_fwd_kpe", "fused_mlp_bwd_kpe",
+           "fused_mlp_fwd_pe", "fused_mlp_bwd_pe", "fused_pe")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

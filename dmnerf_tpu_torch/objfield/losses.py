@@ -37,16 +37,19 @@ def compact_one_hot(gt_labels: torch.Tensor, ins_num: int,
 
     Returns (gt_ins [N, ins_num], valid_ins_num, present [ins_num] bool). Column j of
     gt_ins is the mask of the j-th smallest label present; columns >= valid are zero.
-    Labels lie in [0, ins_num)."""
+    A label outside [0, ins_num) (the air label ins_num of a crop-sampler slot that
+    ``ray_mask`` pads out) marks nothing present, and its row reads the rank of the
+    clamped label, as XLA's scatter drops and its gather clamps such an index."""
     gt_labels = gt_labels.long()
+    idx = gt_labels.clamp(0, ins_num - 1)
     weight = (torch.ones_like(gt_labels, dtype=torch.float32) if ray_mask is None
-              else ray_mask.float())
+              else ray_mask.float()) * (idx == gt_labels).float()
     present = torch.zeros(ins_num, device=gt_labels.device).scatter_reduce(
-        0, gt_labels, weight, reduce="amax") > 0
+        0, idx, weight, reduce="amax") > 0
     valid = present.sum()
-    rank = torch.cumsum(present.long(), 0) - 1
-    gt_ins = torch.nn.functional.one_hot(rank[gt_labels].clamp(min=0), ins_num).float()
-    gt_ins = gt_ins * present[gt_labels].float()[:, None]
+    rank = (torch.cumsum(present.long(), 0) - 1)[idx]
+    gt_ins = torch.nn.functional.one_hot(rank.clamp(min=0), ins_num).float()
+    gt_ins = gt_ins * (rank >= 0).float()[:, None]      # one_hot(-1) is a zero row
     if ray_mask is not None:
         gt_ins = gt_ins * ray_mask.float()[:, None]
     return gt_ins, valid, present

@@ -8,9 +8,13 @@ every ``i_save`` a checkpoint with the Adam state, every ``i_test`` an evaluatio
 up to 10 random test views. A run resumes from its latest checkpoint; ``ft_path``
 wins over resume.
 
+A scene with a crop mask and labelled pixel ids (ScanNet) trains on the crop
+sampler, whose labelled rays form the batch suffix that the instance loss sees
+(``N_ins``); every other scene on the full-image sampler.
+
 Steps run one by one. ``steps_per_dispatch`` packs TPU dispatches in the JAX package
-and leaves the trajectory unchanged, so it changes nothing here. ``multihost``,
-``profile_dir`` and ScanNet's crop-sampler scenes raise NotImplementedError.
+and leaves the trajectory unchanged, so it changes nothing here. ``multihost`` and
+``profile_dir`` raise NotImplementedError.
 
 Usage:  python -m dmnerf_tpu_torch.train --config configs/train/dmsr/study.txt [key=value ...]
 """
@@ -26,7 +30,7 @@ import numpy as np
 import torch
 
 from dmnerf_tpu_torch.configs import Config, dump_config, parse_cli
-from dmnerf_tpu_torch.data.samplers import make_full_sampler
+from dmnerf_tpu_torch.data.samplers import make_crop_sampler, make_full_sampler
 from dmnerf_tpu_torch.data.scene import SceneData, load_scene
 from dmnerf_tpu_torch.render.evaluation import render_test
 from dmnerf_tpu_torch.render.trainstep import TrainState, create_train_state, make_train_step
@@ -50,6 +54,17 @@ def _save(log_dir: str, state: TrainState) -> str:
                            state.opt.state_dict())
 
 
+def make_sampler(cfg: Config, scene: SceneData, device):
+    """(sampler, N_ins): the crop sampler exactly when the scene has a crop mask and
+    labelled pixel ids, else the full-image sampler and None."""
+    if scene.crop_mask is not None and scene.ins_indices is not None:
+        return make_crop_sampler(scene.images, scene.gt_labels, scene.poses, scene.K,
+                                 scene.i_train, cfg.N_train, scene.ins_indices,
+                                 scene.crop_mask, device=device)
+    return make_full_sampler(scene.images, scene.gt_labels, scene.poses, scene.K,
+                             scene.i_train, cfg.N_train, device=device), None
+
+
 def train(cfg: Config, scene: Optional[SceneData] = None, device=None) -> TrainState:
     """Train on ``device`` (default: the CUDA card) and return the final state."""
     device = resolve_device(device)
@@ -61,9 +76,6 @@ def train(cfg: Config, scene: Optional[SceneData] = None, device=None) -> TrainS
                                   "'Tools and bench')")
     if scene is None:
         scene = load_scene(cfg)
-    if scene.crop_mask is not None and scene.ins_indices is not None:
-        raise NotImplementedError("the crop sampler is not ported yet (ROADMAP.md queue 1, "
-                                  "'Replica and ScanNet')")
     if cfg.steps_per_dispatch > 1:
         print(f"[train] steps_per_dispatch={cfg.steps_per_dispatch} packs TPU dispatches in the "
               "JAX package; here the same steps run one by one")
@@ -87,9 +99,8 @@ def train(cfg: Config, scene: Optional[SceneData] = None, device=None) -> TrainS
             raise ValueError(f"checkpoint {path} carries step={state.step}, its name says {step}")
         print(f"[train] fine-tuning from {cfg.ft_path} (step {state.step})")
 
-    sampler = make_full_sampler(scene.images, scene.gt_labels, scene.poses, scene.K,
-                                scene.i_train, cfg.N_train, device=device)
-    step_fn = make_train_step(cfg)
+    sampler, n_ins = make_sampler(cfg, scene, device)
+    step_fn = make_train_step(cfg, N_ins=n_ins)
     gen_batch = torch.Generator().manual_seed(cfg.seed + 1)
     gen_step = torch.Generator(device=device).manual_seed(cfg.seed + 2)
 

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain version, at narrow
 widths and at the flagship's, with ragged point counts; the backward kernels'
 instance-head wall and their bit-identical repeats. K1/K2 take per-ray viewdirs
-(pe_mode 'kernel_t'), K3/K4 per-point directions (pe_mode 'kernel'). These tests
+(pe_mode 'kernel_t'), K3/K4 per-point directions (pe_mode 'kernel'), K5/K6 the
+embeddings that K7 and the per-ray viewdir table give (pe_mode 'outside'). These tests
 need a CUDA card of capability 9.0 and skip without one; they import no JAX, so they
 run on a machine that has none:
 
@@ -16,9 +17,10 @@ torch = pytest.importorskip("torch")
 from dmnerf_tpu_torch.core.mlp import init_dm_nerf, rgb_stub_params, sigma_stub_params  # noqa: E402
 from dmnerf_tpu_torch.kernels import runtime  # noqa: E402
 from dmnerf_tpu_torch.kernels.fused_mlp import (  # noqa: E402
-    _forward_kpe, _point_dirs, fused_query, fused_query_bwd, fused_query_bwd_ref,
-    fused_query_kpe_bwd, fused_query_kpe_bwd_ref, fused_query_kpe_ref, fused_query_ref,
-    pack_params)
+    _forward, _forward_kpe, _forward_pe, _point_dirs, fused_query, fused_query_bwd,
+    fused_query_bwd_ref, fused_query_kpe_bwd, fused_query_kpe_bwd_ref, fused_query_kpe_ref,
+    fused_query_pe_bwd, fused_query_pe_bwd_ref, fused_query_pe_ref, fused_query_ref,
+    pack_params, pe_points, pe_points_ref, point_view_embedding)
 
 SHAPES = [
     # (multires, multires_views, D, W, skips, ins_num, N, S)
@@ -141,7 +143,8 @@ def test_fused_mlp_bwd_wall(cuda):
     raw = fused_query(pack_params(params, *args), pts, dirs)
     raw[..., 4:].sum().backward()
     assert runtime.LAUNCHES == {"fused_mlp_fwd": 1, "fused_mlp_bwd": 1, "fused_mlp_fwd_kpe": 0,
-                                "fused_mlp_bwd_kpe": 0}
+                                "fused_mlp_bwd_kpe": 0, "fused_mlp_fwd_pe": 0,
+                                "fused_mlp_bwd_pe": 0, "fused_pe": 0}
     for k, v in params.items():
         if k.startswith(("trunk_", "rgb_", "density")):
             assert v.grad is None or int(torch.count_nonzero(v.grad)) == 0, k
@@ -223,7 +226,8 @@ def test_fused_mlp_bwd_kpe_wall_and_repeats(cuda):
     raw = fused_query(pack_params(params, *args), pts, dirs, "kernel")
     raw[..., 4:].sum().backward()
     assert runtime.LAUNCHES == {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0, "fused_mlp_fwd_kpe": 1,
-                                "fused_mlp_bwd_kpe": 1}
+                                "fused_mlp_bwd_kpe": 1, "fused_mlp_fwd_pe": 0,
+                                "fused_mlp_bwd_pe": 0, "fused_pe": 0}
     for k, v in params.items():
         if k.startswith(("trunk_", "rgb_", "density")):
             assert v.grad is None or int(torch.count_nonzero(v.grad)) == 0, k
@@ -234,4 +238,108 @@ def test_fused_mlp_bwd_kpe_wall_and_repeats(cuda):
     fp, fd = _flat(pts, dirs)
     g = _cotangent(packed, pts, seed=3).reshape(-1, packed.c4)
     first, second = fused_query_kpe_bwd(packed, fp, fd, g), fused_query_kpe_bwd(packed, fp, fd, g)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+def _embedded(packed, pts, dirs):
+    """The K5/K6 inputs of a [N, S] query: K7's e and the per-point viewdir table, bf16."""
+    e = pe_points(packed, pts.reshape(-1, 3).contiguous())
+    return e, point_view_embedding(packed, dirs, pts.shape[1], torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fused_pe_matches_plain(cuda, shape):
+    """K7 against its plain version: the x lanes bit-equal to bf16(x), the sin / cos
+    lanes within 4e-3 of fp32 (bf16's half step at 1 is 2^-9), the pad columns zero;
+    points up to 8 from the origin, phases up to 2^(multires-1) * 8."""
+    params, args, pts, dirs = _inputs(shape, cuda)
+    packed = pack_params(params, *args)
+    x = pts.reshape(-1, 3).contiguous()
+    runtime.reset_launches()
+    got = pe_points(packed, x)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["fused_pe"] == 1
+    assert got.dtype == torch.bfloat16 and got.shape == (x.shape[0], packed.ep)
+    ref = pe_points_ref(packed, x, torch.float32)
+    n = 3 * (1 + 2 * packed.multires)
+    assert torch.equal(got[:, :3], x.to(torch.bfloat16))
+    assert float((got[:, 3:n].float() - ref[:, 3:n]).abs().max()) <= 4e-3
+    assert not got[:, n:].any()
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fused_mlp_fwd_pe_matches_plain(cuda, shape):
+    """K5 over K7's embedding against the fp32 plain query and its own bf16 plain
+    version, and bit-equal to K1 on the same rays: both read the same bf16 embeddings,
+    which one function (embed_rows) builds."""
+    params, args, pts, dirs = _inputs(shape, cuda)
+    for p in (params, rgb_stub_params(params)):
+        packed = pack_params(p, *args)
+        e, ed = _embedded(packed, pts, dirs)
+        runtime.reset_launches()
+        got = _forward_pe(packed, e, ed)
+        torch.cuda.synchronize()
+        assert runtime.LAUNCHES["fused_mlp_fwd_pe"] == 1 and runtime.LAUNCHES["fused_mlp_fwd"] == 0
+        ref32 = fused_query_ref(packed, pts, dirs, torch.float32).reshape(-1, packed.c4)
+        ref16 = fused_query_pe_ref(packed, e, ed, torch.bfloat16)
+        assert got.shape == ref32.shape and torch.isfinite(got).all()
+        scale = float(ref32.abs().max())
+        assert float((got - ref32).abs().max()) <= 5e-3 * max(scale, 1.0)
+        assert float((got - ref16).abs().max()) <= 1e-3 * max(scale, 1.0)
+        via = fused_query(packed, pts, dirs, "outside")
+        assert torch.equal(via.reshape(-1, packed.c4), got)
+        assert torch.equal(_forward(packed, pts, dirs).reshape(-1, packed.c4), got)
+
+
+@pytest.mark.parametrize("shape", SHAPES[:1])
+def test_fused_mlp_fwd_pe_stub_sigma_exact(cuda, shape):
+    params, args, pts, dirs = _inputs(shape, cuda, seed=1)
+    packed = pack_params(params, *args)
+    full = _forward_pe(packed, *_embedded(packed, pts, dirs))[:, 3]
+    for stub in (sigma_stub_params(params), rgb_stub_params(params)):
+        sp = pack_params(stub, *args)
+        got = _forward_pe(sp, *_embedded(sp, pts, dirs))[:, 3]
+        assert float((got - full).abs().max()) <= 1e-5 * max(float(full.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fused_mlp_bwd_pe_matches_plain(cuda, shape):
+    """K6 against its bf16 plain version over the same embeddings, block by packed
+    layer, as K2's test: within 5e-3 of each block's scale."""
+    params, args, pts, dirs = _inputs(shape, cuda)
+    packed = pack_params(params, *args)
+    e, ed = _embedded(packed, pts, dirs)
+    g = _cotangent(packed, pts).reshape(-1, packed.c4)
+    runtime.reset_launches()
+    got = fused_query_pe_bwd(packed, e, ed, g)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["fused_mlp_bwd_pe"] == 1 and runtime.LAUNCHES["fused_mlp_bwd"] == 0
+    assert torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
+    ref16 = fused_query_pe_bwd_ref(packed, e, ed, g, torch.bfloat16)
+    for layer, err, scale in _block_errs(packed, got, ref16):
+        assert err <= 5e-3 * max(scale, 1e-6), (layer, err, scale)
+
+
+def test_fused_mlp_bwd_pe_wall_and_repeats(cuda):
+    """pe_mode 'outside' through autograd: one launch each of K7, K5 and K6 (the
+    backward reuses the forward's embeddings), an instance-only loss gives exactly zero
+    trunk, rgb and density gradients, and two K6 calls are bit-identical."""
+    params, args, pts, dirs = _inputs(SHAPES[0], cuda, seed=2)
+    params = {k: v.requires_grad_(True) for k, v in params.items()}
+    runtime.reset_launches()
+    raw = fused_query(pack_params(params, *args), pts, dirs, "outside")
+    raw[..., 4:].sum().backward()
+    assert runtime.LAUNCHES == {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0, "fused_mlp_fwd_kpe": 0,
+                                "fused_mlp_bwd_kpe": 0, "fused_mlp_fwd_pe": 1,
+                                "fused_mlp_bwd_pe": 1, "fused_pe": 1}
+    for k, v in params.items():
+        if k.startswith(("trunk_", "rgb_", "density")):
+            assert v.grad is None or int(torch.count_nonzero(v.grad)) == 0, k
+    assert float(params["ins_out_w"].grad.abs().sum()) > 0
+
+    params, args, pts, dirs = _inputs(SHAPES[2], cuda, seed=3)
+    packed = pack_params(params, *args)
+    e, ed = _embedded(packed, pts, dirs)
+    g = _cotangent(packed, pts, seed=3).reshape(-1, packed.c4)
+    first, second = fused_query_pe_bwd(packed, e, ed, g), fused_query_pe_bwd(packed, e, ed, g)
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])

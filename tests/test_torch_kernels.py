@@ -137,11 +137,14 @@ def test_import_guard():
         "import chip_smoke\n"
         "for m in ('dmnerf_tpu_torch.train', 'dmnerf_tpu_torch.render.trainstep',\n"
         "          'dmnerf_tpu_torch.objfield.losses', 'dmnerf_tpu_torch.objfield.hungarian',\n"
-        "          'dmnerf_tpu_torch.objfield.penalizer', 'dmnerf_tpu_torch.data.samplers'):\n"
+        "          'dmnerf_tpu_torch.objfield.penalizer', 'dmnerf_tpu_torch.data.samplers',\n"
+        "          'dmnerf_tpu_torch.data.scannet', 'dmnerf_tpu_torch.data.replica'):\n"
         "    assert m in sys.modules, m\n"
+        "from dmnerf_tpu_torch.data.samplers import make_crop_sampler\n"
         "from dmnerf_tpu_torch.kernels import runtime\n"
         "assert runtime.KERNELS == ('fused_mlp_fwd', 'fused_mlp_bwd', 'fused_mlp_fwd_kpe',\n"
-        "                           'fused_mlp_bwd_kpe')\n"
+        "                           'fused_mlp_bwd_kpe', 'fused_mlp_fwd_pe', 'fused_mlp_bwd_pe',\n"
+        "                           'fused_pe')\n"
         "assert all((runtime.CSRC / f'{k}.cu').exists() for k in runtime.KERNELS)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'dmnerf_tpu')]\n"
         "assert not bad, bad\n"
@@ -353,9 +356,9 @@ def test_kpe_stub_columns_exact_and_wall(case):
 
 
 def test_pe_mode_routing(monkeypatch):
-    """pallas_pe_mode picks the pair: None / 'kernel_t' the K1/K2 plain versions on the
-    CPU, 'kernel' the K3/K4 ones; 'outside' raises NotImplementedError (its kernels are
-    not ported) and an unknown mode is refused by the config."""
+    """pallas_pe_mode picks the kernels: None / 'kernel_t' the K1/K2 plain versions on
+    the CPU, 'kernel' the K3/K4 ones, 'outside' K7's then K5's and K6's; an unknown
+    mode is refused by the config and by resolve_pe_mode."""
     from dmnerf_tpu_torch.configs import Config
     from dmnerf_tpu_torch.core.pipeline import make_query_fn
 
@@ -363,21 +366,158 @@ def test_pe_mode_routing(monkeypatch):
     jp, pts, dirs = _setup(*CASES[0])
     calls = []
     for name in ("fused_query_ref", "fused_query_bwd_ref", "fused_query_kpe_ref",
-                 "fused_query_kpe_bwd_ref"):
+                 "fused_query_kpe_bwd_ref", "pe_points_ref", "fused_query_pe_ref",
+                 "fused_query_pe_bwd_ref"):
         fn = getattr(tfm, name)
         monkeypatch.setattr(tfm, name, lambda *a, _fn=fn, _name=name, **k:
                             calls.append(_name) or _fn(*a, **k))
     kw = dict(netdepth=D, netwidth=W, multires=mr, multires_views=mrv, skips=skips, ins_num=ins)
     for mode, want in ((None, ["fused_query_ref", "fused_query_bwd_ref"]),
                        ("kernel_t", ["fused_query_ref", "fused_query_bwd_ref"]),
-                       ("kernel", ["fused_query_kpe_ref", "fused_query_kpe_bwd_ref"])):
+                       ("kernel", ["fused_query_kpe_ref", "fused_query_kpe_bwd_ref"]),
+                       ("outside", ["pe_points_ref", "fused_query_pe_ref",
+                                    "fused_query_pe_bwd_ref"])):
         calls.clear()
         q = make_query_fn(Config(pallas_pe_mode=mode, **kw))
         pp = {k: v.requires_grad_(True) for k, v in _torch(jp).items()}
         q(pp, torch.from_numpy(pts), torch.from_numpy(dirs)).sum().backward()
         assert calls == want, (mode, calls)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
-        make_query_fn(Config(pallas_pe_mode="outside", **kw))
     with pytest.raises(ValueError, match="pallas_pe_mode"):
         Config(pallas_pe_mode="kernel_tt")
+    with pytest.raises(ValueError, match="pallas_pe_mode"):
+        tfm.resolve_pe_mode("inside")
     assert make_query_fn(Config(pallas_pe_mode="outside", use_pallas=False, **kw)) is not None
+
+
+# ---- pe_mode 'outside': K7's plain version against make_pe_pallas, and K5 / K6's
+# against the Pallas _fwd_kernel_pe / _bwd_kernel_pe pair (interpret mode) ----
+
+@pytest.mark.parametrize("case", CASES)
+def test_pe_points_plain_matches_pallas(case):
+    """K7's plain version vs make_pe_pallas in fp32 (interpret mode) at 2e-5 on the
+    reference's 3 (1 + 2 multires) columns; the pad columns are exact zeros, and the
+    wrapper takes the plain version for a CPU tensor. Points up to 9.5 from the origin
+    (ScanNet's far plane), where the top octave's phase is thousands of radians."""
+    mr, mrv, D, W, skips, ins = case
+    jp, pts, dirs = _setup(*case)
+    x = (pts.reshape(-1, 3) * 3.0).astype(np.float32)
+    want = np.asarray(jfm.make_pe_pallas(mr, jnp.float32, tile=16, interpret=True)(jnp.asarray(x)))
+    packed = tfm.pack_params(_torch(jp), mr, mrv, D, skips)
+    got = tfm.pe_points_ref(packed, torch.from_numpy(x))
+    n = 3 * (1 + 2 * mr)
+    assert got.shape == (x.shape[0], packed.ep) and got.dtype == torch.float32
+    np.testing.assert_allclose(got[:, :n].numpy(), want, **TOL)
+    assert not got[:, n:].any()
+    runtime.reset_launches()
+    assert torch.equal(tfm.pe_points(packed, torch.from_numpy(x)), got)
+    assert not any(runtime.LAUNCHES.values())
+    b16 = tfm.pe_points_ref(packed, torch.from_numpy(x), torch.bfloat16)
+    assert b16.dtype == torch.bfloat16 and torch.equal(b16, got.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_pe_plain_fp32_matches_pallas_outside(case):
+    """fused_query(pe_mode='outside') on the CPU (K7's and K5's plain versions) vs the
+    Pallas pe_mode='outside' query in interpret mode at 2e-5, and K5's plain version
+    over the JAX package's own embeddings."""
+    mr, mrv, D, W, skips, ins = case
+    jp, pts, dirs = _setup(*case)
+    q_pal = jfm.make_pallas_query_fn(mr, mrv, D, skips, tile_fwd=16, tile_bwd=16,
+                                     interpret=True, pe_mode="outside")
+    want = np.asarray(q_pal(jp, jnp.asarray(pts), jnp.asarray(dirs)))
+    packed = tfm.pack_params(_torch(jp), mr, mrv, D, skips)
+    runtime.reset_launches()
+    got = tfm.fused_query(packed, torch.from_numpy(pts), torch.from_numpy(dirs), "outside")
+    assert not any(runtime.LAUNCHES.values())
+    np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
+
+    N, S, _ = pts.shape
+    e = np.asarray(jfm.make_pe_pallas(mr, jnp.float32, tile=16, interpret=True)(
+        jnp.asarray(pts.reshape(-1, 3))))
+    e = np.pad(e, ((0, 0), (0, packed.ep - e.shape[1])))
+    ed = tfm.point_view_embedding(packed, torch.from_numpy(dirs), S)
+    flat = tfm.fused_query_pe_ref(packed, torch.from_numpy(e), ed)
+    np.testing.assert_allclose(flat.numpy().reshape(N, S, -1), want, **TOL)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_pe_plain_backward_matches_pallas_outside(case):
+    """autograd through fused_query(pe_mode='outside') on the CPU (K6's plain version,
+    mapped to the parameter dict by autograd over pack_params) vs jax.grad through the
+    Pallas pe_mode='outside' backward in interpret mode, at atol 3e-5 / rtol 3e-4."""
+    mr, mrv, D, W, skips, ins = case
+    jp, pts, dirs = _setup(*case)
+    q_pal = jfm.make_pallas_query_fn(mr, mrv, D, skips, tile_fwd=16, tile_bwd=16,
+                                     interpret=True, pe_mode="outside")
+    w = jnp.asarray(np.linspace(0.5, 1.5, 4 + ins + 1), jnp.float32)
+    want = jax.grad(lambda p: jnp.sum(jnp.tanh(q_pal(p, jnp.asarray(pts), jnp.asarray(dirs))) * w))(jp)
+    runtime.reset_launches()
+    got = _tanh_loss_grads(make_fused_query_fn(mr, mrv, D, skips, "outside"), _torch(jp), pts, dirs)
+    assert not any(runtime.LAUNCHES.values())
+    assert set(got) == set(want)
+    for k in sorted(want):
+        np.testing.assert_allclose(got[k], np.asarray(want[k]), **GRAD_TOL, err_msg=k)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_pe_stub_columns_exact_and_wall(case):
+    """pe_mode='outside': the stubs' sigma (and the rgb stub's instance) columns are
+    bit-equal to the full model's, the query agrees with K1's plain version in fp32,
+    and an instance-only cotangent reaches no trunk, sigma or rgb block of K6's plain
+    version, in fp32 and in bf16."""
+    mr, mrv, D, W, skips, ins = case
+    jp, pts, dirs = _setup(*case)
+    args = (mr, mrv, D, skips)
+    pts_t, dirs_t = torch.from_numpy(pts), torch.from_numpy(dirs)
+    full = tfm.fused_query(tfm.pack_params(_torch(jp), *args), pts_t, dirs_t, "outside")
+    sig = tfm.fused_query(tfm.pack_params(_torch(sigma_stub_params(jp)), *args), pts_t, dirs_t,
+                          "outside")
+    rgb = tfm.fused_query(tfm.pack_params(_torch(rgb_stub_params(jp)), *args), pts_t, dirs_t,
+                          "outside")
+    assert torch.equal(sig[..., 3], full[..., 3])
+    assert torch.equal(rgb[..., 3:], full[..., 3:])
+    kt = tfm.fused_query(tfm.pack_params(_torch(jp), *args), pts_t, dirs_t, "kernel_t")
+    torch.testing.assert_close(full, kt, atol=1e-6, rtol=1e-6)
+
+    packed = tfm.pack_params(_torch(jp), *args)
+    N, S, _ = pts.shape
+    g = torch.zeros((N * S, full.shape[-1]))
+    g[:, 4:] = 1.0
+    for dtype in (torch.float32, torch.bfloat16):
+        e = tfm.pe_points_ref(packed, pts_t.reshape(-1, 3), dtype)
+        ed = tfm.point_view_embedding(packed, dirs_t, S, dtype)
+        dw, db = tfm.fused_query_pe_bwd_ref(packed, e, ed, g, dtype)
+        *trunk, sig_l, head, out = packed.layers
+        for layer in (*trunk, sig_l):
+            assert not dw[layer.w_off:layer.w_off + layer.K * layer.N].any(), layer
+            assert not db[layer.b_off:layer.b_off + layer.N].any(), layer
+        head_w = dw[head.w_off:head.w_off + head.K * head.N].view(head.K, head.N)
+        assert not head_w[:, :packed.hr].any() and head_w[packed.edp:, packed.hr:].any()
+
+
+def test_pe_backward_plan_reads_the_embeddings_in_place():
+    """K6's host table: no embedding in the stash, the dW jobs of the first trunk layer
+    and of each skip layer read e from the input (segment source 2), the head's reads
+    ed per point (source 1, row divisor 1); K2's and K4's tables keep theirs."""
+    p = tmlp.init_dm_nerf(ins_num=8, D=4, W=32, input_ch_pts=3 * 9, input_ch_views=3 * 5,
+                          skips=(1,), device="cpu")
+    packed = tfm.pack_params(p, 4, 2, 4, (1,))
+    P = 300
+    plans = {rows: tfm._bwd_plan(packed, P, 1, 132, rows)
+             for rows in ("ray_table", "point_dirs", "embedded")}
+    assert plans["embedded"]["stash_size"] == plans["ray_table"]["stash_size"] - P * packed.ep
+    assert plans["point_dirs"]["stash_size"] == plans["ray_table"]["stash_size"] + P * packed.edp
+
+    def segs(rows):
+        t = plans[rows]["table"]
+        n_fwd, n_steps, n_dw = t[17:20]
+        dw = t[22 + 6 * n_fwd + 7 * n_steps:]
+        return [(dw[14 * j + 4:14 * j + 9], dw[14 * j + 9:14 * j + 14]) for j in range(n_dw)]
+    emb = segs("embedded")
+    ep, edp = packed.ep, packed.edp
+    assert emb[0][0] == [2, 0, ep, ep, 1]                  # emb0: e
+    assert emb[2][1] == [2, 0, ep, ep, 1]                  # the layer after skip 1: [h | e]
+    assert emb[-2][0] == [1, 0, edp, edp, 1]               # head: ed per point
+    assert segs("ray_table")[0][0] == [0, 0, ep, ep, 1]    # K2: e from the stash
+    with pytest.raises(ValueError, match="rows"):
+        tfm._bwd_plan(packed, P // 3, 3, 132, "embedded")
