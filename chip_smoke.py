@@ -34,10 +34,15 @@
    autograd of the plain PyTorch query,
    max|d| / max|ref| <= 2e-2 per parameter (bench.py:397-401), with the bf16 plain
    version's error printed beside it; an instance-only loss gives exactly zero trunk,
-   rgb and density gradients; two runs are bit-identical. Median times of K2, of the
-   plain fp32 autograd backward, of the backward through the bf16 addmm chain (the
-   library yardstick), of K1 at the same shapes, and the bound: the backward's own
-   matrix FLOPs over 989 TFLOP/s, or bytes over 3.35 TB/s, whichever is larger.
+   rgb and density gradients; two runs are bit-identical. Median times of K2's own
+   launches over a stash the training forward wrote (ms), of the training forward
+   (stash_fwd_ms) and the no-grad forward (fwd_ms), of the standalone entry (the two
+   together, entry_ms, with its per-launch split from torch.profiler, launch_ms), of
+   the query as a train step runs it (forward with gradients, then autograd's
+   backward, fwd_bwd_ms), of the plain fp32 autograd backward, of the backward and the
+   forward + backward through the bf16 addmm chain (the library yardsticks), and the
+   bound: the backward's own matrix FLOPs over 989 TFLOP/s, or bytes over 3.35 TB/s,
+   whichever is larger. The train phases print their peak device memory.
 5. Train phase: the flagship train config (N_train 3072, N_samples 64,
    N_importance 128, over_penalize with tolerance = deta_w = 0.05, lrate 5e-4,
    perturb on) for 20 steps through dmnerf_tpu_torch.train on a synthetic DM-SR scene
@@ -96,6 +101,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -131,6 +137,49 @@ def _time_ms(fn, reps: int = 10, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# the device launches of one backward call, by the kernel names of csrc/fused_mlp_bwd.cuh
+# (and of the stashing forward of csrc/fused_mlp_fwd.cuh that the standalone entries run)
+LAUNCH_KINDS = (("stash_fwd", ("fwd_stash_kernel", "fused_mlp_fwd_kernel")),
+                ("bwd_data", ("bwd_data_kernel",)), ("dw", ("dw_kernel",)),
+                ("reduce", ("namespace)::reduce_kernel", "sum_rows_kernel")))
+
+
+def launch_split(fn, reps: int = 3) -> dict:
+    """Device ms per call of ``fn`` by launch kind (LAUNCH_KINDS), from torch.profiler's
+    CUDA activity (CUPTI sees the kernels of the ctypes libraries), averaged over
+    ``reps`` calls after one warm-up call, with the launches per call. Raises when the
+    profiler saw no kernel of a known kind."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms = {kind: 0.0 for kind, _ in LAUNCH_KINDS}
+    count = {kind: 0 for kind, _ in LAUNCH_KINDS}
+    other = 0.0
+    for evt in prof.events():
+        if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            continue
+        dur = evt.time_range.elapsed_us() / 1e3
+        kind = next((k for k, names in LAUNCH_KINDS if any(n in evt.name for n in names)), None)
+        if kind is None:
+            other += dur
+            continue
+        ms[kind] += dur
+        count[kind] += 1
+    if not any(count.values()):
+        raise AssertionError("torch.profiler saw no backward kernel on the card")
+    out = {k: v / reps for k, v in ms.items()}
+    out["other"] = other / reps
+    out["total"] = sum(out.values())
+    out["launches_per_call"] = {k: v / reps for k, v in count.items()}
+    return out
 
 
 def query_macs(params) -> int:
@@ -612,18 +661,38 @@ def bwd_kernel_phase(cfg, device, mode="kernel_t"):
         same = torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
         P = pts.shape[0] * pts.shape[1]
+        # the backward's own launches over a stash the training forward wrote
         if mode == "outside":
-            e, ed = _kernel_embedded(packed, pts, dirs)
-            g_flat = g.reshape(P, -1)
-            ms = _time_ms(lambda: fm.fused_query_pe_bwd(packed, e, ed, g_flat), reps=5)
-            in_bytes = e.numel() * 2 + ed.numel() * 2
-            del e, ed
+            a, d = _kernel_embedded(packed, pts, dirs)
+            emb = (a, d)
+            in_bytes = a.numel() * 2 + d.numel() * 2
+
+            def entry():
+                return fm.fused_query_pe_bwd(packed, a, d, g.reshape(P, -1))
         else:
-            ms = _time_ms(lambda: _bwd(mode, packed, pts, dirs, g), reps=5)
+            a, d = fm._kernel_inputs(packed, pts, dirs, mode)
+            emb = ()
             # K4 reads a direction per point, K2 a viewdir per ray
             in_bytes = pts.numel() * 4 + (P if mode == "kernel" else dirs.shape[0]) * 12
+
+            def entry():
+                return _bwd(mode, packed, pts, dirs, g)
+        n_s = (pts.shape[0], pts.shape[1]) if mode == "kernel_t" else (P, 1)
+        _, plan, stash = fm._stash_forward(mode, packed, a, d, *n_s)
+        g_flat = g.reshape(P, -1)
+        ms = _time_ms(lambda: fm._launch_bwd(mode, packed, plan, stash, g_flat, *emb), reps=5)
+        stash_fwd_ms = _time_ms(lambda: fm._stash_forward(mode, packed, a, d, *n_s), reps=5)
+        del stash
+        entry_ms = _time_ms(entry, reps=5)
+        launch_ms = launch_split(entry)
         with torch.no_grad():
             fwd_ms = _time_ms(lambda: fused_query(packed, pts, dirs, mode))
+        # the query as a train step runs it: the training forward, then autograd's backward
+        pk = dataclasses.replace(packed, w=packed.w.detach().requires_grad_(True),
+                                 b=packed.b.detach().requires_grad_(True))
+        fwd_bwd_ms = _time_ms(lambda: torch.autograd.grad(fused_query(pk, pts, dirs, mode),
+                                                          [pk.w, pk.b], g), reps=5)
+        del a, d, emb, pk
         pp = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
         raw32 = make_torch_query_fn(*args)(pp, pts, dirs)
         plain_ms = _time_ms(lambda: torch.autograd.grad(raw32, list(pp.values()), g,
@@ -635,6 +704,8 @@ def bwd_kernel_phase(cfg, device, mode="kernel_t"):
         library_ms = _time_ms(lambda: torch.autograd.grad(raw16, [lib.w_bf16, lib.b], g,
                                                           retain_graph=True), reps=5)
         del raw16
+        library_fwd_bwd_ms = _time_ms(lambda: torch.autograd.grad(
+            library_query(lib, pts, dirs, mode), [lib.w_bf16, lib.b], g), reps=5)
 
         flops = 2.0 * backward_macs(params) * P
         nbytes = (in_bytes + g.numel() * 4 + packed.w_bf16.numel() * 2
@@ -642,7 +713,9 @@ def bwd_kernel_phase(cfg, device, mode="kernel_t"):
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         r = dict(points=P, max_rel_err=rel, max_abs_err=err, grad_scale=scale, worst_param=worst,
                  max_rel_err_bf16_plain=rel16, max_abs_err_bf16_plain=err16, bit_identical=same,
-                 ms=ms, fwd_ms=fwd_ms, plain_ms=plain_ms, library_ms=library_ms,
+                 ms=ms, launch_ms=launch_ms, entry_ms=entry_ms, fwd_ms=fwd_ms,
+                 stash_fwd_ms=stash_fwd_ms, fwd_bwd_ms=fwd_bwd_ms, plain_ms=plain_ms,
+                 library_ms=library_ms, library_fwd_bwd_ms=library_fwd_bwd_ms,
                  bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
                  gflop=flops / 1e9, tflops=flops / (ms * 1e-3) / 1e12)
         print(f"[{tag}] {name}: {json.dumps(r)}", flush=True)
@@ -672,6 +745,51 @@ def scannet_scene(cfg):
                                unlabeled_frac=0.5)
 
 
+def train_setup(pe_mode, dataset, **run):
+    """(cfg, scene) of a train phase: the flagship DM-SR train config
+    (configs/train/dmsr/study.txt) on a synthetic DM-SR scene, or the ScanNet one
+    (configs/train/scannet/scene0010_00.txt) on the synthetic ScanNet scene, both built
+    in memory, under ``pe_mode``; ``run`` overrides config keys (basedir, N_iters, ...)."""
+    from dmnerf_tpu_torch.configs import load_config
+    from dmnerf_tpu_torch.data.synthetic import build_dmsr_scene
+
+    run = dict(dict(lrate=5e-4, perturb=1.0, i_save=10 ** 9, i_test=10 ** 9,
+                    expname="chip_smoke", pallas_pe_mode=pe_mode), **run)
+    if dataset == "scannet":
+        cfg = load_config(os.path.join(REPO, "configs", "train", "scannet", "scene0010_00.txt"),
+                          **run)
+        scene = scannet_scene(cfg)
+        return cfg.replace(ins_num=scene.ins_num), scene
+    scene = build_dmsr_scene(n_train=4, n_test=1, H=256, W=256, n_objects=4, ins_num=32,
+                             seed=SEED)
+    return load_config(os.path.join(REPO, "configs", "train", "dmsr", "study.txt"),
+                       near=1.0, far=8.0, ins_num=scene.ins_num, **run), scene
+
+
+def steady_step_ms(cfg, scene, params_coarse, params_fine, device, step=0, n=13, warmup=3):
+    """Host-clock ms of ``n - warmup`` synchronised train steps after ``warmup`` ones,
+    from a copy of the given parameters."""
+    import torch
+
+    from dmnerf_tpu_torch.render.trainstep import create_train_state, make_train_step
+    from dmnerf_tpu_torch.train import make_sampler
+
+    sampler, n_ins = make_sampler(cfg, scene, device)
+    st = create_train_state(cfg, params_coarse, params_fine, step)   # copies the parameters
+    step_fn = make_train_step(cfg, N_ins=n_ins)
+    gb, gs = torch.Generator().manual_seed(SEED + 5), torch.Generator(device=device).manual_seed(SEED + 6)
+    times = []
+    for i in range(n):
+        b = sampler(gb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(st, b, generator=gs)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
 def train_phase(device, pe_mode=None, steps=TRAIN_STEPS, dataset="dmsr"):
     """``steps`` flagship training steps through dmnerf_tpu_torch.train under
     ``pe_mode``, on a synthetic DM-SR scene (configs/train/dmsr/study.txt) or ScanNet
@@ -682,33 +800,22 @@ def train_phase(device, pe_mode=None, steps=TRAIN_STEPS, dataset="dmsr"):
     import numpy as np
     import torch
 
-    from dmnerf_tpu_torch.configs import load_config
     from dmnerf_tpu_torch.core.pipeline import make_query_fn, make_torch_query_fn, render_rays
     from dmnerf_tpu_torch.core.sampling import z_val_sample
-    from dmnerf_tpu_torch.data.synthetic import build_dmsr_scene
     from dmnerf_tpu_torch.kernels import runtime
     from dmnerf_tpu_torch.objfield.hungarian import masked_assignment
-    from dmnerf_tpu_torch.render.trainstep import compute_losses, create_train_state, make_train_step
+    from dmnerf_tpu_torch.render.trainstep import compute_losses
     from dmnerf_tpu_torch.train import make_sampler, train
 
     with tempfile.TemporaryDirectory() as tmp:
-        run = dict(lrate=5e-4, perturb=1.0, N_iters=steps, i_print=1, i_save=10 ** 9,
-                   i_test=10 ** 9, basedir=tmp, expname="chip_smoke", pallas_pe_mode=pe_mode)
-        if dataset == "scannet":
-            cfg = load_config(os.path.join(REPO, "configs", "train", "scannet", "scene0010_00.txt"),
-                              **run)
-            scene = scannet_scene(cfg)
-            cfg = cfg.replace(ins_num=scene.ins_num)
-        else:
-            scene = build_dmsr_scene(n_train=4, n_test=1, H=256, W=256, n_objects=4, ins_num=32,
-                                     seed=SEED)
-            cfg = load_config(os.path.join(REPO, "configs", "train", "dmsr", "study.txt"),
-                              near=1.0, far=8.0, ins_num=scene.ins_num, **run)
+        cfg, scene = train_setup(pe_mode, dataset, basedir=tmp, N_iters=steps, i_print=1)
         runtime.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         state = train(cfg, scene, device)
         torch.cuda.synchronize()
         train_s = time.time() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         launches = dict(runtime.LAUNCHES)
         with open(os.path.join(cfg.log_dir, "metrics.jsonl")) as f:
             recs = [json.loads(line) for line in f]
@@ -746,19 +853,7 @@ def train_phase(device, pe_mode=None, steps=TRAIN_STEPS, dataset="dmsr"):
     worst = max(gp, key=lambda k: float((gk[k] - gp[k]).abs().max())
                 / max(float(gp[k].abs().max()), 1e-30))
 
-    # steady steps, host clock around synchronised steps
-    st = create_train_state(cfg, state.params_coarse, state.params_fine, state.step)
-    step_fn = make_train_step(cfg, N_ins=n_ins)
-    gb, gs = torch.Generator().manual_seed(SEED + 5), torch.Generator(device=device).manual_seed(SEED + 6)
-    times = []
-    for i in range(13):
-        b = sampler(gb)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step_fn(st, b, generator=gs)
-        torch.cuda.synchronize()
-        if i >= 3:
-            times.append((time.perf_counter() - t0) * 1e3)
+    times = steady_step_ms(cfg, scene, state.params_coarse, state.params_fine, device, state.step)
     step_ms = statistics.median(times)
 
     # the host side of a step's two assignments: one copy of [2, C, C] costs + solves
@@ -776,7 +871,7 @@ def train_phase(device, pe_mode=None, steps=TRAIN_STEPS, dataset="dmsr"):
                kernel_vs_plain=dict(max_rel_err=rel, max_abs_err=err, worst_param=worst,
                                     total_kernel=aux_k["total_loss"], total_plain=aux_p["total_loss"],
                                     ins_kernel=aux_k["ins_loss"], ins_plain=aux_p["ins_loss"]),
-               step_ms=step_ms, step_ms_range=[min(times), max(times)],
+               step_ms=step_ms, step_ms_range=[min(times), max(times)], peak_mem_gb=peak_gb,
                rays_per_s=cfg.N_train / (step_ms * 1e-3), hungarian_host_ms=statistics.median(hung))
     tag = "train scannet" if dataset == "scannet" else "train" if pe_mode is None else "train kpe"
     print(f"[{tag}] {json.dumps(out)}", flush=True)
@@ -989,6 +1084,14 @@ def _entry(name, replaces, launches, by_path, res, **extra):
             "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
 
 
+def _bwd_extra(res):
+    """A backward kernel's extra keys in the kernels line: its gradient error, the
+    standalone call (training forward + backward) and the query as training runs it,
+    beside the library's forward + backward."""
+    return {k: res[k] for k in ("grad_scale", "max_rel_err", "entry_ms", "fwd_bwd_ms",
+                                "library_fwd_bwd_ms", "launch_ms")}
+
+
 def main() -> int:
     import torch
 
@@ -1014,9 +1117,13 @@ def main() -> int:
     reports = runtime.build()
     print(f"[build] {len(reports)} kernel(s) in {time.time() - t0:.1f} s", flush=True)
     for name, rep in reports.items():
+        fn = ""
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}", flush=True)
+            if "Compiling entry function" in line:
+                m = re.search(r"\d([a-z_]+_kernel)", line)
+                fn = m.group(1) + ("<stash>" if "Lb1E" in line else "") if m else ""
+            if ("Used" in line and "registers" in line) or "spill stores" in line:
+                print(f"[build] {name} {fn}: {line.strip()}", flush=True)
 
     device = torch.device("cuda")
     cfg = load_config(os.path.join(REPO, "configs", "test", "dmsr", "study.txt"), ins_num=32)
@@ -1054,19 +1161,18 @@ def main() -> int:
         _entry("fused_mlp_fwd", "dmnerf_tpu/kernels/fused_mlp.py:507", render_launches["fused_mlp_fwd"],
                by_path, kres["fine"]),
         _entry("fused_mlp_bwd", "dmnerf_tpu/kernels/fused_mlp.py:520", train_launches["fused_mlp_bwd"],
-               by_path, bres["fine"], grad_scale=bres["fine"]["grad_scale"],
-               max_rel_err=bres["fine"]["max_rel_err"]),
+               by_path, bres["fine"], **_bwd_extra(bres["fine"])),
         _entry("fused_mlp_fwd_kpe", "dmnerf_tpu/kernels/fused_mlp.py:462",
                eval_launches["fused_mlp_fwd_kpe"], by_path, kres_kpe["fine"]),
         _entry("fused_mlp_bwd_kpe", "dmnerf_tpu/kernels/fused_mlp.py:481",
                kpe_train_launches["fused_mlp_bwd_kpe"], by_path, bres_kpe["fine"],
-               grad_scale=bres_kpe["fine"]["grad_scale"], max_rel_err=bres_kpe["fine"]["max_rel_err"]),
+               **_bwd_extra(bres_kpe["fine"])),
         _entry("fused_mlp_fwd_pe", "dmnerf_tpu/kernels/fused_mlp.py:471",
                scannet_render_launches["fused_mlp_fwd_pe"], by_path, kres_pe["fine"]["k5"],
                vs_k1_differing=kres_pe["fine"]["k5"]["vs_k1_differing"]),
         _entry("fused_mlp_bwd_pe", "dmnerf_tpu/kernels/fused_mlp.py:494",
                scannet_train_launches["fused_mlp_bwd_pe"], by_path, bres_pe["fine"],
-               grad_scale=bres_pe["fine"]["grad_scale"], max_rel_err=bres_pe["fine"]["max_rel_err"]),
+               **_bwd_extra(bres_pe["fine"])),
         _entry("fused_pe", "dmnerf_tpu/kernels/fused_mlp.py:689",
                scannet_render_launches["fused_pe"], by_path, kres_pe["fine"]["k7"]),
     ]

@@ -4,11 +4,13 @@
 
 #include "fused_mlp_bwd.cuh"
 
-// `edr` is the per-ray viewdir embedding [P / S, h_col] bf16; the table is _bwd_plan's.
-extern "C" int dmnerf_fused_mlp_bwd(const float* pts, const void* edr, const void* weights,
-                                    const float* biases, const void* wt, const float* g,
-                                    void* stash, void* dpre, float* dbpart, float* dwpart,
-                                    float* dw, float* db, const long long* table, void* stream) {
-  return run_fused_mlp_bwd<ROWS_RAY_TABLE>(pts, edr, weights, biases, wt, g, stash, dpre, dbpart,
-                                           dwpart, dw, db, table, stream);
+// `stash` is what the training forward (fused_mlp_fwd.cu with a stash) wrote: the point
+// embedding, the per-point viewdir embedding and every ReLU output; the table is
+// _bwd_plan's (rows 'ray_table'). e_in and ed_in are unused.
+extern "C" int dmnerf_fused_mlp_bwd(const void* e_in, const void* ed_in, const void* weights,
+                                    const float* g, const void* stash, void* dpre, float* dbpart,
+                                    float* dwpart, float* dw, float* db, const long long* table,
+                                    int n_sms, void* stream) {
+  return run_fused_mlp_bwd(e_in, ed_in, weights, g, stash, dpre, dbpart, dwpart, dw, db, table,
+                           n_sms, stream);
 }

@@ -2,16 +2,9 @@
 // sm_90a: the kernels and the launch sequence behind three entry points.
 //
 //  * fused_mlp_bwd.cu (K2) replaces the JAX package's Pallas TPU kernel
-//    _bwd_kernel_pet (dmnerf_tpu/kernels/fused_mlp.py:520), pe_mode 'kernel_t': the
-//    viewdir embedding comes per ray and the head's dW job reads it from that table.
-//  * fused_mlp_bwd_kpe.cu (K4) replaces _bwd_kernel (:481), pe_mode 'kernel': the
-//    stash forward embeds each point's own direction and stashes that embedding
-//    beside the point embedding, and the head's dW job reads it from the stash.
-//  * fused_mlp_bwd_pe.cu (K6) replaces _bwd_kernel_pe (:494), pe_mode 'outside': the
-//    point embedding and the per-point viewdir embedding come in as bf16 rows (saved
-//    by the forward), the stash forward copies them into shared memory, and the dW
-//    jobs read both from those input buffers (segment source 2 for e, 1 for ed), so
-//    neither is stashed again.
+//    _bwd_kernel_pet (dmnerf_tpu/kernels/fused_mlp.py:520), pe_mode 'kernel_t'.
+//  * fused_mlp_bwd_kpe.cu (K4) replaces _bwd_kernel (:481), pe_mode 'kernel'.
+//  * fused_mlp_bwd_pe.cu (K6) replaces _bwd_kernel_pe (:494), pe_mode 'outside'.
 // All three carry _backward_core (:536) and _accumulate_grads (:653). What they
 // compute is set out in dmnerf_tpu_torch/kernels/fused_mlp.py, whose
 // fused_query_bwd_ref / fused_query_kpe_bwd_ref / fused_query_pe_bwd_ref are their
@@ -21,405 +14,498 @@
 // Nothing flows into the points, the directions or the embeddings (the JAX package
 // returns zeros for them).
 //
+// The forward of the same query writes the stash these kernels read: the training
+// forward is fused_mlp_fwd.cuh's kernel with STASH (every ReLU output, and the point
+// and per-point viewdir embeddings for K2 and K4), so nothing is rematerialised here.
+// The TPU kernel rematerialises per tile because its 16 GB could not hold the
+// activations; the stash is about 4.8 KB a flagship point, 2.8 GB for 589,824 fine
+// points, on an 80 GB card. The three kernel pairs differ only in that forward's
+// prologue and in where the dW jobs find the embeddings (K6 reads its inputs e and
+// ed), which is table data: the code below is the same for all three.
+//
 // Bound. Per flagship point (D=8, W=256, ins_num 32) the backward's own products
 // are dW, the forward's 564,864 multiply-accumulates, and dX into the trunk,
-// 7 * 256^2 + 256 * 129 + 128 * 36 = 496,384: 2.12 MFLOP against a few hundred
-// bytes of inputs, so the bound is operations over the 989 TFLOP/s bf16 peak. This
-// design also executes the forward once more (the rematerialisation with stash,
-// 1.13 MFLOP a point), which the bound does not count.
+// 7 * 256^2 + 256 * 129 + 128 * 36 = 496,384: 2.12 MFLOP, so the operations bound is
+// 1.27 ms for the fine training query at the 989 TFLOP/s bf16 peak. The design moves
+// the stash (read twice) and the bf16 cotangents (written once, read once), ≈ 11 GB
+// for the fine query, ≈ 3.3 ms at 3.35 TB/s: it is bound by bytes.
 //
-// Design: five launches, all in a fixed order with no atomics, so the same inputs
-// give bit-identical gradients.
-//  1. fwd_stash_kernel: the forward kernel's trunk and head (fused_mlp_fwd.cuh's code:
-//     128 points a CTA, [ed | h | e] rows in shared memory, weights streamed from
-//     L2 with cp.async, mma.sync bf16) storing the point embedding (not K6), the
-//     per-point viewdir embedding (K4 only: 64 B a flagship point) and every
-//     post-ReLU activation, bf16, to a stash in device memory (about 4.7 KB a
-//     flagship point: 2.8 GB for 589,824 fine points, on an 80 GB card). The TPU
-//     rematerialises per tile instead, because its 16 GB could not hold the stash.
-//  2. bwd_data_kernel: 128 points a CTA walk the table in reverse. The cotangent
-//     rows of the current layer live in shared memory; each dX product is the same
-//     streamed mma.sync loop against host-transposed bf16 weight blocks. Each
-//     layer's cotangent d_pre (masked by the stashed ReLU output) is written bf16 to
-//     device memory, and its fp32 column sums to a per-CTA bias partial. The head's
-//     ins columns are stored for dW but never enter the dX product (the instance
-//     head's detach); nothing flows into ed.
-//  3. dw_kernel: dW_l = A_l^T d_pre_l, split over the point axis. A CTA owns a
-//     128 x 128 tile of one layer's dW and a fixed range of points, streams 32-point
-//     slices of A_l (stash segments, the viewdir table, or K6's e) and d_pre_l
-//     through shared memory, and writes an fp32 partial tile.
-//  4. reduce_kernel on the dW partials and 5. on the bias partials: fixed-order
-//     sums over the point ranges and over the CTAs.
-// wgmma, TMA, and fusing launches 1-3 are left for later work.
+// Design: four launches in a fixed order with no atomics, so the same inputs give
+// bit-identical gradients.
+//  1. bwd_data_kernel: a persistent grid, one CTA per SM walking 128-point tiles. One
+//     producer thread keeps TMA loads of weight boxes (64 output columns x 256 input
+//     rows, read in the blocks' stored [in, out] layout, which is wgmma's K-major B
+//     for dX = G W^T) in flight through a 4-stage mbarrier ring. Two consumer
+//     warpgroups each own 64 points and run wgmma m64n256k16 with A from registers:
+//     the previous layer's fp32 accumulator, masked by the stashed ReLU output and
+//     cast to bf16, is exactly the next product's A fragment, so a cotangent never
+//     goes through shared memory. The ReLU mask is the layer's stash tile, copied into
+//     shared memory with cp.async while the product runs. Each layer's masked
+//     cotangent is also written bf16 to device memory for dW, and its fp32 column sums
+//     reduced over the tile in a fixed order into a per-tile bias partial. The walk is
+//     bound by those stash reads and cotangent writes, which the epilogue issues
+//     between products: the tensor cores wait for them. The head step reads two
+//     weight blocks as two K-chunks: the head's h rows x rgb-hidden columns, then the
+//     sigma block, whose A fragment takes the place of the first instance columns;
+//     the instance head's cotangent reaches dW but never the trunk (its detach), and
+//     nothing reaches ed.
+//  2. dw_kernel: dW_l = A_l^T d_pre_l with the points as the reduction dimension, one
+//     job per (layer, A segment): A is a stash segment or an input embedding, both
+//     [point][feature] rows, so A and B are MN-major wgmma operands. A CTA owns 128
+//     features x 256 columns of one job over a fixed range of points; a producer
+//     thread streams 64-point TMA boxes (128-byte swizzle) of A and d_pre through a
+//     4-stage ring, two consumer warpgroups run wgmma m64n256k16 from shared memory,
+//     and the fp32 partial tile is written for the range. CTAs of one point range
+//     are launched next to each other, so their shared reads of d_pre hit in L2.
+//  3., 4. sum_rows_kernel on the dW and on the bias partials: fixed-order sums over
+//     the point ranges and over the tiles.
 #pragma once
 
 #include "fused_mlp_common.cuh"
+#include "fused_mlp_sm90.cuh"
 
 namespace {
 
 using namespace dmnerf;
+using namespace sm90;
 
-constexpr int LDG = N_MAX + 8;           // padded cotangent row pitch (bf16)
-constexpr int SIG_N = 16;                // width of the sigma layer
-constexpr size_t FWD_SMEM = (size_t)BM * LDA * 2 + (size_t)2 * KB * LDB * 2;
-constexpr size_t BWD_SMEM =
-    (size_t)BM * LDG * 2 + (size_t)2 * KB * LDB * 2 + (size_t)2 * N_MAX * 4 + (size_t)BM * 2;
+constexpr int WG = 128;                    // threads of a warpgroup
+constexpr int CONSUMERS = 2 * WG;          // two consumer warpgroups
+constexpr int BW_THREADS = CONSUMERS + WG; // and the producer warpgroup
+constexpr int PT = 128;                    // points per bwd_data tile (64 a warpgroup)
+constexpr int WBOX_K = 64, WBOX_N = 256;   // weight box: 64 output columns x 256 input rows
+constexpr uint32_t WBOX_BYTES = WBOX_K * WBOX_N * 2;
+constexpr int W_STAGES = 4;
+constexpr int KP = 64;                     // dW: points per stage
+constexpr uint32_t DBOX_BYTES = 64 * KP * 2;  // a 64-column x KP-point box
+constexpr int DW_STAGES = 4;
+constexpr int DW_STAGE_BOXES = 6;          // 2 A boxes (128 features) + 4 B boxes (256 columns)
+constexpr int SIG_N = 16;                  // width of the sigma layer
+constexpr int MAX_WMAPS = MAX_LAYERS + 2;
+constexpr int MAX_CHUNKS = 4 * MAX_LAYERS + 8;
+constexpr int MAX_DMAPS = 3 * MAX_LAYERS + 4;
+constexpr int MAX_JOBS = 2 * MAX_LAYERS + 2;
 
-constexpr int TF = 128;                  // dW tile: features (rows of dW)
-constexpr int TN = 128;                  // dW tile: output columns
-constexpr int KP = 32;                   // points per dW pipeline stage
-constexpr int LDF = TF + 8;
-constexpr int LDN = TN + 8;
-constexpr size_t DW_SMEM = (size_t)2 * KP * (LDF + LDN) * 2;
+constexpr int LDM = N_MAX + 8;             // pitch of the ReLU-mask tile (conflict-free reads)
+constexpr size_t BWD_DBS = (size_t)2 * 8 * N_MAX * 4 + (size_t)2 * 8 * 4;
+constexpr size_t BWD_SMEM = 1024 + (size_t)W_STAGES * WBOX_BYTES + BWD_DBS + (size_t)PT * LDM * 2 +
+                            (size_t)2 * W_STAGES * 8;
+constexpr size_t DW_SMEM =
+    1024 + (size_t)DW_STAGES * DW_STAGE_BOXES * DBOX_BYTES + (size_t)2 * DW_STAGES * 8;
 
-struct FwdLayer {
-  int a_col, K, N, w_off, b_off;
-  long long stash_off;
+// A weight box of a backward-data step: map `map` at output column k0 feeds the A
+// fragments a0 .. a0 + n16 (16 columns each) of the step's product.
+struct WChunk {
+  int map, k0, a0, n16;
 };
 
-struct FwdNet {
-  int n_layers, multires, multires_views, h_col, e_col, e_width;
-  long long e_stash_off, ed_stash_off;   // ed_stash_off: per-point directions only
-  FwdLayer layers[MAX_LAYERS];
+// A backward-data step: its product's chunks, and the layer it writes (N columns,
+// bias at b_off, ReLU mask and cotangent blocks of pitch N).
+struct BStep {
+  int N, chunk0, n_chunks, b_off;
+  long long mask_off, dpre_off;
 };
 
-struct Step {
-  int K, N, b_off, sigma_after;
-  long long wt_off, mask_off, dpre_off;
+struct BwdParams {
+  CUtensorMap wmaps[MAX_WMAPS];
+  BStep steps[MAX_LAYERS];
+  WChunk chunks[MAX_CHUNKS];
+  long long P, dpre_out, dpre_sigma;
+  int n_steps, n_tiles, c4, no, hr, total_b, b_out, b_sigma;
 };
 
-struct BwdNet {
-  int n_steps, c4, no, hr, total_b, b_out, b_sigma;
-  long long dpre_out, dpre_sigma;
-  Step steps[MAX_LAYERS];
+// A dW job: dW rows [k_off, k_off + width) of the layer block at w_off (N columns)
+// from the segment map `amap` [P, width] and the cotangent map `bmap` [P, N].
+struct DwJob {
+  int amap, bmap, width, N, k_off, f_tiles, tile0;
+  long long w_off;
 };
 
-struct Seg {
-  int src;        // 0: stash, 1: the viewdir table (K2 per ray, K6 per point), 2: e (K6)
-  int width, ld, div;
-  long long off;
+struct DwParams {
+  CUtensorMap maps[MAX_DMAPS];
+  DwJob jobs[MAX_JOBS];
+  long long P, chunk, total_w;
+  int n_jobs, n_tiles;
 };
 
-struct DwLayer {
-  int K, N, w_off, tiles_n, tile_start;
-  long long dpre_off;
-  Seg seg[2];
+struct Ranges {
+  int n;
+  long long off[MAX_LAYERS], size[MAX_LAYERS];
 };
 
-struct DwNet {
-  int n_layers, n_tiles;
-  long long chunk;
-  DwLayer layers[MAX_LAYERS];
-};
-
-// ---- launch 1: the forward's trunk and head, storing e (K2, K4), the per-point ed
-// (K4) and every ReLU output ----
-template <Rows ROWS>
-__global__ void __launch_bounds__(THREADS, 1)
-fwd_stash_kernel(const void* __restrict__ pt_src, const void* __restrict__ ed_src,
-                 const __nv_bfloat16* __restrict__ weights, const float* __restrict__ biases,
-                 __nv_bfloat16* __restrict__ stash, long long P, int S, const FwdNet net) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* stage = act + BM * LDA;
-
-  const int tid = threadIdx.x;
-  const long long p0 = (long long)blockIdx.x * BM;
-  build_rows<ROWS>(act, pt_src, ed_src, p0, P, S, net.multires, net.multires_views, net.h_col,
-                   net.e_col, net.e_width);
-  __syncthreads();
-  if (ROWS != ROWS_EMBEDDED)
-    store_rows(stash + net.e_stash_off, act, LDA, net.e_col, net.e_width, p0, P);
-  if (ROWS == ROWS_POINT_DIRS) store_rows(stash + net.ed_stash_off, act, LDA, 0, net.h_col, p0, P);
-
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, t4 = lane & 3;
-  for (int l = 0; l < net.n_layers; ++l) {
-    const FwdLayer L = net.layers[l];
-    float acc[4][8][4];
-    // the product's first barrier also orders the previous layer's store_rows reads
-    // before this layer's epilogue writes
-    tile_product(acc, act, LDA, L.a_col, weights + L.w_off, L.K, L.N, stage);
-    const float* bias = biases + L.b_off;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = wn * 64 + j * 8 + t4 * 2;
-        if (col >= L.N) continue;
-        const float b0 = bias[col], b1 = bias[col + 1];
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = wm * 64 + i * 16 + g + half * 8;
-          *reinterpret_cast<__nv_bfloat162*>(act + row * LDA + net.h_col + col) =
-              __floats2bfloat162_rn(fmaxf(acc[i][j][2 * half] + b0, 0.f),
-                                    fmaxf(acc[i][j][2 * half + 1] + b1, 0.f));
-        }
-      }
-    }
-    __syncthreads();
-    store_rows(stash + L.stash_off, act, LDA, net.h_col, L.N, p0, P);
-  }
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
 }
 
-// ---- launch 2: cotangents of every layer, walking the table in reverse ----
-__global__ void __launch_bounds__(THREADS, 1)
-bwd_data_kernel(const float* __restrict__ gout, const __nv_bfloat16* __restrict__ wt,
+__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// ---- launch 1: the cotangent of every layer, walking the table in reverse ----
+__global__ void __launch_bounds__(BW_THREADS, 1)
+bwd_data_kernel(const __grid_constant__ BwdParams p, const float* __restrict__ gout,
                 const __nv_bfloat16* __restrict__ stash, __nv_bfloat16* __restrict__ dpre,
-                float* __restrict__ dbpart, long long P, const BwdNet net) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* G = reinterpret_cast<__nv_bfloat16*>(smem);           // [BM][LDG]
-  __nv_bfloat16* stage = G + BM * LDG;                                  // [2][KB][LDB]
-  float* dbs = reinterpret_cast<float*>(stage + 2 * KB * LDB);          // [2][N_MAX]
-  __nv_bfloat16* sig = reinterpret_cast<__nv_bfloat16*>(dbs + 2 * N_MAX);  // [BM]
+                float* __restrict__ dbpart) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  __nv_bfloat16* wbuf = reinterpret_cast<__nv_bfloat16*>(smem);          // [stage][256][64]
+  float* dbs = reinterpret_cast<float*>(smem + W_STAGES * WBOX_BYTES);   // [2][8 warps][N_MAX]
+  float* sigs = dbs + 2 * 8 * N_MAX;                                      // [2][8 warps]
+  __nv_bfloat16* mtile = reinterpret_cast<__nv_bfloat16*>(smem + W_STAGES * WBOX_BYTES + BWD_DBS);
+  uint64_t* full = reinterpret_cast<uint64_t*>(mtile + PT * LDM);          // [PT][LDM]
+  uint64_t* empty = full + W_STAGES;
 
-  const int tid = threadIdx.x;
-  const long long p0 = (long long)blockIdx.x * BM;
-  float* dbrow = dbpart + (long long)blockIdx.x * net.total_b;
-
-  // out layer: d_pre = g with sigma's column 3 and the padding zeroed; sigma layer:
-  // d_pre = [g_sigma | 0]. Both cast to bf16 once; bias sums from the fp32 g.
-  for (int c = tid; c < BM * net.no; c += THREADS) {
-    const int r = c / net.no, j = c - r * net.no;
-    const long long p = p0 + r;
-    const float v = (p < P && j < net.c4 && j != 3) ? gout[p * net.c4 + j] : 0.f;
-    G[r * LDG + j] = __float2bfloat16(v);
-  }
-  for (int r = tid; r < BM; r += THREADS) {
-    const long long p = p0 + r;
-    sig[r] = __float2bfloat16(p < P ? gout[p * net.c4 + 3] : 0.f);
-  }
-  if (tid < net.no) {
-    float s = 0.f;
-    for (int r = 0; r < BM; ++r) {
-      const long long p = p0 + r;
-      if (p < P && tid < net.c4) s += gout[p * net.c4 + tid];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS / 32);
     }
-    if (tid == 3) {
-      dbrow[net.b_sigma] = s;
-      dbrow[net.b_out + 3] = 0.f;
-    } else {
-      dbrow[net.b_out + tid] = s;
-    }
+    mbar_fence_init();
   }
-  if (tid >= 1 && tid < SIG_N) dbrow[net.b_sigma + tid] = 0.f;
   __syncthreads();
-  store_rows(dpre + net.dpre_out, G, LDG, 0, net.no, p0, P);
-  for (int c = tid; c < BM * SIG_N; c += THREADS) {
-    const int r = c / SIG_N, j = c - r * SIG_N;
-    const long long p = p0 + r;
-    if (p < P) dpre[net.dpre_sigma + p * SIG_N + j] = j == 0 ? sig[r] : __float2bfloat16(0.f);
-  }
 
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, t4 = lane & 3;
-  for (int s = 0; s < net.n_steps; ++s) {
-    const Step st = net.steps[s];
-    float acc[4][8][4];
-    // dX = G[:, 0:K] @ wt_s; its first barrier orders the G writes above and the
-    // previous step's reads of dbs and G before this step's epilogue
-    tile_product(acc, G, LDG, 0, wt + st.wt_off, st.K, st.N, stage);
-    const __nv_bfloat16* mask = stash + st.mask_off;
-    float cs[8][2];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) cs[j][0] = cs[j][1] = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = wn * 64 + j * 8 + t4 * 2;
-        if (col >= st.N) continue;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = wm * 64 + i * 16 + g + half * 8;
-          const long long p = p0 + row;
-          float v0 = 0.f, v1 = 0.f;
-          if (p < P) {
-            const __nv_bfloat162 h =
-                *reinterpret_cast<const __nv_bfloat162*>(mask + p * st.N + col);
-            v0 = __bfloat162float(h.x) > 0.f ? acc[i][j][2 * half] : 0.f;
-            v1 = __bfloat162float(h.y) > 0.f ? acc[i][j][2 * half + 1] : 0.f;
+  if (threadIdx.x >= CONSUMERS) {
+    // ---- producer: the weight boxes of every step of every tile, in order ----
+    regs_dec<24>();
+    if (threadIdx.x == CONSUMERS) {
+      int stage = 0;
+      uint32_t ph = 0;
+      for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
+        for (int s = 0; s < p.n_steps; ++s) {
+          for (int c = 0; c < p.steps[s].n_chunks; ++c) {
+            const WChunk ch = p.chunks[p.steps[s].chunk0 + c];
+            mbar_wait(&empty[stage], ph ^ 1);
+            mbar_expect_tx(&full[stage], WBOX_BYTES);
+            tma_load_2d(wbuf + stage * WBOX_N * WBOX_K, &p.wmaps[ch.map], &full[stage], ch.k0, 0);
+            if (++stage == W_STAGES) {
+              stage = 0;
+              ph ^= 1;
+            }
           }
-          *reinterpret_cast<__nv_bfloat162*>(G + row * LDG + col) = __floats2bfloat162_rn(v0, v1);
-          cs[j][0] += v0;
-          cs[j][1] += v1;
         }
       }
     }
-    // fp32 column sums over the warp's 64 rows (lanes of equal t4), then over the
-    // two warps along M, in a fixed order
+  } else {
+    // ---- consumers: warpgroup wg owns points [64 wg, 64 wg + 64) of each tile ----
+    regs_inc<240>();
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const long long P = p.P;
+    int stage = 0, par = 0;
+    uint32_t ph = 0;
+    float acc[128];
+    uint32_t af[16][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+
+    for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
+      const long long p0 = (long long)tile * PT;
+      const long long r0 = p0 + (tid >> 7) * 64 + (warp & 3) * 16 + g, r1 = r0 + 8;
+      const bool v0 = r0 < P, v1 = r1 < P;
+      float* dbrow = dbpart + (long long)tile * p.total_b;
+
+      // out layer: d_pre = g with sigma's column 3 and the padding zeroed, cast to
+      // bf16 once; it is the first product's A and the out layer's dW cotangent
 #pragma unroll
-      for (int m = 4; m < 32; m <<= 1) {
-        cs[j][0] += __shfl_xor_sync(0xffffffffu, cs[j][0], m);
-        cs[j][1] += __shfl_xor_sync(0xffffffffu, cs[j][1], m);
+      for (int ks = 0; ks < 16; ++ks) {
+        if (ks * 16 < p.no) {
+          float x[8];
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            const int col = ks * 16 + 2 * t + (q >> 2) * 8 + (q & 1);
+            const long long r = (q & 2) ? r1 : r0;
+            x[q] = (r < P && col < p.c4 && col != 3) ? gout[r * p.c4 + col] : 0.f;
+          }
+          af[ks][0] = bf16x2_bits(x[0], x[1]);
+          af[ks][1] = bf16x2_bits(x[2], x[3]);
+          af[ks][2] = bf16x2_bits(x[4], x[5]);
+          af[ks][3] = bf16x2_bits(x[6], x[7]);
+          const int col = ks * 16 + 2 * t;
+          float cs[4] = {x[0] + x[2], x[1] + x[3], x[4] + x[6], x[5] + x[7]};
+#pragma unroll
+          for (int m = 4; m < 32; m <<= 1)
+#pragma unroll
+            for (int v = 0; v < 4; ++v) cs[v] += __shfl_xor_sync(0xffffffffu, cs[v], m);
+          if (g == 0) {
+            float* dbw = dbs + (par * 8 + warp) * N_MAX + col;
+            dbw[0] = cs[0];
+            dbw[1] = cs[1];
+            dbw[8] = cs[2];
+            dbw[9] = cs[3];
+          }
+          if (v0) {
+            *reinterpret_cast<uint32_t*>(dpre + p.dpre_out + r0 * p.no + col) = af[ks][0];
+            *reinterpret_cast<uint32_t*>(dpre + p.dpre_out + r0 * p.no + col + 8) = af[ks][2];
+          }
+          if (v1) {
+            *reinterpret_cast<uint32_t*>(dpre + p.dpre_out + r1 * p.no + col) = af[ks][1];
+            *reinterpret_cast<uint32_t*>(dpre + p.dpre_out + r1 * p.no + col + 8) = af[ks][3];
+          }
+        }
       }
-      const int col = wn * 64 + j * 8 + t4 * 2;
-      if (g == 0 && col < st.N) {
-        dbs[wm * N_MAX + col] = cs[j][0];
-        dbs[wm * N_MAX + col + 1] = cs[j][1];
+      // sigma layer: d_pre = [g_sigma | 0], bf16 once; its A fragment enters the head
+      // step in place of the first instance columns
+      const float gs0 = v0 ? gout[r0 * p.c4 + 3] : 0.f, gs1 = v1 ? gout[r1 * p.c4 + 3] : 0.f;
+      uint32_t sf[4] = {t == 0 ? bf16x2_bits(gs0, 0.f) : 0u, t == 0 ? bf16x2_bits(gs1, 0.f) : 0u,
+                        0u, 0u};
+      if (t == 0) {
+        const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+        if (v0) {
+          uint4* row = reinterpret_cast<uint4*>(dpre + p.dpre_sigma + r0 * SIG_N);
+          row[0] = make_uint4(sf[0], 0u, 0u, 0u);
+          row[1] = z;
+        }
+        if (v1) {
+          uint4* row = reinterpret_cast<uint4*>(dpre + p.dpre_sigma + r1 * SIG_N);
+          row[0] = make_uint4(sf[1], 0u, 0u, 0u);
+          row[1] = z;
+        }
       }
-    }
-    __syncthreads();
-    store_rows(dpre + st.dpre_off, G, LDG, 0, st.N, p0, P);
-    if (tid < st.N) dbrow[st.b_off + tid] = dbs[tid] + dbs[N_MAX + tid];
-    if (st.sigma_after) {
-      // the next product reads [d_rh | d_sigma]: the ins columns it must not see are
-      // overwritten by the sigma block, once store_rows has read them
-      __syncthreads();
-      for (int c = tid; c < BM * SIG_N; c += THREADS) {
-        const int r = c / SIG_N, j = c - r * SIG_N;
-        G[r * LDG + net.hr + j] = j == 0 ? sig[r] : __float2bfloat16(0.f);
+      // their bias sums from the fp32 g: over the warp's rows by shuffles (above), then
+      // over the 8 warps in order
+      float ss = t == 0 ? gs0 + gs1 : 0.f;
+#pragma unroll
+      for (int m = 1; m < 32; m <<= 1) ss += __shfl_xor_sync(0xffffffffu, ss, m);
+      if (lane == 0) sigs[par * 8 + warp] = ss;
+      bar_sync(1, CONSUMERS);
+      if (tid < p.no) {
+        float sum = 0.f;
+#pragma unroll
+        for (int w = 0; w < 8; ++w) sum += dbs[(par * 8 + w) * N_MAX + tid];
+        dbrow[p.b_out + tid] = sum;
+      }
+      if (tid < SIG_N) {
+        float sum = 0.f;
+        if (tid == 0)
+#pragma unroll
+          for (int w = 0; w < 8; ++w) sum += sigs[par * 8 + w];
+        dbrow[p.b_sigma + tid] = sum;
+      }
+      par ^= 1;
+
+      for (int s = 0; s < p.n_steps; ++s) {
+        const BStep st = p.steps[s];
+        if (s == 1) {
+          const int hs = p.hr >> 4;
+#pragma unroll
+          for (int ks = 0; ks < 16; ++ks)
+            if (ks == hs) {
+#pragma unroll
+              for (int v = 0; v < 4; ++v) af[ks][v] = sf[v];
+            }
+        }
+        // the ReLU mask of the layer this step writes, [PT][N] from the stash, copied
+        // into shared memory while the product runs
+        {
+          const __nv_bfloat16* src = stash + st.mask_off;
+          const int chunks = st.N / 8;
+          for (int c = tid; c < PT * chunks; c += CONSUMERS) {
+            const int r = c / chunks, q = c - r * chunks;
+            if (p0 + r < P) cp_async16(mtile + r * LDM + q * 8, src + (p0 + r) * st.N + q * 8);
+          }
+          cp_async_commit();
+        }
+        // dX = G W^T chunk by chunk, the weight boxes from the ring
+        for (int c = 0; c < st.n_chunks; ++c) {
+          const WChunk ch = p.chunks[st.chunk0 + c];
+          mbar_wait(&full[stage], ph);
+          const uint64_t db = desc_sw128(wbuf + stage * WBOX_N * WBOX_K, 16, 1024);
+          fence_regs(acc);
+          fence_regs(af);
+          wg_fence();
+#pragma unroll
+          for (int ks = 0; ks < 16; ++ks)
+            if (ks >= ch.a0 && ks < ch.a0 + ch.n16)
+              wgmma_rs_n256(acc, af[ks], db + (uint64_t)(2 * (ks - ch.a0)),
+                            (c > 0 || ks > ch.a0) ? 1 : 0);
+          wg_commit();
+          wg_wait<0>();
+          fence_regs(acc);
+          fence_regs(af);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[stage]);
+          if (++stage == W_STAGES) {
+            stage = 0;
+            ph ^= 1;
+          }
+        }
+        // epilogue: mask by the stashed ReLU output, write d_pre bf16, keep it as the
+        // next product's A fragments, and sum the fp32 columns over the warp's rows
+        cp_async_wait<0>();
+        bar_sync(1, CONSUMERS);
+        const int lr0 = (int)(r0 - p0);
+        __nv_bfloat16* dp = dpre + st.dpre_off;
+        float* dbw = dbs + (par * 8 + warp) * N_MAX;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const int col = j * 8 + 2 * t;
+          float x0 = 0.f, x1 = 0.f, x2 = 0.f, x3 = 0.f;
+          uint32_t h0 = 0u, h1 = 0u;
+          if (col < st.N) {
+            if (v0) {
+              const __nv_bfloat162 m =
+                  *reinterpret_cast<const __nv_bfloat162*>(mtile + lr0 * LDM + col);
+              x0 = __bfloat162float(m.x) > 0.f ? acc[4 * j] : 0.f;
+              x1 = __bfloat162float(m.y) > 0.f ? acc[4 * j + 1] : 0.f;
+            }
+            if (v1) {
+              const __nv_bfloat162 m =
+                  *reinterpret_cast<const __nv_bfloat162*>(mtile + (lr0 + 8) * LDM + col);
+              x2 = __bfloat162float(m.x) > 0.f ? acc[4 * j + 2] : 0.f;
+              x3 = __bfloat162float(m.y) > 0.f ? acc[4 * j + 3] : 0.f;
+            }
+            h0 = bf16x2_bits(x0, x1);
+            h1 = bf16x2_bits(x2, x3);
+            if (v0) *reinterpret_cast<uint32_t*>(dp + r0 * st.N + col) = h0;
+            if (v1) *reinterpret_cast<uint32_t*>(dp + r1 * st.N + col) = h1;
+          }
+          af[j >> 1][(j & 1) * 2] = h0;
+          af[j >> 1][(j & 1) * 2 + 1] = h1;
+          float s0 = x0 + x2, s1 = x1 + x3;
+#pragma unroll
+          for (int m = 4; m < 32; m <<= 1) {
+            s0 += __shfl_xor_sync(0xffffffffu, s0, m);
+            s1 += __shfl_xor_sync(0xffffffffu, s1, m);
+          }
+          if (g == 0 && col < st.N) {
+            dbw[col] = s0;
+            dbw[col + 1] = s1;
+          }
+        }
+        // the 8 warps' sums in order; dbs alternates, so one barrier a use suffices, and
+        // it also ends every read of the mask tile before the next step refills it
+        bar_sync(1, CONSUMERS);
+        if (tid < st.N) {
+          float sum = 0.f;
+#pragma unroll
+          for (int w = 0; w < 8; ++w) sum += dbs[(par * 8 + w) * N_MAX + tid];
+          dbrow[st.b_off + tid] = sum;
+        }
+        par ^= 1;
       }
     }
   }
 }
 
-// ---- launch 3: dW partials, split over the point axis ----
-__global__ void __launch_bounds__(THREADS, 2)
-dw_kernel(const __nv_bfloat16* __restrict__ stash, const __nv_bfloat16* __restrict__ edr,
-          const __nv_bfloat16* __restrict__ e_in, const __nv_bfloat16* __restrict__ dpre,
-          float* __restrict__ dwpart, long long P,
-          long long total_w, const DwNet net) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);   // [2][KP][LDF]
-  __nv_bfloat16* Ds = As + 2 * KP * LDF;                         // [2][KP][LDN]
+// ---- launch 2: dW partials, split over the point axis ----
+__global__ void __launch_bounds__(BW_THREADS, 1)
+dw_kernel(const __grid_constant__ DwParams p, float* __restrict__ dwpart) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  // stage s: boxes [A feature block 0, A feature block 1, B column block 0..3], each
+  // [KP points][64] bf16 with 128-byte swizzle
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + DW_STAGES * DW_STAGE_BOXES * DBOX_BYTES);
+  uint64_t* empty = full + DW_STAGES;
 
-  int li = 0;
-  while (li + 1 < net.n_layers && (int)blockIdx.x >= net.layers[li + 1].tile_start) ++li;
-  const DwLayer L = net.layers[li];
-  const int local = blockIdx.x - L.tile_start;
-  const int f0 = (local / L.tiles_n) * TF, n0 = (local % L.tiles_n) * TN;
-  const long long pbeg = (long long)blockIdx.y * net.chunk;
-  const long long pend = min(P, pbeg + net.chunk);
+  const int tile = blockIdx.x % p.n_tiles;
+  const long long chunk = blockIdx.x / p.n_tiles;
+  int jb = 0;
+  while (jb + 1 < p.n_jobs && tile >= p.jobs[jb + 1].tile0) ++jb;
+  const DwJob job = p.jobs[jb];
+  const int f0 = (tile - job.tile0) * 128;
+  const long long pbeg = chunk * p.chunk;
+  const long long pend = min(p.P, pbeg + p.chunk);
   const int n_st = (int)((pend - pbeg + KP - 1) / KP);
-  const __nv_bfloat16* dp = dpre + L.dpre_off;
+  const int nb = (job.N + 63) / 64;
+  const bool a1 = f0 + 64 < job.width;   // the second feature block holds features
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;       // warp tile: features wm*64, cols wn*32
-  const int g = lane >> 2, t4 = lane & 3;
-  const bool live = f0 + wm * 64 < L.K && n0 + wn * 32 < L.N;
-
-  auto load = [&](int st, int buf) {
-    const long long pb = pbeg + (long long)st * KP;
-    for (int c = tid; c < KP * (TF / 8); c += THREADS) {
-      const int r = c / (TF / 8), q = c - r * (TF / 8);
-      const long long p = pb + r;
-      const int f = f0 + q * 8;
-      __nv_bfloat16* dst = As + (buf * KP + r) * LDF + q * 8;
-      if (p < pend && f < L.K) {
-        const Seg sg = f < L.seg[0].width ? L.seg[0] : L.seg[1];
-        const int ff = f < L.seg[0].width ? f : f - L.seg[0].width;
-        const __nv_bfloat16* base = sg.src == 0 ? stash : sg.src == 1 ? edr : e_in;
-        cp_async16(dst, base + sg.off + (p / sg.div) * sg.ld + ff);
-      } else {
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < DW_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS / 32);
     }
-    for (int c = tid; c < KP * (TN / 8); c += THREADS) {
-      const int r = c / (TN / 8), q = c - r * (TN / 8);
-      const long long p = pb + r;
-      const int n = n0 + q * 8;
-      __nv_bfloat16* dst = Ds + (buf * KP + r) * LDN + q * 8;
-      if (p < pend && n < L.N) {
-        cp_async16(dst, dp + p * L.N + n);
-      } else {
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
-
-  if (n_st > 0) {
-    load(0, 0);
-    cp_async_commit();
+    mbar_fence_init();
   }
-  for (int st = 0; st < n_st; ++st) {
-    if (st + 1 < n_st) {
-      load(st + 1, (st + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (live) {
-      const __nv_bfloat16* as = As + (st & 1) * KP * LDF;
-      const __nv_bfloat16* ds = Ds + (st & 1) * KP * LDN;
-#pragma unroll
-      for (int kk = 0; kk < KP; kk += 16) {
-        // A = A_l^T: stored [point][feature], loaded transposed into m16 x k16 fragments
-        uint32_t a[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int q = lane >> 3;
-          const int k = kk + (lane & 7) + (q >> 1) * 8;
-          const int m = wm * 64 + i * 16 + (q & 1) * 8;
-          ldmatrix_x4_trans(a[i][0], a[i][1], a[i][2], a[i][3], as + k * LDF + m);
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    regs_dec<24>();
+    if (threadIdx.x == CONSUMERS) {
+      const uint32_t bytes = (uint32_t)((a1 ? 2 : 1) + nb) * DBOX_BYTES;
+      int stage = 0;
+      uint32_t ph = 0;
+      for (int st = 0; st < n_st; ++st) {
+        const int pr = (int)(pbeg + (long long)st * KP);
+        unsigned char* base = smem + stage * DW_STAGE_BOXES * DBOX_BYTES;
+        mbar_wait(&empty[stage], ph ^ 1);
+        mbar_expect_tx(&full[stage], bytes);
+        tma_load_2d(base, &p.maps[job.amap], &full[stage], f0, pr);
+        if (a1) tma_load_2d(base + DBOX_BYTES, &p.maps[job.amap], &full[stage], f0 + 64, pr);
+        for (int i = 0; i < nb; ++i)
+          tma_load_2d(base + (2 + i) * DBOX_BYTES, &p.maps[job.bmap], &full[stage], 64 * i, pr);
+        if (++stage == DW_STAGES) {
+          stage = 0;
+          ph ^= 1;
         }
-        uint32_t b[4][2];
-#pragma unroll
-        for (int jp = 0; jp < 2; ++jp) {
-          const int k = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
-          const int n = wn * 32 + jp * 16 + (lane >> 4) * 8;
-          ldmatrix_x4_trans(b[2 * jp][0], b[2 * jp][1], b[2 * jp + 1][0], b[2 * jp + 1][1],
-                            ds + k * LDN + n);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j]);
       }
     }
-    __syncthreads();
-  }
-
-  if (!live) return;
-  float* out = dwpart + (long long)blockIdx.y * total_w + L.w_off;
+  } else {
+    regs_inc<240>();
+    const int tid = threadIdx.x, wgi = tid >> 7, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const bool live = wgi == 0 || a1;
+    float acc[128];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    int stage = 0;
+    uint32_t ph = 0;
+    for (int st = 0; st < n_st; ++st) {
+      mbar_wait(&full[stage], ph);
+      if (live) {
+        const unsigned char* base = smem + stage * DW_STAGE_BOXES * DBOX_BYTES;
+        const uint64_t da = desc_sw128(base + wgi * DBOX_BYTES, DBOX_BYTES, 1024);
+        const uint64_t db = desc_sw128(base + 2 * DBOX_BYTES, DBOX_BYTES, 1024);
+        fence_regs(acc);
+        wg_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + wn * 32 + j * 8 + t4 * 2;
-      if (n >= L.N) continue;
+        for (int ks = 0; ks < KP / 16; ++ks)   // 16 points (16 rows of 128 bytes) a step
+          wgmma_ss_n256_tt(acc, da + (uint64_t)(ks * 128), db + (uint64_t)(ks * 128),
+                           (st > 0 || ks > 0) ? 1 : 0);
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(acc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == DW_STAGES) {
+        stage = 0;
+        ph ^= 1;
+      }
+    }
+    if (!live) return;
+    float* out = dwpart + chunk * p.total_w + job.w_off;
+    const int fr0 = f0 + wgi * 64 + (warp & 3) * 16 + g;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int n = j * 8 + 2 * t;
+      if (n >= job.N) continue;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int f = f0 + wm * 64 + i * 16 + g + half * 8;
-        if (f < L.K)
-          *reinterpret_cast<float2*>(out + (long long)f * L.N + n) =
-              make_float2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+        const int f = fr0 + half * 8;
+        if (f < job.width)
+          *reinterpret_cast<float2*>(out + (long long)(job.k_off + f) * job.N + n) =
+              make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
       }
     }
   }
 }
 
-// ---- launches 4 and 5: out[c] = sum_r part[r][c], r in a fixed order ----
+// ---- launches 3 and 4: out[c] = sum_r part[r][c], r in a fixed order ----
 // A CTA takes 32 columns; its 8 warps sum strided rows, then warp 0 adds the 8
-// partial sums in order. With a table (dW), columns outside every layer's [K, N]
-// block are alignment padding and are written as 0.
+// partial sums in order. With ranges (dW), columns outside every layer's block are
+// alignment padding and are written as 0.
 __global__ void __launch_bounds__(THREADS)
-reduce_kernel(const float* __restrict__ part, long long R, long long C, float* __restrict__ out,
-              const DwNet net, int use_table) {
+sum_rows_kernel(const float* __restrict__ part, long long R, long long C, float* __restrict__ out,
+                const Ranges ranges) {
   __shared__ float sums[THREADS / 32][32];
   const int cx = threadIdx.x & 31, ry = threadIdx.x >> 5;
   const long long c = (long long)blockIdx.x * 32 + cx;
   bool inside = c < C;
-  if (inside && use_table) {
+  if (inside && ranges.n > 0) {
     inside = false;
-    for (int l = 0; l < net.n_layers; ++l) {
-      const DwLayer& L = net.layers[l];
-      if (c >= L.w_off && c < (long long)L.w_off + (long long)L.K * L.N) inside = true;
-    }
+    for (int l = 0; l < ranges.n; ++l)
+      if (c >= ranges.off[l] && c < ranges.off[l] + ranges.size[l]) inside = true;
   }
   float s = 0.f;
   if (inside)
@@ -434,113 +520,128 @@ reduce_kernel(const float* __restrict__ part, long long R, long long C, float* _
   }
 }
 
-// Launch the five kernels on `stream`; returns the first cudaError (0 when every
-// launch was accepted). `pt_src` and `ed_src` are build_rows' (Rows). `table` is the
-// int64 table of
-// fused_mlp.py's _bwd_plan:
-//   header  P, S, multires, h_col, e_col, e_width, c4, no, hr, total_b, total_w,
-//           b_out, b_sigma, dpre_out, dpre_sigma, n_chunks, chunk, n_fwd, n_steps, n_dw,
-//           multires_views, ed_stash_off
-//   n_fwd   rows a_col, K, N, w_off, b_off, stash_off           (trunk layers, head)
-//   n_steps rows K, N, wt_off, mask_off, dpre_off, b_off, sigma_after
-//   n_dw    rows K, N, w_off, dpre_off, then two segments of src, off, width, ld, div
-template <Rows ROWS>
-int run_fused_mlp_bwd(const void* pt_src, const void* ed_src, const void* weights,
-                      const float* biases, const void* wt, const float* g, void* stash,
-                      void* dpre, float* dbpart, float* dwpart, float* dw, float* db,
-                      const long long* table, void* stream) {
+// Launch the four kernels on `stream`; returns 0 when every launch was accepted, a
+// cudaError, or 10000 + a CUresult of the tensor-map encoder. `stash` is what the
+// training forward wrote; `e_in`, `ed_in` are K6's input embeddings (segment sources
+// 2 and 1; unused by K2 and K4). `table` is the int64 table of fused_mlp.py's
+// _bwd_plan:
+//   header   P, c4, no, hr, total_b, total_w, b_out, b_sigma, dpre_out, dpre_sigma,
+//            n_chunks, chunk, n_wmaps, n_steps, n_wchunks, n_dmaps, n_jobs, n_ranges
+//   n_wmaps  rows w_off, cols, rows               (weight blocks, [rows, cols] pitch cols)
+//   n_steps  rows N, chunk0, n_chunks, b_off, mask_off, dpre_off
+//   n_wchunks rows map, k0, a0, n16
+//   n_dmaps  rows src, off, width                 (src 0 stash, 1 ed_in, 2 e_in, 3 d_pre)
+//   n_jobs   rows amap, bmap, width, N, k_off, w_off
+//   n_ranges rows w_off, size                     (each layer's dW block)
+inline int run_fused_mlp_bwd(const void* e_in, const void* ed_in, const void* weights,
+                             const float* g, const void* stash, void* dpre, float* dbpart,
+                             float* dwpart, float* dw, float* db, const long long* table,
+                             int n_sms, void* stream) {
   const long long* h = table;
   const long long P = h[0];
-  const int S = (int)h[1];
-  const int n_fwd = (int)h[17], n_steps = (int)h[18], n_dw = (int)h[19];
-  if (P <= 0 || S <= 0 || n_fwd < 1 || n_fwd > MAX_LAYERS || n_steps < 1 ||
-      n_steps > MAX_LAYERS || n_dw < 1 || n_dw > MAX_LAYERS ||
-      (ROWS == ROWS_POINT_DIRS && h[21] < 0) || (ROWS == ROWS_EMBEDDED && S != 1))
+  const int n_wmaps = (int)h[12], n_steps = (int)h[13], n_wchunks = (int)h[14];
+  const int n_dmaps = (int)h[15], n_jobs = (int)h[16], n_ranges = (int)h[17];
+  if (P <= 0 || n_sms <= 0 || n_wmaps < 3 || n_wmaps > MAX_WMAPS || n_steps < 2 ||
+      n_steps > MAX_LAYERS || n_wchunks < 1 || n_wchunks > MAX_CHUNKS || n_dmaps < 1 ||
+      n_dmaps > MAX_DMAPS || n_jobs < 1 || n_jobs > MAX_JOBS || n_ranges < 1 ||
+      n_ranges > MAX_LAYERS || h[2] > N_MAX || h[3] % 16 || h[3] > 3 * WBOX_K)
     return (int)cudaErrorInvalidValue;
-  const long long n_chunks = h[15];
-  const long long total_b = h[9], total_w = h[10];
-  const long long* row = table + 22;
+  const long long total_b = h[4], total_w = h[5], n_chunks = h[10];
+  const long long* row = table + 18;
+  const __nv_bfloat16* wb = reinterpret_cast<const __nv_bfloat16*>(weights);
+  int err;
+  // the encoder is a driver-API call and needs the device's context current on this
+  // thread, which a thread that has only launched kernels (autograd's) may not have
+  cudaPointerAttributes attr;
+  cudaError_t e;
+  if ((e = cudaPointerGetAttributes(&attr, weights)) != cudaSuccess ||
+      (e = cudaSetDevice(attr.device)) != cudaSuccess)
+    return (int)e;
 
-  FwdNet fwd;
-  fwd.n_layers = n_fwd;
-  fwd.multires = (int)h[2];
-  fwd.multires_views = (int)h[20];
-  fwd.h_col = (int)h[3];
-  fwd.e_col = (int)h[4];
-  fwd.e_width = (int)h[5];
-  fwd.e_stash_off = 0;
-  fwd.ed_stash_off = h[21];
-  for (int l = 0; l < n_fwd; ++l, row += 6)
-    fwd.layers[l] = FwdLayer{(int)row[0], (int)row[1], (int)row[2], (int)row[3], (int)row[4], row[5]};
+  static BwdParams bp;
+  bp.P = P;
+  bp.c4 = (int)h[1];
+  bp.no = (int)h[2];
+  bp.hr = (int)h[3];
+  bp.total_b = (int)total_b;
+  bp.b_out = (int)h[6];
+  bp.b_sigma = (int)h[7];
+  bp.dpre_out = h[8];
+  bp.dpre_sigma = h[9];
+  bp.n_steps = n_steps;
+  bp.n_tiles = (int)((P + PT - 1) / PT);
+  for (int i = 0; i < n_wmaps; ++i, row += 3)
+    if ((err = encode_map(&bp.wmaps[i], wb + row[0], row[1], row[2], row[1], WBOX_K, WBOX_N)))
+      return err;
+  for (int s = 0; s < n_steps; ++s, row += 6)
+    bp.steps[s] = BStep{(int)row[0], (int)row[1], (int)row[2], (int)row[3], row[4], row[5]};
+  for (int c = 0; c < n_wchunks; ++c, row += 4)
+    bp.chunks[c] = WChunk{(int)row[0], (int)row[1], (int)row[2], (int)row[3]};
+  for (int s = 0; s < n_steps; ++s)
+    if (bp.steps[s].N > N_MAX || bp.steps[s].chunk0 + bp.steps[s].n_chunks > n_wchunks)
+      return (int)cudaErrorInvalidValue;
+  for (int c = 0; c < n_wchunks; ++c)
+    if (bp.chunks[c].map >= n_wmaps || bp.chunks[c].a0 + bp.chunks[c].n16 > 16 ||
+        bp.chunks[c].n16 > 4)
+      return (int)cudaErrorInvalidValue;
 
-  BwdNet bwd;
-  bwd.n_steps = n_steps;
-  bwd.c4 = (int)h[6];
-  bwd.no = (int)h[7];
-  bwd.hr = (int)h[8];
-  bwd.total_b = (int)total_b;
-  bwd.b_out = (int)h[11];
-  bwd.b_sigma = (int)h[12];
-  bwd.dpre_out = h[13];
-  bwd.dpre_sigma = h[14];
-  for (int s = 0; s < n_steps; ++s, row += 7)
-    bwd.steps[s] = Step{(int)row[0], (int)row[1], (int)row[5], (int)row[6], row[2], row[3], row[4]};
-
-  DwNet dwn;
-  dwn.n_layers = n_dw;
-  dwn.chunk = h[16];
-  int tiles = 0;
-  for (int l = 0; l < n_dw; ++l, row += 14) {
-    DwLayer& L = dwn.layers[l];
-    L.K = (int)row[0];
-    L.N = (int)row[1];
-    L.w_off = (int)row[2];
-    L.dpre_off = row[3];
-    for (int k = 0; k < 2; ++k) {
-      const long long* sg = row + 4 + 5 * k;
-      L.seg[k] = Seg{(int)sg[0], (int)sg[2], (int)sg[3], (int)sg[4], sg[1]};
-    }
-    L.tiles_n = (L.N + TN - 1) / TN;
-    L.tile_start = tiles;
-    tiles += ((L.K + TF - 1) / TF) * L.tiles_n;
+  static DwParams dp;
+  dp.P = P;
+  dp.chunk = h[11];
+  dp.total_w = total_w;
+  dp.n_jobs = n_jobs;
+  const __nv_bfloat16* srcs[4] = {reinterpret_cast<const __nv_bfloat16*>(stash),
+                                  reinterpret_cast<const __nv_bfloat16*>(ed_in),
+                                  reinterpret_cast<const __nv_bfloat16*>(e_in),
+                                  reinterpret_cast<const __nv_bfloat16*>(dpre)};
+  for (int i = 0; i < n_dmaps; ++i, row += 3) {
+    if (row[0] < 0 || row[0] > 3 || srcs[row[0]] == nullptr) return (int)cudaErrorInvalidValue;
+    if ((err = encode_map(&dp.maps[i], srcs[row[0]] + row[1], row[2], P, row[2], 64, KP)))
+      return err;
   }
-  dwn.n_tiles = tiles;
+  int tiles = 0;
+  for (int j = 0; j < n_jobs; ++j, row += 6) {
+    DwJob& J = dp.jobs[j];
+    J.amap = (int)row[0];
+    J.bmap = (int)row[1];
+    J.width = (int)row[2];
+    J.N = (int)row[3];
+    J.k_off = (int)row[4];
+    J.w_off = row[5];
+    if (J.amap >= n_dmaps || J.bmap >= n_dmaps || J.N > N_MAX || J.width <= 0)
+      return (int)cudaErrorInvalidValue;
+    J.f_tiles = (J.width + 127) / 128;
+    J.tile0 = tiles;
+    tiles += J.f_tiles;
+  }
+  dp.n_tiles = tiles;
+  Ranges rw, rb;
+  rw.n = n_ranges;
+  rb.n = 0;
+  for (int l = 0; l < n_ranges; ++l, row += 2) {
+    rw.off[l] = row[0];
+    rw.size[l] = row[1];
+  }
 
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  err = cudaFuncSetAttribute(fwd_stash_kernel<ROWS>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_data_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)BWD_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)DW_SMEM);
-  if (err != cudaSuccess) return (int)err;
-
-  const unsigned grid = (unsigned)((P + BM - 1) / BM);
-  // the dW kernel reads the viewdir table only through the head segment of K2 and K6
-  // (src 1), and the input e only through K6's segments (src 2)
-  const __nv_bfloat16* edr_b =
-      ROWS == ROWS_POINT_DIRS ? nullptr : reinterpret_cast<const __nv_bfloat16*>(ed_src);
-  const __nv_bfloat16* e_b =
-      ROWS == ROWS_EMBEDDED ? reinterpret_cast<const __nv_bfloat16*>(pt_src) : nullptr;
-  __nv_bfloat16* stash_b = reinterpret_cast<__nv_bfloat16*>(stash);
-  __nv_bfloat16* dpre_b = reinterpret_cast<__nv_bfloat16*>(dpre);
-  fwd_stash_kernel<ROWS><<<grid, THREADS, FWD_SMEM, st>>>(
-      pt_src, ed_src, reinterpret_cast<const __nv_bfloat16*>(weights), biases, stash_b, P, S, fwd);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  bwd_data_kernel<<<grid, THREADS, BWD_SMEM, st>>>(
-      g, reinterpret_cast<const __nv_bfloat16*>(wt), stash_b, dpre_b, dbpart, P, bwd);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  dw_kernel<<<dim3((unsigned)tiles, (unsigned)n_chunks), THREADS, DW_SMEM, st>>>(
-      stash_b, edr_b, e_b, dpre_b, dwpart, P, total_w, dwn);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  reduce_kernel<<<(unsigned)((total_w + 31) / 32), THREADS, 0, st>>>(dwpart, n_chunks, total_w,
-                                                                    dw, dwn, 1);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  reduce_kernel<<<(unsigned)((total_b + 31) / 32), THREADS, 0, st>>>(dbpart, (long long)grid,
-                                                                    total_b, db, dwn, 0);
+  if ((e = cudaFuncSetAttribute(bwd_data_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)BWD_SMEM)) != cudaSuccess)
+    return (int)e;
+  if ((e = cudaFuncSetAttribute(dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)DW_SMEM)) != cudaSuccess)
+    return (int)e;
+  const unsigned grid = (unsigned)(bp.n_tiles < n_sms ? bp.n_tiles : n_sms);
+  bwd_data_kernel<<<grid, BW_THREADS, BWD_SMEM, st>>>(
+      bp, g, reinterpret_cast<const __nv_bfloat16*>(stash), reinterpret_cast<__nv_bfloat16*>(dpre),
+      dbpart);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  dw_kernel<<<(unsigned)(tiles * n_chunks), BW_THREADS, DW_SMEM, st>>>(dp, dwpart);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  sum_rows_kernel<<<(unsigned)((total_w + 31) / 32), THREADS, 0, st>>>(dwpart, n_chunks, total_w,
+                                                                       dw, rw);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  sum_rows_kernel<<<(unsigned)((total_b + 31) / 32), THREADS, 0, st>>>(dbpart, bp.n_tiles,
+                                                                       total_b, db, rb);
   return (int)cudaGetLastError();
 }
 

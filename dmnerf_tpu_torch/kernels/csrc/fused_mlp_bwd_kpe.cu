@@ -5,13 +5,12 @@
 
 #include "fused_mlp_bwd.cuh"
 
-// `dirs` is [P, 3] fp32, one direction per point; the table is _bwd_plan's with the
-// per-point viewdir embedding in the stash.
-extern "C" int dmnerf_fused_mlp_bwd_kpe(const float* pts, const float* dirs, const void* weights,
-                                        const float* biases, const void* wt, const float* g,
-                                        void* stash, void* dpre, float* dbpart, float* dwpart,
-                                        float* dw, float* db, const long long* table,
-                                        void* stream) {
-  return run_fused_mlp_bwd<ROWS_POINT_DIRS>(pts, dirs, weights, biases, wt, g, stash, dpre,
-                                            dbpart, dwpart, dw, db, table, stream);
+// `stash` is what the training forward (fused_mlp_fwd_kpe.cu with a stash) wrote; the
+// table is _bwd_plan's (rows 'point_dirs'). e_in and ed_in are unused.
+extern "C" int dmnerf_fused_mlp_bwd_kpe(const void* e_in, const void* ed_in, const void* weights,
+                                        const float* g, const void* stash, void* dpre, float* dbpart,
+                                        float* dwpart, float* dw, float* db, const long long* table,
+                                        int n_sms, void* stream) {
+  return run_fused_mlp_bwd(e_in, ed_in, weights, g, stash, dpre, dbpart, dwpart, dw, db, table,
+                           n_sms, stream);
 }

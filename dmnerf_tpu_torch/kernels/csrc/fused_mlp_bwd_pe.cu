@@ -5,15 +5,14 @@
 
 #include "fused_mlp_bwd.cuh"
 
-// `e` is the point embedding [P, e_width] bf16 and `ed` the per-point viewdir
-// embedding [P, h_col] bf16, both as the forward (K7, K5) had them; the table is
-// _bwd_plan's with S = 1, no embedding in the stash, and the dW jobs reading e as
-// segment source 2 and ed as source 1.
-extern "C" int dmnerf_fused_mlp_bwd_pe(const void* e, const void* ed, const void* weights,
-                                       const float* biases, const void* wt, const float* g,
-                                       void* stash, void* dpre, float* dbpart, float* dwpart,
-                                       float* dw, float* db, const long long* table,
-                                       void* stream) {
-  return run_fused_mlp_bwd<ROWS_EMBEDDED>(e, ed, weights, biases, wt, g, stash, dpre, dbpart,
-                                          dwpart, dw, db, table, stream);
+// `e_in` is the point embedding [P, e_width] bf16 and `ed_in` the per-point viewdir
+// embedding [P, h_col] bf16, both as the forward (K7, K5) had them; `stash` holds the
+// ReLU outputs that fused_mlp_fwd_pe.cu with a stash wrote, no embedding; the table is
+// _bwd_plan's (rows 'embedded'), whose dW jobs read e as segment source 2 and ed as 1.
+extern "C" int dmnerf_fused_mlp_bwd_pe(const void* e_in, const void* ed_in, const void* weights,
+                                       const float* g, const void* stash, void* dpre, float* dbpart,
+                                       float* dwpart, float* dw, float* db, const long long* table,
+                                       int n_sms, void* stream) {
+  return run_fused_mlp_bwd(e_in, ed_in, weights, g, stash, dpre, dbpart, dwpart, dw, db, table,
+                           n_sms, stream);
 }

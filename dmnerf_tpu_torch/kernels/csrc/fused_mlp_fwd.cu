@@ -8,8 +8,9 @@
 extern "C" int dmnerf_fused_mlp_fwd(const float* pts, const void* edr, const void* weights,
                                     const float* biases, float* out, long long P, int S,
                                     const int* table, int n_layers, int multires, int h_col,
-                                    int e_col, int e_width, int c4, void* stream) {
+                                    int e_col, int e_width, int c4, void* stash,
+                                    const long long* stash_table, void* stream) {
   return launch_fused_mlp_fwd<ROWS_RAY_TABLE>(pts, edr, weights, biases, out, P, S, table,
                                               n_layers, multires, 0, h_col, e_col, e_width, c4,
-                                              stream);
+                                              stash, stash_table, stream);
 }

@@ -39,7 +39,16 @@
 //  * Sigma is a layer of its own ([W, 16], column 0) kept in fp32 in shared
 //    memory; the output layer writes it into column 3.
 //  * Rows past the ragged tail compute on zeros and are never stored.
-// wgmma, TMA and warp specialisation are left for later work.
+// The kernel is still built from mma.sync with cp.async-streamed weights; moving it to
+// wgmma, TMA-fed weight tiles and warp specialisation is the next redesign.
+//
+// Training. With STASH the same kernel is the training forward: it also stores what
+// the parameter backward (fused_mlp_bwd.cuh) reads, in the layout of fused_mlp.py's
+// _bwd_plan: the point embedding and the per-point viewdir embedding as the CTA built
+// them (K1, K3; K5's come from its inputs), and every ReLU output (the trunk layers
+// and the head) as the bf16 values the next layer reads. These are plain 16-byte row
+// stores after the layer's barrier; the products and the output are the same code, so
+// raw is bit for bit the render path's. Without STASH the added code compiles away.
 #pragma once
 
 #include "fused_mlp_common.cuh"
@@ -57,6 +66,13 @@ struct Layer {
   int a_col, K, N, w_off, b_off, epi;
 };
 
+// Element offsets into the bf16 stash (fused_mlp.py's _bwd_plan), -1 where nothing is
+// stored: the point and viewdir embeddings, then one entry per layer of the table.
+struct StashNet {
+  long long e_off, ed_off;
+  long long layer_off[MAX_LAYERS];
+};
+
 struct Net {
   int n_layers;
   int multires;        // point-embedding octaves
@@ -68,11 +84,12 @@ struct Net {
   Layer layers[MAX_LAYERS];
 };
 
-template <Rows ROWS>
+template <Rows ROWS, bool STASH>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_mlp_fwd_kernel(const void* __restrict__ pt_src, const void* __restrict__ ed_src,
                      const __nv_bfloat16* __restrict__ weights, const float* __restrict__ biases,
-                     float* __restrict__ out, long long P, int S, const Net net) {
+                     float* __restrict__ out, long long P, int S, const Net net,
+                     __nv_bfloat16* __restrict__ stash, const StashNet sn) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* stage = act + BM * LDA;
@@ -83,6 +100,11 @@ fused_mlp_fwd_kernel(const void* __restrict__ pt_src, const void* __restrict__ e
   build_rows<ROWS>(act, pt_src, ed_src, p0, P, S, net.multires, net.multires_views, net.h_col,
                    net.e_col, net.e_width);
   __syncthreads();
+  if constexpr (STASH) {
+    // the embeddings' columns are never written again, so no barrier orders these reads
+    if (sn.e_off >= 0) store_rows(stash + sn.e_off, act, LDA, net.e_col, net.e_width, p0, P);
+    if (sn.ed_off >= 0) store_rows(stash + sn.ed_off, act, LDA, 0, net.h_col, p0, P);
+  }
 
   const int warp = tid >> 5, lane = tid & 31;
   const int wm = warp >> 2, wn = warp & 3;   // warp tile rows wm*64, cols wn*64
@@ -122,16 +144,40 @@ fused_mlp_fwd_kernel(const void* __restrict__ pt_src, const void* __restrict__ e
       }
     }
     __syncthreads();
+    if constexpr (STASH) {
+      // the next layer's product ends in a barrier before its epilogue overwrites h
+      if (sn.layer_off[l] >= 0)
+        store_rows(stash + sn.layer_off[l], act, LDA, net.h_col, L.N, p0, P);
+    }
   }
 }
 
+template <Rows ROWS, bool STASH>
+int launch_kernel(const void* pt_src, const void* ed_src, const void* weights, const float* biases,
+                  float* out, long long P, int S, const Net& net, void* stash, const StashNet& sn,
+                  void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(fused_mlp_fwd_kernel<ROWS, STASH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)FWD_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const long long grid = (P + BM - 1) / BM;
+  fused_mlp_fwd_kernel<ROWS, STASH>
+      <<<(unsigned)grid, THREADS, FWD_SMEM_BYTES, (cudaStream_t)stream>>>(
+          pt_src, ed_src, reinterpret_cast<const __nv_bfloat16*>(weights), biases, out, P, S, net,
+          reinterpret_cast<__nv_bfloat16*>(stash), sn);
+  return (int)cudaGetLastError();
+}
+
 // Launch on `stream`; returns cudaGetLastError() (0 when the launch was accepted).
-// `table` holds n_layers rows of (a_col, K, N, w_off, b_off, epilogue).
+// `table` holds n_layers rows of (a_col, K, N, w_off, b_off, epilogue). With a stash
+// (the training forward), `stash_table` is _bwd_plan's (e_off, ed_off, then one
+// offset per layer); without one, the render path's kernel runs.
 template <Rows ROWS>
 int launch_fused_mlp_fwd(const void* pt_src, const void* ed_src, const void* weights,
                          const float* biases, float* out, long long P, int S, const int* table,
                          int n_layers, int multires, int multires_views, int h_col, int e_col,
-                         int e_width, int c4, void* stream) {
+                         int e_width, int c4, void* stash, const long long* stash_table,
+                         void* stream) {
   if (n_layers < 1 || n_layers > MAX_LAYERS || P <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
   Net net;
   net.n_layers = n_layers;
@@ -145,14 +191,17 @@ int launch_fused_mlp_fwd(const void* pt_src, const void* ed_src, const void* wei
     const int* t = table + 6 * l;
     net.layers[l] = Layer{t[0], t[1], t[2], t[3], t[4], t[5]};
   }
-  cudaError_t err = cudaFuncSetAttribute(fused_mlp_fwd_kernel<ROWS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)FWD_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const long long grid = (P + BM - 1) / BM;
-  fused_mlp_fwd_kernel<ROWS><<<(unsigned)grid, THREADS, FWD_SMEM_BYTES, (cudaStream_t)stream>>>(
-      pt_src, ed_src, reinterpret_cast<const __nv_bfloat16*>(weights), biases, out, P, S, net);
-  return (int)cudaGetLastError();
+  StashNet sn;
+  sn.e_off = sn.ed_off = -1;
+  for (int l = 0; l < MAX_LAYERS; ++l) sn.layer_off[l] = -1;
+  if (stash == nullptr)
+    return launch_kernel<ROWS, false>(pt_src, ed_src, weights, biases, out, P, S, net, stash, sn,
+                                      stream);
+  sn.e_off = stash_table[0];
+  sn.ed_off = stash_table[1];
+  for (int l = 0; l < n_layers; ++l) sn.layer_off[l] = stash_table[2 + l];
+  return launch_kernel<ROWS, true>(pt_src, ed_src, weights, biases, out, P, S, net, stash, sn,
+                                   stream);
 }
 
 }  // namespace

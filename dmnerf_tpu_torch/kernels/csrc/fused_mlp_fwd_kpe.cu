@@ -11,8 +11,9 @@ extern "C" int dmnerf_fused_mlp_fwd_kpe(const float* pts, const float* dirs, con
                                         const float* biases, float* out, long long P,
                                         const int* table, int n_layers, int multires,
                                         int multires_views, int h_col, int e_col, int e_width,
-                                        int c4, void* stream) {
+                                        int c4, void* stash, const long long* stash_table,
+                                        void* stream) {
   return launch_fused_mlp_fwd<ROWS_POINT_DIRS>(pts, dirs, weights, biases, out, P, 1, table,
                                                n_layers, multires, multires_views, h_col, e_col,
-                                               e_width, c4, stream);
+                                               e_width, c4, stash, stash_table, stream);
 }

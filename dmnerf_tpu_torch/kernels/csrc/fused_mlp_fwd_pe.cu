@@ -10,7 +10,9 @@
 extern "C" int dmnerf_fused_mlp_fwd_pe(const void* e, const void* ed, const void* weights,
                                        const float* biases, float* out, long long P,
                                        const int* table, int n_layers, int h_col, int e_col,
-                                       int e_width, int c4, void* stream) {
+                                       int e_width, int c4, void* stash,
+                                       const long long* stash_table, void* stream) {
   return launch_fused_mlp_fwd<ROWS_EMBEDDED>(e, ed, weights, biases, out, P, 1, table, n_layers,
-                                             0, 0, h_col, e_col, e_width, c4, stream);
+                                             0, 0, h_col, e_col, e_width, c4, stash, stash_table,
+                                             stream);
 }

@@ -57,7 +57,11 @@ carries them back to the parameter dict, which is the product rule the JAX packa
 ``_unpack_grads``. Its backward is the JAX package's ``_backward_core``
 (``dmnerf_tpu/kernels/fused_mlp.py:536``): the head's ins columns feed ``dW`` but
 send nothing into the trunk, nothing goes into ``ed``, ``pts`` or ``viewdirs``, and
-bias gradients are fp32 sums of the fp32 cotangents.
+bias gradients are fp32 sums of the fp32 cotangents. When the query is differentiated
+(``fused_query`` under grad mode with ``Packed.w`` / ``Packed.b`` requiring a
+gradient), the forward kernel on the card is the training forward: it also writes a
+stash of the activations in ``_bwd_plan``'s layout, which lives until the backward
+reads it, so the backward recomputes nothing. The TPU kernels rematerialise instead.
 """
 
 from __future__ import annotations
@@ -548,35 +552,40 @@ def _layer_table(layers, extra=lambda layer: ()) -> list:
 
 
 def _launch_fwd(name: str, packed: Packed, pts: torch.Tensor, ed_src: torch.Tensor,
-                P: int, S: int) -> torch.Tensor:
+                P: int, S: int, stash=None, stash_table=None) -> torch.Tensor:
     """One launch of K1 (``ed_src`` the per-ray viewdir embedding [P / S, EDP] bf16),
     K3 (``ed_src`` the directions [P, 3] fp32) or K5 (``pts`` the point embedding e
     [P, EP], ``ed_src`` the per-point viewdir embedding [P, EDP], both bf16); returns
-    raw [P, 4+C]."""
+    raw [P, 4+C]. With ``stash`` (a bf16 buffer) and ``stash_table`` (``_bwd_plan``'s
+    ``fwd_stash``) it is the training forward, which also writes what the backward
+    reads."""
     out = torch.empty((P, packed.c4), dtype=torch.float32, device=pts.device)
     if P == 0:
         return out
     table = _layer_table(packed.layers, lambda layer: (_EPI.get(layer.kind, 0),))
     c_table = (ctypes.c_int * len(table))(*table)
+    c_stash = None if stash is None else (ctypes.c_longlong * len(stash_table))(*stash_table)
     fn = getattr(runtime.load(name), f"dmnerf_{name}")
     stream = torch.cuda.current_stream(pts.device).cuda_stream
     common = (packed.w_bf16.data_ptr(), packed.b.data_ptr(), out.data_ptr(), P)
     dims = (packed.edp, packed.edp + packed.width, packed.ep, packed.c4)
+    tail = (None if stash is None else stash.data_ptr(),
+            None if c_stash is None else ctypes.addressof(c_stash), stream)
     if name == "fused_mlp_fwd":
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p] \
-            + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
         args = (pts.data_ptr(), ed_src.data_ptr(), *common, S, c_table, len(packed.layers),
-                packed.multires, *dims, stream)
+                packed.multires, *dims, *tail)
     elif name == "fused_mlp_fwd_pe":
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p] \
-            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
         args = (pts.data_ptr(), ed_src.data_ptr(), *common, c_table, len(packed.layers),
-                *dims, stream)
+                *dims, *tail)
     else:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p] \
-            + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
         args = (pts.data_ptr(), ed_src.data_ptr(), *common, c_table, len(packed.layers),
-                packed.multires, packed.multires_views, *dims, stream)
+                packed.multires, packed.multires_views, *dims, *tail)
     fn.restype = ctypes.c_int
     err = fn(*args)
     if err != 0:
@@ -590,10 +599,8 @@ def _forward(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor) -> torch
     pts [N, S, 3], viewdirs [N, 3] -> raw [N, S, 4+C]."""
     if pts.device.type == "cpu":
         return fused_query_ref(packed, pts, viewdirs, torch.float32)
-    _check_kernel_inputs("fused_mlp_fwd", packed, pts, viewdirs)
-    _check_ray_shapes(pts, viewdirs)
     N, S, _ = pts.shape
-    edr = view_embedding(packed, viewdirs).to(torch.bfloat16).contiguous()
+    _, edr = _kernel_inputs(packed, pts, viewdirs, "kernel_t")
     return _launch_fwd("fused_mlp_fwd", packed, pts, edr, N * S, S).reshape(N, S, packed.c4)
 
 
@@ -644,107 +651,127 @@ def pe_points(packed: Packed, x: torch.Tensor) -> torch.Tensor:
     return e
 
 
-# tiling of csrc/fused_mlp_bwd.cuh's dW kernel
-_DW_TILE_F, _DW_TILE_N, _DW_POINTS = 128, 128, 32
+# tiling of csrc/fused_mlp_bwd.cuh: 128-point tiles of the backward-data walk (a bias
+# partial each); dW tiles of 128 features over 64-point stages; every stash, cotangent
+# and weight segment starts on 64 elements (128 bytes), as TMA wants
+_BWD_TILE, _DW_TILE_F, _DW_POINTS, _WBOX_K = 128, 128, 64, 64
 _DW_CTAS_PER_SM = 4
-
-
-def _flat(blocks: Sequence[torch.Tensor]):
-    """Row-major blocks in one flat buffer, each starting 64-element aligned, and
-    their offsets."""
-    parts, offs, off = [], [], 0
-    for t in blocks:
-        t = t.contiguous().reshape(-1)
-        pad = _round_up(t.numel(), 64) - t.numel()
-        parts += [t, t.new_zeros(pad)]
-        offs.append(off)
-        off += t.numel() + pad
-    return torch.cat(parts), offs
+_SEG_ALIGN = 64
+# the Rows of each pe_mode's kernel pair, and the pair's entry points
+_ROWS = {"kernel_t": "ray_table", "kernel": "point_dirs", "outside": "embedded"}
+_FWD_NAME = {"kernel_t": "fused_mlp_fwd", "kernel": "fused_mlp_fwd_kpe",
+             "outside": "fused_mlp_fwd_pe"}
+_BWD_NAME = {"kernel_t": "fused_mlp_bwd", "kernel": "fused_mlp_bwd_kpe",
+             "outside": "fused_mlp_bwd_pe"}
 
 
 def _bwd_plan(packed: Packed, N: int, S: int, n_sms: int, rows: str = "ray_table"):
-    """Host tables of csrc/fused_mlp_bwd.cuh: the stash and cotangent layouts, the
-    transposed weight blocks of the backward-data walk, and the dW jobs. ``rows`` is
-    the kernel's Rows: 'ray_table' (K2) stashes the point embedding and reads the
-    per-ray viewdir table [N, EDP] (segment source 1, row p / S); 'point_dirs' (K4)
-    also stashes each point's viewdir embedding for the head's dW job; 'embedded' (K6,
-    S = 1) stashes neither and reads e [P, EP] (source 2) and ed [P, EDP] (source 1)
-    from its inputs."""
+    """Host tables of the training forward's stash and of csrc/fused_mlp_bwd.cuh.
+    ``rows`` is the kernel pair's Rows: 'ray_table' (K1/K2) and 'point_dirs' (K3/K4)
+    stash the point embedding and the per-point viewdir embedding as the forward built
+    them; 'embedded' (K5/K6, S = 1) stashes neither, and its dW jobs read e [P, EP]
+    (segment source 2) and ed [P, EDP] (source 1) from the backward's inputs.
+
+    Returns a dict: ``stash_size``, ``e_off``, ``ed_off`` and ``layer_off`` (one stash
+    offset per packed layer, -1 for sigma and out; each stash segment is [P, width]
+    row-major), ``fwd_stash`` (the forward's table: e_off, ed_off, *layer_off),
+    ``dpre_off`` / ``dpre_size`` (one [P, N] bf16 cotangent block per layer), the rows
+    of the backward's table (``wmaps``: weight blocks (w_off, cols, rows) read as
+    [rows, cols] with pitch cols; ``steps``: (N, chunk0, n_chunks, b_off, mask_off,
+    dpre_off); ``wchunks``: (map, k0, a0, n16); ``dmaps``: (src, off, width) over P
+    rows, src 0 stash, 1 input ed, 2 input e, 3 cotangents; ``jobs``: (amap, bmap,
+    width, N, k_off, w_off); ``ranges``: (w_off, size)), the header values, and
+    ``table``, all of it flattened as the kernel reads it. Every offset is in elements
+    and a multiple of 64."""
     trunk, sig, head, out = _split_layers(packed)
-    P, W, ep, edp, hr = N * S, packed.width, packed.ep, packed.edp, packed.hr
-    if hr % 16 or hr + 16 > _N_MAX:
+    P, W, ep, edp, hr, D = N * S, packed.width, packed.ep, packed.edp, packed.hr, len(trunk)
+    if hr % 16 or hr > 3 * _WBOX_K:
         raise ValueError(f"backward kernel wants the rgb hidden width % 16 == 0 and "
-                         f"<= {_N_MAX - 16}, got {hr}")
-    if rows not in ("ray_table", "point_dirs", "embedded") or (rows == "embedded" and S != 1):
+                         f"<= {3 * _WBOX_K}, got {hr}")
+    if rows not in _ROWS.values() or (rows == "embedded" and S != 1):
         raise ValueError(f"unknown rows {rows!r} for S = {S}")
-    # stash (bf16): e [P, EP] (not K6), (K4) ed [P, EDP], each trunk layer's output
-    # [P, W], the head's [P, nh]
-    e_seg = (2, 0, ep, ep, 1) if rows == "embedded" else (0, 0, ep, ep, 1)
-    off = 0 if rows == "embedded" else P * ep
-    ed_off = -1
-    if rows == "point_dirs":
-        ed_off, off = off, off + P * edp
-    h_off = []
-    for _ in trunk:
-        h_off.append(off)
-        off += P * W
-    head_off, stash_size = off, off + P * head.N
-    # cotangents d_pre (bf16), one [P, N] block per layer
-    dpre_off, off = [], 0
-    for layer in packed.layers:
-        dpre_off.append(off)
-        off += P * layer.N
-    dpre_size = off
     li = {layer: i for i, layer in enumerate(packed.layers)}
 
-    wb = packed.w_bf16
-    D = len(trunk)
-    wt, wt_off = _flat([_block(wb, out).t(),
-                        torch.cat([_block(wb, head)[edp:edp + W, :hr].t(), _block(wb, sig).t()]),
-                        *(_block(wb, trunk[i])[:W].t() for i in range(D - 1, 0, -1))])
-    # backward-data steps: (K, N, wt_off, mask_off, dpre_off, b_off, sigma_after)
-    steps = [(out.N, head.N, wt_off[0], head_off, dpre_off[li[head]], head.b_off, 1),
-             (hr + 16, W, wt_off[1], h_off[D - 1], dpre_off[D - 1], trunk[D - 1].b_off, 0)]
+    def allocator():
+        size = [0]
+
+        def take(n):
+            o = size[0]
+            size[0] += _round_up(n, _SEG_ALIGN)
+            return o
+        return take, size
+    # stash (bf16): e [P, EP] and ed [P, EDP] (not K6), each trunk layer's output
+    # [P, W], the head's [P, nh]
+    take, stash_size = allocator()
+    e_off = -1 if rows == "embedded" else take(P * ep)
+    ed_off = -1 if rows == "embedded" else take(P * edp)
+    h_off = [take(P * W) for _ in trunk]
+    head_off = take(P * head.N)
+    layer_off = h_off + [-1, head_off, -1]
+    # cotangents d_pre (bf16), one [P, N] block per layer
+    take, dpre_size = allocator()
+    dpre_off = [take(P * layer.N) for layer in packed.layers]
+
+    # backward-data walk: weight blocks as TMA maps, each row one input feature
+    wmaps = [(out.w_off, out.N, head.N),                    # out [nh, no]
+             (head.w_off + edp * head.N, head.N, W),        # the head's h rows [W, nh]
+             (sig.w_off, sig.N, W)]                         # sigma [W, 16]
+    wmaps += [(trunk[i].w_off, W, W) for i in range(D - 1, 0, -1)]   # trunk i's h rows
+    steps, wchunks = [], []
+
+    def step(n, b_off, mask_off, d_off, parts):
+        c0 = len(wchunks)
+        for m, K, a0 in parts:
+            wchunks.extend((m, k0, a0 + k0 // 16, min(_WBOX_K, K - k0) // 16)
+                           for k0 in range(0, K, _WBOX_K))
+        steps.append((n, c0, len(wchunks) - c0, b_off, mask_off, d_off))
+    step(head.N, head.b_off, head_off, dpre_off[li[head]], [(0, out.N, 0)])
+    # the wall: only the head's rgb columns and sigma (its fragment at column hr) reach h
+    step(W, trunk[D - 1].b_off, h_off[D - 1], dpre_off[D - 1], [(1, hr, 0), (2, sig.N, hr // 16)])
     for k, i in enumerate(range(D - 1, 0, -1)):
-        steps.append((W, W, wt_off[2 + k], h_off[i - 1], dpre_off[i - 1], trunk[i - 1].b_off, 0))
+        step(W, trunk[i - 1].b_off, h_off[i - 1], dpre_off[i - 1], [(3 + k, W, 0)])
 
-    # dW jobs: A = up to two column segments (src 0 stash, 1 the viewdir table, 2 the
-    # input e; off, width, ld, row div)
-    def seg(src, o, width, div=1):
-        return (src, o, width, width, div)
-    none = (0, 0, 0, 0, 1)
-    jobs = []
+    # dW jobs: one per (layer, A segment), over TMA maps of [P, width] rows
+    dmaps = []
+
+    def dmap(src, o, width):
+        if (src, o, width) not in dmaps:
+            dmaps.append((src, o, width))
+        return dmaps.index((src, o, width))
+    e_map = dmap(2, 0, ep) if rows == "embedded" else dmap(0, e_off, ep)
+    ed_map = dmap(1, 0, edp) if rows == "embedded" else dmap(0, ed_off, edp)
+    h_map = [dmap(0, o, W) for o in h_off]
+    segs = []
     for i, layer in enumerate(trunk):
-        if layer.kind == "emb0":
-            segs = (e_seg, none)
-        elif layer.kind == "split":
-            segs = (seg(0, h_off[i - 1], W), e_seg)
-        else:
-            segs = (seg(0, h_off[i - 1], W), none)
-        jobs.append((layer, segs))
-    jobs += [(sig, (seg(0, h_off[D - 1], W), none)),
-             (head, (seg(0, ed_off, edp) if rows == "point_dirs" else seg(1, 0, edp, S),
-                     seg(0, h_off[D - 1], W))),
-             (out, (seg(0, head_off, head.N), none))]
-    dw_rows, n_tiles = [], 0
-    for layer, segs in jobs:
-        if segs[0][2] + segs[1][2] != layer.K:
+        segs.append((layer, [(e_map, ep)] if layer.kind == "emb0" else
+                     [(h_map[i - 1], W), (e_map, ep)] if layer.kind == "split" else
+                     [(h_map[i - 1], W)]))
+    segs += [(sig, [(h_map[D - 1], W)]), (head, [(ed_map, edp), (h_map[D - 1], W)]),
+             (out, [(dmap(0, head_off, head.N), head.N)])]
+    jobs, n_tiles = [], 0
+    for layer, parts in segs:
+        if sum(width for _, width in parts) != layer.K:
             raise ValueError(f"dW segments do not cover K of {layer}")
-        dw_rows += [layer.K, layer.N, layer.w_off, dpre_off[li[layer]], *segs[0], *segs[1]]
-        n_tiles += -(-layer.K // _DW_TILE_F) * -(-layer.N // _DW_TILE_N)
+        bmap, k = dmap(3, dpre_off[li[layer]], layer.N), 0
+        for amap, width in parts:
+            jobs.append((amap, bmap, width, layer.N, k, layer.w_off))
+            k += width
+            n_tiles += -(-width // _DW_TILE_F)
     n_chunks = max(1, min(-(-P // _DW_POINTS), -(-_DW_CTAS_PER_SM * n_sms // n_tiles)))
-    chunk = _round_up(-(-P // n_chunks), _DW_POINTS)
-    n_chunks = -(-P // chunk)
+    chunk = _round_up(max(1, -(-P // n_chunks)), _DW_POINTS)
+    n_chunks = max(1, -(-P // chunk))
+    ranges = [(layer.w_off, layer.K * layer.N) for layer in packed.layers]
 
-    fwd = _layer_table([*trunk, head], lambda layer: (head_off if layer is head
-                                                      else h_off[li[layer]],))
-    header = [P, S, packed.multires, edp, edp + W, ep, packed.c4, out.N, hr,
-              packed.b.numel(), packed.w.numel(), out.b_off, sig.b_off,
-              dpre_off[li[out]], dpre_off[li[sig]], n_chunks, chunk,
-              D + 1, len(steps), len(jobs), packed.multires_views, ed_off]
-    table = header + fwd + [v for st in steps for v in st] + dw_rows
-    return dict(table=table, wt=wt, stash_size=stash_size, dpre_size=dpre_size,
-                n_chunks=n_chunks)
+    header = [P, packed.c4, out.N, hr, packed.b.numel(), packed.w.numel(), out.b_off,
+              sig.b_off, dpre_off[li[out]], dpre_off[li[sig]], n_chunks, chunk, len(wmaps),
+              len(steps), len(wchunks), len(dmaps), len(jobs), len(ranges)]
+    table = header + [v for part in (wmaps, steps, wchunks, dmaps, jobs, ranges)
+                      for r in part for v in r]
+    return dict(table=table, header=header, stash_size=stash_size[0], e_off=e_off,
+                ed_off=ed_off, layer_off=layer_off, fwd_stash=[e_off, ed_off, *layer_off],
+                dpre_off=dpre_off, dpre_size=dpre_size[0], wmaps=wmaps, steps=steps,
+                wchunks=wchunks, dmaps=dmaps, jobs=jobs, ranges=ranges, n_chunks=n_chunks,
+                chunk=chunk, bias_rows=-(-P // _BWD_TILE))
 
 
 def _check_cotangent(g: torch.Tensor, shape, device) -> None:
@@ -754,37 +781,69 @@ def _check_cotangent(g: torch.Tensor, shape, device) -> None:
                          f"got {g.dtype} {tuple(g.shape)} on {g.device}")
 
 
-def _launch_bwd(name: str, packed: Packed, pts: torch.Tensor, ed_src: torch.Tensor,
-                g: torch.Tensor, N: int, S: int):
-    """One call of K2 (``ed_src`` the per-ray viewdir embedding [N, EDP] bf16, S points
-    a ray), K4 (``ed_src`` the directions [P, 3] fp32, S = 1) or K6 (``pts`` the point
-    embedding e [P, EP], ``ed_src`` the per-point viewdir embedding [P, EDP], both
-    bf16, S = 1): its five device launches, and (dw, db)."""
-    dev = pts.device
-    dw = torch.zeros(packed.w.shape, dtype=torch.float32, device=dev)
-    db = torch.zeros(packed.b.shape, dtype=torch.float32, device=dev)
-    if N * S == 0:
-        return dw, db
-    rows = {"fused_mlp_bwd": "ray_table", "fused_mlp_bwd_kpe": "point_dirs",
-            "fused_mlp_bwd_pe": "embedded"}[name]
-    plan = _bwd_plan(packed, N, S, torch.cuda.get_device_properties(dev).multi_processor_count,
-                     rows)
-    stash = torch.empty(plan["stash_size"], dtype=torch.bfloat16, device=dev)
+def _kernel_inputs(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor, pe_mode: str):
+    """The two inputs of ``pe_mode``'s kernels for a query pts [N, S, 3], viewdirs
+    [N, 3] on the card, checked: 'kernel_t' the points and the per-ray viewdir
+    embedding [N, EDP] bf16, 'kernel' the points and one direction per point [P, 3],
+    'outside' K7's point embedding e [P, EP] and the per-point viewdir embedding
+    [P, EDP], bf16."""
+    if pe_mode == "kernel_t":
+        _check_kernel_inputs(_FWD_NAME[pe_mode], packed, pts, viewdirs)
+        _check_ray_shapes(pts, viewdirs)
+        return pts, view_embedding(packed, viewdirs).to(torch.bfloat16).contiguous()
+    _check_ray_shapes(pts, viewdirs)
+    N, S, _ = pts.shape
+    if pe_mode == "kernel":
+        a, d = pts.reshape(N * S, 3).contiguous(), _point_dirs(viewdirs, S)
+        _check_kernel_inputs(_FWD_NAME[pe_mode], packed, a, d)
+        return a, d
+    e = pe_points(packed, pts.reshape(N * S, 3).contiguous())
+    ed = point_view_embedding(packed, viewdirs, S, torch.bfloat16)
+    _check_kernel_inputs(_FWD_NAME[pe_mode], packed, e, ed, ("e", "ed"), torch.bfloat16)
+    return e, ed
+
+
+def _stash_forward(pe_mode: str, packed: Packed, a: torch.Tensor, b: torch.Tensor, N: int, S: int):
+    """The training forward of ``pe_mode`` over its kernel inputs ``a``, ``b`` (as
+    ``_kernel_inputs`` gives them): one launch of K1, K3 or K5 that also writes the
+    stash. Returns (raw [N * S, 4+C], plan, stash)."""
+    plan = _bwd_plan(packed, N, S, torch.cuda.get_device_properties(a.device).multi_processor_count,
+                     _ROWS[pe_mode])
+    stash = torch.empty(plan["stash_size"], dtype=torch.bfloat16, device=a.device)
+    raw = _launch_fwd(_FWD_NAME[pe_mode], packed, a, b, N * S, S, stash, plan["fwd_stash"])
+    return raw, plan, stash
+
+
+def _launch_bwd(pe_mode: str, packed: Packed, plan: dict, stash: torch.Tensor,
+                g: torch.Tensor, e_in=None, ed_in=None):
+    """One call of K2, K4 or K6 (``pe_mode``) over the stash that ``_stash_forward``
+    wrote, for the output cotangent g [P, 4+C] fp32 (K6 also reads its input
+    embeddings e_in, ed_in): its four device launches, and (dw, db)."""
+    name = _BWD_NAME[pe_mode]
+    dev = stash.device
+    P = plan["header"][0]
+    _check_cotangent(g, (P, packed.c4), dev)
+    if P == 0:
+        return torch.zeros_like(packed.w.detach()), torch.zeros_like(packed.b.detach())
+    dw = torch.empty(packed.w.shape, dtype=torch.float32, device=dev)
+    db = torch.empty(packed.b.shape, dtype=torch.float32, device=dev)
     dpre = torch.empty(plan["dpre_size"], dtype=torch.bfloat16, device=dev)
-    n_ctas = -(-(N * S) // 128)
-    dbpart = torch.empty((n_ctas, db.numel()), dtype=torch.float32, device=dev)
+    dbpart = torch.empty((plan["bias_rows"], db.numel()), dtype=torch.float32, device=dev)
     dwpart = torch.empty((plan["n_chunks"], dw.numel()), dtype=torch.float32, device=dev)
     table = plan["table"]
     c_table = (ctypes.c_longlong * len(table))(*table)
     fn = getattr(runtime.load(name), f"dmnerf_{name}")
-    fn.argtypes = [ctypes.c_void_p] * 14
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(pts.data_ptr(), ed_src.data_ptr(), packed.w_bf16.data_ptr(), packed.b.data_ptr(),
-             plan["wt"].data_ptr(), g.data_ptr(), stash.data_ptr(), dpre.data_ptr(),
-             dbpart.data_ptr(), dwpart.data_ptr(), dw.data_ptr(), db.data_ptr(),
-             ctypes.addressof(c_table), torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(None if e_in is None else e_in.data_ptr(),
+             None if ed_in is None else ed_in.data_ptr(), packed.w_bf16.data_ptr(),
+             g.data_ptr(), stash.data_ptr(), dpre.data_ptr(), dbpart.data_ptr(),
+             dwpart.data_ptr(), dw.data_ptr(), db.data_ptr(), ctypes.addressof(c_table),
+             torch.cuda.get_device_properties(dev).multi_processor_count,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+        raise RuntimeError(f"{name} launch failed: error {err} (a cudaError, or 10000 + the "
+                           f"CUresult of the tensor-map encoder)")
     runtime.LAUNCHES[name] += 1
     return dw, db
 
@@ -793,44 +852,47 @@ def fused_query_bwd(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor,
                     g: torch.Tensor):
     """Parameter cotangents ``(dw, db)`` of the K1 query for the output cotangent
     g [N, S, 4+C] fp32, in ``Packed.w`` / ``Packed.b`` layout. CUDA tensors go
-    through the Hopper kernel (K2), CPU tensors through ``fused_query_bwd_ref`` in
-    fp32; there is no fallback from one to the other."""
+    through the training forward (K1 writing the stash) and the Hopper kernel (K2),
+    CPU tensors through ``fused_query_bwd_ref`` in fp32; there is no fallback from one
+    to the other."""
     if pts.device.type == "cpu":
         return fused_query_bwd_ref(packed, pts, viewdirs, g, torch.float32)
-    _check_kernel_inputs("fused_mlp_bwd", packed, pts, viewdirs)
-    _check_ray_shapes(pts, viewdirs)
+    a, b = _kernel_inputs(packed, pts, viewdirs, "kernel_t")
     N, S, _ = pts.shape
     _check_cotangent(g, (N, S, packed.c4), pts.device)
-    edr = view_embedding(packed, viewdirs).to(torch.bfloat16).contiguous()
-    return _launch_bwd("fused_mlp_bwd", packed, pts, edr, g, N, S)
+    _, plan, stash = _stash_forward("kernel_t", packed, a, b, N, S)
+    return _launch_bwd("kernel_t", packed, plan, stash, g.reshape(N * S, packed.c4))
 
 
 def fused_query_kpe_bwd(packed: Packed, pts: torch.Tensor, dirs: torch.Tensor,
                         g: torch.Tensor):
     """Parameter cotangents ``(dw, db)`` of the K3 query (pts, dirs [P, 3]) for the
-    output cotangent g [P, 4+C] fp32. CUDA tensors go through the Hopper kernel (K4),
-    CPU tensors through ``fused_query_kpe_bwd_ref`` in fp32; there is no fallback."""
+    output cotangent g [P, 4+C] fp32. CUDA tensors go through K3 writing the stash and
+    the Hopper kernel (K4), CPU tensors through ``fused_query_kpe_bwd_ref`` in fp32;
+    there is no fallback."""
     if pts.device.type == "cpu":
         return fused_query_kpe_bwd_ref(packed, pts, dirs, g, torch.float32)
     _check_kernel_inputs("fused_mlp_bwd_kpe", packed, pts, dirs)
     _check_point_shapes(pts, dirs)
     P = pts.shape[0]
     _check_cotangent(g, (P, packed.c4), pts.device)
-    return _launch_bwd("fused_mlp_bwd_kpe", packed, pts, dirs, g, P, 1)
+    _, plan, stash = _stash_forward("kernel", packed, pts, dirs, P, 1)
+    return _launch_bwd("kernel", packed, plan, stash, g)
 
 
 def fused_query_pe_bwd(packed: Packed, e: torch.Tensor, ed: torch.Tensor, g: torch.Tensor):
     """Parameter cotangents ``(dw, db)`` of the K5 query over the embeddings e [P, EP]
     and ed [P, EDP] for the output cotangent g [P, 4+C] fp32. CUDA tensors (bf16
-    embeddings) go through the Hopper kernel (K6), CPU tensors through
-    ``fused_query_pe_bwd_ref`` in fp32; there is no fallback."""
+    embeddings) go through K5 writing the stash and the Hopper kernel (K6), CPU
+    tensors through ``fused_query_pe_bwd_ref`` in fp32; there is no fallback."""
     if e.device.type == "cpu":
         return fused_query_pe_bwd_ref(packed, e, ed, g, torch.float32)
     _check_kernel_inputs("fused_mlp_bwd_pe", packed, e, ed, ("e", "ed"), torch.bfloat16)
     _check_embedding_shapes(packed, e, ed)
     P = e.shape[0]
     _check_cotangent(g, (P, packed.c4), e.device)
-    return _launch_bwd("fused_mlp_bwd_pe", packed, e, ed, g, P, 1)
+    _, plan, stash = _stash_forward("outside", packed, e, ed, P, 1)
+    return _launch_bwd("outside", packed, plan, stash, g, e, ed)
 
 
 def _point_dirs(viewdirs: torch.Tensor, S: int) -> torch.Tensor:
@@ -846,15 +908,27 @@ class _FusedQuery(torch.autograd.Function):
     returns zeros for them (:819-820). ``pe_mode`` picks the kernels: 'kernel_t'
     K1/K2, 'kernel' K3/K4 over per-point directions, 'outside' K7 and K5/K6 over the
     embeddings, which the forward builds once and saves for the backward, as the JAX
-    rule saves ``(params, e, ed)`` (:846-847)."""
+    rule saves ``(params, e, ed)`` (:846-847).
+
+    ``stash`` (decided by ``fused_query`` from the grad mode) makes the forward on the
+    card the training forward: the forward kernel also writes the activations the
+    backward reads, so the backward launches only K2 / K4 / K6 and recomputes nothing.
+    Without it (render, manipulation and ScanNet views under ``no_grad``, and every
+    CPU query) the forward is the render path's."""
 
     @staticmethod
-    def forward(ctx, w, b, packed, pts, viewdirs, pe_mode):
-        ctx.packed, ctx.pe_mode = packed, pe_mode
+    def forward(ctx, w, b, packed, pts, viewdirs, pe_mode, stash):
+        ctx.packed, ctx.pe_mode, ctx.plan = packed, pe_mode, None
+        N, S, _ = pts.shape
+        if stash and pts.device.type == "cuda":
+            a, d = _kernel_inputs(packed, pts, viewdirs, pe_mode)
+            n_s = (N, S) if pe_mode == "kernel_t" else (N * S, 1)
+            raw, ctx.plan, buf = _stash_forward(pe_mode, packed, a, d, *n_s)
+            ctx.save_for_backward(buf, *((a, d) if pe_mode == "outside" else ()))
+            return raw.reshape(N, S, packed.c4)
         if pe_mode == "kernel_t":
             ctx.save_for_backward(pts, viewdirs)
             return _forward(packed, pts, viewdirs)
-        N, S, _ = pts.shape
         if pe_mode == "outside":
             e = pe_points(packed, pts.reshape(N * S, 3).contiguous())
             ed = point_view_embedding(packed, viewdirs, S, e.dtype)
@@ -867,18 +941,21 @@ class _FusedQuery(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         packed = ctx.packed
-        if ctx.pe_mode == "kernel_t":
+        g = g.reshape(-1, packed.c4).contiguous()
+        if ctx.plan is not None:
+            stash, *emb = ctx.saved_tensors
+            dw, db = _launch_bwd(ctx.pe_mode, packed, ctx.plan, stash, g, *emb)
+        elif ctx.pe_mode == "kernel_t":
             pts, viewdirs = ctx.saved_tensors
-            dw, db = fused_query_bwd(packed, pts, viewdirs, g.contiguous())
+            dw, db = fused_query_bwd(packed, pts, viewdirs, g.reshape(pts.shape[:2] + (-1,)))
         elif ctx.pe_mode == "outside":
             e, ed = ctx.saved_tensors
-            dw, db = fused_query_pe_bwd(packed, e, ed, g.reshape(-1, packed.c4).contiguous())
+            dw, db = fused_query_pe_bwd(packed, e, ed, g)
         else:
             pts, viewdirs = ctx.saved_tensors
             N, S, _ = pts.shape
-            dw, db = fused_query_kpe_bwd(packed, pts.reshape(N * S, 3), _point_dirs(viewdirs, S),
-                                         g.reshape(N * S, packed.c4).contiguous())
-        return dw, db, None, None, None, None
+            dw, db = fused_query_kpe_bwd(packed, pts.reshape(N * S, 3), _point_dirs(viewdirs, S), g)
+        return dw, db, None, None, None, None, None
 
 
 def fused_query(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor,
@@ -889,6 +966,9 @@ def fused_query(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor,
     forward / K2 backward, 'kernel' K3 / K4, 'outside' K7 then K5 / K6. CUDA tensors
     go through the Hopper kernels, CPU tensors through their fp32 plain versions;
     there is no fallback from one to the other. Gradients flow into ``packed.w`` and
-    ``packed.b`` when they require one; under ``torch.no_grad`` (the render path)
-    nothing is recorded and the backward kernel never runs."""
-    return _FusedQuery.apply(packed.w, packed.b, packed, pts, viewdirs, resolve_pe_mode(pe_mode))
+    ``packed.b`` when they require one: then the forward kernel writes the stash its
+    backward reads. Under ``torch.no_grad`` (the render path) nothing is recorded or
+    stashed and the backward kernel never runs."""
+    stash = torch.is_grad_enabled() and (packed.w.requires_grad or packed.b.requires_grad)
+    return _FusedQuery.apply(packed.w, packed.b, packed, pts, viewdirs, resolve_pe_mode(pe_mode),
+                             stash)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain version, at narrow
 widths and at the flagship's, with ragged point counts; the backward kernels'
-instance-head wall and their bit-identical repeats. K1/K2 take per-ray viewdirs
+instance-head wall and their bit-identical repeats; the training forward's stash
+against the standalone backward and the no-grad forward, bit for bit. K1/K2 take per-ray viewdirs
 (pe_mode 'kernel_t'), K3/K4 per-point directions (pe_mode 'kernel'), K5/K6 the
 embeddings that K7 and the per-ray viewdir table give (pe_mode 'outside'). These tests
 need a CUDA card of capability 9.0 and skip without one; they import no JAX, so they
@@ -8,6 +9,8 @@ run on a machine that has none:
 
     python -m pytest tests/test_torch_cuda.py -q
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -343,3 +346,35 @@ def test_fused_mlp_bwd_pe_wall_and_repeats(cuda):
     g = _cotangent(packed, pts, seed=3).reshape(-1, packed.c4)
     first, second = fused_query_pe_bwd(packed, e, ed, g), fused_query_pe_bwd(packed, e, ed, g)
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("pe_mode", ["kernel_t", "kernel", "outside"])
+def test_training_forward_stashes_for_the_backward(cuda, pe_mode):
+    """With gradients on, the forward kernel also writes the stash and the backward
+    launches only its own kernels (one forward and one backward launch a query, and
+    K7 under 'outside'): raw is bit for bit the no-grad forward's, and the autograd
+    gradients into Packed.w / Packed.b are bit for bit those of the standalone backward
+    entry, which runs the same training forward and then the backward."""
+    params, args, pts, dirs = _inputs(SHAPES[0], cuda, seed=4)
+    packed = pack_params(params, *args)
+    g = _cotangent(packed, pts, seed=4)
+    with torch.no_grad():
+        want_raw = fused_query(packed, pts, dirs, pe_mode)
+    pk = dataclasses.replace(packed, w=packed.w.detach().requires_grad_(True),
+                             b=packed.b.detach().requires_grad_(True))
+    runtime.reset_launches()
+    raw = fused_query(pk, pts, dirs, pe_mode)
+    dw, db = torch.autograd.grad(raw, [pk.w, pk.b], g)
+    torch.cuda.synchronize()
+    names = {"kernel_t": ("fused_mlp_fwd", "fused_mlp_bwd"),
+             "kernel": ("fused_mlp_fwd_kpe", "fused_mlp_bwd_kpe"),
+             "outside": ("fused_pe", "fused_mlp_fwd_pe", "fused_mlp_bwd_pe")}[pe_mode]
+    assert runtime.LAUNCHES == {k: int(k in names) for k in runtime.KERNELS}
+    assert torch.equal(raw, want_raw)
+    if pe_mode == "kernel_t":
+        alone = fused_query_bwd(packed, pts, dirs, g)
+    elif pe_mode == "kernel":
+        alone = fused_query_kpe_bwd(packed, *_flat(pts, dirs), g.reshape(-1, packed.c4))
+    else:
+        alone = fused_query_pe_bwd(packed, *_embedded(packed, pts, dirs), g.reshape(-1, packed.c4))
+    assert torch.equal(dw, alone[0]) and torch.equal(db, alone[1])

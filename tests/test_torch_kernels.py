@@ -5,7 +5,9 @@ backward's plain version vs the Pallas backward (jax.grad through the interpret-
 kernel) and vs autograd of the plain PyTorch query at atol 3e-5 / rtol 3e-4
 (tests/test_kernels.py:64-71), the instance-head gradient wall, the sigma stub's
 exact sigma column, and the guards: no JAX import, no fallback, gradients that flow
-only when asked for, no silent CPU.
+only when asked for, no silent CPU. The tables the backward kernels read (and the
+stash layout the training forward writes) are held to the plain backward through a
+plain interpreter of them.
 
 The CUDA kernel itself runs only on the card: tests/test_torch_cuda.py."""
 
@@ -498,26 +500,146 @@ def test_pe_stub_columns_exact_and_wall(case):
 def test_pe_backward_plan_reads_the_embeddings_in_place():
     """K6's host table: no embedding in the stash, the dW jobs of the first trunk layer
     and of each skip layer read e from the input (segment source 2), the head's reads
-    ed per point (source 1, row divisor 1); K2's and K4's tables keep theirs."""
+    ed per point (source 1); K2's and K4's tables stash both embeddings and read them
+    there."""
     p = tmlp.init_dm_nerf(ins_num=8, D=4, W=32, input_ch_pts=3 * 9, input_ch_views=3 * 5,
                           skips=(1,), device="cpu")
     packed = tfm.pack_params(p, 4, 2, 4, (1,))
     P = 300
     plans = {rows: tfm._bwd_plan(packed, P, 1, 132, rows)
              for rows in ("ray_table", "point_dirs", "embedded")}
-    assert plans["embedded"]["stash_size"] == plans["ray_table"]["stash_size"] - P * packed.ep
-    assert plans["point_dirs"]["stash_size"] == plans["ray_table"]["stash_size"] + P * packed.edp
+    ep, edp = packed.ep, packed.edp
+    assert plans["embedded"]["stash_size"] == plans["ray_table"]["stash_size"] - P * (ep + edp)
+    assert plans["point_dirs"]["stash_size"] == plans["ray_table"]["stash_size"]
 
     def segs(rows):
-        t = plans[rows]["table"]
-        n_fwd, n_steps, n_dw = t[17:20]
-        dw = t[22 + 6 * n_fwd + 7 * n_steps:]
-        return [(dw[14 * j + 4:14 * j + 9], dw[14 * j + 9:14 * j + 14]) for j in range(n_dw)]
+        plan = plans[rows]
+        return [[plan["dmaps"][job[0]] for job in plan["jobs"] if job[5] == layer.w_off]
+                for layer in packed.layers]
     emb = segs("embedded")
-    ep, edp = packed.ep, packed.edp
-    assert emb[0][0] == [2, 0, ep, ep, 1]                  # emb0: e
-    assert emb[2][1] == [2, 0, ep, ep, 1]                  # the layer after skip 1: [h | e]
-    assert emb[-2][0] == [1, 0, edp, edp, 1]               # head: ed per point
-    assert segs("ray_table")[0][0] == [0, 0, ep, ep, 1]    # K2: e from the stash
+    assert emb[0] == [(2, 0, ep)]                  # emb0: e
+    assert emb[2][1] == (2, 0, ep)                 # the layer after skip 1: [h | e]
+    assert emb[-2][0] == (1, 0, edp)               # head: ed per point
+    assert segs("ray_table")[0] == [(0, 0, ep)]    # K2: e from the stash
+    assert segs("ray_table")[-2][0] == (0, plans["ray_table"]["ed_off"], edp)   # and ed
     with pytest.raises(ValueError, match="rows"):
         tfm._bwd_plan(packed, P // 3, 3, 132, "embedded")
+
+
+def _interpret_bwd_plan(packed, plan, e, ed, g):
+    """A plain fp32 reading of ``_bwd_plan``'s tables as the kernels read them: the
+    training forward fills the stash at the plan's offsets (unwritten elements stay
+    NaN, so a table that points at them shows), the backward-data steps run their
+    weight chunks box by box (64 output columns x 256 input rows, A fragments of 16
+    columns) and mask by the stash, and each dW job multiplies its segment map by its
+    cotangent map. Returns (dw, db) in the Packed layout."""
+    P = plan["header"][0]
+    c4, no, hr, total_b, total_w, b_out, b_sigma, dpre_out, dpre_sigma = plan["header"][1:10]
+    w_all = packed.w.detach()
+    stash = torch.full((plan["stash_size"],), float("nan"))
+
+    def put(buf, off, t):
+        buf[off:off + t.numel()] = t.reshape(-1)
+    if plan["e_off"] >= 0:
+        put(stash, plan["e_off"], e)
+    if plan["ed_off"] >= 0:
+        put(stash, plan["ed_off"], ed)
+    h = None
+    for layer, off in zip(packed.layers, plan["layer_off"]):
+        if layer.kind in ("sigma", "out"):
+            assert off == -1
+            continue
+        a = {"emb0": e, "plain": h, "split": torch.cat([h, e], -1) if h is not None else None,
+             "head": torch.cat([ed, h], -1) if h is not None else None}[layer.kind]
+        h = torch.relu(a @ tfm._block(w_all, layer) + packed.bias(layer))
+        put(stash, off, h)
+
+    dpre = torch.full((plan["dpre_size"],), float("nan"))
+    db = torch.full((total_b,), float("nan"))
+    G = torch.zeros(P, no)
+    G[:, :c4] = g
+    G[:, 3] = 0.0
+    put(dpre, dpre_out, G)
+    dsig = torch.zeros(P, 16)
+    dsig[:, 0] = g[:, 3]
+    put(dpre, dpre_sigma, dsig)
+    db[b_out:b_out + no] = G.sum(0)
+    db[b_sigma:b_sigma + 16] = dsig.sum(0)
+    a_cols = torch.zeros(P, 256)
+    a_cols[:, :no] = G
+    for s, (N, c0, nc, b_off, mask_off, d_off) in enumerate(plan["steps"]):
+        if s == 1:
+            a_cols[:, hr:hr + 16] = dsig
+        acc = torch.zeros(P, 256)
+        for m, k0, a0, n16 in plan["wchunks"][c0:c0 + nc]:
+            w_off, cols, rows = plan["wmaps"][m]
+            wm = w_all[w_off:w_off + rows * cols].view(rows, cols)
+            box = torch.zeros(256, 64)
+            part = wm[:256, k0:k0 + 64]
+            box[:part.shape[0], :part.shape[1]] = part
+            for ks in range(a0, a0 + n16):
+                kk = 16 * (ks - a0)
+                acc += a_cols[:, 16 * ks:16 * ks + 16] @ box[:, kk:kk + 16].t()
+        x = acc[:, :N] * (stash[mask_off:mask_off + P * N].view(P, N) > 0)
+        put(dpre, d_off, x)
+        db[b_off:b_off + N] = x.sum(0)
+        a_cols = torch.zeros(P, 256)
+        a_cols[:, :N] = x
+
+    srcs = {0: stash, 1: ed.reshape(-1), 2: e.reshape(-1), 3: dpre}
+    dw = torch.zeros(total_w)
+    for amap, bmap, width, N, k_off, w_off in plan["jobs"]:
+        src, off, wd = plan["dmaps"][amap]
+        bsrc, boff, bw = plan["dmaps"][bmap]
+        assert wd == width and bsrc == 3 and bw == N
+        A = srcs[src][off:off + P * width].view(P, width)
+        B = dpre[boff:boff + P * N].view(P, N)
+        dw[w_off + k_off * N:w_off + (k_off + width) * N] = (A.t() @ B).reshape(-1)
+    return dw, db
+
+
+@pytest.mark.parametrize("rows", ["ray_table", "point_dirs", "embedded"])
+@pytest.mark.parametrize("case", CASES)
+def test_bwd_plan_tables_interpret_to_the_plain_backward(case, rows):
+    """The tables the backward kernels read (csrc/fused_mlp_bwd.cuh, and the stash the
+    training forward writes), read by a plain interpreter, give the plain backward's
+    (dw, db) at 2e-5, for each kernel pair's Rows (K2 per-ray viewdirs, K4 per-point
+    directions, K6 over given embeddings); and they meet TMA's constraints: 128-byte
+    segment offsets and 16-byte row pitches."""
+    mr, mrv, D, W, skips, ins = case
+    jp, pts, dirs = _setup(*case, N=7, S=9)
+    packed = tfm.pack_params(_torch(jp), mr, mrv, D, skips)
+    N, S, _ = pts.shape
+    pts_t, dirs_t = torch.from_numpy(pts), torch.from_numpy(dirs)
+    g = torch.from_numpy(np.random.RandomState(1).randn(N * S, packed.c4).astype(np.float32))
+    rnd = tfm._rounder(torch.float32)
+    if rows == "ray_table":
+        e, ed = tfm._embeddings(packed, pts_t, dirs_t, rnd)
+        want = tfm.fused_query_bwd_ref(packed, pts_t, dirs_t, g.reshape(N, S, -1))
+        plan = tfm._bwd_plan(packed, N, S, 132, rows)
+    elif rows == "point_dirs":
+        fp, fd = pts_t.reshape(-1, 3), tfm._point_dirs(dirs_t, S)
+        e, ed = tfm._embeddings_kpe(packed, fp, fd, rnd)
+        want = tfm.fused_query_kpe_bwd_ref(packed, fp, fd, g)
+        plan = tfm._bwd_plan(packed, N * S, 1, 132, rows)
+    else:
+        e = tfm.pe_points_ref(packed, pts_t.reshape(-1, 3))
+        ed = tfm.point_view_embedding(packed, dirs_t, S)
+        want = tfm.fused_query_pe_bwd_ref(packed, e, ed, g)
+        plan = tfm._bwd_plan(packed, N * S, 1, 132, rows)
+    dw, db = _interpret_bwd_plan(packed, plan, e, ed, g)
+    torch.testing.assert_close(dw, want[0], atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(db, want[1], atol=2e-5, rtol=2e-5)
+
+    offsets = [plan["e_off"], plan["ed_off"], *plan["layer_off"], *plan["dpre_off"]]
+    offsets += [r[4] for r in plan["steps"]] + [r[5] for r in plan["steps"]]
+    offsets += [r[1] for r in plan["dmaps"]] + [r[0] for r in plan["wmaps"]]
+    assert all(o == -1 or o % 64 == 0 for o in offsets), offsets
+    assert all(2 * r[2] % 16 == 0 for r in plan["dmaps"])
+    assert all(2 * r[1] % 16 == 0 and r[2] <= 256 for r in plan["wmaps"])
+    assert all(0 < r[3] <= 4 and r[1] % 64 == 0 and r[2] + r[3] <= 16 for r in plan["wchunks"])
+    rows_flat = [v for key in ("wmaps", "steps", "wchunks", "dmaps", "jobs", "ranges")
+                 for r in plan[key] for v in r]
+    assert plan["table"] == plan["header"] + rows_flat
+    assert plan["header"][12:] == [len(plan[k]) for k in ("wmaps", "steps", "wchunks", "dmaps",
+                                                          "jobs", "ranges")]
