@@ -14,8 +14,10 @@ K4), ``'outside'`` the embedding kernel (K7) and the kernels over precomputed
 embeddings (K5 forward, K6 backward); any other value is refused here. The tile knobs
 (``pallas_tile_fwd``, ``pallas_tile_bwd``) size the TPU's grid tiles and the
 JAX-only switches (``data_axis``, ``multihost``, ``steps_per_dispatch``,
-``debug_nans``, ``profile_*``) are parsed so that config files stay interchangeable,
-and have no effect here.
+``profile_*``) are parsed so that config files stay interchangeable, and have no
+effect here. ``debug_nans`` makes every train step check its losses and gradients
+for finiteness and raise ``FloatingPointError`` at the first non-finite one
+(``render.trainstep.check_finite``).
 """
 
 from __future__ import annotations

@@ -4,13 +4,12 @@
 
 #include "fused_mlp_fwd.cuh"
 
-// `edr` is the per-ray viewdir embedding [P / S, h_col] bf16; point p reads row p / S.
-extern "C" int dmnerf_fused_mlp_fwd(const float* pts, const void* edr, const void* weights,
+// `edr` is the per-ray viewdir embedding [P / S, EDP] bf16; point p reads row p / S.
+// `wt` is pack_params's transposed weights and `plan` _fwd_plan's table.
+extern "C" int dmnerf_fused_mlp_fwd(const float* pts, const void* edr, const void* wt,
                                     const float* biases, float* out, long long P, int S,
-                                    const int* table, int n_layers, int multires, int h_col,
-                                    int e_col, int e_width, int c4, void* stash,
-                                    const long long* stash_table, void* stream) {
-  return launch_fused_mlp_fwd<ROWS_RAY_TABLE>(pts, edr, weights, biases, out, P, S, table,
-                                              n_layers, multires, 0, h_col, e_col, e_width, c4,
-                                              stash, stash_table, stream);
+                                    const long long* plan, void* stash,
+                                    const long long* stash_table, int n_sms, void* stream) {
+  return launch_fused_mlp_fwd<ROWS_RAY_TABLE>(pts, edr, wt, biases, out, P, S, plan, stash,
+                                              stash_table, n_sms, stream);
 }

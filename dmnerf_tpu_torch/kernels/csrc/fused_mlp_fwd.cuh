@@ -10,198 +10,627 @@
 //  * fused_mlp_fwd_pe.cu (K5) replaces _fwd_kernel_pe (:471), pe_mode 'outside': the
 //    point embedding (built by K7, fused_pe.cu) and the per-point viewdir embedding
 //    come in as bf16 rows, and the kernel is the matrix-product chain alone.
-// The three differ only in how the ed and e columns of a row are filled (build_rows,
-// Rows). What they compute is set out in dmnerf_tpu_torch/kernels/fused_mlp.py, whose
-// fused_query_ref / fused_query_kpe_ref / fused_query_pe_ref are their plain versions
-// and whose pack_params builds the layer table and weights they read.
+// The three differ only in how a tile's embeddings are built (Rows). What they compute
+// is set out in dmnerf_tpu_torch/kernels/fused_mlp.py, whose fused_query_ref /
+// fused_query_kpe_ref / fused_query_pe_ref are their plain versions, whose pack_params
+// builds the weights they read (wt, each layer's block transposed) and whose _fwd_plan
+// builds the table below.
 //
 // Bound. Per fine point of the flagship model (D=8, W=256, ins_num 32) the layers
 // execute 564,864 multiply-accumulates, 1.13 MFLOP, against 4 * (3 + 3) bytes in (K3;
 // K1 reads 12 + 64 / S, K5 2 * (64 + 32)) and 37 * 4 bytes out: at least 3,300 FLOP
-// per byte, far above the card's 295 bf16 FLOP/byte. The kernel is bound by its executed FLOPs over the
-// 989 TFLOP/s bf16 tensor-core peak.
+// per byte, far above the card's 295 bf16 FLOP/byte. The kernel is bound by its
+// executed FLOPs over the 989 TFLOP/s bf16 tensor-core peak. The weights (≈ 1.16 MB
+// bf16) do not fit in shared memory and stream from L2 once per pair of 128-point
+// tiles (below): ≈ 4.7 KB of L2 reads a point, ≈ 1.85 GB for a fine render chunk of
+// 393,216 points, 240 FLOP per L2 byte. One block per tile would read twice that, and
+// L2 then caps the products: the 8-layer chain probe of scripts/fwd_anatomy_torch.py
+// read its weights at 5.1–5.6 TB/s without epilogues (H100 80GB HBM3 at 700 W).
 //
-// Design. What it does about that bound: every product runs on the tensor cores
-// (bf16 mma.sync m16n8k16, fp32 accumulators), and nothing but the points, the
-// directions (or the per-ray viewdir embedding) and the output touches device
-// memory: the embeddings (K5: once they are read) and every activation stay in
-// shared memory.
-//  * A CTA takes BM = 128 points. Its 8 warps tile each layer's [128, N] output as
-//    2 x 4 warp tiles of 64 x 64, accumulators in registers.
-//  * One shared-memory row per point holds [ed | h | e] in bf16: the viewdir
-//    embedding, the hidden activation and the point embedding. Each layer reads a
-//    contiguous run of that row (e; h; [h | e] at a skip; [ed | h] for the head) and
-//    writes its ReLU output back over h after a barrier.
-//  * The weights (about 1.1 MB in bf16) do not fit in shared memory. Each layer
-//    streams them from L2 in 64-row K slices with cp.async, double-buffered.
-//  * Embeddings are computed per element in true fp32 (embed_rows: exact phases,
-//    accurate sincosf), then rounded to bf16; K5 copies K7's, which embed_rows made.
-//  * Sigma is a layer of its own ([W, 16], column 0) kept in fp32 in shared
-//    memory; the output layer writes it into column 3.
+// Design: a persistent grid of clusters of two blocks, one block of three warpgroups per
+// SM; a cluster walks pairs of 128-point tiles, one tile a block.
+//  * Two consumer warpgroups own 64 points each and run every product as wgmma with
+//    fp32 accumulators in registers. A hidden activation never leaves registers: a
+//    layer's accumulator gets its bias and ReLU, is cast to bf16 and is exactly the
+//    next product's A fragment (the m64nNk16 accumulator layout is the A fragment
+//    layout), so the trunk, sigma, the head and the output read h from registers.
+//  * The embeddings e (point, EP <= 64 columns) and ed (viewdir, EDP <= 64) of a tile
+//    are [128][64] bf16 tiles in shared memory with 128-byte swizzle; they enter the
+//    emb0, split and head products as shared-memory A operands of the same
+//    accumulation.
+//  * B is the layer's weight block transposed ([N][K], K contiguous: pack_params's wt),
+//    the K-major operand wgmma takes for any N that is a multiple of 8; the stored
+//    [K][N] block would be an MN-major operand, whose 128-byte swizzle atom is 64
+//    columns of N wide, which the 16-column sigma and output layers are not. One
+//    producer thread a block walks the plan's chunk list (a box of up to 256 rows of N
+//    x 64 columns of K per chunk, one per A segment of 64 columns) into a 4-stage
+//    mbarrier ring: each block's producer loads half of the box's rows with TMA
+//    multicast into the same stage of both blocks, and a stage is refilled once the
+//    consumers of both blocks have released it. Columns of K or rows of N outside a
+//    segment arrive as zeros.
+//  * The instruction width follows the layer's N at run time from a small set: one
+//    n256, one to three n64, or one n16 per k-step, so the sigma layer, the 16- to
+//    48-column output layers and the stubs' narrow heads do not pay for n256.
+//  * The third warpgroup: its first warp issues the weight boxes; the other three
+//    build the next tile's embeddings into the second of two embedding buffers while
+//    the consumers run the products of this one (K1: the point embedding with the
+//    exact-phase fp32 sincosf of embed_rows and the per-ray ed rows; K3: both
+//    embeddings; K5: one thread loads both tiles with TMA). setmaxnreg gives the
+//    consumers 232 registers and this warpgroup 40.
+//  * Sigma is a layer of its own ([W, 16], column 0) kept in fp32 in registers; the
+//    output layer writes it into column 3.
 //  * Rows past the ragged tail compute on zeros and are never stored.
-// The kernel is still built from mma.sync with cp.async-streamed weights; moving it to
-// wgmma, TMA-fed weight tiles and warp specialisation is the next redesign.
+// Shared memory: 4 weight stages of 32 KB (128 KB) + 2 x (e, ed) tiles of 16 KB (64 KB)
+// + 12 mbarriers, 193 KB with the 1 KB alignment slack, of the 227 KB a block can have;
+// with STASH also two 16 KB staging tiles, 225 KB.
 //
 // Training. With STASH the same kernel is the training forward: it also stores what
 // the parameter backward (fused_mlp_bwd.cuh) reads, in the layout of fused_mlp.py's
-// _bwd_plan: the point embedding and the per-point viewdir embedding as the CTA built
-// them (K1, K3; K5's come from its inputs), and every ReLU output (the trunk layers
-// and the head) as the bf16 values the next layer reads. These are plain 16-byte row
-// stores after the layer's barrier; the products and the output are the same code, so
-// raw is bit for bit the render path's. Without STASH the added code compiles away.
+// _bwd_plan: the point embedding and the per-point viewdir embedding as the embedding
+// warps made them (K1, K3; K5's come from its inputs), and every ReLU output (the trunk layers
+// and the head) as the bf16 values the next layer reads. The epilogue writes them, 128
+// columns at a time, into a swizzled staging tile of its warpgroup, and the warpgroup
+// copies its 64 rows of those columns out to the [P, N] stash block with 16-byte loads
+// and streaming stores, two 256-byte row halves a warp instruction, while the other
+// warpgroup's products run. The products and the output are the same code, so raw is
+// bit for bit the render path's. Without STASH the added code compiles away.
 #pragma once
 
 #include "fused_mlp_common.cuh"
+#include "fused_mlp_sm90.cuh"
 
 namespace {
 
 using namespace dmnerf;
+using namespace sm90;
 
-constexpr size_t FWD_SMEM_BYTES =
-    (size_t)BM * LDA * 2 + (size_t)2 * KB * LDB * 2 + (size_t)BM * 4;
+constexpr int FWG = 128;                       // threads of a warpgroup
+constexpr int F_CONSUMERS = 2 * FWG;           // two consumer warpgroups, 64 points each
+constexpr int F_THREADS = F_CONSUMERS + FWG;   // and the producer / embedding warpgroup
+constexpr int FT = 128;                        // points per tile
+constexpr int EMB_THREADS = FWG - 32;          // warps 1-3 of the third warpgroup
+constexpr uint32_t F_STAGE_BYTES = 256 * 128;  // a weight box: <= 256 rows of N x 64 of K
+constexpr uint32_t EMB_BYTES = FT * 128;       // an embedding tile, [128][64] bf16
+constexpr uint32_t STG_BYTES = 64 * 256;       // a warpgroup's stash staging tile, [64][128]
+constexpr int F_STAGES = 4;
+constexpr int MAX_FMAPS = 2 * MAX_LAYERS;
+constexpr int MAX_FCHUNKS = 7 * MAX_LAYERS;
+
+// Shared memory: the ring, two (e, ed) embedding buffers, the staging tiles, mbarriers.
+template <bool STASH>
+constexpr size_t fwd_smem() {
+  return 1024 + (size_t)F_STAGES * F_STAGE_BYTES + 4 * (size_t)EMB_BYTES +
+         (STASH ? 2 * (size_t)STG_BYTES : 0) + (2 * F_STAGES + 4) * 8;
+}
 
 enum Epilogue { EPI_RELU = 0, EPI_SIGMA = 1, EPI_OUT = 2 };
+// a layer's A segments, in the order of its chunks
+enum Seg { SEG_ED = 1, SEG_E_FIRST = 2, SEG_H = 4, SEG_E_LAST = 8 };
+// instruction widths per k-step: n256; n16; 1-3 x n64
+enum Cls { CLS_256 = 0, CLS_16, CLS_64x1, CLS_64x2, CLS_64x3, N_CLS };
 
-struct Layer {
-  int a_col, K, N, w_off, b_off, epi;
+struct FLayer {
+  int segs, cls, N, b_off, epi;
+  long long stash_off;   // its ReLU output's stash block [P, N], -1 for none
 };
 
-// Element offsets into the bf16 stash (fused_mlp.py's _bwd_plan), -1 where nothing is
-// stored: the point and viewdir embeddings, then one entry per layer of the table.
-struct StashNet {
-  long long e_off, ed_off;
-  long long layer_off[MAX_LAYERS];
+// A weight box: map `map` at K column k0, 2 * half rows of 128 bytes; each block of the
+// cluster loads `half` of its rows and multicasts them to both.
+struct FChunk {
+  int map, k0, half;
 };
 
-struct Net {
-  int n_layers;
-  int multires;        // point-embedding octaves
-  int multires_views;  // viewdir-embedding octaves (per-point directions only)
-  int h_col;           // first column of h (= width of the viewdir embedding)
-  int e_col;           // first column of the point embedding
-  int e_width;         // padded point-embedding width
-  int c4;              // output columns, 4 + C
-  Layer layers[MAX_LAYERS];
+struct FwdParams {
+  CUtensorMap maps[MAX_FMAPS];
+  CUtensorMap e_map, ed_map;   // K5: its input embeddings [P, EP], [P, EDP]
+  FLayer layers[MAX_LAYERS];
+  FChunk chunks[MAX_FCHUNKS];
+  long long P, e_stash, ed_stash;
+  int n_layers, n_chunks, n_tiles, S, multires, multires_views, ep, edp, c4;
 };
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// The stash staging tile of a warpgroup: 64 rows of 256 bytes (128 columns), the
+// 16-byte chunk q of row r at chunk q ^ (r mod 8) of its group of 8, so that the
+// epilogue's writes (8 rows a warp instruction) and the copy-out's reads (two row halves
+// a warp instruction) meet no bank conflict.
+__device__ __forceinline__ int stg_chunk(int r, int q) { return (q & ~7) | ((q ^ r) & 7); }
+__device__ __forceinline__ int stg_word(int r, int col) {
+  return r * 64 + stg_chunk(r, col >> 3) * 4 + ((col & 7) >> 1);
+}
+
+// relu(lo), relu(hi) rounded to bf16, packed (one cvt.rn.relu.bf16x2.f32).
+__device__ __forceinline__ uint32_t relu_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+
+// One k-step of a chunk, NI instructions of width NW over the box's rows.
+template <int NW, int I>
+__device__ __forceinline__ void mma_rs(float (&acc)[128], const uint32_t (&a)[4], uint64_t db,
+                                       int accumulate) {
+  const uint64_t d = db + (uint64_t)(I * NW * 8);   // row I * NW of the box, 16-byte units
+  if constexpr (NW == 256) wgmma_rs_n256(acc, a, d, accumulate);
+  else if constexpr (NW == 64) wgmma_rs_n64<I * 32>(acc, a, d, accumulate);
+  else wgmma_rs_n16<I * 8>(acc, a, d, accumulate);
+}
+
+template <int NW, int I>
+__device__ __forceinline__ void mma_ss(float (&acc)[128], uint64_t da, uint64_t db,
+                                       int accumulate) {
+  const uint64_t d = db + (uint64_t)(I * NW * 8);
+  if constexpr (NW == 256) wgmma_ss_n256(acc, da, d, accumulate);
+  else if constexpr (NW == 64) wgmma_ss_n64<I * 32>(acc, da, d, accumulate);
+  else wgmma_ss_n16<I * 8>(acc, da, d, accumulate);
+}
+
+// The weight ring as a consumer warpgroup walks it.
+struct Ring {
+  unsigned char* base;
+  uint64_t *full, *empty;
+  int stage, prev;
+  uint32_t ph;
+};
+
+__device__ __forceinline__ uint64_t ring_take(Ring& r) {
+  mbar_wait(&r.full[r.stage], r.ph);
+  return desc_sw128(r.base + r.stage * F_STAGE_BYTES, 16, 1024);
+}
+
+// Give a stage back to the producers of both blocks of the cluster (their boxes land in
+// both blocks' rings).
+__device__ __forceinline__ void ring_release(Ring& r, int stage, int lane) {
+  __syncwarp();
+  if (lane == 0) {
+    mbar_arrive(&r.empty[stage]);
+    mbar_arrive_cluster(&r.empty[stage], cluster_rank() ^ 1u);
+  }
+}
+
+// After a chunk's products are issued: commit them, wait for the chunk before, and give
+// that one's stage back.
+__device__ __forceinline__ void ring_next(Ring& r, int lane) {
+  wg_commit();
+  wg_wait<1>();
+  if (r.prev >= 0) ring_release(r, r.prev, lane);
+  r.prev = r.stage;
+  if (++r.stage == F_STAGES) {
+    r.stage = 0;
+    r.ph ^= 1;
+  }
+}
+
+// acc = A W for one layer: its chunks in order (ed | e | h in four 64-column chunks |
+// e), each 4 k-steps of NI instructions of width NW. A from the embedding tiles (da_e,
+// da_ed: this warpgroup's 64 rows) or from the register fragments af.
+template <int NW, int NI>
+__device__ __forceinline__ void layer_product(float (&acc)[128], uint32_t (&af)[16][4],
+                                              int segs, uint64_t da_e, uint64_t da_ed, Ring& r,
+                                              int lane) {
+  int acc_on = 0;
+  r.prev = -1;
+#define DM_SS_CHUNK(DA)                                                \
+  {                                                                    \
+    const uint64_t db = ring_take(r);                                  \
+    fence_regs(acc);                                                   \
+    fence_regs(af);                                                    \
+    wg_fence();                                                        \
+    _Pragma("unroll") for (int ks = 0; ks < 4; ++ks) {                 \
+      const int on = ks > 0 ? 1 : acc_on;                              \
+      mma_ss<NW, 0>(acc, (DA) + 2 * ks, db + 2 * ks, on);              \
+      if constexpr (NI > 1) mma_ss<NW, 1>(acc, (DA) + 2 * ks, db + 2 * ks, on); \
+      if constexpr (NI > 2) mma_ss<NW, 2>(acc, (DA) + 2 * ks, db + 2 * ks, on); \
+    }                                                                  \
+    ring_next(r, lane);                                                \
+    acc_on = 1;                                                        \
+  }
+#define DM_RS_CHUNK(C)                                                 \
+  {                                                                    \
+    const uint64_t db = ring_take(r);                                  \
+    fence_regs(acc);                                                   \
+    fence_regs(af);                                                    \
+    wg_fence();                                                        \
+    _Pragma("unroll") for (int ks = 0; ks < 4; ++ks) {                 \
+      const int on = ks > 0 ? 1 : acc_on;                              \
+      mma_rs<NW, 0>(acc, af[4 * (C) + ks], db + 2 * ks, on);           \
+      if constexpr (NI > 1) mma_rs<NW, 1>(acc, af[4 * (C) + ks], db + 2 * ks, on); \
+      if constexpr (NI > 2) mma_rs<NW, 2>(acc, af[4 * (C) + ks], db + 2 * ks, on); \
+    }                                                                  \
+    ring_next(r, lane);                                                \
+    acc_on = 1;                                                        \
+  }
+  if (segs & SEG_ED) DM_SS_CHUNK(da_ed)
+  if (segs & SEG_E_FIRST) DM_SS_CHUNK(da_e)
+  if (segs & SEG_H) {
+    DM_RS_CHUNK(0)
+    DM_RS_CHUNK(1)
+    DM_RS_CHUNK(2)
+    DM_RS_CHUNK(3)
+  }
+  if (segs & SEG_E_LAST) DM_SS_CHUNK(da_e)
+#undef DM_SS_CHUNK
+#undef DM_RS_CHUNK
+  wg_wait<0>();
+  fence_regs(acc);
+  fence_regs(af);
+  if (r.prev >= 0) ring_release(r, r.prev, lane);
+}
+
+// The embedding warps' share of a tile: its embedding tiles e and ed (swizzled, all 64
+// columns written, zeros past EP / EDP and past P).
+template <Rows ROWS>
+__device__ __forceinline__ void build_tile(__nv_bfloat16* e, __nv_bfloat16* ed,
+                                           const void* pt_src, const void* ed_src,
+                                           const FwdParams& p, long long p0, int tid) {
+  embed_rows<true>(e, static_cast<const float*>(pt_src), p0, p.P, p.multires, 64, 64, tid,
+                   EMB_THREADS);
+  if constexpr (ROWS == ROWS_POINT_DIRS) {
+    embed_rows<true>(ed, static_cast<const float*>(ed_src), p0, p.P, p.multires_views, 64, 64,
+                     tid, EMB_THREADS);
+  } else {
+    const __nv_bfloat16* table = static_cast<const __nv_bfloat16*>(ed_src);
+    const int chunks = p.edp / 8;
+    for (int c = tid; c < FT * 8; c += EMB_THREADS) {
+      const int r = c >> 3, q = c & 7;
+      const long long pt = p0 + r;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (q < chunks && pt < p.P)
+        v = *reinterpret_cast<const uint4*>(table + (pt / p.S) * p.edp + q * 8);
+      *reinterpret_cast<uint4*>(ed + sw128(r, q * 8)) = v;
+    }
+  }
+}
+
+// Rows p0 .. of a swizzled [FT][64] tile, columns [0, width), to a row-major [P, width]
+// bf16 array; rows past P are not stored.
+__device__ __forceinline__ void store_tile(__nv_bfloat16* dst, const __nv_bfloat16* tile,
+                                           int width, long long p0, long long P, int tid) {
+  const int chunks = width / 8;
+  for (int c = tid; c < FT * chunks; c += EMB_THREADS) {
+    const int r = c / chunks, q = c - r * chunks;
+    if (p0 + r < P)
+      *reinterpret_cast<uint4*>(dst + (p0 + r) * width + q * 8) =
+          *reinterpret_cast<const uint4*>(tile + sw128(r, q * 8));
+  }
+}
 
 template <Rows ROWS, bool STASH>
-__global__ void __launch_bounds__(THREADS, 1)
-fused_mlp_fwd_kernel(const void* __restrict__ pt_src, const void* __restrict__ ed_src,
-                     const __nv_bfloat16* __restrict__ weights, const float* __restrict__ biases,
-                     float* __restrict__ out, long long P, int S, const Net net,
-                     __nv_bfloat16* __restrict__ stash, const StashNet sn) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* stage = act + BM * LDA;
-  float* sigma = reinterpret_cast<float*>(stage + 2 * KB * LDB);
+__global__ void __launch_bounds__(F_THREADS, 1)
+fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict__ pt_src,
+                     const void* __restrict__ ed_src, const float* __restrict__ biases,
+                     float* __restrict__ out, __nv_bfloat16* __restrict__ stash) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* ring = smem;                                   // [stage][<=256][64] bf16
+  unsigned char* emb = smem + F_STAGES * F_STAGE_BYTES;         // [buf][e, ed][128][64]
+  unsigned char* stg = emb + 4 * EMB_BYTES;                     // STASH: [wg][64][128] bf16
+  uint64_t* full = reinterpret_cast<uint64_t*>(stg + (STASH ? 2 * STG_BYTES : 0));
+  uint64_t* empty = full + F_STAGES;
+  uint64_t* emb_full = empty + F_STAGES;
+  uint64_t* emb_empty = emb_full + 2;
 
-  const int tid = threadIdx.x;
-  const long long p0 = (long long)blockIdx.x * BM;
-  build_rows<ROWS>(act, pt_src, ed_src, p0, P, S, net.multires, net.multires_views, net.h_col,
-                   net.e_col, net.e_width);
-  __syncthreads();
-  if constexpr (STASH) {
-    // the embeddings' columns are never written again, so no barrier orders these reads
-    if (sn.e_off >= 0) store_rows(stash + sn.e_off, act, LDA, net.e_col, net.e_width, p0, P);
-    if (sn.ed_off >= 0) store_rows(stash + sn.ed_off, act, LDA, 0, net.h_col, p0, P);
+  // a cluster of two blocks shares the weight stream: block `rank` takes tile 2 q + rank
+  // of each tile pair q; the pair's blocks walk the same pairs, the second on a tile past
+  // P (zeros, nothing stored) where the tile count is odd
+  const uint32_t rank = cluster_rank();
+  const int pair0 = (int)cluster_index(), pairs = (int)cluster_count();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < F_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * F_CONSUMERS / 32);   // both blocks' consumer warps
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&emb_full[b], ROWS == ROWS_EMBEDDED ? 1 : EMB_THREADS);
+      mbar_init(&emb_empty[b], F_CONSUMERS / 32);
+    }
+    mbar_fence_init();
   }
+  cluster_sync();   // both blocks' barriers exist before any box or remote arrival
 
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;   // warp tile rows wm*64, cols wn*64
-  const int g = lane >> 2, t4 = lane & 3;    // accumulator fragment coordinates
-
-  for (int l = 0; l < net.n_layers; ++l) {
-    const Layer L = net.layers[l];
-    float acc[4][8][4];
-    tile_product(acc, act, LDA, L.a_col, weights + L.w_off, L.K, L.N, stage);
-
-    const float* bias = biases + L.b_off;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = wn * 64 + j * 8 + t4 * 2;
-        if (col >= L.N) continue;
-        const float b0 = bias[col], b1 = bias[col + 1];
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = wm * 64 + i * 16 + g + half * 8;
-          const float v0 = acc[i][j][2 * half] + b0, v1 = acc[i][j][2 * half + 1] + b1;
-          if (L.epi == EPI_RELU) {
-            *reinterpret_cast<__nv_bfloat162*>(act + row * LDA + net.h_col + col) =
-                __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
-          } else if (L.epi == EPI_SIGMA) {
-            if (col == 0) sigma[row] = v0;
-          } else {
-            const long long p = p0 + row;
-            if (p < P) {
-              float* o = out + p * net.c4;
-              if (col < net.c4) o[col] = col == 3 ? sigma[row] : v0;
-              if (col + 1 < net.c4) o[col + 1] = col + 1 == 3 ? sigma[row] : v1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x >= F_CONSUMERS) {
+    regs_dec<40>();
+    if (warp == F_CONSUMERS / 32) {
+      // ---- producer: every chunk of every tile, in order ----
+      if (lane == 0) {
+        int stage = 0;
+        uint32_t ph = 0;
+        for (int q = pair0; 2 * q < p.n_tiles; q += pairs) {
+          for (int c = 0; c < p.n_chunks; ++c) {
+            const FChunk ch = p.chunks[c];
+            mbar_wait(&empty[stage], ph ^ 1);
+            mbar_expect_tx(&full[stage], (uint32_t)ch.half * 256u);
+            tma_load_2d_multicast(ring + stage * F_STAGE_BYTES + rank * ch.half * 128,
+                                  &p.maps[ch.map], &full[stage], ch.k0, (int)rank * ch.half,
+                                  (uint16_t)3);
+            if (++stage == F_STAGES) {
+              stage = 0;
+              ph ^= 1;
             }
           }
         }
       }
+    } else {
+      // ---- embedding warps: each tile's embeddings, one tile ahead of the consumers ----
+      const int tid = threadIdx.x - F_CONSUMERS - 32;
+      int it = 0;
+      for (int q = pair0; 2 * q < p.n_tiles; q += pairs, ++it) {
+        const int b = it & 1;
+        const long long p0 = (long long)(2 * q + rank) * FT;
+        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(emb + 2 * b * EMB_BYTES);
+        __nv_bfloat16* ed = e + EMB_BYTES / 2;
+        if constexpr (ROWS == ROWS_EMBEDDED) {
+          if (tid == 0) {
+            mbar_wait(&emb_empty[b], ((it >> 1) & 1) ^ 1);
+            mbar_expect_tx(&emb_full[b], 2 * EMB_BYTES);
+            tma_load_2d(e, &p.e_map, &emb_full[b], 0, (int)p0);
+            tma_load_2d(ed, &p.ed_map, &emb_full[b], 0, (int)p0);
+          }
+        } else {
+          mbar_wait(&emb_empty[b], ((it >> 1) & 1) ^ 1);
+          build_tile<ROWS>(e, ed, pt_src, ed_src, p, p0, tid);
+          if constexpr (STASH) {
+            bar_sync(1, EMB_THREADS);
+            if (p.e_stash >= 0) store_tile(stash + p.e_stash, e, p.ep, p0, p.P, tid);
+            if (p.ed_stash >= 0) store_tile(stash + p.ed_stash, ed, p.edp, p0, p.P, tid);
+          }
+          fence_proxy_async();
+          mbar_arrive(&emb_full[b]);
+        }
+      }
     }
-    __syncthreads();
-    if constexpr (STASH) {
-      // the next layer's product ends in a barrier before its epilogue overwrites h
-      if (sn.layer_off[l] >= 0)
-        store_rows(stash + sn.layer_off[l], act, LDA, net.h_col, L.N, p0, P);
+  } else {
+    // ---- consumers: warpgroup wg owns points [64 wg, 64 wg + 64) of each tile ----
+    regs_inc<232>();
+    const int wg = threadIdx.x >> 7;
+    const int g = lane >> 2, t = lane & 3;
+    const long long P = p.P;
+    Ring r{ring, full, empty, 0, -1, 0u};
+    float acc[128];
+    uint32_t af[16][4];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) af[i][v] = 0u;
+    float sg0 = 0.f, sg1 = 0.f;   // sigma of rows r0, r1 (lanes t == 0)
+#ifdef DMNERF_FWD_NO_EPILOGUE
+    float keep = 0.f;
+#endif
+    int it = 0;
+    for (int q = pair0; 2 * q < p.n_tiles; q += pairs, ++it) {
+      const int b = it & 1;
+      const long long p0 = (long long)(2 * q + rank) * FT;
+      const int lr0 = (warp & 3) * 16 + g;   // the warp's first row in the warpgroup's 64
+      const long long r0 = p0 + wg * 64 + lr0, r1 = r0 + 8;
+      unsigned char* e_tile = emb + 2 * b * EMB_BYTES + wg * (EMB_BYTES / 2);
+      const uint64_t da_e = desc_sw128(e_tile, 16, 1024);
+      const uint64_t da_ed = desc_sw128(e_tile + EMB_BYTES, 16, 1024);
+      mbar_wait(&emb_full[b], (it >> 1) & 1);
+
+      for (int l = 0; l < p.n_layers; ++l) {
+        const FLayer L = p.layers[l];
+#define DM_LAYER(NW, NI) layer_product<NW, NI>(acc, af, L.segs, da_e, da_ed, r, lane)
+        switch (L.cls) {
+          case CLS_256: DM_LAYER(256, 1); break;
+          case CLS_16: DM_LAYER(16, 1); break;
+          case CLS_64x1: DM_LAYER(64, 1); break;
+          case CLS_64x2: DM_LAYER(64, 2); break;
+          default: DM_LAYER(64, 3); break;
+        }
+#undef DM_LAYER
+#ifdef DMNERF_FWD_NO_EPILOGUE
+        // keep every layer's products live: the compiler may drop products whose sums
+        // are never read, and each layer's first k-step overwrites the sums
+        keep += acc[0];
+#else
+        const float* bias = biases + L.b_off;
+        const bool stashed = STASH && L.epi == EPI_RELU && L.stash_off >= 0;
+        if (L.epi == EPI_RELU && L.N == 256 && !stashed) {
+          // the full-width layers without a stash: no column guard, so the bias loads and
+          // conversions of all 32 column groups can overlap
+#pragma unroll
+          for (int j = 0; j < 32; ++j) {
+            const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + j * 8 + 2 * t));
+            af[j >> 1][(j & 1) * 2] = relu_bf16x2(acc[4 * j] + bb.x, acc[4 * j + 1] + bb.y);
+            af[j >> 1][(j & 1) * 2 + 1] =
+                relu_bf16x2(acc[4 * j + 2] + bb.x, acc[4 * j + 3] + bb.y);
+          }
+        } else if (L.epi == EPI_RELU) {
+          // bias, ReLU, bf16: the next product's A fragments, and under STASH the stash's
+          // rows, in two halves of 128 columns through the staging tile
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            if (stashed) bar_sync(2 + wg, FWG);   // the last copy-out of the tile is done
+#pragma unroll
+            for (int jj = 0; jj < 16; ++jj) {
+              const int j = hh * 16 + jj, col = j * 8 + 2 * t;
+              uint32_t h0 = 0u, h1 = 0u;
+              if (col < L.N) {
+                const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + col));
+                h0 = relu_bf16x2(acc[4 * j] + bb.x, acc[4 * j + 1] + bb.y);
+                h1 = relu_bf16x2(acc[4 * j + 2] + bb.x, acc[4 * j + 3] + bb.y);
+                if constexpr (STASH) {
+                  if (stashed) {
+                    uint32_t* st = reinterpret_cast<uint32_t*>(stg + wg * STG_BYTES);
+                    st[stg_word(lr0, col - hh * 128)] = h0;
+                    st[stg_word(lr0 + 8, col - hh * 128)] = h1;
+                  }
+                }
+              }
+              af[j >> 1][(j & 1) * 2] = h0;
+              af[j >> 1][(j & 1) * 2 + 1] = h1;
+            }
+            if constexpr (STASH) {
+              if (stashed && L.N > hh * 128) {
+                // the warpgroup's 64 rows of these columns: 16-byte loads from the staging
+                // tile, 16-byte streaming stores, two 256-byte row halves a warp
+                // instruction
+                bar_sync(2 + wg, FWG);
+                const unsigned char* st = stg + wg * STG_BYTES;
+                const long long row0 = p0 + wg * 64;
+                const int nq = min(L.N - hh * 128, 128) / 8;
+                __nv_bfloat16* dst = stash + L.stash_off + row0 * L.N + hh * 128;
+                for (int c = threadIdx.x & (FWG - 1); c < 64 * nq; c += FWG) {
+                  const int rr = c / nq, q = c - rr * nq;
+                  if (row0 + rr < P)
+                    __stcs(reinterpret_cast<uint4*>(dst + rr * L.N + q * 8),
+                           *reinterpret_cast<const uint4*>(st + rr * 256 + stg_chunk(rr, q) * 16));
+                }
+              }
+            }
+          }
+        } else if (L.epi == EPI_SIGMA) {
+          const float b0 = __ldg(bias);
+          sg0 = acc[0] + b0;
+          sg1 = acc[2] + b0;
+        } else {
+          // raw = [rgb | sigma | instance logits]: sigma from lane t == 0 into column 3
+          const float s0 = __shfl_sync(0xffffffffu, sg0, lane & ~3);
+          const float s1 = __shfl_sync(0xffffffffu, sg1, lane & ~3);
+#pragma unroll
+          for (int j = 0; j < 32; ++j) {
+            const int col = j * 8 + 2 * t;
+            if (col < p.c4) {
+              const float b0 = __ldg(bias + col), b1 = __ldg(bias + col + 1);
+#pragma unroll
+              for (int half = 0; half < 2; ++half) {
+                const long long row = half ? r1 : r0;
+                if (row < P) {
+                  float* o = out + row * p.c4;
+                  o[col] = col == 3 ? (half ? s1 : s0) : acc[4 * j + 2 * half] + b0;
+                  if (col + 1 < p.c4)
+                    o[col + 1] = col + 1 == 3 ? (half ? s1 : s0) : acc[4 * j + 2 * half + 1] + b1;
+                }
+              }
+            }
+          }
+        }
+#endif
+      }
+#ifdef DMNERF_FWD_NO_EPILOGUE
+      if (p0 < 0) out[0] = keep;
+#endif
+      // every product that read this tile's embeddings has completed
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&emb_empty[b]);
     }
   }
+  // neither block leaves while the other may still send it boxes or arrivals
+  cluster_sync();
 }
 
-template <Rows ROWS, bool STASH>
-int launch_kernel(const void* pt_src, const void* ed_src, const void* weights, const float* biases,
-                  float* out, long long P, int S, const Net& net, void* stash, const StashNet& sn,
-                  void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(fused_mlp_fwd_kernel<ROWS, STASH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)FWD_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const long long grid = (P + BM - 1) / BM;
-  fused_mlp_fwd_kernel<ROWS, STASH>
-      <<<(unsigned)grid, THREADS, FWD_SMEM_BYTES, (cudaStream_t)stream>>>(
-          pt_src, ed_src, reinterpret_cast<const __nv_bfloat16*>(weights), biases, out, P, S, net,
-          reinterpret_cast<__nv_bfloat16*>(stash), sn);
-  return (int)cudaGetLastError();
+// The instruction class of a layer of N output columns and the rows its box covers.
+inline int layer_class(int N, int* box_rows) {
+  static const int cover[N_CLS] = {256, 16, 64, 128, 192};
+  const int cls = N <= 16 ? CLS_16 : N <= 192 ? CLS_16 + (N + 63) / 64 : CLS_256;
+  *box_rows = cover[cls];
+  return cls;
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 when the launch was accepted).
-// `table` holds n_layers rows of (a_col, K, N, w_off, b_off, epilogue). With a stash
-// (the training forward), `stash_table` is _bwd_plan's (e_off, ed_off, then one
-// offset per layer); without one, the render path's kernel runs.
+// Launch on `stream`; returns 0 when the launch was accepted, a cudaError, or 10000 + a
+// CUresult of the tensor-map encoder. `wt` is pack_params's transposed bf16 weights;
+// `plan` the int64 table of fused_mlp.py's _fwd_plan:
+//   header   n_layers, n_maps, n_chunks, c4, ep, edp, multires, multires_views
+//   n_maps   rows off, cols, rows, pitch       (a segment of a transposed block:
+//                                              [rows = N][cols] at wt + off, row pitch)
+//   n_layers rows segs, N, b_off, epilogue
+//   n_chunks rows map, k0                      (the boxes of one tile, in order)
+// With a stash (the training forward), `stash_table` is _bwd_plan's (e_off, ed_off,
+// then one offset per layer); without one, the render path's kernel runs.
 template <Rows ROWS>
-int launch_fused_mlp_fwd(const void* pt_src, const void* ed_src, const void* weights,
-                         const float* biases, float* out, long long P, int S, const int* table,
-                         int n_layers, int multires, int multires_views, int h_col, int e_col,
-                         int e_width, int c4, void* stash, const long long* stash_table,
-                         void* stream) {
-  if (n_layers < 1 || n_layers > MAX_LAYERS || P <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
-  Net net;
-  net.n_layers = n_layers;
-  net.multires = multires;
-  net.multires_views = multires_views;
-  net.h_col = h_col;
-  net.e_col = e_col;
-  net.e_width = e_width;
-  net.c4 = c4;
-  for (int l = 0; l < n_layers; ++l) {
-    const int* t = table + 6 * l;
-    net.layers[l] = Layer{t[0], t[1], t[2], t[3], t[4], t[5]};
+int launch_fused_mlp_fwd(const void* pt_src, const void* ed_src, const void* wt,
+                         const float* biases, float* out, long long P, int S,
+                         const long long* plan, void* stash, const long long* stash_table,
+                         int n_sms, void* stream) {
+  const long long* h = plan;
+  const int n_layers = (int)h[0], n_maps = (int)h[1], n_chunks = (int)h[2];
+  if (n_layers < 0 || n_layers > MAX_LAYERS || n_maps < 0 || n_maps > MAX_FMAPS ||
+      n_chunks < 0 || n_chunks > MAX_FCHUNKS || P <= 0 || S <= 0 || n_sms <= 0 ||
+      h[4] > 64 || h[5] > 64 || h[4] % 8 || h[5] % 8 || P > (1ll << 31) - FT)
+    return (int)cudaErrorInvalidValue;
+  cudaPointerAttributes attr;
+  cudaError_t e;
+  if ((e = cudaPointerGetAttributes(&attr, wt)) != cudaSuccess ||
+      (e = cudaSetDevice(attr.device)) != cudaSuccess)
+    return (int)e;
+  static FwdParams fp;
+  fp.P = P;
+  fp.S = S;
+  fp.n_layers = n_layers;
+  fp.n_chunks = n_chunks;
+  fp.n_tiles = (int)((P + FT - 1) / FT);
+  fp.c4 = (int)h[3];
+  fp.ep = (int)h[4];
+  fp.edp = (int)h[5];
+  fp.multires = (int)h[6];
+  fp.multires_views = (int)h[7];
+  const long long* row = plan + 8;
+  const __nv_bfloat16* w = reinterpret_cast<const __nv_bfloat16*>(wt);
+  int box[MAX_FMAPS], err;
+  for (int i = 0; i < n_maps; ++i, row += 4) {
+    layer_class((int)row[2], &box[i]);
+    if (row[2] > 256 || (err = encode_map(&fp.maps[i], w + row[0], row[1], row[2], row[3], 64,
+                                          box[i] / 2)))
+      return row[2] > 256 ? (int)cudaErrorInvalidValue : err;
   }
-  StashNet sn;
-  sn.e_off = sn.ed_off = -1;
-  for (int l = 0; l < MAX_LAYERS; ++l) sn.layer_off[l] = -1;
-  if (stash == nullptr)
-    return launch_kernel<ROWS, false>(pt_src, ed_src, weights, biases, out, P, S, net, stash, sn,
-                                      stream);
-  sn.e_off = stash_table[0];
-  sn.ed_off = stash_table[1];
-  for (int l = 0; l < n_layers; ++l) sn.layer_off[l] = stash_table[2 + l];
-  return launch_kernel<ROWS, true>(pt_src, ed_src, weights, biases, out, P, S, net, stash, sn,
-                                   stream);
+  for (int l = 0; l < n_layers; ++l, row += 4) {
+    int rows;
+    const int N = (int)row[1];
+    if (N <= 0 || N > 256 || row[0] <= 0 || row[0] > 15 || row[3] < 0 || row[3] > EPI_OUT)
+      return (int)cudaErrorInvalidValue;
+    fp.layers[l] = FLayer{(int)row[0], layer_class(N, &rows), N, (int)row[2], (int)row[3],
+                          stash == nullptr ? -1 : stash_table[2 + l]};
+  }
+  for (int c = 0; c < n_chunks; ++c, row += 2) {
+    if (row[0] < 0 || row[0] >= n_maps) return (int)cudaErrorInvalidValue;
+    fp.chunks[c] = FChunk{(int)row[0], (int)row[1], box[row[0]] / 2};
+  }
+  fp.e_stash = stash == nullptr ? -1 : stash_table[0];
+  fp.ed_stash = stash == nullptr ? -1 : stash_table[1];
+
+  if (ROWS == ROWS_EMBEDDED) {
+    if ((err = encode_map(&fp.e_map, pt_src, fp.ep, P, fp.ep, 64, FT)) ||
+        (err = encode_map(&fp.ed_map, ed_src, fp.edp, P, fp.edp, 64, FT)))
+      return err;
+  }
+  // clusters of two blocks, as many as the card holds at once, at most one a tile pair
+  const int n_pairs = (fp.n_tiles + 1) / 2;
+  auto run = [&](auto kernel, size_t smem) {
+    cudaError_t ee = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          (int)smem);
+    if (ee != cudaSuccess) return (int)ee;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = 2;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(2 * (n_sms / 2)), 1, 1);
+    cfg.blockDim = dim3(F_THREADS, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = (cudaStream_t)stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    if ((ee = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg)) != cudaSuccess)
+      return (int)ee;
+    if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+    cfg.gridDim = dim3((unsigned)(2 * (clusters < n_pairs ? clusters : n_pairs)), 1, 1);
+    ee = cudaLaunchKernelEx(&cfg, kernel, fp, pt_src, ed_src, biases, out,
+                            reinterpret_cast<__nv_bfloat16*>(stash));
+    if (ee != cudaSuccess) return (int)ee;
+    return (int)cudaGetLastError();
+  };
+  if (stash == nullptr) return run(fused_mlp_fwd_kernel<ROWS, false>, fwd_smem<false>());
+  return run(fused_mlp_fwd_kernel<ROWS, true>, fwd_smem<true>());
 }
 
 }  // namespace

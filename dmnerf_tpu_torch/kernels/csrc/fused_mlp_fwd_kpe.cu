@@ -6,14 +6,12 @@
 #include "fused_mlp_fwd.cuh"
 
 // `dirs` is [P, 3] fp32, one direction per point, embedded with multires_views octaves
-// into the h_col columns of the viewdir embedding.
-extern "C" int dmnerf_fused_mlp_fwd_kpe(const float* pts, const float* dirs, const void* weights,
+// into the EDP columns of the viewdir embedding. `wt` is pack_params's transposed
+// weights and `plan` _fwd_plan's table.
+extern "C" int dmnerf_fused_mlp_fwd_kpe(const float* pts, const float* dirs, const void* wt,
                                         const float* biases, float* out, long long P,
-                                        const int* table, int n_layers, int multires,
-                                        int multires_views, int h_col, int e_col, int e_width,
-                                        int c4, void* stash, const long long* stash_table,
-                                        void* stream) {
-  return launch_fused_mlp_fwd<ROWS_POINT_DIRS>(pts, dirs, weights, biases, out, P, 1, table,
-                                               n_layers, multires, multires_views, h_col, e_col,
-                                               e_width, c4, stash, stash_table, stream);
+                                        const long long* plan, void* stash,
+                                        const long long* stash_table, int n_sms, void* stream) {
+  return launch_fused_mlp_fwd<ROWS_POINT_DIRS>(pts, dirs, wt, biases, out, P, 1, plan, stash,
+                                               stash_table, n_sms, stream);
 }

@@ -4,15 +4,14 @@
 
 #include "fused_mlp_fwd.cuh"
 
-// `e` is the point embedding [P, e_width] bf16 (K7's output, fused_pe.cu) and `ed` the
-// per-point viewdir embedding [P, h_col] bf16; the kernel copies both rows into shared
-// memory and runs the layer table.
-extern "C" int dmnerf_fused_mlp_fwd_pe(const void* e, const void* ed, const void* weights,
+// `e` is the point embedding [P, EP] bf16 (K7's output, fused_pe.cu) and `ed` the
+// per-point viewdir embedding [P, EDP] bf16; the kernel loads both tiles with TMA and
+// runs the layer table. `wt` is pack_params's transposed weights and `plan` _fwd_plan's
+// table.
+extern "C" int dmnerf_fused_mlp_fwd_pe(const void* e, const void* ed, const void* wt,
                                        const float* biases, float* out, long long P,
-                                       const int* table, int n_layers, int h_col, int e_col,
-                                       int e_width, int c4, void* stash,
-                                       const long long* stash_table, void* stream) {
-  return launch_fused_mlp_fwd<ROWS_EMBEDDED>(e, ed, weights, biases, out, P, 1, table, n_layers,
-                                             0, 0, h_col, e_col, e_width, c4, stash, stash_table,
-                                             stream);
+                                       const long long* plan, void* stash,
+                                       const long long* stash_table, int n_sms, void* stream) {
+  return launch_fused_mlp_fwd<ROWS_EMBEDDED>(e, ed, wt, biases, out, P, 1, plan, stash,
+                                             stash_table, n_sms, stream);
 }

@@ -1,6 +1,7 @@
-// Hopper primitives of the parameter backward (fused_mlp_bwd.cuh): tensor maps for the
-// Tensor Memory Accelerator (TMA), mbarrier rings, warpgroup matrix multiply (wgmma)
-// with fp32 accumulators in registers, and register reallocation between warpgroups.
+// Hopper primitives of the forward and the parameter backward (fused_mlp_fwd.cuh,
+// fused_mlp_bwd.cuh): tensor maps for the Tensor Memory Accelerator (TMA), mbarrier
+// rings, thread block clusters and TMA multicast, warpgroup matrix multiply (wgmma) with
+// fp32 accumulators in registers, and register reallocation between warpgroups.
 // sm_90a only (wgmma and setmaxnreg do not exist on plain sm_90).
 #pragma once
 
@@ -65,6 +66,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (globaltimer_ns() - t0 > 10000000000ull) __trap();
 }
 
+// Make this thread's generic-proxy writes to shared memory visible to the async proxy
+// (wgmma operands) once a barrier orders them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---- TMA: one thread copies a 2D box into shared memory; completion counts bytes
 // on `bar`. Out-of-bounds elements of the box are filled with zeros. ----
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
@@ -73,6 +80,49 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// ---- thread block clusters ----
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_index() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return r;
+}
+// Every thread of every block of the cluster; orders the memory operations before it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// Arrive on the mbarrier at `bar`'s offset in block `cta` of the cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+// TMA load of a 2D box into `dst`'s offset in every block of `mask`; each block's
+// mbarrier at `bar`'s offset counts the bytes it receives.
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, int c0, int c1,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "h"(mask)
       : "memory");
 }
 
@@ -153,6 +203,78 @@ __device__ __forceinline__ void wgmma_ss_n256_tt(float (&d)[128], uint64_t desc_
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// The forward's products (fused_mlp_fwd.cuh): d (+)= A[64 x 16] B[16 x N], bf16 in,
+// fp32 accumulators, B K-major from shared memory (a [N][64] weight box with 128-byte
+// swizzle), A from registers (rs) or K-major from shared memory (ss). N is 256, 64 or
+// 16; the narrow forms write d[OFF .. OFF + N / 2), which is the n256 accumulator
+// layout restricted to columns [OFF * 2, OFF * 2 + N). `accumulate` 0 overwrites.
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " DM_D128
+      ", %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : DM_F128
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+#define DM_G8(i)                                                                          \
+  "+f"(d[OFF + i + 0]), "+f"(d[OFF + i + 1]), "+f"(d[OFF + i + 2]), "+f"(d[OFF + i + 3]),   \
+      "+f"(d[OFF + i + 4]), "+f"(d[OFF + i + 5]), "+f"(d[OFF + i + 6]), "+f"(d[OFF + i + 7])
+#define DM_G32 DM_G8(0), DM_G8(8), DM_G8(16), DM_G8(24)
+#define DM_D8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define DM_D32                                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+template <int OFF>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[128], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DM_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : DM_G32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+template <int OFF>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DM_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : DM_G32
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+template <int OFF>
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[128], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " DM_D8
+      ", {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : DM_G8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+template <int OFF>
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " DM_D8
+      ", %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : DM_G8(0)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+#undef DM_G8
+#undef DM_G32
+#undef DM_D8
+#undef DM_D32
 #undef DM_F8
 #undef DM_F128
 #undef DM_D128

@@ -46,7 +46,10 @@ one flat buffer:
 The viewdir contraction rides in the head layer's K, and the two output linears in
 one block-diagonal product whose column 3 the sigma layer fills; the zero blocks add
 exact zeros. Sigma has a layer of its own so that the sigma stub's sigma column is
-the same product as the full model's. Embedding widths pad to multiples of 16
+the same product as the full model's. The forward kernels read every block
+transposed, [N, K] at the same offset (``Packed.wt_bf16``: K-major, the wgmma operand
+for any N), through the TMA maps of ``_fwd_plan``; the backward kernels read the blocks
+as stored (``Packed.w_bf16``). Embedding widths pad to multiples of 16
 (63 -> 64, 27 -> 32), head widths are runtime values (Hr = Hi = 8 and C = 1 for the
 sigma stub).
 
@@ -77,11 +80,14 @@ from dmnerf_tpu_torch.kernels import runtime
 
 Params = dict
 
-# activation row layout and tiling of csrc/fused_mlp_common.cuh
-_ACT_COLS = 352        # widest [ed | h | e] row the kernel holds
-_N_MAX = 256           # widest layer output the kernel holds
+# tiling of csrc/fused_mlp_fwd.cuh
+_EMB_MAX = 64          # widest embedding tile (EP, EDP) the forward holds
+_N_MAX = 256           # widest layer output (and hidden width) the kernels hold
 _MAX_LAYERS = 20
 _EPI = {"sigma": 1, "out": 2}   # every other layer: ReLU into h
+# a forward layer's A segments (csrc/fused_mlp_fwd.cuh Seg), in the order of its chunks
+_SEG = {"ed": 1, "e_first": 2, "h": 4, "e_last": 8}
+_FWD_BOX_K = 64        # K columns of a forward weight box
 
 
 def resolve_pe_mode(pe_mode) -> str:
@@ -182,7 +188,9 @@ class Layer:
 class Packed:
     """One model's parameters in the kernel's layout (see the module docstring)."""
     w: torch.Tensor          # flat fp32 weights
-    w_bf16: torch.Tensor     # the same, in bf16, as the kernel reads them
+    w_bf16: torch.Tensor     # the same, in bf16, as the backward kernels read them
+    wt_bf16: torch.Tensor    # each [K, N] block transposed to [N, K] at the same offset,
+                             # bf16: the forward kernels' K-major weight operand
     b: torch.Tensor          # flat fp32 biases
     layers: Tuple[Layer, ...]
     multires: int
@@ -249,18 +257,20 @@ def pack_params(params: Params, multires: int, multires_views: int, D: int,
     entries.append(("out", edp, block(nh, no, [(0, 0, wro), (Hr, 4, wio)]),
                     vec(no, [(0, bro), (4, bio)])))
 
-    layers, ws, bs = [], [], []
+    layers, ws, wts, bs = [], [], [], []
     w_off = b_off = 0
     for kind, a_col, w, b in entries:
         K, N = w.shape
         layers.append(Layer(kind, a_col, K, N, w_off, b_off))
         pad_w = _round_up(K * N, 64) - K * N    # keep every block 128-byte aligned
         ws += [w.reshape(-1).float(), zeros(pad_w)]
+        wts += [w.detach().t().reshape(-1).float(), zeros(pad_w)]
         bs.append(b.float())
         w_off += K * N + pad_w
         b_off += N
     w = torch.cat(ws)
-    return Packed(w=w, w_bf16=w.detach().to(torch.bfloat16), b=torch.cat(bs),
+    return Packed(w=w, w_bf16=w.detach().to(torch.bfloat16),
+                  wt_bf16=torch.cat(wts).to(torch.bfloat16), b=torch.cat(bs),
                   layers=tuple(layers), multires=multires, multires_views=multires_views,
                   width=W, hr=Hr, ep=ep, edp=edp, c4=c4)
 
@@ -513,17 +523,18 @@ def _check_kernel_inputs(name: str, packed: Packed, a: torch.Tensor, b: torch.Te
     bf16; the callers check the shapes."""
     _check_device_inputs(name, ((names[0], a, dtype), (names[1], b, dtype),
                                 ("packed.w_bf16", packed.w_bf16, torch.bfloat16),
+                                ("packed.wt_bf16", packed.wt_bf16, torch.bfloat16),
                                 ("packed.b", packed.b, torch.float32)))
-    if packed.edp + packed.width + packed.ep > _ACT_COLS or packed.width % 16:
-        raise ValueError(f"kernel holds [ed | h | e] rows of at most {_ACT_COLS} columns with "
-                         f"W % 16 == 0; got {packed.edp} + {packed.width} + {packed.ep}")
+    if packed.ep > _EMB_MAX or packed.edp > _EMB_MAX or packed.width > _N_MAX \
+            or packed.width % 16:
+        raise ValueError(f"kernel holds embeddings of at most {_EMB_MAX} columns and hidden "
+                         f"widths of at most {_N_MAX} with W % 16 == 0; got EP {packed.ep}, "
+                         f"EDP {packed.edp}, W {packed.width}")
     if len(packed.layers) > _MAX_LAYERS:
         raise ValueError(f"kernel takes at most {_MAX_LAYERS} layers, got {len(packed.layers)}")
     for layer in packed.layers:
-        if layer.K % 16 or layer.N % 16 or layer.N > _N_MAX \
-                or layer.a_col + layer.K > _ACT_COLS or packed.edp + layer.N > _ACT_COLS:
-            raise ValueError(f"kernel wants K, N multiples of 16, N <= {_N_MAX} and rows "
-                             f"within {_ACT_COLS} activation columns: {layer}")
+        if layer.K % 16 or layer.N % 16 or layer.N > _N_MAX:
+            raise ValueError(f"kernel wants K, N multiples of 16 and N <= {_N_MAX}: {layer}")
 
 
 def _check_ray_shapes(pts: torch.Tensor, viewdirs: torch.Tensor) -> None:
@@ -544,11 +555,40 @@ def _check_embedding_shapes(packed: Packed, e: torch.Tensor, ed: torch.Tensor) -
                          f"{tuple(e.shape)} and {tuple(ed.shape)}")
 
 
-def _layer_table(layers, extra=lambda layer: ()) -> list:
-    table = []
-    for layer in layers:
-        table += [layer.a_col, layer.K, layer.N, layer.w_off, layer.b_off, *extra(layer)]
-    return table
+def _fwd_segments(packed: Packed, layer: Layer):
+    """A forward layer's A segments in chunk order: (source, first K row, rows), the
+    source one of 'ed', 'e_first', 'h', 'e_last' (csrc/fused_mlp_fwd.cuh Seg)."""
+    if layer.kind == "emb0":
+        return [("e_first", 0, layer.K)]
+    if layer.kind == "split":
+        return [("h", 0, layer.K - packed.ep), ("e_last", layer.K - packed.ep, packed.ep)]
+    if layer.kind == "head":
+        return [("ed", 0, packed.edp), ("h", packed.edp, layer.K - packed.edp)]
+    return [("h", 0, layer.K)]          # plain, sigma, out
+
+
+def _fwd_plan(packed: Packed) -> dict:
+    """Host table of csrc/fused_mlp_fwd.cuh. Each A segment of each layer is a TMA map
+    over the layer's block of ``Packed.wt_bf16`` ([N, K], row pitch K): ``maps`` rows
+    (off, cols, rows, pitch), the segment's [N, rows of K] starting at element ``off``.
+    ``layers`` rows (segs, N, b_off, epilogue). ``chunks`` rows (map, k0): the weight
+    boxes of one tile in the order the consumers take them, one per segment from the
+    embedding tiles and four for h (its 256 register columns in 64-column boxes; K
+    columns past a segment arrive as zeros). ``table`` is all of it flattened after the
+    header (n_layers, n_maps, n_chunks, c4, EP, EDP, multires, multires_views)."""
+    maps, layers, chunks = [], [], []
+    for layer in packed.layers:
+        segs = 0
+        for src, k0, rows in _fwd_segments(packed, layer):
+            maps.append((layer.w_off + k0, rows, layer.N, layer.K))
+            segs |= _SEG[src]
+            n_boxes = _N_MAX // _FWD_BOX_K if src == "h" else 1
+            chunks += [(len(maps) - 1, _FWD_BOX_K * i) for i in range(n_boxes)]
+        layers.append((segs, layer.N, layer.b_off, _EPI.get(layer.kind, 0)))
+    header = [len(layers), len(maps), len(chunks), packed.c4, packed.ep, packed.edp,
+              packed.multires, packed.multires_views]
+    table = header + [v for part in (maps, layers, chunks) for r in part for v in r]
+    return dict(table=table, maps=maps, layers=layers, chunks=chunks)
 
 
 def _launch_fwd(name: str, packed: Packed, pts: torch.Tensor, ed_src: torch.Tensor,
@@ -562,34 +602,23 @@ def _launch_fwd(name: str, packed: Packed, pts: torch.Tensor, ed_src: torch.Tens
     out = torch.empty((P, packed.c4), dtype=torch.float32, device=pts.device)
     if P == 0:
         return out
-    table = _layer_table(packed.layers, lambda layer: (_EPI.get(layer.kind, 0),))
-    c_table = (ctypes.c_int * len(table))(*table)
+    table = _fwd_plan(packed)["table"]
+    c_table = (ctypes.c_longlong * len(table))(*table)
     c_stash = None if stash is None else (ctypes.c_longlong * len(stash_table))(*stash_table)
     fn = getattr(runtime.load(name), f"dmnerf_{name}")
-    stream = torch.cuda.current_stream(pts.device).cuda_stream
-    common = (packed.w_bf16.data_ptr(), packed.b.data_ptr(), out.data_ptr(), P)
-    dims = (packed.edp, packed.edp + packed.width, packed.ep, packed.c4)
-    tail = (None if stash is None else stash.data_ptr(),
-            None if c_stash is None else ctypes.addressof(c_stash), stream)
-    if name == "fused_mlp_fwd":
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p] \
-            + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
-        args = (pts.data_ptr(), ed_src.data_ptr(), *common, S, c_table, len(packed.layers),
-                packed.multires, *dims, *tail)
-    elif name == "fused_mlp_fwd_pe":
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p] \
-            + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
-        args = (pts.data_ptr(), ed_src.data_ptr(), *common, c_table, len(packed.layers),
-                *dims, *tail)
-    else:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p] \
-            + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
-        args = (pts.data_ptr(), ed_src.data_ptr(), *common, c_table, len(packed.layers),
-                packed.multires, packed.multires_views, *dims, *tail)
+    dev = pts.device
+    head = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * (name == "fused_mlp_fwd")
+    fn.argtypes = head + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(*args)
+    err = fn(pts.data_ptr(), ed_src.data_ptr(), packed.wt_bf16.data_ptr(), packed.b.data_ptr(),
+             out.data_ptr(), P, *((S,) if name == "fused_mlp_fwd" else ()),
+             ctypes.addressof(c_table), None if stash is None else stash.data_ptr(),
+             None if c_stash is None else ctypes.addressof(c_stash),
+             torch.cuda.get_device_properties(dev).multi_processor_count,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+        raise RuntimeError(f"{name} launch failed: error {err} (a cudaError, or 10000 + the "
+                           f"CUresult of the tensor-map encoder)")
     runtime.LAUNCHES[name] += 1
     return out
 

@@ -8,6 +8,11 @@ backward, Adam update with exponential LR decay.
   lr     = lrate * 0.1 ** (step / (lrate_decay * 1000)), set before each update, so
            the first update uses lr_at_step(0) as optax's schedule does
 
+With ``cfg.debug_nans`` every step checks its loss components and then every parameter
+gradient for finiteness before Adam applies them, and raises ``FloatingPointError``
+naming the step and the first non-finite value (the JAX package turns on
+``jax_debug_nans``, which raises at the first NaN, ``dmnerf_tpu/train.py:146-147``).
+
 ScanNet's labeled-suffix variant: with ``N_ins`` the instance loss sees only the last
 N_ins rays of the batch, and ``Batch.target_valid`` masks the padded ones.
 
@@ -103,6 +108,25 @@ def compute_losses(cfg: Config, info: Dict[str, torch.Tensor], batch: Batch,
     return total, {k: v.detach() for k, v in aux.items()}
 
 
+# the loss components a debug_nans step checks, in the order they are named
+LOSS_KEYS = ("rgb_loss", "ins_loss", "emptiness_loss", "total_loss")
+
+
+def check_finite(state: TrainState, aux: Dict[str, torch.Tensor]) -> None:
+    """Raise FloatingPointError at the first non-finite loss component of ``aux`` or,
+    after those, the first parameter gradient with a non-finite entry (coarse, then
+    fine). One host read for all of them."""
+    grads = [(f"{which} {k}", p.grad) for which, params in (("coarse", state.params_coarse),
+                                                              ("fine", state.params_fine))
+             for k, p in params.items() if p.grad is not None]
+    names = [f"loss {k}" for k in LOSS_KEYS] + [f"gradient of {n}" for n, _ in grads]
+    ok = torch.stack([torch.isfinite(aux[k]).all() for k in LOSS_KEYS]
+                     + [torch.isfinite(g).all() for _, g in grads]).cpu()
+    if not bool(ok.all()):
+        bad = names[int((~ok).nonzero()[0])]
+        raise FloatingPointError(f"debug_nans: step {state.step}: non-finite {bad}")
+
+
 def make_train_step(cfg: Config, query_fn: Optional[QueryFn] = None,
                     N_ins: Optional[int] = None):
     """Returns ``step_fn(state, batch, generator=None, u_z=None, u_pdf=None) -> aux``,
@@ -125,6 +149,8 @@ def make_train_step(cfg: Config, query_fn: Optional[QueryFn] = None,
         total, aux = loss_fn(state, batch, generator, u_z, u_pdf)
         state.opt.zero_grad(set_to_none=True)
         total.backward()
+        if cfg.debug_nans:
+            check_finite(state, aux)
         for group in state.opt.param_groups:
             group["lr"] = lr_at_step(cfg, state.step)
         state.opt.step()

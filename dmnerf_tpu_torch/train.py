@@ -14,7 +14,9 @@ sampler, whose labelled rays form the batch suffix that the instance loss sees
 
 Steps run one by one. ``steps_per_dispatch`` packs TPU dispatches in the JAX package
 and leaves the trajectory unchanged, so it changes nothing here. ``multihost`` and
-``profile_dir`` raise NotImplementedError.
+``profile_dir`` raise NotImplementedError. ``debug_nans`` stops the run with
+FloatingPointError at the first step whose loss or parameter gradients are not finite,
+before Adam applies them (render.trainstep.check_finite).
 
 Usage:  python -m dmnerf_tpu_torch.train --config configs/train/dmsr/study.txt [key=value ...]
 """

@@ -378,3 +378,77 @@ def test_training_forward_stashes_for_the_backward(cuda, pe_mode):
     else:
         alone = fused_query_pe_bwd(packed, *_embedded(packed, pts, dirs), g.reshape(-1, packed.c4))
     assert torch.equal(dw, alone[0]) and torch.equal(db, alone[1])
+
+
+# the forward template's persistent grid walks 128-point tiles, one CTA per SM: one
+# point, less than a tile, a ragged last tile, and more tiles than the card's 132 SMs
+# with a remainder (N rays x S samples)
+RAGGED = [(1, 1), (4, 25), (8, 125), (11, 3079)]
+MODES = ["kernel_t", "kernel", "outside"]
+
+
+def _fwd_bf16_plain(mode, packed, pts, dirs):
+    """The bf16 plain version of ``mode``'s forward kernel, raw [P, 4+C]: the same
+    roundings as the kernel (K5's over K7's embedding)."""
+    if mode == "kernel_t":
+        return fused_query_ref(packed, pts, dirs, torch.bfloat16).reshape(-1, packed.c4)
+    if mode == "kernel":
+        return fused_query_kpe_ref(packed, *_flat(pts, dirs), torch.bfloat16)
+    return fused_query_pe_ref(packed, *_embedded(packed, pts, dirs), torch.bfloat16)
+
+
+def _check_fwd(mode, packed, pts, dirs):
+    """``mode``'s forward kernel through fused_query against the fp32 plain query
+    (5e-3 of the output scale) and its bf16 plain version (1e-3)."""
+    with torch.no_grad():
+        got = fused_query(packed, pts, dirs, mode).reshape(-1, packed.c4)
+    torch.cuda.synchronize()
+    ref32 = fused_query_ref(packed, pts, dirs, torch.float32).reshape(-1, packed.c4)
+    scale = float(ref32.abs().max())
+    assert got.shape == ref32.shape and torch.isfinite(got).all()
+    assert float((got - ref32).abs().max()) <= 5e-3 * max(scale, 1.0)
+    assert float((got - _fwd_bf16_plain(mode, packed, pts, dirs)).abs().max()) \
+        <= 1e-3 * max(scale, 1.0)
+    return got
+
+
+@pytest.mark.parametrize("n_s", RAGGED)
+@pytest.mark.parametrize("mode", MODES)
+def test_forward_template_ragged_point_counts(cuda, mode, n_s):
+    """K1, K3 and K5 at point counts around the persistent grid's tiles, flagship
+    widths, each within the forward bars of its plain versions."""
+    N, S = n_s
+    params, args, pts, dirs = _inputs((10, 4, 8, 256, (4,), 32, N, S), cuda, seed=5)
+    _check_fwd(mode, pack_params(params, *args), pts, dirs)
+
+
+@pytest.mark.parametrize("variant", ["sigma_stub", "rgb_stub", "ins_num_6"])
+@pytest.mark.parametrize("mode", MODES)
+def test_forward_template_narrow_widths(cuda, mode, variant):
+    """The narrow layers' instruction widths: the sigma stub (16-column head and
+    output), the rgb stub (144-column head, 16-column output) and ins_num 6 (16-column
+    output), at flagship trunk widths and a ragged point count."""
+    ins = 6 if variant == "ins_num_6" else 32
+    params, args, pts, dirs = _inputs((10, 4, 8, 256, (4,), ins, 37, 19), cuda, seed=6)
+    if variant == "sigma_stub":
+        params = sigma_stub_params(params)
+    elif variant == "rgb_stub":
+        params = rgb_stub_params(params)
+    _check_fwd(mode, pack_params(params, *args), pts, dirs)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_forward_template_stash_and_repeats_bit_exact(cuda, mode):
+    """With more tiles than SMs: the training forward's raw (STASH) equals the no-grad
+    forward's bit for bit, and two no-grad launches are bit-identical."""
+    params, args, pts, dirs = _inputs((10, 4, 8, 256, (4,), 32, 11, 3079), cuda, seed=7)
+    packed = pack_params(params, *args)
+    with torch.no_grad():
+        first = fused_query(packed, pts, dirs, mode)
+        second = fused_query(packed, pts, dirs, mode)
+    pk = dataclasses.replace(packed, w=packed.w.detach().requires_grad_(True),
+                             b=packed.b.detach().requires_grad_(True))
+    stashed = fused_query(pk, pts, dirs, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(stashed.detach(), first)

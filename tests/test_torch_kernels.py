@@ -643,3 +643,76 @@ def test_bwd_plan_tables_interpret_to_the_plain_backward(case, rows):
     assert plan["table"] == plan["header"] + rows_flat
     assert plan["header"][12:] == [len(plan[k]) for k in ("wmaps", "steps", "wchunks", "dmaps",
                                                           "jobs", "ranges")]
+
+
+def _interpret_fwd_plan(packed, wt, e, ed):
+    """A plain fp32 reading of ``_fwd_plan``'s tables as csrc/fused_mlp_fwd.cuh reads
+    them: per layer, its chunks in order, each a box of [rows of N, 64 columns of K] of
+    the transposed weights ``wt`` (zeros outside the map) times the matching 64
+    columns of its A segment (the embeddings padded to 64 columns, h to 256), then the
+    layer's epilogue. Returns raw [P, 4+C]."""
+    plan = tfm._fwd_plan(packed)
+    P = e.shape[0]
+    pad = lambda t, n: torch.nn.functional.pad(t, (0, n - t.shape[1]))  # noqa: E731
+    tiles = {"e_first": pad(e, 64), "e_last": pad(e, 64), "ed": pad(ed, 64)}
+    h = torch.zeros(P, 256)
+    chunks = iter(plan["chunks"])
+    sigma = None
+    for segs, N, b_off, epi in plan["layers"]:
+        acc = torch.zeros(P, 256)
+        for src in ("ed", "e_first", "h", "e_last"):
+            if not segs & tfm._SEG[src]:
+                continue
+            a_full = h if src == "h" else tiles[src]
+            for _ in range(4 if src == "h" else 1):
+                m, k0 = next(chunks)
+                off, cols, rows, pitch = plan["maps"][m]
+                box = torch.zeros(256, 64)
+                for r in range(rows):
+                    n = max(0, min(64, cols - k0))
+                    box[r, :n] = wt[off + r * pitch + k0: off + r * pitch + k0 + n]
+                acc += a_full[:, k0:k0 + 64] @ box.t()
+        b = torch.zeros(256)
+        b[:N] = packed.b[b_off:b_off + N]
+        if epi == 0:
+            h = torch.relu(acc + b)
+            h[:, N:] = 0
+        elif epi == 1:
+            sigma = acc[:, 0] + b[0]
+        else:
+            raw = (acc + b)[:, :packed.c4]
+            raw[:, 3] = sigma
+    assert next(chunks, None) is None
+    return raw
+
+
+@pytest.mark.parametrize("stub", ["full", "sigma", "rgb"])
+@pytest.mark.parametrize("case", CASES + [(10, 4, 8, 256, (4,), 6)])
+def test_fwd_plan_tables_interpret_to_the_plain_forward(case, stub):
+    """The forward kernels' transposed weights are each packed block transposed, bit
+    for bit in bf16; and the TMA maps and chunk list of ``_fwd_plan``, read by a plain
+    interpreter over the fp32 transposes, give the fp32 plain forward at 2e-5, for the
+    full model and both stubs (their 16- and 144-column heads and 16-column outputs).
+    The maps meet TMA's constraints: 16-byte aligned starts and row pitches, at most 256
+    rows."""
+    mr, mrv, D, W, skips, ins = case
+    jp, pts, dirs = _setup(*case, N=5, S=7)
+    params = _torch(jp)
+    params = {"full": params, "sigma": tmlp.sigma_stub_params(params),
+              "rgb": tmlp.rgb_stub_params(params)}[stub]
+    packed = tfm.pack_params(params, mr, mrv, D, skips)
+    wt = torch.zeros_like(packed.w)
+    for layer in packed.layers:
+        blk = packed.w[layer.w_off:layer.w_off + layer.K * layer.N].view(layer.K, layer.N)
+        wt[layer.w_off:layer.w_off + layer.K * layer.N] = blk.t().reshape(-1)
+        assert torch.equal(packed.wt_bf16[layer.w_off:layer.w_off + layer.K * layer.N],
+                           packed.w_bf16[layer.w_off:layer.w_off + layer.K * layer.N]
+                           .view(layer.K, layer.N).t().reshape(-1))
+    e = tfm.pe_points_ref(packed, torch.from_numpy(pts).reshape(-1, 3))
+    ed = tfm.point_view_embedding(packed, torch.from_numpy(dirs), pts.shape[1])
+    got = _interpret_fwd_plan(packed, wt, e, ed)
+    torch.testing.assert_close(got, tfm.fused_query_pe_ref(packed, e, ed), atol=2e-5, rtol=2e-5)
+    plan = tfm._fwd_plan(packed)
+    assert all(off % 8 == 0 and pitch % 8 == 0 and 0 < rows <= 256
+               for off, _, rows, pitch in plan["maps"])
+    assert plan["table"][:3] == [len(packed.layers), len(plan["maps"]), len(plan["chunks"])]

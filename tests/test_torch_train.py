@@ -272,3 +272,61 @@ def test_train_cli_needs_cuda_or_an_explicit_cpu(scene, tmp_path, monkeypatch):
     for kw in ({"multihost": True}, {"profile_dir": str(tmp_path / "prof")}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train(_cli_cfg(tmp_path, **kw), scene, device="cpu")
+
+
+def _nan_states(scene):
+    """The JAX and port train states from the same initial parameters, with one NaN
+    weight in the fine model's first trunk layer."""
+    jcfg = JConfig(**TINY)
+    jstate = jts.create_train_state(jcfg, jax.random.PRNGKey(0))
+    to_np = lambda p: {k: np.array(v) for k, v in p.items()}  # noqa: E731
+    pc, pf = to_np(jstate.params_coarse), to_np(jstate.params_fine)
+    pf["trunk_0_w"][0, 0] = np.nan
+    jstate = jstate._replace(params_fine={k: jnp.asarray(v) for k, v in pf.items()})
+    state = tts.create_train_state(Config(**TINY), params_from_numpy(pc, "cpu"),
+                                   params_from_numpy(pf, "cpu"))
+    return jcfg, jstate, state
+
+
+@pytest.mark.parametrize("debug_nans", [True, False])
+def test_debug_nans_stops_at_the_first_non_finite_step_like_jax(scene, debug_nans):
+    """With debug_nans both packages raise FloatingPointError on a NaN weight (JAX's
+    jax_debug_nans, the port's finiteness check before the update); without it both
+    train on through the NaN."""
+    jcfg, jstate, state = _nan_states(scene)
+    b = _batches(scene, 1, TINY["N_train"])[0]
+    jbatch = jts.Batch(*(jnp.asarray(t.numpy()) for t in b[:4]))
+    jstep = jts.make_train_step(jcfg)
+    step = tts.make_train_step(Config(**TINY, debug_nans=debug_nans))
+    before = {k: v.detach().clone() for k, v in state.params_coarse.items()}
+    if debug_nans:
+        with jax.debug_nans(True):
+            with pytest.raises(FloatingPointError):
+                jax.block_until_ready(jstep(jstate, jbatch, jax.random.PRNGKey(0)))
+        with pytest.raises(FloatingPointError, match=r"step 0: non-finite loss rgb_loss"):
+            step(state, b)
+        assert state.step == 0      # the update was not applied
+        assert all(torch.equal(state.params_coarse[k], v) for k, v in before.items())
+    else:
+        _, jaux = jstep(jstate, jbatch, jax.random.PRNGKey(0))
+        aux = step(state, b)
+        assert state.step == 1
+        assert not np.isfinite(float(jaux["total_loss"])) and not np.isfinite(float(aux["total_loss"]))
+
+
+def test_debug_nans_leaves_a_finite_run_unchanged(scene):
+    """Three finite steps with and without debug_nans: the same losses and parameters,
+    bit for bit."""
+    from dmnerf_tpu_torch.test import init_params
+
+    batches = _batches(scene, 3, TINY["N_train"])
+    pc, pf = init_params(Config(**TINY), "cpu")
+    runs = []
+    for flag in (False, True):
+        cfg = Config(**TINY, debug_nans=flag)
+        state = tts.create_train_state(cfg, pc, pf)
+        step = tts.make_train_step(cfg)
+        runs.append(([step(state, b)["total_loss"] for b in batches], state))
+    (l0, s0), (l1, s1) = runs
+    assert all(torch.equal(a, b) for a, b in zip(l0, l1)) and all(np.isfinite(float(x)) for x in l1)
+    assert all(torch.equal(s0.params_fine[k], s1.params_fine[k]) for k in s0.params_fine)
