@@ -72,9 +72,14 @@
    version (max|d| <= 5e-3 * max(scale, 1)), the stub's sigma against the full
    model's (1e-5), K7 against its plain version (x lanes bit-equal to bf16(x), sin and
    cos lanes within 4e-3, pad column zero), and K5 over K7 against K1 on the same
-   points and per-ray viewdirs (max|d| and the count of differing elements: one
-   function, embed_rows, builds both embeddings). Median times of K7, K5, their plain
-   versions and the bf16 addmm chain, beside their bounds.
+   points and per-ray viewdirs (max|d| and the count of differing elements: K7 builds
+   the bits of embed_rows, K1's embedding). Median times of K5, the plain versions and
+   the bf16 addmm chain, beside their bounds. K7's time is its device time from 50
+   back-to-back launches (device_ms; a single launch of tens of microseconds cannot be
+   timed by one event pair), beside the wrapper's per-call time (call_ms, the host's
+   work included), its bytes bound and its issue bound (the fast path of sincosf counted
+   in cuobjdump -sass of a probe, 3 multires of them a point over 132 SMs x 4 x 32 lanes
+   at the SM clock), the larger of the two, its share of it and the card.
 9. pe_mode 'outside' backward phase (K6) at the training shapes (fine 3072 x 192,
    coarse 3072 x 64), as phase 4.
 10. ScanNet train phase: configs/train/scannet/scene0010_00.txt under pallas_pe_mode
@@ -90,7 +95,8 @@
    render_test with the crop mask under pallas_pe_mode = outside, with the weights of
    the ScanNet train phase: exactly 2 K7 and 2 K5 launches a chunk, every map finite
    and in range, and the same view through the plain PyTorch query on the card held
-   to the render phase's bars. Prints ms per view.
+   to the render phase's bars. Prints ms per view, and the device time of one more
+   kernel view by kernel (torch.profiler): K7's and K5's, the rest, and K7's share.
 
 The line before the last is a JSON object with each kernel's numbers and its
 launches on each path; the last line is {"ok": true, "device": {...}}. Any failure
@@ -139,6 +145,159 @@ def _time_ms(fn, reps: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(launch, reps: int = 50, runs: int = 5) -> dict:
+    """The device time of one launch, for kernels of microseconds, where an event pair
+    around one call times the host: ``launch`` (no arguments) only enqueues. After a
+    warm-up the card is held busy (``torch.cuda._sleep``) while the host enqueues
+    ``reps`` launches back to back between two events; device_ms is the events' time
+    over ``reps``, the median of ``runs`` such runs. enqueue_ms is the host's time per
+    enqueue in the same runs: where it nears device_ms the queue ran dry."""
+    import torch
+
+    for _ in range(5):
+        launch()
+    torch.cuda.synchronize()
+    dev, host = [], []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)     # ≈ 1 ms of the card's clock: the queue fills
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            launch()
+        t1 = time.perf_counter()
+        end.record()
+        end.synchronize()
+        dev.append(start.elapsed_time(end) / reps)
+        host.append((t1 - t0) * 1e3 / reps)
+    return dict(device_ms=statistics.median(dev), enqueue_ms=statistics.median(host),
+                device_ms_runs=dev)
+
+
+def digest(t) -> str:
+    """The first 16 hex digits of the SHA-256 of a tensor's bytes (A/B equality)."""
+    import hashlib
+
+    import torch
+
+    flat = t.detach().contiguous().reshape(-1)
+    if flat.dtype == torch.bfloat16:
+        flat = flat.view(torch.int16)
+    return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def smi(fields: str) -> str:
+    """``nvidia-smi --query-gpu=<fields> --format=csv,noheader`` of the first card."""
+    return subprocess.run(["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+SINCOS_PROBE = r"""
+extern "C" __global__ void sincos_probe(const float* __restrict__ a, float* s, float* c) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const float v = a[i];
+#ifdef WITH_SINCOS
+  float y, z;
+  sincosf(v, &y, &z);
+  s[i] = y;
+  c[i] = z;
+#else
+  s[i] = v;
+  c[i] = v;
+#endif
+}
+"""
+
+
+def _sass_fast_path(sass: str) -> int:
+    """The instructions on the shortest path from the first instruction of the one
+    function in ``sass`` (``cuobjdump -sass``) to an unpredicated EXIT, NOPs not
+    counted. A predicated branch may go either way, so code behind one that the short
+    path skips (sincosf's slow path for phases above ≈ 1e5) is not counted; a CALL
+    counts as one instruction."""
+    import collections
+
+    ins = [(int(a, 16), t) for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", sass)]
+    if not ins:
+        raise AssertionError("no SASS instruction found")
+    at = {a: i for i, (a, _) in enumerate(ins)}
+    dist = {0: 0 if "NOP" in ins[0][1] else 1}
+    queue = collections.deque([0])
+    best = None
+    while queue:
+        i = queue.popleft()
+        text = ins[i][1]
+        pred = text.startswith("@")
+        op = text.split()[1 if pred else 0]
+        if op.startswith("EXIT"):
+            best = dist[i] if best is None else min(best, dist[i])
+            if not pred:
+                continue
+        nxt = []
+        if op.startswith("BRA"):
+            m = re.search(r"0x([0-9a-f]+)", text)
+            if m is None or int(m.group(1), 16) not in at:
+                raise AssertionError(f"branch without a target in the listing: {text}")
+            nxt.append(at[int(m.group(1), 16)])
+        if not op.startswith("BRA") or pred:
+            nxt.append(i + 1)
+        for j in nxt:
+            if j >= len(ins):
+                continue
+            d = dist[i] + (0 if "NOP" in ins[j][1] else 1)
+            if d < dist.get(j, 1 << 30):
+                dist[j] = d
+                queue.append(j)
+    if best is None:
+        raise AssertionError("no path to EXIT in the listing")
+    return best
+
+
+def sincosf_instructions(out_dir: str) -> dict:
+    """SASS instructions of one accurate sincosf on its fast path, counted in
+    ``cuobjdump -sass`` of a probe kernel built with the kernels' device flags (sm_90a,
+    -O3, no fast math): the shortest path to EXIT with sincosf minus the same probe
+    storing its input (the load, index and stores). The listings are written to
+    ``out_dir``."""
+    from dmnerf_tpu_torch.kernels import runtime
+
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(out_dir, "sincos_probe.cu")
+    with open(src, "w") as f:
+        f.write(SINCOS_PROBE)
+    nvcc = runtime._nvcc()
+    procs = {}
+    for tag, flags in (("sincos", ["-DWITH_SINCOS"]), ("base", [])):
+        cubin = os.path.join(out_dir, f"sincos_probe_{tag}.cubin")
+        procs[tag] = (cubin, subprocess.Popen(
+            [nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             *flags, "-o", cubin, src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    counts = {}
+    for tag, (cubin, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"sincos probe build failed:\n{out}")
+        sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", cubin],
+                              capture_output=True, text=True, check=True).stdout
+        with open(os.path.join(out_dir, f"sincos_probe_{tag}.sass"), "w") as f:
+            f.write(sass)
+        counts[tag] = _sass_fast_path(sass)
+    return dict(per_sincosf=counts["sincos"] - counts["base"], probe=counts["sincos"],
+                probe_without=counts["base"])
+
+
+def k7_bounds(P: int, multires: int, ep: int, sincosf_instr: int, n_sms: int,
+              sm_mhz: float) -> dict:
+    """K7's two bounds: bytes (12 in and 2 EP out a point over 3.35 TB/s) and issue
+    (the fast path's instructions of 3 multires sincosf a point over the card's issue
+    rate, n_sms x 4 schedulers x 32 lanes at the SM clock), the larger the bound."""
+    t_bytes = (12 + 2 * ep) * P / PEAK_BYTES * 1e3
+    t_issue = sincosf_instr * 3 * multires * P / (n_sms * 4 * 32 * sm_mhz * 1e6) * 1e3
+    return dict(bytes_bound_ms=t_bytes, issue_bound_ms=t_issue, bound_ms=max(t_bytes, t_issue),
+                bound_by="bytes" if t_bytes >= t_issue else "operations")
+
+
 # the device launches of one backward call, by the kernel names of csrc/fused_mlp_bwd.cuh
 # (and of the stashing forward of csrc/fused_mlp_fwd.cuh that the standalone entries run)
 LAUNCH_KINDS = (("stash_fwd", ("fwd_stash_kernel", "fused_mlp_fwd_kernel")),
@@ -146,10 +305,11 @@ LAUNCH_KINDS = (("stash_fwd", ("fwd_stash_kernel", "fused_mlp_fwd_kernel")),
                 ("reduce", ("namespace)::reduce_kernel", "sum_rows_kernel")))
 
 
-def launch_split(fn, reps: int = 3) -> dict:
-    """Device ms per call of ``fn`` by launch kind (LAUNCH_KINDS), from torch.profiler's
-    CUDA activity (CUPTI sees the kernels of the ctypes libraries), averaged over
-    ``reps`` calls after one warm-up call, with the launches per call. Raises when the
+def launch_split(fn, reps: int = 3, kinds=LAUNCH_KINDS) -> dict:
+    """Device ms per call of ``fn`` by launch kind (``kinds``: (kind, kernel name parts)),
+    from torch.profiler's CUDA activity (CUPTI sees the kernels of the ctypes libraries),
+    averaged over ``reps`` calls after one warm-up call, with the launches per call;
+    ``other`` is every other device activity, ``total`` all of it. Raises when the
     profiler saw no kernel of a known kind."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -160,21 +320,21 @@ def launch_split(fn, reps: int = 3) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    ms = {kind: 0.0 for kind, _ in LAUNCH_KINDS}
-    count = {kind: 0 for kind, _ in LAUNCH_KINDS}
+    ms = {kind: 0.0 for kind, _ in kinds}
+    count = {kind: 0 for kind, _ in kinds}
     other = 0.0
     for evt in prof.events():
         if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
             continue
         dur = evt.time_range.elapsed_us() / 1e3
-        kind = next((k for k, names in LAUNCH_KINDS if any(n in evt.name for n in names)), None)
+        kind = next((k for k, names in kinds if any(n in evt.name for n in names)), None)
         if kind is None:
             other += dur
             continue
         ms[kind] += dur
         count[kind] += 1
     if not any(count.values()):
-        raise AssertionError("torch.profiler saw no backward kernel on the card")
+        raise AssertionError(f"torch.profiler saw none of the kernels {kinds} on the card")
     out = {k: v / reps for k, v in ms.items()}
     out["other"] = other / reps
     out["total"] = sum(out.values())
@@ -405,9 +565,11 @@ def kernel_phase(cfg, device, mode="kernel_t"):
     return results
 
 
-def kernel_pe_phase(cfg, device):
+def kernel_pe_phase(cfg, device, card):
     """K7 then K5 (pe_mode 'outside') against their plain versions and against K1,
-    timed. Points between ScanNet's near 0 and far 9.5."""
+    timed. Points between ScanNet's near 0 and far 9.5. K7's time is its device time
+    from back-to-back launches (device_ms), beside the wrapper's per-call time
+    (call_ms), its bytes and issue bounds (k7_bounds) and the card (``card``)."""
     import torch
 
     from dmnerf_tpu_torch.core.mlp import sigma_stub_params
@@ -415,6 +577,11 @@ def kernel_pe_phase(cfg, device):
     from dmnerf_tpu_torch.kernels import runtime
     from dmnerf_tpu_torch.test import init_params
 
+    sincos = sincosf_instructions(os.path.join(REPO, "build", "sincos_probe"))
+    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sm_mhz = float(smi("clocks.max.sm").split()[0])
+    print(f"[kernel pe] sincosf fast path, SASS instructions: {json.dumps(sincos)}; {n_sms} SMs "
+          f"at {sm_mhz} MHz", flush=True)
     near, far = 0.0, 9.5
     pc, pf = init_params(cfg, device)
     gen = torch.Generator().manual_seed(SEED + 7)
@@ -443,17 +610,27 @@ def kernel_pe_phase(cfg, device):
             sincos_err = float((e[:, 3:n].float() - e32[:, 3:n]).abs().max())
             pad_zero = not bool(e[:, n:].any())
             k7_bytes = x.numel() * 4 + e.numel() * 2
+            e_timed = torch.empty_like(e)
+            dev = device_ms(fm._pe_launcher(x, e_timed, packed.multires))
+            per_sm = fm._PE_BLOCKS_PER_SM[(x.device.index, packed.multires, packed.ep)]
             k7 = dict(points=P, x_lanes_bit_equal=x_exact, sincos_max_abs_err=sincos_err,
-                      pad_zero=pad_zero, max_abs_err=sincos_err,
-                      ms=_time_ms(lambda: fm.pe_points(packed, x)),
+                      pad_zero=pad_zero, max_abs_err=sincos_err, ms=dev["device_ms"], **dev,
+                      call_ms=_time_ms(lambda: fm.pe_points(packed, x)),
                       plain_ms=_time_ms(lambda: fm.pe_points_ref(packed, x, torch.float32), reps=5),
-                      bound_ms=k7_bytes / PEAK_BYTES * 1e3, bound_by="bytes", library_ms=None,
-                      mbytes=k7_bytes / 1e6)
-            k7["gbytes_per_s"] = k7_bytes / (k7["ms"] * 1e-3) / 1e9
+                      **k7_bounds(P, packed.multires, packed.ep, sincos["per_sincosf"], n_sms,
+                                  sm_mhz),
+                      library_ms=None, mbytes=k7_bytes / 1e6, digest=digest(e), card=card,
+                      blocks_per_sm=per_sm,
+                      grid=fm._pe_plan(P, packed.ep, n_sms, per_sm)["grid"])
+            k7["share_of_bound"] = k7["bound_ms"] / k7["device_ms"]
+            k7["gbytes_per_s"] = k7_bytes / (k7["device_ms"] * 1e-3) / 1e9
             print(f"[kernel pe] {name} K7: {json.dumps(k7)}", flush=True)
             if not (x_exact and pad_zero and sincos_err <= 4e-3):
                 raise AssertionError(f"{name}: K7 vs plain: x lanes bit-equal {x_exact}, pad zero "
                                      f"{pad_zero}, sin/cos max|d| {sincos_err:.3e} (want <= 4e-3)")
+            if not torch.equal(e_timed, e):
+                raise AssertionError(f"{name}: K7's timed launches wrote another e than pe_points")
+            del e_timed
 
             # K5 over K7's embedding against the fp32 and bf16 plain versions and K1
             ref32 = _plain_fwd("outside", packed, pts, dirs, torch.float32)
@@ -947,13 +1124,29 @@ def render_scannet_phase(device, scene, params_coarse, params_fine):
     trained = kernel_vs_plain(pc, pf)
     init = kernel_vs_plain(*init_params(cfg, device))
     psnr, flip = trained["rgb_psnr_db"], trained["label_flip_share"]
+    # the device time by kernel of one view, from torch.profiler, and that view's host
+    # time: K7's share of the view
+    view, view_s = make_image_renderer(cfg), []
+
+    def timed_view():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        view(pc, pf, rays_o, rays_d)
+        torch.cuda.synchronize()
+        view_s.append(time.perf_counter() - t0)
+    split = launch_split(timed_view, reps=1,
+                         kinds=(("k7", ("fused_pe_kernel",)), ("k5", ("fused_mlp_fwd_kernel",))))
+    profiled_view_ms = view_s[-1] * 1e3
 
     ms = [t * 1e3 for t in res["times"]]
     out = dict(views=len(ids), H=H, W=W, crop=[cfg.crop_height, cfg.crop_width],
                chunks_per_view=chunks, ins_num=cfg.ins_num, launches=launches,
                psnr=res["psnrs"], ap=[list(a) for a in res["aps"]], ms_per_view=ms,
                rays_per_s=[H * W / (t * 1e-3) for t in ms], kernel_vs_plain=trained,
-               init_weights_kernel_vs_plain=init)
+               init_weights_kernel_vs_plain=init, device_ms_by_kernel=split,
+               profiled_view_ms=profiled_view_ms,
+               k7_share_of_device_time=split["k7"] / split["total"],
+               k7_share_of_view=split["k7"] / profiled_view_ms)
     print(f"[render scannet] {json.dumps(out)}", flush=True)
     if psnr < MIN_PSNR_DB or flip > MAX_LABEL_FLIP:
         raise AssertionError(f"ScanNet view, kernel vs plain: rgb PSNR {psnr:.2f} dB (want >= "
@@ -1108,8 +1301,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi_line = smi("name,power.limit")
     print(f"[device] {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
@@ -1122,6 +1314,8 @@ def main() -> int:
             if "Compiling entry function" in line:
                 m = re.search(r"\d([a-z_]+_kernel)", line)
                 fn = m.group(1) + ("<stash>" if "Lb1E" in line else "") if m else ""
+                mr = re.search(r"_kernelILi(\d+)E", line)     # K7's multires template
+                fn += f"<{mr.group(1)}>" if mr else ""
             if ("Used" in line and "registers" in line) or "spill stores" in line:
                 print(f"[build] {name} {fn}: {line.strip()}", flush=True)
 
@@ -1141,7 +1335,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     eval_launches, demo_launches = mani_phase(device)
     torch.cuda.empty_cache()
-    kres_pe = kernel_pe_phase(cfg, device)
+    kres_pe = kernel_pe_phase(cfg, device, smi_line)
     bres_pe = bwd_kernel_phase(train_cfg, device, "outside")
     torch.cuda.empty_cache()
     scannet_train_launches, scene, state = train_phase(device, "outside", SCANNET_TRAIN_STEPS,
@@ -1174,10 +1368,13 @@ def main() -> int:
                scannet_train_launches["fused_mlp_bwd_pe"], by_path, bres_pe["fine"],
                **_bwd_extra(bres_pe["fine"])),
         _entry("fused_pe", "dmnerf_tpu/kernels/fused_mlp.py:689",
-               scannet_render_launches["fused_pe"], by_path, kres_pe["fine"]["k7"]),
+               scannet_render_launches["fused_pe"], by_path, kres_pe["fine"]["k7"],
+               **{k: kres_pe["fine"]["k7"][k] for k in ("call_ms", "bytes_bound_ms",
+                                                         "issue_bound_ms", "share_of_bound",
+                                                         "card")}),
     ]
     print(f"[done] {time.time() - t0:.1f} s from the build on", flush=True)
-    print(smi, flush=True)
+    print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,7 @@
 // Shared pieces of the fused PE + DM-NeRF MLP kernels (fused_mlp_fwd.cuh,
-// fused_mlp_bwd.cuh, fused_pe.cu): the tiling, cp.async, the in-kernel positional
-// encoding, the 128-byte swizzle of the forward's embedding tiles and the row copy
-// from shared to device memory.
+// fused_mlp_bwd.cuh): the tiling, cp.async, the in-kernel positional encoding (whose
+// bits K7, fused_pe.cu, builds too) and the 128-byte swizzle of the forward's embedding
+// tiles.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -10,8 +10,8 @@
 
 namespace dmnerf {
 
-constexpr int BM = 128;                  // points per CTA (K7) or per tile
-constexpr int THREADS = 256;             // threads of K7's CTA and of the reductions
+constexpr int BM = 128;                  // points per tile
+constexpr int THREADS = 256;             // threads of the reductions
 constexpr int N_MAX = 256;               // widest layer output
 constexpr int MAX_LAYERS = 20;
 
@@ -68,20 +68,6 @@ __device__ __forceinline__ void embed_rows(__nv_bfloat16* dst, const float* __re
     if (j < 3 && p < P) v = x[p * 3 + j];
     const int col = j < 3 ? j : 2 * nf + j;
     dst[SW128 ? sw128(r, col) : r * ld + col] = __float2bfloat16(v);
-  }
-}
-
-// Copy columns [col0, col0 + n) of the CTA's shared-memory rows (pitch lds) to rows
-// p0 .. of a row-major [P, n] bf16 array in device memory; rows past P are not stored.
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int lds,
-                                           int col0, int n, long long p0, long long P) {
-  const int chunks = n / 8;
-  for (int c = threadIdx.x; c < BM * chunks; c += THREADS) {
-    const int r = c / chunks, q = c - r * chunks;
-    const long long p = p0 + r;
-    if (p < P)
-      *reinterpret_cast<uint4*>(dst + p * n + q * 8) =
-          *reinterpret_cast<const uint4*>(src + r * lds + col0 + q * 8);
   }
 }
 

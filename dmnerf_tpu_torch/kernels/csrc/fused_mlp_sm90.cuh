@@ -1,7 +1,8 @@
-// Hopper primitives of the forward and the parameter backward (fused_mlp_fwd.cuh,
-// fused_mlp_bwd.cuh): tensor maps for the Tensor Memory Accelerator (TMA), mbarrier
-// rings, thread block clusters and TMA multicast, warpgroup matrix multiply (wgmma) with
-// fp32 accumulators in registers, and register reallocation between warpgroups.
+// Hopper primitives of the forward, the parameter backward and the point embedding
+// (fused_mlp_fwd.cuh, fused_mlp_bwd.cuh, fused_pe.cu): tensor maps for the Tensor Memory
+// Accelerator (TMA), mbarrier rings, bulk copies, thread block clusters and TMA
+// multicast, warpgroup matrix multiply (wgmma) with fp32 accumulators in registers, and
+// register reallocation between warpgroups.
 // sm_90a only (wgmma and setmaxnreg do not exist on plain sm_90).
 #pragma once
 
@@ -67,7 +68,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // Make this thread's generic-proxy writes to shared memory visible to the async proxy
-// (wgmma operands) once a barrier orders them.
+// (wgmma operands, bulk copies) once a barrier orders them.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -81,6 +82,32 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// ---- bulk copies (the TMA engine, no tensor map): one thread sends `bytes` (a multiple
+// of 16; both addresses 16-byte aligned) of shared memory to device memory as one
+// group member; commit closes the group. wait_read<N> returns once at most N of this
+// thread's groups still read their shared memory, wait_all<N> once at most N are
+// incomplete. Shared memory written by threads is handed over by fence_proxy_async
+// and a barrier. ----
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---- thread block clusters ----

@@ -661,23 +661,85 @@ def pe_points(packed: Packed, x: torch.Tensor) -> torch.Tensor:
     _check_device_inputs("fused_pe", (("x", x, torch.float32),))
     if x.dim() != 2 or x.shape[-1] != 3:
         raise ValueError(f"want x [P, 3], got {tuple(x.shape)}")
-    if packed.ep % 8 or packed.ep > 256:
-        raise ValueError(f"fused_pe writes rows of a multiple of 8 columns up to 256, got "
-                         f"{packed.ep}")
-    P = x.shape[0]
-    e = torch.empty((P, packed.ep), dtype=torch.bfloat16, device=x.device)
-    if P == 0:
-        return e
-    fn = runtime.load("fused_pe").dmnerf_fused_pe
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(x.data_ptr(), e.data_ptr(), P, packed.multires, packed.ep,
-             torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_pe launch failed: cudaError {err}")
-    runtime.LAUNCHES["fused_pe"] += 1
+    e = torch.empty((x.shape[0], packed.ep), dtype=torch.bfloat16, device=x.device)
+    if x.shape[0]:
+        _pe_launcher(x, e, packed.multires)()
     return e
+
+
+# tiling of csrc/fused_pe.cu: one thread a point, tiles of 128 points, two staging tiles
+# a block
+_PE_TILE, _PE_STAGES = 128, 2
+_PE_ARGTYPES = {
+    "dmnerf_fused_pe": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+                        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+    "dmnerf_fused_pe_blocks_per_sm": [ctypes.c_int, ctypes.c_int],
+}
+_PE_BLOCKS_PER_SM: dict = {}   # (device, multires, width) -> the occupancy query's answer
+
+
+def _pe_lib() -> ctypes.CDLL:
+    """K7's library, the ctypes signatures of its entries set once, when it is loaded."""
+    lib = runtime.load("fused_pe")
+    if not getattr(lib, "typed", False):
+        for sym, argtypes in _PE_ARGTYPES.items():
+            fn = getattr(lib, sym)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        lib.typed = True
+    return lib
+
+
+def _pe_plan(P: int, width: int, n_sms: int, blocks_per_sm: int) -> dict:
+    """Host plan of csrc/fused_pe.cu for P points of ``width`` bf16 columns, as the kernel
+    takes it. ``grid`` blocks of ``tile`` threads, block b walking tiles b, b + grid, ...
+    of ``tiles``: at most ``n_sms * blocks_per_sm`` blocks, and as few as still give each
+    block ``tiles_per_block`` tiles or one less. Thread t stages row p0 + t (rows < P) at
+    row t of its block's staging tile, the tiles lying ``copy_bytes`` apart in the
+    block's ``staging_bytes``; then tile i is one bulk copy of ``copy_bytes``
+    (``last_copy_bytes``, its ``last_rows`` rows, for the last tile) from its staging tile
+    to byte ``i * copy_bytes`` of e."""
+    tiles = -(-P // _PE_TILE)
+    per_block = -(-tiles // (n_sms * blocks_per_sm))
+    last_rows = P - (tiles - 1) * _PE_TILE
+    copy_bytes = _PE_TILE * width * 2
+    return dict(tile=_PE_TILE, tiles=tiles, grid=-(-tiles // per_block),
+                tiles_per_block=per_block, last_rows=last_rows, copy_bytes=copy_bytes,
+                last_copy_bytes=last_rows * width * 2, staging_bytes=_PE_STAGES * copy_bytes)
+
+
+def _pe_launcher(x: torch.Tensor, e: torch.Tensor, multires: int):
+    """A function of no arguments that launches K7 once: x [P, 3] fp32 (contiguous) into
+    e [P, width] bf16 (contiguous, 16-byte aligned), on the stream that is current now,
+    with the plan, the pointers and the library function bound now. Each call counts
+    one launch, and raises if the launch was refused."""
+    P, width = e.shape
+    if P == 0 or x.shape != (P, 3) or not (x.is_contiguous() and e.is_contiguous()) \
+            or e.dtype != torch.bfloat16 or e.data_ptr() % 16 or width % 8 or width > 256:
+        raise ValueError(f"fused_pe wants x [P, 3] and e [P, width] bf16, contiguous, e "
+                         f"16-byte aligned, width a multiple of 8 up to 256, P > 0; got x "
+                         f"{tuple(x.shape)}, e {tuple(e.shape)} {e.dtype}")
+    dev = x.device
+    lib = _pe_lib()
+    key = (dev.index, multires, width)
+    if key not in _PE_BLOCKS_PER_SM:
+        n = lib.dmnerf_fused_pe_blocks_per_sm(multires, width)
+        if n < 1:
+            raise RuntimeError(f"fused_pe occupancy query failed: cudaError {-n}")
+        _PE_BLOCKS_PER_SM[key] = n
+    plan = _pe_plan(P, width, torch.cuda.get_device_properties(dev).multi_processor_count,
+                    _PE_BLOCKS_PER_SM[key])
+    fn = lib.dmnerf_fused_pe
+    args = (x.data_ptr(), e.data_ptr(), P, multires, width, plan["tile"], plan["tiles"],
+            plan["copy_bytes"], plan["last_copy_bytes"], plan["staging_bytes"], plan["grid"],
+            torch.cuda.current_stream(dev).cuda_stream)
+
+    def launch():
+        err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"fused_pe launch failed: cudaError {err}")
+        runtime.LAUNCHES["fused_pe"] += 1
+    return launch
 
 
 # tiling of csrc/fused_mlp_bwd.cuh: 128-point tiles of the backward-data walk (a bias

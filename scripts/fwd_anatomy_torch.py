@@ -39,11 +39,23 @@ built without its epilogues (products only).
 
 Also the compiler's register report for each forward kernel. The last line of stdout
 is one JSON object with all of it, also appended to ``--out``.
+
+With ``--k7`` it times K7 (the point embedding of pe_mode 'outside') instead, at the
+render chunk (2048 x 192 fine, 2048 x 64 coarse) and the training queries (3072 x 192,
+3072 x 64), points between ScanNet's near 0 and far 9.5: its device time from
+back-to-back launches (``chip_smoke.device_ms``), the wrapper's per-call time
+(``call_ms``, one event pair around one ``pe_points`` call, the host's work included),
+its bytes and issue bounds (``chip_smoke.k7_bounds``, with the fast path of sincosf
+counted in SASS) and the digest of its output; at the fine render chunk also the
+compute-only and store-only builds where the source has their switches
+(DMNERF_PE_NO_STORE, DMNERF_PE_STORE_ONLY); and the digests of K1, K3 and K5 at the
+fine render chunk, which a change of K7 alone leaves as they were.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import ctypes
 import dataclasses
 import importlib.util
@@ -67,11 +79,11 @@ def _chip_smoke():
 
 
 def _variant_lib(runtime, name, repo, define):
-    """``name``'s library built from a copy of ``repo``'s sources: with ``define`` set
-    (-D), or, when ``define`` is None, with the template's refusal of an empty layer
-    table lifted."""
+    """``name``'s library built from a copy of ``repo``'s sources: with the macros of
+    ``define`` set (-D each, comma-separated), or, when ``define`` is None, with the
+    template's refusal of an empty layer table lifted."""
     src = runtime.CSRC
-    tag = "noepi" if define else "empty"
+    tag = re.sub(r"[^a-z0-9]+", "_", define.lower()) if define else "empty"
     dst = os.path.join(repo, "build", f"fwd_anatomy_{tag}")
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(src, dst)
@@ -80,10 +92,105 @@ def _variant_lib(runtime, name, repo, define):
         text = open(path).read()
         open(path, "w").write(text.replace("n_layers < 1", "n_layers < 0"))
     so = os.path.join(dst, f"{name}.so")
-    cmd = [runtime._nvcc(), *runtime.NVCC_FLAGS, *([f"-D{define}"] if define else []), "-o", so,
-           os.path.join(dst, f"{name}.cu")]
-    subprocess.run(cmd, check=True, capture_output=True, text=True)
+    macros = [f"-D{d}" for d in (define or "").split(",") if d]
+    cmd = [runtime._nvcc(), *runtime.NVCC_FLAGS, *macros, "-o", so, os.path.join(dst, f"{name}.cu")]
+    out = subprocess.run(cmd, check=True, capture_output=True, text=True)
+    with open(so + ".log", "w") as f:      # the compiler's register report
+        f.write(out.stdout + out.stderr)
     return ctypes.CDLL(so)
+
+
+K7_SHAPES = (("render_fine", 2048, 192), ("render_coarse", 2048, 64), ("train_fine", 3072, 192),
+             ("train_coarse", 3072, 64))
+# the compile-time switches of csrc/fused_pe.cu that split K7's time
+K7_SPLIT = (("compute_only", "DMNERF_PE_NO_STORE"), ("store_only", "DMNERF_PE_STORE_ONLY"))
+
+
+def _k7_launcher(runtime, fm, multires, x, e):
+    """A function of no arguments that launches the checkout's K7 once on x into e, its
+    library function resolved once: the checkout's ``_pe_launcher`` where it has one,
+    else the C entry of the earlier kernel, (x, e, P, multires, width, stream)."""
+    import torch
+
+    if hasattr(fm, "_pe_launcher"):
+        return fm._pe_launcher(x, e, multires)
+    fn = runtime.load("fused_pe").dmnerf_fused_pe
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    args = (x.data_ptr(), e.data_ptr(), x.shape[0], multires, e.shape[1],
+            torch.cuda.current_stream(x.device).cuda_stream)
+
+    def launch():
+        err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"fused_pe launch failed: cudaError {err}")
+    return launch
+
+
+def _k7_variant_ms(cs, fm, runtime, lib, multires, x, e):
+    """Device ms of the K7 library ``lib`` (a ``_variant_lib`` build of a split switch),
+    launched on x into e."""
+    keep = runtime._LOADED.get("fused_pe")
+    runtime._LOADED["fused_pe"] = lib
+    fm._PE_BLOCKS_PER_SM.clear()    # the variant's own occupancy
+    try:
+        return cs.device_ms(_k7_launcher(runtime, fm, multires, x, e))["device_ms"]
+    finally:
+        runtime._LOADED["fused_pe"] = keep
+        fm._PE_BLOCKS_PER_SM.clear()
+
+
+def k7_part(cs, fm, runtime, repo, device, pf, args):
+    """K7's times, bounds and digests (see the module's docstring), and the forward
+    kernels' digests at the fine render chunk."""
+    import torch
+
+    sincos = cs.sincosf_instructions(os.path.join(repo, "build", "sincos_probe"))
+    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sm_mhz = float(cs.smi("clocks.max.sm").split()[0])
+    res = dict(sincosf_sass=sincos, n_sms=n_sms, sm_max_mhz=sm_mhz)
+    print(f"[anatomy k7] sincosf fast path {json.dumps(sincos)}, {n_sms} SMs at {sm_mhz} MHz",
+          flush=True)
+    packed = fm.pack_params(pf, *args)
+    src = open(runtime.CSRC / "fused_pe.cu").read()
+    defines = [d for _, d in K7_SPLIT if d in src]
+    with concurrent.futures.ThreadPoolExecutor(len(defines) or 1) as pool:   # nvcc in parallel
+        libs = dict(zip(defines, pool.map(
+            lambda d: _variant_lib(runtime, "fused_pe", repo, d), defines)))
+    gen = torch.Generator().manual_seed(cs.SEED + 7)
+    for shape, N, S in K7_SHAPES:
+        pts, _ = cs._points(N, S, 0.0, 9.5, gen, device)
+        x = pts.reshape(-1, 3).contiguous()
+        P = x.shape[0]
+        e = torch.empty((P, packed.ep), dtype=torch.bfloat16, device=device)
+        r = dict(points=P, **cs.device_ms(_k7_launcher(runtime, fm, packed.multires, x, e)),
+                 call_ms=cs._time_ms(lambda: fm.pe_points(packed, x), reps=20),
+                 **cs.k7_bounds(P, packed.multires, packed.ep, sincos["per_sincosf"], n_sms,
+                                sm_mhz))
+        torch.cuda.synchronize()
+        r["digest"] = cs.digest(e)
+        if not torch.equal(e, fm.pe_points(packed, x)):
+            raise AssertionError(f"{shape}: K7's launcher and pe_points disagree")
+        r["share_of_bound"] = r["bound_ms"] / r["device_ms"]
+        r["fill_ms"] = cs.device_ms(lambda: e.fill_(0))["device_ms"]   # the write floor
+        if shape == "render_fine":
+            for vname, define in K7_SPLIT:
+                if define in libs:
+                    r[vname + "_ms"] = _k7_variant_ms(cs, fm, runtime, libs[define],
+                                                      packed.multires, x, e)
+        print(f"[anatomy k7] {shape}: {json.dumps(r)}", flush=True)
+        res[shape] = r
+        del e, x, pts
+
+    gen = torch.Generator().manual_seed(cs.SEED + 3)
+    pts, dirs = cs._points(2048, 192, 1.0, 8.0, gen, device)
+    with torch.no_grad():
+        res["fwd_digests"] = {mode: cs.digest(fm.fused_query(packed, pts, dirs, mode))
+                              for mode in FWD}
+    print(f"[anatomy k7] forward digests, fine render chunk: {json.dumps(res['fwd_digests'])}",
+          flush=True)
+    return res
 
 
 def _inputs(fm, packed, pts, dirs, mode):
@@ -98,6 +205,7 @@ def main() -> int:
     ap.add_argument("--repo", default=HERE)
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default="")
+    ap.add_argument("--k7", action="store_true", help="time K7 only (see the docstring)")
     a_ = ap.parse_args()
     import torch
 
@@ -117,12 +225,14 @@ def main() -> int:
     t0 = time.time()
     reports = runtime.build([*FWD.values(), "fused_pe"])
     regs = {}
-    for name in FWD.values():
+    for name in [*FWD.values(), "fused_pe"]:
         fn = ""
         for line in reports[name].splitlines():
             if "Compiling entry function" in line:
                 m = re.search(r"\d([a-z_]+_kernel)", line)
                 fn = (m.group(1) if m else "?") + ("<stash>" if "Lb1E" in line else "")
+                mr = re.search(r"_kernelILi(\d+)E", line)     # K7's multires template
+                fn += f"<{mr.group(1)}>" if mr else ""
             if "Used" in line and "registers" in line:
                 regs[f"{name} {fn}"] = line.strip()
     device = torch.device("cuda")
@@ -139,6 +249,9 @@ def main() -> int:
                       near=1.0, far=8.0)
     pc, pf = init_params(cfg, device)
     args = (cfg.multires, cfg.multires_views, cfg.netdepth, tuple(cfg.skips))
+    if a_.k7:
+        res["k7"] = k7_part(cs, fm, runtime, repo, device, pf, args)
+        return _emit(res, a_.out)
     gen = torch.Generator().manual_seed(cs.SEED + 3)
     S_f, S_c = cfg.N_samples + cfg.N_importance, cfg.N_samples
     shapes = {
@@ -232,11 +345,15 @@ def main() -> int:
         probe["no_epilogue_tflops"] = flops / (probe["no_epilogue_ms"] * 1e-3) / 1e12
     print(f"[anatomy] chain probe: {json.dumps(probe)}", flush=True)
     res["chain_probe"] = probe
+    return _emit(res, a_.out)
 
+
+def _emit(res, out) -> int:
+    """Print ``res`` as the last line of stdout and append it to ``out`` if given."""
     line = json.dumps(res)
-    if a_.out:
-        os.makedirs(os.path.dirname(os.path.abspath(a_.out)), exist_ok=True)
-        with open(a_.out, "a") as f:
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "a") as f:
             f.write(line + "\n")
     print(line, flush=True)
     return 0

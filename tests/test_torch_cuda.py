@@ -18,12 +18,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from dmnerf_tpu_torch.core.mlp import init_dm_nerf, rgb_stub_params, sigma_stub_params  # noqa: E402
-from dmnerf_tpu_torch.kernels import runtime  # noqa: E402
+from dmnerf_tpu_torch.kernels import fused_mlp, runtime  # noqa: E402
 from dmnerf_tpu_torch.kernels.fused_mlp import (  # noqa: E402
-    _forward, _forward_kpe, _forward_pe, _point_dirs, fused_query, fused_query_bwd,
-    fused_query_bwd_ref, fused_query_kpe_bwd, fused_query_kpe_bwd_ref, fused_query_kpe_ref,
-    fused_query_pe_bwd, fused_query_pe_bwd_ref, fused_query_pe_ref, fused_query_ref,
-    pack_params, pe_points, pe_points_ref, point_view_embedding)
+    _embedding, _forward, _forward_kpe, _forward_pe, _pe_launcher, _point_dirs, fused_query,
+    fused_query_bwd, fused_query_bwd_ref, fused_query_kpe_bwd, fused_query_kpe_bwd_ref,
+    fused_query_kpe_ref, fused_query_pe_bwd, fused_query_pe_bwd_ref, fused_query_pe_ref,
+    fused_query_ref, pack_params, pe_points, pe_points_ref, point_view_embedding)
 
 SHAPES = [
     # (multires, multires_views, D, W, skips, ins_num, N, S)
@@ -268,6 +268,133 @@ def test_fused_pe_matches_plain(cuda, shape):
     assert torch.equal(got[:, :3], x.to(torch.bfloat16))
     assert float((got[:, 3:n].float() - ref[:, 3:n]).abs().max()) <= 4e-3
     assert not got[:, n:].any()
+
+
+# point counts around K7's 128-point tiles and its persistent grid: one point, less than
+# a tile, a tile, a ragged second tile, many tiles, and enough that every block of the
+# grid walks three tiles or more at up to 8 blocks an SM, with a ragged last one
+PE_POINTS = [1, 3, 127, 128, 129, 4095, 33869, 132 * 8 * 128 * 3 + 77]
+PE_GUARD = 64
+
+
+def _pe_case(multires, P, device, seed=0):
+    """Packed narrow params at ``multires`` and an x [P, 3] between -9.5 and 9.5 that is a
+    contiguous slice from row 1 of a larger array (4-byte aligned, as a slice may be),
+    with per-ray directions for S = 1."""
+    params, args, _, _ = _inputs((multires, 2, 2, 32, (0,), 4, 1, 1), device, seed)
+    packed = pack_params(params, *args)
+    rng = np.random.RandomState(seed + P)
+    big = torch.from_numpy(rng.uniform(-9.5, 9.5, (P + 1, 3)).astype(np.float32)).to(device)
+    dirs = rng.randn(P, 3).astype(np.float32)
+    dirs = torch.from_numpy(dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)).to(device)
+    return packed, big[1:], dirs
+
+
+@pytest.mark.parametrize("P", PE_POINTS)
+@pytest.mark.parametrize("multires", [4, 6, 10])
+def test_fused_pe_ragged_points_widths_and_guard_rows(cuda, multires, P):
+    """K7 at point counts around its tiles and grid and at the packed widths of multires
+    4, 6 and 10 (EP 32, 48, 64; the first two on the generic path, the last unrolled),
+    from a 4-byte-aligned x: launched into the first P rows
+    of a larger array, it leaves the guard rows after them untouched, writes the x lanes
+    bit-equal to bf16(x), sin / cos within 4e-3 of fp32 and zero pad columns, repeats
+    bit for bit; and K5 over its e is bit for bit K1 on the same points."""
+    packed, x, dirs = _pe_case(multires, P, cuda)
+    assert x.data_ptr() % 16 == 12
+    big = torch.full((P + PE_GUARD, packed.ep), 1234.0, dtype=torch.bfloat16, device=cuda)
+    runtime.reset_launches()
+    _pe_launcher(x, big[:P], packed.multires)()
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["fused_pe"] == 1
+    got = big[:P]
+    assert torch.equal(big[P:], torch.full_like(big[P:], 1234.0))
+    n = 3 * (1 + 2 * multires)
+    ref = pe_points_ref(packed, x, torch.float32)
+    assert torch.equal(got[:, :3], x.to(torch.bfloat16))
+    assert float((got[:, 3:n].float() - ref[:, 3:n]).abs().max()) <= 4e-3
+    assert not got[:, n:].any()
+    assert torch.equal(pe_points(packed, x), got)
+    e = pe_points(packed, x)
+    ed = point_view_embedding(packed, dirs, 1, torch.bfloat16)
+    with torch.no_grad():
+        assert torch.equal(_forward_pe(packed, e, ed), _forward(packed, x[:, None, :], dirs)
+                           .reshape(P, -1))
+
+
+@pytest.mark.parametrize("multires", [6, 10])
+def test_fused_pe_slow_path_phases(cuda, multires):
+    """Every other point scaled so that its top phases pass sincosf's slow-path threshold
+    (105615 rad), so each warp mixes points with and without the range branch: x lanes
+    bit-equal to bf16(x), sin / cos within 4e-3 of fp32, pad zero, and K5 over its e bit
+    for bit K1 (compared as bits: the huge inputs may drive raw to inf)."""
+    P = 4095
+    packed, x, dirs = _pe_case(multires, P, cuda)
+    far = 400.0 * 2 ** (10 - multires)     # |x| up to 3800 * 2^(10 - multires)
+    x = x * torch.where(torch.arange(P, device=cuda) % 2 == 0, 1.0, far)[:, None]
+    assert float(x[1::2].abs().amax(dim=1).max()) * 2 ** (multires - 1) > 105615
+    got = pe_points(packed, x)
+    n = 3 * (1 + 2 * multires)
+    ref = pe_points_ref(packed, x, torch.float32)
+    assert torch.equal(got[:, :3], x.to(torch.bfloat16))
+    assert float((got[:, 3:n].float() - ref[:, 3:n]).abs().max()) <= 4e-3
+    assert not got[:, n:].any()
+    ed = point_view_embedding(packed, dirs, 1, torch.bfloat16)
+    with torch.no_grad():
+        via_k7 = _forward_pe(packed, got, ed)
+        k1 = _forward(packed, x[:, None, :].contiguous(), dirs).reshape(P, -1)
+    assert torch.equal(via_k7.view(torch.int32), k1.view(torch.int32))
+
+
+@pytest.mark.parametrize("multires, width", [(6, 40), (10, 72), (12, 80)])
+def test_fused_pe_generic_widths(cuda, multires, width):
+    """K7's generic path (every (multires, width) but the unrolled (10, 64): here a width
+    that pack_params does not give the multires, or a multires past 10) against the plain
+    embedding, and on the lanes they share bit for bit K7's output at the packed width."""
+    P = 33869
+    packed, x, _ = _pe_case(min(multires, 10), P, cuda)
+    e = torch.empty((P, width), dtype=torch.bfloat16, device=cuda)
+    _pe_launcher(x, e, multires)()
+    n = 3 * (1 + 2 * multires)
+    ref = _embedding(x, multires, width)
+    assert torch.equal(e[:, :3], x.to(torch.bfloat16))
+    assert float((e[:, 3:n].float() - ref[:, 3:n]).abs().max()) <= 4e-3
+    assert not e[:, n:].any()
+    if multires <= 10:
+        assert torch.equal(e[:, :n], pe_points(packed, x)[:, :n])
+
+
+def test_fused_pe_refuses_what_it_cannot_take(cuda):
+    """A misaligned or strided e, or a width that is not a multiple of 8, raises before
+    any launch."""
+    packed, x, _ = _pe_case(10, 300, cuda)
+    flat = torch.empty(300 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    runtime.reset_launches()
+    with pytest.raises(ValueError):
+        _pe_launcher(x, flat[1:].view(300, 64), 10)
+    with pytest.raises(ValueError):
+        _pe_launcher(x, torch.empty((300, 128), dtype=torch.bfloat16, device=cuda)[:, :64], 10)
+    with pytest.raises(ValueError):
+        _pe_launcher(x, torch.empty((300, 68), dtype=torch.bfloat16, device=cuda), 10)
+    assert runtime.LAUNCHES["fused_pe"] == 0
+
+
+@pytest.mark.parametrize("field, delta", [("tile", 32), ("tiles", 1), ("grid", 1),
+                                          ("copy_bytes", 16), ("last_copy_bytes", 16),
+                                          ("staging_bytes", -16)])
+def test_fused_pe_refuses_a_plan_off_its_tiling(cuda, monkeypatch, field, delta):
+    """K7's entry checks the plan it is launched with against the kernel's tiling: a plan
+    off by a tile, a block or 16 bytes is refused (cudaErrorInvalidValue), counts no
+    launch and writes nothing."""
+    packed, x, _ = _pe_case(10, 300, cuda)
+    plan = fused_mlp._pe_plan
+    monkeypatch.setattr(fused_mlp, "_pe_plan",
+                        lambda *a: {**plan(*a), field: plan(*a)[field] + delta})
+    e = torch.zeros((300, packed.ep), dtype=torch.bfloat16, device=cuda)
+    runtime.reset_launches()
+    with pytest.raises(RuntimeError, match="cudaError 1$"):
+        _pe_launcher(x, e, 10)()
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["fused_pe"] == 0 and not e.any()
 
 
 @pytest.mark.parametrize("shape", SHAPES)

@@ -716,3 +716,73 @@ def test_fwd_plan_tables_interpret_to_the_plain_forward(case, stub):
     assert all(off % 8 == 0 and pitch % 8 == 0 and 0 < rows <= 256
                for off, _, rows, pitch in plan["maps"])
     assert plan["table"][:3] == [len(packed.layers), len(plan["maps"]), len(plan["chunks"])]
+
+
+# ---- K7's host plan (csrc/fused_pe.cu), read by a plain interpreter ----
+
+# point counts around K7's 128-point tiles and its persistent grid; the last leaves every
+# block of a 132-SM card at up to 8 blocks an SM three tiles or more, and a ragged last one
+PE_POINTS = [1, 3, 127, 128, 129, 4095, 33869, 132 * 8 * 128 * 3 + 77]
+PE_GUARD = 64
+
+
+def _interpret_pe_plan(plan, rows, P, width):
+    """A plain reading of ``_pe_plan`` as csrc/fused_pe.cu walks it with the numbers it
+    is launched with: block b takes tiles b, b + grid, ... < tiles, into its staging
+    tiles in turn (``copy_bytes`` apart in ``staging_bytes``); thread t of tile i stages
+    row i * tile + t (rows < P) at row t of the staging tile; then one bulk copy sends
+    the staging tile's first ``copy_bytes`` (``last_copy_bytes`` for the last tile) to
+    byte i * copy_bytes of e. A copy reads its staging tile only once the block's next
+    tile is staged (one copy in flight), so too few staging tiles show as wrong rows.
+    ``rows`` [P, width] bf16 holds each point's row. Returns e with PE_GUARD rows after
+    row P (NaN where nothing was written) and the count of writes of each element."""
+    tile, tiles, grid = plan["tile"], plan["tiles"], plan["grid"]
+    copy_b, last_b, staging_b = plan["copy_bytes"], plan["last_copy_bytes"], plan["staging_bytes"]
+    walks = [list(range(b, tiles, grid)) for b in range(grid)]
+    assert sorted(i for w in walks for i in w) == list(range(tiles))
+    assert {len(w) for w in walks} <= {plan["tiles_per_block"], plan["tiles_per_block"] - 1}
+    assert all(n % 16 == 0 and n > 0 for n in (copy_b, last_b, staging_b))
+    assert last_b // (width * 2) == plan["last_rows"]
+    e = torch.full(((P + PE_GUARD) * width,), float("nan"), dtype=torch.bfloat16)
+    writes = torch.zeros_like(e, dtype=torch.int32)
+    for walk in walks:
+        staging = torch.full((staging_b // 2,), float("nan"), dtype=torch.bfloat16)
+        pending = []      # the copy in flight, read once the next tile is staged
+        for k, i in enumerate(walk + [None]):
+            if i is not None:
+                base = (k % (staging_b // copy_b)) * copy_b // 2
+                r = min(tile, P - i * tile)          # thread t's row at t * width
+                assert r * width <= copy_b // 2
+                staging[base:base + r * width] = rows[i * tile:i * tile + r].reshape(-1)
+            for j, src in pending:
+                n = (last_b if j == tiles - 1 else copy_b) // 2
+                assert src + n <= staging_b // 2
+                e[j * copy_b // 2:j * copy_b // 2 + n] = staging[src:src + n]
+                writes[j * copy_b // 2:j * copy_b // 2 + n] += 1
+            pending = [] if i is None else [(i, base)]
+    return e.view(P + PE_GUARD, width), writes.view(P + PE_GUARD, width)
+
+
+@pytest.mark.parametrize("P", PE_POINTS)
+@pytest.mark.parametrize("multires", [4, 6, 10])
+def test_pe_plan_interprets_to_the_plain_embedding(multires, P):
+    """K7's host plan for a 132-SM card at 6 blocks an SM and for a 2-SM one at 1 block
+    (hundreds of tiles a block), read by a plain interpreter of the kernel's walk
+    (persistent grid, two staging tiles, one bulk copy a tile) with the numbers the
+    kernel is launched with, at the packed widths of multires 4, 6 and 10 (EP 32, 48,
+    64): every element of e [P, EP] is written exactly once, with pe_points_ref's bf16
+    row, and nothing past row P; each copy is a multiple of 16 bytes at a 16-byte
+    offset; the grid is as small as the tiles a block allow."""
+    p = tmlp.init_dm_nerf(ins_num=4, D=2, W=32, input_ch_pts=3 * (1 + 2 * multires),
+                          input_ch_views=3 * 5, skips=(0,), device="cpu")
+    packed = tfm.pack_params(p, multires, 2, 2, (0,))
+    x = torch.from_numpy(np.random.RandomState(P).uniform(-9.5, 9.5, (P, 3)).astype(np.float32))
+    want = tfm.pe_points_ref(packed, x, torch.bfloat16)
+    for n_sms, per_sm in ((132, 6), (2, 1)):
+        plan = tfm._pe_plan(P, packed.ep, n_sms, per_sm)
+        assert plan["grid"] <= n_sms * per_sm
+        assert plan["grid"] == -(-plan["tiles"] // plan["tiles_per_block"])
+        e, writes = _interpret_pe_plan(plan, want, P, packed.ep)
+        assert torch.equal(writes[:P], torch.ones_like(writes[:P])) and not writes[P:].any()
+        assert torch.equal(e[:P].view(torch.int16), want.view(torch.int16))
+        assert torch.isnan(e[P:].float()).all()
