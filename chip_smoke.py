@@ -97,6 +97,24 @@
    and in range, and the same view through the plain PyTorch query on the card held
    to the render phase's bars. Prints ms per view, and the device time of one more
    kernel view by kernel (torch.profiler): K7's and K5's, the rest, and K7's share.
+12. Mesh phase, at the flagship width (configs/test/dmsr/study.txt, near 1, far 8,
+   N_importance 128, ins_num 32) with seeded weights on a synthetic DM-SR scene built
+   in memory: make_sigma_query over the full 256^3 grid (build_grid, identity frame)
+   in exactly 256 K1 launches of 65,536 points (1,024 rays of 64 samples, zero view
+   dirs, sigma stub), its sigma against the fp32 plain sweep on the card (max|d| <=
+   5e-3 * max(scale, 1)) with the share of grid points on the other side of the level,
+   the stub's sigma against the full model's on one chunk (1e-5); the sweep's ms
+   (CUDA events) and host ms, and K1's own device time in it (torch.profiler), which
+   over the 256 launches is a launch's ms, beside its bound, one call's event-pair time
+   (call_ms), the fp32 plain version's and the bf16 addmm chain's. At
+   seeded weights the reference level 0.45 gives an empty surface (occupancy stays
+   below 0.01), so the level is the 99.9th percentile of the kernel sweep's occupancy,
+   printed. Then run_test's mesh mode at that level: a non-empty surface, mesh.ply
+   and color_mesh.ply written and read back, exactly 256 + 2 x ceil(V / N_test) K1
+   launches (the sweep, then the colour render of the V cleaned vertices), and the
+   same vertex rays through the plain query on the card with at most 1% of the
+   vertices on another argmax label. Prints the vertex and face counts, each host
+   stage's seconds, the peak resident memory and the peak device memory.
 
 The line before the last is a JSON object with each kernel's numbers and its
 launches on each path; the last line is {"ok": true, "device": {...}}. Any failure
@@ -1269,6 +1287,158 @@ def mani_phase(device):
     return eval_launches, demo_launches
 
 
+MESH_GRID = 256
+MESH_LEVEL_QUANTILE = 0.999
+
+
+def mesh_phase(cfg, device):
+    """The mesh path: the 256^3 sigma sweep (K1) against the plain sweep, then
+    run_test's mesh mode at a level the sweep sets, its colour render against the
+    plain query."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dmnerf_tpu_torch.core.mlp import sigma_stub_params
+    from dmnerf_tpu_torch.core.pipeline import make_query_fn, make_torch_query_fn
+    from dmnerf_tpu_torch.data.synthetic import build_dmsr_scene
+    from dmnerf_tpu_torch.kernels import runtime
+    from dmnerf_tpu_torch.render.renderer import make_image_renderer
+    from dmnerf_tpu_torch.test import init_params, run_test
+    from dmnerf_tpu_torch.tools.mesh_extract import (DEFAULT_EXTENTS, build_grid,
+                                                     make_sigma_query)
+    from dmnerf_tpu_torch.tools.meshing import read_ply
+
+    scene = build_dmsr_scene(n_train=1, n_test=1, H=64, W=64, n_objects=4, ins_num=32, seed=SEED)
+    cfg = cfg.replace(near=1.0, far=8.0, ins_num=scene.ins_num, perturb=0.0, render=False,
+                      mesh=True, mesh_grid_dim=MESH_GRID)
+    pc, pf = init_params(cfg, device)
+    grid = torch.from_numpy(build_grid(np.eye(4), DEFAULT_EXTENTS, MESH_GRID)).to(device)
+    sweep = make_sigma_query(cfg)
+
+    # the sweep: its launches, times and sigma against the fp32 plain sweep
+    runtime.reset_launches()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    sigma = sweep(pf, grid)
+    end.record()
+    end.synchronize()
+    sweep_host_ms = (time.perf_counter() - t0) * 1e3
+    sweep_ms = start.elapsed_time(end)
+    sweep_launches = dict(runtime.LAUNCHES)
+    n_chunks = -(-MESH_GRID ** 3 // 65536)       # 256 at 256^3: the default chunk's launches
+    for k in runtime.KERNELS:
+        want = n_chunks if k == "fused_mlp_fwd" else 0
+        if sweep_launches[k] != want:
+            raise AssertionError(f"the {MESH_GRID}^3 sweep launched {k} {sweep_launches[k]} "
+                                 f"times, want {want}")
+    k1_sweep = launch_split(lambda: sweep(pf, grid), reps=1,
+                            kinds=(("k1", ("fused_mlp_fwd_kernel",)),))
+    plain_sigma = make_sigma_query(cfg.replace(use_pallas=False))(pf, grid)
+    scale = float(plain_sigma.abs().max())
+    err = float((sigma - plain_sigma).abs().max())
+    if not torch.isfinite(sigma).all() or sigma.shape != (MESH_GRID ** 3,):
+        raise AssertionError(f"sweep sigma not finite or of shape {tuple(sigma.shape)}")
+
+    # one chunk: the stub's sigma against the full model's, and one launch's times
+    query_fn = make_query_fn(cfg)
+    stub, full = sigma_stub_params(pf), pf
+    packed_stub, packed_full = query_fn.prepare(stub), query_fn.prepare(full)
+    pts = grid[:65536].reshape(1024, 64, 3).contiguous()     # build_grid's axis swap strides it
+    dirs = torch.zeros((1024, 3), device=device)
+    with torch.no_grad():
+        raw = query_fn.query(packed_stub, pts, dirs)
+        full_sigma = query_fn.query(packed_full, pts, dirs)[..., 3]
+        stub_err = float((raw[..., 3] - full_sigma).abs().max())
+        sig_scale = float(full_sigma.abs().max())
+        ref32 = _plain_fwd("kernel_t", packed_stub, pts, dirs, torch.float32)
+        ms = _time_ms(lambda: query_fn.query(packed_stub, pts, dirs))
+        plain_ms = _time_ms(lambda: _plain_fwd("kernel_t", packed_stub, pts, dirs, torch.float32),
+                            reps=5)
+        library_ms = _time_ms(lambda: library_query(packed_stub, pts, dirs))
+    flops = 2.0 * query_macs(stub) * pts.shape[0] * pts.shape[1]
+    nbytes = (pts.numel() * 4 + dirs.numel() * 4 + packed_stub.w_bf16.numel() * 2
+              + packed_stub.b.numel() * 4 + raw.numel() * 4)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    # ms: K1's device time a launch in the sweep (torch.profiler); call_ms: one event pair
+    # around one query call, the host's enqueue included
+    launch = dict(points=pts.shape[0] * pts.shape[1], max_abs_err=float((raw - ref32).abs().max()),
+                  ms=k1_sweep["k1"] / n_chunks, call_ms=ms, plain_ms=plain_ms,
+                  library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
+                  bound_by="operations" if t_ops >= t_bytes else "bytes", gflop=flops / 1e9,
+                  mbytes=nbytes / 1e6)
+    if stub_err > STUB_TOL * max(sig_scale, 1.0):
+        raise AssertionError(f"mesh chunk: stub sigma max|d| {stub_err:.3e} > {STUB_TOL} * "
+                             f"max({sig_scale:.3e}, 1)")
+
+    # the level: a high quantile of the kernel sweep's occupancy (seeded weights keep
+    # occupancy far below the reference's 0.45)
+    voxel = (cfg.far - cfg.near) / cfg.N_importance
+    occ = 1.0 - torch.exp(-torch.relu(sigma) * voxel)
+    occ_plain = 1.0 - torch.exp(-torch.relu(plain_sigma) * voxel)
+    level = float(np.quantile(occ.cpu().numpy(), MESH_LEVEL_QUANTILE))
+    side_share = float(((occ > level) != (occ_plain > level)).float().mean())
+    del plain_sigma, occ_plain, ref32
+
+    # run_test's mesh mode at that level
+    with tempfile.TemporaryDirectory() as tmp:
+        mcfg = cfg.replace(basedir=tmp, expname="chip_smoke_mesh", mesh_level=level)
+        runtime.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        stats = run_test(mcfg, device, scene=scene)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        launches = dict(runtime.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if not stats["faces"] or stats["path"] is None:
+            raise AssertionError(f"empty iso-surface at level {level}")
+        savedir = os.path.dirname(stats["path"])
+        v_raw, f_raw = read_ply(os.path.join(savedir, "mesh.ply"))
+        v_col, f_col = read_ply(stats["path"])
+    if (len(v_raw), len(f_raw)) != (stats["verts"], stats["faces"]) or \
+            (len(v_col), len(f_col)) != (stats["clean_verts"], stats["clean_faces"]):
+        raise AssertionError("mesh.ply / color_mesh.ply read back with other counts than written")
+    n_verts = stats["clean_verts"]
+    want = n_chunks + 2 * math.ceil(n_verts / cfg.N_test)
+    for k in runtime.KERNELS:
+        if launches[k] != (want if k == "fused_mlp_fwd" else 0):
+            raise AssertionError(f"mesh mode launched {k} {launches[k]} times, want "
+                                 f"{want if k == 'fused_mlp_fwd' else 0} ({n_chunks} sweep + "
+                                 f"2 x ceil({n_verts} / {cfg.N_test}) colour chunks)")
+
+    # the vertex rays through the plain query: the labels against the kernel's
+    plain_q = make_torch_query_fn(cfg.multires, cfg.multires_views, cfg.netdepth, tuple(cfg.skips))
+    plain = make_image_renderer(cfg.replace(near=0.01, far=15.0, perturb=0.0), query_fn=plain_q)
+    plain_labels = plain(pc, pf, stats["rays_o"], stats["rays_d"])["ins"].argmax(-1).cpu().numpy()
+    flip = float((plain_labels != stats["labels"]).mean())
+
+    out = dict(grid=MESH_GRID, points=MESH_GRID ** 3, sweep_launches=sweep_launches["fused_mlp_fwd"],
+               sweep_ms=sweep_ms, sweep_host_ms=sweep_host_ms, sweep_k1_device_ms=k1_sweep["k1"],
+               sweep_other_device_ms=k1_sweep["other"], sigma_scale=scale,
+               sigma_max_abs_err=err, level_quantile=MESH_LEVEL_QUANTILE, level=level,
+               occupancy_max=float(occ.max()), other_side_share=side_share,
+               stub_sigma_max_abs_err=stub_err, launch=launch, mesh_s=mesh_s,
+               verts=stats["verts"], faces=stats["faces"], clean_verts=n_verts,
+               clean_faces=stats["clean_faces"], host_s=stats["seconds"],
+               peak_rss_gb=stats["peak_rss_gb"], peak_mem_gb=peak_gb, launches=launches,
+               label_flip_share=flip)
+    print(f"[mesh] level {level:.6g} (the {MESH_LEVEL_QUANTILE} quantile of the kernel sweep's "
+          f"occupancy)", flush=True)
+    print(f"[mesh] {json.dumps(out)}", flush=True)
+    if err > KERNEL_TOL * max(scale, 1.0):
+        raise AssertionError(f"sweep sigma vs fp32 plain sweep: max|d| {err:.3e} > {KERNEL_TOL} "
+                             f"* max({scale:.3e}, 1)")
+    if flip > MAX_LABEL_FLIP:
+        raise AssertionError(f"vertex labels, kernel vs plain query: {flip:.4f} differ (want <= "
+                             f"{MAX_LABEL_FLIP})")
+    return launches, launch
+
+
 def _entry(name, replaces, launches, by_path, res, **extra):
     return {"name": name, "route": "cuda", "source": f"dmnerf_tpu_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": launches, "launches_by_path": by_path[name],
@@ -1343,17 +1513,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     scannet_render_launches = render_scannet_phase(device, scene, state.params_coarse,
                                                    state.params_fine)
+    del scene, state
+    torch.cuda.empty_cache()
+    mesh_launches, mesh_launch = mesh_phase(cfg, device)
 
     paths = {"render": render_launches, "train": train_launches, "train_kpe": kpe_train_launches,
              "mani_eval": eval_launches, "mani_demo": demo_launches,
-             "train_scannet": scannet_train_launches, "render_scannet": scannet_render_launches}
+             "train_scannet": scannet_train_launches, "render_scannet": scannet_render_launches,
+             "mesh": mesh_launches}
     by_path = {name: {path: n[name] for path, n in paths.items()} for name in runtime.KERNELS}
     for name in runtime.KERNELS:
         if sum(by_path[name].values()) == 0:
             raise AssertionError(f"{name} was never launched on the main paths")
     kernels = [
         _entry("fused_mlp_fwd", "dmnerf_tpu/kernels/fused_mlp.py:507", render_launches["fused_mlp_fwd"],
-               by_path, kres["fine"]),
+               by_path, kres["fine"], mesh_launch=mesh_launch),
         _entry("fused_mlp_bwd", "dmnerf_tpu/kernels/fused_mlp.py:520", train_launches["fused_mlp_bwd"],
                by_path, bres["fine"], **_bwd_extra(bres["fine"])),
         _entry("fused_mlp_fwd_kpe", "dmnerf_tpu/kernels/fused_mlp.py:462",

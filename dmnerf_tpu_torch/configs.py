@@ -13,11 +13,12 @@ forward, K2 backward), ``'kernel'`` the per-point in-kernel embedding kernels (K
 K4), ``'outside'`` the embedding kernel (K7) and the kernels over precomputed
 embeddings (K5 forward, K6 backward); any other value is refused here. The tile knobs
 (``pallas_tile_fwd``, ``pallas_tile_bwd``) size the TPU's grid tiles and the
-JAX-only switches (``data_axis``, ``multihost``, ``steps_per_dispatch``,
-``profile_*``) are parsed so that config files stay interchangeable, and have no
-effect here. ``debug_nans`` makes every train step check its losses and gradients
-for finiteness and raise ``FloatingPointError`` at the first non-finite one
-(``render.trainstep.check_finite``).
+JAX-only switches (``data_axis``, ``multihost``, ``steps_per_dispatch``) are parsed
+so that config files stay interchangeable, and have no effect here. ``debug_nans``
+makes every train step check its losses and gradients for finiteness and raise
+``FloatingPointError`` at the first non-finite one (``render.trainstep.check_finite``);
+``profile_dir`` traces the steps ``profile_start`` ... ``profile_start +
+profile_steps - 1`` with ``torch.profiler`` (``train.profile_trace``).
 """
 
 from __future__ import annotations

@@ -58,14 +58,19 @@ def lr_at_step(cfg: Config, step) -> float:
     return cfg.lrate * 0.1 ** (step / (cfg.lrate_decay * 1000.0))
 
 
+def make_adam(params_coarse, params_fine, lr: float) -> torch.optim.Adam:
+    """The run's Adam: one group of the coarse tensors then the fine ones, in each
+    dict's order."""
+    return torch.optim.Adam([*params_coarse.values(), *params_fine.values()], lr=lr,
+                            betas=(0.9, 0.999), eps=1e-8)
+
+
 def create_train_state(cfg: Config, params_coarse, params_fine, step: int = 0) -> TrainState:
     """A state over the given parameters (detached copies that require a gradient),
     with a fresh Adam."""
     pc = {k: v.detach().clone().requires_grad_(True) for k, v in params_coarse.items()}
     pf = {k: v.detach().clone().requires_grad_(True) for k, v in params_fine.items()}
-    opt = torch.optim.Adam([*pc.values(), *pf.values()], lr=lr_at_step(cfg, step),
-                           betas=(0.9, 0.999), eps=1e-8)
-    return TrainState(step, pc, pf, opt)
+    return TrainState(step, pc, pf, make_adam(pc, pf, lr_at_step(cfg, step)))
 
 
 def compute_losses(cfg: Config, info: Dict[str, torch.Tensor], batch: Batch,

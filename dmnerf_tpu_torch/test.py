@@ -3,8 +3,10 @@
 ``render`` renders the test views and evaluates them; ``mani_eval`` renders the
 manipulated test views of ``mani_mode`` against the manipulated ground truth
 (``indoor_{mani_mode}_test``); ``mani_demo`` renders the objects of objs_info.json
-moving over ``views`` frames. ``mesh`` is not ported yet and raises. The query's
-kernel pair follows ``pallas_pe_mode``.
+moving over ``views`` frames; ``mesh`` sweeps the fine model's density over a
+``mesh_grid_dim``^3 grid, extracts the iso-surface at ``mesh_level`` and colours its
+vertices by instance (tools.mesh_extract). The query's kernel pair follows
+``pallas_pe_mode``. ``run_test`` returns what the mode's function returns.
 
 Usage:  python -m dmnerf_tpu_torch.test --config configs/test/dmsr/study.txt [key=value ...]
         [--device cpu]    (default: the CUDA card; without one it raises)
@@ -25,11 +27,6 @@ from dmnerf_tpu_torch.data.scene import load_scene
 from dmnerf_tpu_torch.render.evaluation import render_test
 from dmnerf_tpu_torch.utils.checkpoint import load_checkpoint, resolve_ckpt_path, restore_checkpoint
 from dmnerf_tpu_torch.utils.device import resolve_device
-
-_NOT_PORTED = {
-    "mesh": "ROADMAP.md queue 1, 'Mesh'",
-}
-
 
 def load_color_dict(cfg: Config):
     """data/color_dict.json keyed [dataset][scene]; else a per-scene
@@ -90,16 +87,15 @@ def load_params(cfg: Config, device=None):
     return pc, pf, 0
 
 
-def run_test(cfg: Config, device=None) -> None:
+def run_test(cfg: Config, device=None, scene=None):
+    """Run the config's test mode on ``device`` (default: the CUDA card) over ``scene``
+    (default: the config's dataset, read from ``datadir``)."""
     device = resolve_device(device)
-    for mode, item in _NOT_PORTED.items():
-        if getattr(cfg, mode):
-            raise NotImplementedError(f"test mode {mode!r} is not ported yet ({item})")
-    if cfg.mani_eval:
+    if scene is None and cfg.mani_eval:
         from dmnerf_tpu_torch.data.dmsr_mani import load_dmsr_mani
 
         scene = load_dmsr_mani(cfg)
-    else:
+    elif scene is None:
         scene = load_scene(cfg)
     cfg = cfg.replace(ins_num=scene.ins_num, perturb=0.0)
     params_coarse, params_fine, iteration = load_params(cfg, device)
@@ -110,7 +106,7 @@ def run_test(cfg: Config, device=None) -> None:
             cfg.log_dir, f"render_{'test' if cfg.render_test else 'path'}_{iteration:06d}")
         os.makedirs(savedir, exist_ok=True)
         ids = scene.i_test
-        render_test(
+        result = render_test(
             cfg, params_coarse, params_fine, scene.poses[ids], scene.hwk,
             gt_imgs=scene.images[ids], gt_labels=scene.gt_labels[ids],
             ins_rgbs=scene.ins_rgbs, savedir=savedir, crop_mask=scene.crop_mask,
@@ -126,7 +122,7 @@ def run_test(cfg: Config, device=None) -> None:
         generate_poses_eval(cfg)
         savedir = os.path.join(cfg.log_dir, f"mani_eval_{iteration:06d}")
         os.makedirs(savedir, exist_ok=True)
-        manipulator_eval(
+        result = manipulator_eval(
             cfg, params_coarse, params_fine, scene.poses, scene.hwk,
             trans_dicts=load_mani_poses(cfg.datadir), save_dir=savedir,
             ins_rgbs=scene.ins_rgbs, gt_rgbs=scene.images, gt_labels=scene.gt_labels,
@@ -142,15 +138,27 @@ def run_test(cfg: Config, device=None) -> None:
         generate_poses_demo(scene.objs, cfg)
         savedir = os.path.join(cfg.log_dir, f"mani_demo_{iteration:06d}")
         os.makedirs(savedir, exist_ok=True)
-        manipulator_demo(
+        result = manipulator_demo(
             cfg, params_coarse, params_fine, scene.hwk,
             objs_trans=load_obj_poses(cfg.datadir), save_dir=savedir,
             ins_rgbs=scene.ins_rgbs, objs=scene.objs, view_poses=scene.view_poses,
             ins_map=scene.ins_map, color_dict=color_dict, device=device,
         )
         print("Manipulating Done", savedir)
+
+    elif cfg.mesh:
+        from dmnerf_tpu_torch.tools.mesh_extract import mesh_main
+
+        savedir = os.path.join(cfg.log_dir, f"mesh_{iteration:06d}")
+        os.makedirs(savedir, exist_ok=True)
+        result = mesh_main(cfg, params_coarse, params_fine, scene.ins_rgbs, savedir,
+                           ins_map=scene.ins_map, color_dict=color_dict,
+                           grid_dim=cfg.mesh_grid_dim, level=cfg.mesh_level, device=device)
+        print("Meshing Done", savedir)
     else:
         print("no eval mode selected (render / mani_eval / mani_demo / mesh)")
+        result = None
+    return result
 
 
 def main(argv=None):

@@ -13,8 +13,11 @@ sampler, whose labelled rays form the batch suffix that the instance loss sees
 (``N_ins``); every other scene on the full-image sampler.
 
 Steps run one by one. ``steps_per_dispatch`` packs TPU dispatches in the JAX package
-and leaves the trajectory unchanged, so it changes nothing here. ``multihost`` and
-``profile_dir`` raise NotImplementedError. ``debug_nans`` stops the run with
+and leaves the trajectory unchanged, so it changes nothing here. ``multihost`` raises
+NotImplementedError. With ``profile_dir`` the steps ``profile_start`` to
+``profile_start + profile_steps - 1`` run under ``torch.profiler`` (host and, on the
+card, device activity), and their Chrome trace is written under ``profile_dir``
+(``profile_trace``). ``debug_nans`` stops the run with
 FloatingPointError at the first step whose loss or parameter gradients are not finite,
 before Adam applies them (render.trainstep.check_finite).
 
@@ -56,6 +59,27 @@ def _save(log_dir: str, state: TrainState) -> str:
                            state.opt.state_dict())
 
 
+def profile_trace(device) -> torch.profiler.profile:
+    """A started torch.profiler over host and, on the card, device activity."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _write_trace(prof, cfg: Config, device, first: int, last: int) -> str:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(cfg.profile_dir, exist_ok=True)
+    path = os.path.join(cfg.profile_dir, f"train_steps_{first:06d}-{last:06d}.json")
+    prof.export_chrome_trace(path)
+    print(f"[train] wrote profiler trace to {path}")
+    return path
+
+
 def make_sampler(cfg: Config, scene: SceneData, device):
     """(sampler, N_ins): the crop sampler exactly when the scene has a crop mask and
     labelled pixel ids, else the full-image sampler and None."""
@@ -73,9 +97,6 @@ def train(cfg: Config, scene: Optional[SceneData] = None, device=None) -> TrainS
     if cfg.multihost or os.environ.get("DMNERF_MULTIHOST", "") == "1":
         raise NotImplementedError("multi-host training is not ported yet "
                                   "(ROADMAP.md queue 1, 'Multi-GPU')")
-    if cfg.profile_dir is not None:
-        raise NotImplementedError("profile_dir is not ported yet (ROADMAP.md queue 1, "
-                                  "'Tools and bench')")
     if scene is None:
         scene = load_scene(cfg)
     if cfg.steps_per_dispatch > 1:
@@ -108,7 +129,14 @@ def train(cfg: Config, scene: Optional[SceneData] = None, device=None) -> TrainS
 
     t_last = time.time()
     rays_done = 0
+    prof, prof_from = None, None
     for i in range(state.step, cfg.N_iters):
+        if cfg.profile_dir is not None:
+            if i == cfg.profile_start:
+                prof, prof_from = profile_trace(device), i
+            elif prof is not None and i == cfg.profile_start + cfg.profile_steps:
+                _write_trace(prof, cfg, device, prof_from, i - 1)
+                prof = None
         aux = step_fn(state, sampler(gen_batch), generator=gen_step)
         rays_done += cfg.N_train
 
@@ -135,6 +163,8 @@ def train(cfg: Config, scene: Optional[SceneData] = None, device=None) -> TrainS
                         ins_rgbs=scene.ins_rgbs, savedir=os.path.join(log_dir, f"testset_{i:06d}"),
                         crop_mask=scene.crop_mask, device=device)
 
+    if prof is not None:
+        _write_trace(prof, cfg, device, prof_from, cfg.N_iters - 1)
     _save(log_dir, state)
     logger.close()
     return state

@@ -4,15 +4,22 @@ parameters saved without one), and callers that only render ignore it.
 
 A run keeps them as ``<run>/checkpoints/<step>.pt``, written zero-padded
 (``000100.pt``); the reader takes padded and unpadded names alike.
+
+``checkpoint_from_numpy`` turns the JAX package's checkpoint, read as numpy
+(``scripts/orbax_to_torch.py`` reads it from Orbax), into this format.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Dict, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
+
+from dmnerf_tpu_torch.core.mlp import params_from_numpy
+from dmnerf_tpu_torch.render.trainstep import make_adam
 
 _NAME = re.compile(r"(\d+)\.pt")
 
@@ -91,3 +98,30 @@ def restore_checkpoint(log_dir: str, device):
     ``log_dir``, or None if there is none."""
     steps = _steps(log_dir)
     return load_checkpoint(steps[max(steps)], device) if steps else None
+
+
+def checkpoint_from_numpy(tree: Mapping) -> Tuple[Dict, Dict, int, Dict]:
+    """(params_coarse, params_fine, step, opt_state) of a JAX package checkpoint given
+    as numpy: ``{step, params_coarse, params_fine, opt_state}``, where ``opt_state`` is
+    the state of ``optax.adam`` over ``(params_coarse, params_fine)`` (a chain whose
+    first element holds ``count``, ``mu`` and ``nu``, each moment a pair of dicts).
+
+    The parameters keep the tree's keys and layout. The moments become the state of
+    the run's Adam over these parameters (``render.trainstep.make_adam``: the coarse
+    tensors then the fine ones, in each dict's insertion order), each placed by its
+    key, whatever order the tree's dicts have (JAX flattens them sorted). The group's
+    learning rate is left at 0: the train step sets it before every update."""
+    pc = params_from_numpy(tree["params_coarse"], "cpu")
+    pf = params_from_numpy(tree["params_fine"], "cpu")
+    adam = tree["opt_state"][0]
+    count = float(np.asarray(adam["count"]))
+    state = make_adam(pc, pf, lr=0.0).state_dict()
+    keys = [(0, k, v) for k, v in pc.items()] + [(1, k, v) for k, v in pf.items()]
+    for i, (which, k, v) in enumerate(keys):
+        moments = [torch.from_numpy(np.array(adam[m][which][k], copy=True)) for m in ("mu", "nu")]
+        if any(t.shape != v.shape for t in moments):
+            raise ValueError(f"Adam moments of {k} have shapes {[tuple(t.shape) for t in moments]}, "
+                             f"the parameter {tuple(v.shape)}")
+        state["state"][i] = {"step": torch.tensor(count, dtype=torch.float32),
+                             "exp_avg": moments[0], "exp_avg_sq": moments[1]}
+    return pc, pf, int(np.asarray(tree["step"])), state

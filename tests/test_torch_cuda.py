@@ -579,3 +579,49 @@ def test_forward_template_stash_and_repeats_bit_exact(cuda, mode):
     torch.cuda.synchronize()
     assert torch.equal(first, second)
     assert torch.equal(stashed.detach(), first)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_mesh_sweep_chunk_zero_viewdirs(cuda, mode):
+    """The mesh sweep's launch: 65,536 grid points as 1,024 rays of 64 samples with
+    zero view dirs through the sigma stub, one launch of the forward kernel (and one of
+    K7 under ``outside``) and no other, within the forward bars; its sigma within 1e-5
+    of the full model's."""
+    from dmnerf_tpu_torch.tools.mesh_extract import DEFAULT_EXTENTS, build_grid
+
+    params, args, _, _ = _inputs((10, 4, 8, 256, (4,), 32, 1, 1), cuda, seed=8)
+    grid = torch.from_numpy(build_grid(np.eye(4), DEFAULT_EXTENTS, 41)).to(cuda)
+    pts = grid[:65536].reshape(1024, 64, 3).contiguous()
+    dirs = torch.zeros((1024, 3), device=cuda)
+    stub = pack_params(sigma_stub_params(params), *args)
+    runtime.reset_launches()
+    with torch.no_grad():
+        once = fused_query(stub, pts, dirs, mode).reshape(-1, stub.c4)
+    torch.cuda.synchronize()
+    want = {fused_mlp._FWD_NAME[mode]: 1, **({"fused_pe": 1} if mode == "outside" else {})}
+    assert {k: v for k, v in runtime.LAUNCHES.items() if v} == want
+    got = _check_fwd(mode, stub, pts, dirs)
+    assert torch.equal(got, once)
+    with torch.no_grad():
+        full = fused_query(pack_params(params, *args), pts, dirs, mode)[..., 3].reshape(-1)
+    assert float((got[:, 3] - full).abs().max()) <= 1e-5 * max(float(full.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("n", [65536, 2 * 65536 + 1001])
+def test_sigma_query_sweep_on_the_card(cuda, n):
+    """make_sigma_query over a whole chunk and a ragged count (the tail padded): one K1
+    launch a chunk, sigma within the forward bar of the plain PyTorch sweep."""
+    from dmnerf_tpu_torch.configs import Config
+    from dmnerf_tpu_torch.tools.mesh_extract import make_sigma_query
+
+    params, _, _, _ = _inputs((10, 4, 8, 256, (4,), 32, 1, 1), cuda, seed=9)
+    pts = torch.from_numpy(np.random.RandomState(9).uniform(-3.5, 3.5, (n, 3))
+                           .astype(np.float32)).to(cuda)
+    cfg = Config(ins_num=32)
+    runtime.reset_launches()
+    got = make_sigma_query(cfg)(params, pts)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["fused_mlp_fwd"] == -(-n // 65536)
+    want = make_sigma_query(cfg.replace(use_pallas=False))(params, pts)
+    assert got.shape == want.shape == (n,) and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 5e-3 * max(float(want.abs().max()), 1.0)

@@ -1,8 +1,8 @@
 """The port's eval entry point (dmnerf_tpu_torch.test) vs the JAX one on the CPU: render
 mode on a 32x32 DM-SR scene, from a port checkpoint converted from the JAX
 checkpoint's parameters, reproduces the JAX test_results.txt rows (LPIPS NaN on both
-sides, weights absent); plus the checkpoint resolver and the mode not ported yet
-(mesh; the manipulation modes are in tests/test_torch_manipulator.py)."""
+sides, weights absent); plus the checkpoint resolver. The manipulation modes are in
+tests/test_torch_manipulator.py, the mesh mode in tests/test_torch_mesh.py."""
 
 import os
 
@@ -85,9 +85,3 @@ def test_checkpoint_resolution(env, tmp_path, capsys):
     _, _, step = load_params(fresh, device="cpu")
     assert step == 0 and "using init params" in capsys.readouterr().out
 
-
-@pytest.mark.parametrize("mode", ["mesh"])
-def test_modes_not_ported_raise(env, mode):
-    _, tcfg = env
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_test(tcfg.replace(render=False, **{mode: True}), device="cpu")

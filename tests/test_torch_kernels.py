@@ -130,7 +130,7 @@ def test_packed_layout_pads_to_the_kernel_grid():
 
 
 def test_import_guard():
-    """No module of the port, nor chip_smoke.py, imports JAX or the JAX package."""
+    """No module of the port, nor chip_smoke.py, imports JAX, orbax or the JAX package."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import dmnerf_tpu_torch\n"
@@ -148,7 +148,7 @@ def test_import_guard():
         "                           'fused_mlp_bwd_kpe', 'fused_mlp_fwd_pe', 'fused_mlp_bwd_pe',\n"
         "                           'fused_pe')\n"
         "assert all((runtime.CSRC / f'{k}.cu').exists() for k in runtime.KERNELS)\n"
-        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'dmnerf_tpu')]\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'dmnerf_tpu', 'orbax')]\n"
         "assert not bad, bad\n"
         "print(len([k for k in sys.modules if k.startswith('dmnerf_tpu_torch')]))\n"
     )

@@ -269,9 +269,14 @@ def test_train_cli_needs_cuda_or_an_explicit_cpu(scene, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train(_cli_cfg(tmp_path), scene)
-    for kw in ({"multihost": True}, {"profile_dir": str(tmp_path / "prof")}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train(_cli_cfg(tmp_path, **kw), scene, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train(_cli_cfg(tmp_path, multihost=True), scene, device="cpu")
+    # profile_dir traces steps 1 and 2 of 4 on the CPU
+    cfg = _cli_cfg(tmp_path, expname="prof", profile_dir=str(tmp_path / "prof"),
+                   profile_start=1, profile_steps=2)
+    assert train(cfg, scene, device="cpu").step == 4
+    with open(tmp_path / "prof" / "train_steps_000001-000002.json") as f:
+        assert json.load(f)["traceEvents"]
 
 
 def _nan_states(scene):
