@@ -4,7 +4,7 @@
 
 0. Requires a CUDA card of capability 9.0 and prints its name and power limit.
    TF32 is off, so the fp32 plain path is really fp32.
-1. Builds every kernel of the render, train and manipulation paths (K1-K7) from
+1. Builds every kernel of the render, train and manipulation paths (K1-K8) from
    dmnerf_tpu_torch/kernels/csrc with nvcc (sm_90a), one process per source, all
    started together, and prints the build time and the compiler's register report.
 2. Kernel phase, at the flagship model's width (configs/test/dmsr/study.txt:
@@ -115,6 +115,27 @@
    same vertex rays through the plain query on the card with at most 1% of the
    vertices on another argmax label. Prints the vertex and face counts, each host
    stage's seconds, the peak resident memory and the peak device memory.
+13. Fused render phase (scripts/fused_render_probe_torch.py's view), at the flagship
+   width (configs/test/dmsr/study.txt, ins_num 32, near 1, far 8, seeded weights): the
+   first test view (256x256) of a synthetic DM-SR scene through make_fused_renderer
+   (exactly one K8c and one K8f launch a chunk and no K1) and through
+   make_image_renderer (K1) with the same weights: the fused view's maps finite and in
+   range, its rgb PSNR >= 40 dB against the K1 view and at most 1% of its pixels on
+   another argmax label; both views' ms (host clock, in turns) and, from one view of
+   each under torch.profiler, the device activities a chunk, the busy ms and the idle
+   share. Then K8c (the sigma stub's weights over the coarse depths) and K8f (the maps
+   over the fine depths sample_pdf draws from K8c's weights) at the view's first chunk
+   (2048 rays) against their bf16 plain versions (the same roundings) and their fp32
+   plain versions, max|d| <= 5e-3 * max(scale, 1). The last sample's weight, T (1 -
+   exp(-relu(sigma) 1e10 |d|)), jumps between 0 and T as sigma crosses 0; rays where the
+   bf16 roundings of the query move it across (the fp32 and bf16 plain versions then
+   disagree there beyond the bar) are counted and held to the bf16 plain version only
+   (K8c: that sample only; K8f: the ray's maps). Each pass's device time from 50
+   back-to-back launches (device_ms) beside K1's over the same products and the points
+   the plain path forms (k1_device_ms: the pass without its point formation and
+   compositing), the wrapper's per-call time, the fp32 plain version's, the library
+   yardstick's (the bf16 addmm chain, then the PyTorch compositing) and the bound (executed matrix FLOPs over 989 TFLOP/s, or bytes over
+   3.35 TB/s, whichever is larger).
 
 The line before the last is a JSON object with each kernel's numbers and its
 launches on each path; the last line is {"ok": true, "device": {...}}. Any failure
@@ -1014,7 +1035,7 @@ def train_phase(device, pe_mode=None, steps=TRAIN_STEPS, dataset="dmsr"):
         launches = dict(runtime.LAUNCHES)
         with open(os.path.join(cfg.log_dir, "metrics.jsonl")) as f:
             recs = [json.loads(line) for line in f]
-    for name in runtime.KERNELS:
+    for name in runtime.COUNTED:
         want = 2 * steps if name in STEP_KERNELS[pe_mode] else 0
         if launches[name] != want:
             raise AssertionError(f"{name} launched {launches[name]} times in {steps} train "
@@ -1108,7 +1129,7 @@ def render_scannet_phase(device, scene, params_coarse, params_fine):
                       crop_mask=scene.crop_mask, device=device, verbose=False)
     launches = dict(runtime.LAUNCHES)
     chunks = -(-H * W // cfg.N_test)
-    for name in runtime.KERNELS:
+    for name in runtime.COUNTED:
         want = 2 * chunks * len(ids) if name in ("fused_pe", "fused_mlp_fwd_pe") else 0
         if launches[name] != want:
             raise AssertionError(f"ScanNet render: {name} launched {launches[name]} times, want "
@@ -1212,7 +1233,7 @@ def mani_phase(device):
     trans_dicts = eval_poses(cfg)["transformations"]
 
     def expect(launches, name, want, what):
-        for k in runtime.KERNELS:
+        for k in runtime.COUNTED:
             if launches[k] != (want if k == name else 0):
                 raise AssertionError(f"{what}: {k} launched {launches[k]} times, want "
                                      f"{want if k == name else 0}")
@@ -1331,7 +1352,7 @@ def mesh_phase(cfg, device):
     sweep_ms = start.elapsed_time(end)
     sweep_launches = dict(runtime.LAUNCHES)
     n_chunks = -(-MESH_GRID ** 3 // 65536)       # 256 at 256^3: the default chunk's launches
-    for k in runtime.KERNELS:
+    for k in runtime.COUNTED:
         want = n_chunks if k == "fused_mlp_fwd" else 0
         if sweep_launches[k] != want:
             raise AssertionError(f"the {MESH_GRID}^3 sweep launched {k} {sweep_launches[k]} "
@@ -1405,7 +1426,7 @@ def mesh_phase(cfg, device):
         raise AssertionError("mesh.ply / color_mesh.ply read back with other counts than written")
     n_verts = stats["clean_verts"]
     want = n_chunks + 2 * math.ceil(n_verts / cfg.N_test)
-    for k in runtime.KERNELS:
+    for k in runtime.COUNTED:
         if launches[k] != (want if k == "fused_mlp_fwd" else 0):
             raise AssertionError(f"mesh mode launched {k} {launches[k]} times, want "
                                  f"{want if k == 'fused_mlp_fwd' else 0} ({n_chunks} sweep + "
@@ -1437,6 +1458,147 @@ def mesh_phase(cfg, device):
         raise AssertionError(f"vertex labels, kernel vs plain query: {flip:.4f} differ (want <= "
                              f"{MAX_LABEL_FLIP})")
     return launches, launch
+
+
+def _fused_render_probe():
+    """scripts/fused_render_probe_torch.py as a module (the view comparison of phase 13)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "fused_render_probe_torch", os.path.join(REPO, "scripts", "fused_render_probe_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def fused_render_phase(device):
+    """The fused render path: one 256² view through make_fused_renderer (K8c, K8f) and
+    through make_image_renderer (K1) with the same weights, then K8c and K8f at the
+    view's first chunk against their plain versions, timed."""
+    import torch
+
+    from dmnerf_tpu_torch.core.compositor import _weights, composite_maps
+    from dmnerf_tpu_torch.core.mlp import sigma_stub_params
+    from dmnerf_tpu_torch.core.sampling import sample_pdf, z_val_sample
+    from dmnerf_tpu_torch.kernels import fused_mlp as fm
+    from dmnerf_tpu_torch.kernels import fused_render as fr
+    from dmnerf_tpu_torch.kernels import runtime
+
+    probe = _fused_render_probe()
+    view = probe.compare_views(device, size=256, reps=1)
+    chunks = view["chunks"]
+    launches = {k: 0 for k in runtime.COUNTED}
+    launches.update(view["fused"]["launches"])
+    want = {"fused_render_weights": chunks, "fused_render_maps": chunks}
+    if view["fused"]["launches"] != want or view["k1"]["launches"] != {"fused_mlp_fwd": 2 * chunks}:
+        raise AssertionError(f"fused view launched {view['fused']['launches']}, want {want}; K1 "
+                             f"view {view['k1']['launches']}, want 2 x {chunks} fused_mlp_fwd")
+    for k in ("rgb", "ins"):
+        v = view["fused"]["maps"][k]
+        if not torch.isfinite(v).all() or float(v.min()) < 0 or float(v.max()) > 1:
+            raise AssertionError(f"fused view's {k} map not finite in [0, 1]")
+    cmp = view["fused_vs_k1"]
+    out = {k: v for k, v in probe._printable(view).items() if k not in ("k1", "fused")}
+    for name in ("k1", "fused"):
+        r = view[name]
+        out[name] = {"ms_per_view": r["ms_per_view"], "launches": r["launches"],
+                     **{k: r["profile"][k] for k in ("activities_per_chunk", "device_busy_ms",
+                                                     "device_idle_share", "device_ms",
+                                                     "port_kernel_ms")}}
+    print(f"[fused render] view: {json.dumps(out)}", flush=True)
+    if cmp["rgb_psnr_db"] < MIN_PSNR_DB or cmp["label_flip_share"] > MAX_LABEL_FLIP:
+        raise AssertionError(f"fused view vs K1 view: rgb PSNR {cmp['rgb_psnr_db']:.2f} dB (want "
+                             f">= {MIN_PSNR_DB}), label flips {cmp['label_flip_share']:.4f} (want "
+                             f"<= {MAX_LABEL_FLIP})")
+
+    # K8c and K8f at the view's first chunk against their plain versions, timed
+    cfg, pc, pf, rays_o, rays_d = probe.scene_view(device)
+    args = (cfg.multires, cfg.multires_views, cfg.netdepth, tuple(cfg.skips))
+    N = cfg.N_test
+    stub = sigma_stub_params(pc)
+    pcs, pfs = fm.pack_params(stub, *args), fm.pack_params(pf, *args)
+    o = rays_o[:N].contiguous()
+    d, edr = fr.ray_table(pfs, rays_d[:N])
+    z_c = z_val_sample(N, cfg.near, cfg.far, cfg.N_samples, device=device).contiguous()
+    results = {}
+    with torch.no_grad():
+        w = fr.fused_render(pcs, o, d, z_c, True)
+        z_mids = 0.5 * (z_c[..., 1:] + z_c[..., :-1])
+        z_f = torch.sort(torch.cat([z_c, sample_pdf(z_mids, w[..., 1:-1], cfg.N_importance)], -1),
+                         -1).values
+        for name, params, packed, z, weights_only in (
+                ("fused_render_weights", stub, pcs, z_c, True),
+                ("fused_render_maps", pf, pfs, z_f, False)):
+            got = fr.fused_render(packed, o, d, z, weights_only)
+            torch.cuda.synchronize()
+            ref32 = fr.fused_render_ref(packed, o, d, z, weights_only, torch.float32)
+            ref16 = fr.fused_render_ref(packed, o, d, z, weights_only, torch.bfloat16)
+            if not torch.isfinite(got).all() or got.shape != ref32.shape:
+                raise AssertionError(f"{name}: output not finite or of shape {tuple(got.shape)}")
+            scale = float(ref32.abs().max())
+            tol = KERNEL_TOL * max(scale, 1.0)
+            # The last sample's weight is T (1 - exp(-relu(sigma) 1e10 |d|)): 0 or T as
+            # sigma is below or above 0, a jump of the compositing itself. Where the bf16
+            # roundings of the query (the plain version's as the kernel's) move that
+            # sigma across 0, the fp32 and bf16 plain versions disagree by up to T; such
+            # rays are held to the bf16 plain version, every other to the fp32 one too.
+            w32, w16 = (ref32, ref16) if weights_only else (
+                fr.fused_render_ref(packed, o, d, z, True, dt) for dt in (torch.float32,
+                                                                          torch.bfloat16))
+            jump = (w32[:, -1] - w16[:, -1]).abs() > tol
+            diff32 = (got - ref32).abs()
+            held = diff32[~jump] if not weights_only else torch.cat(
+                [diff32[:, :-1].reshape(-1), diff32[~jump, -1]])
+            err32 = float(held.max()) if held.numel() else 0.0
+            err16 = float((got - ref16).abs().max())
+            S = z.shape[1]
+            P = N * S
+            # the products the pass executes: the whole table, or the trunk and sigma
+            macs = query_macs(params) if not weights_only else \
+                sum(params[f"trunk_{i}_w"].numel() for i in range(cfg.netdepth)) \
+                + params["density_w"].numel()
+            flops = 2.0 * macs * P
+            layers = fr._sigma_table(packed).layers if weights_only else packed.layers
+            nbytes = (o.numel() * 4 + d.numel() * 4 + z.numel() * 4 + edr.numel() * 2
+                      + sum(layer.K * layer.N for layer in layers) * 2
+                      + sum(layer.N for layer in layers) * 4 + got.numel() * 4)
+            t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+            def library(packed=packed, z=z, weights_only=weights_only):
+                pts = o[..., None, :] + d[..., None, :] * z[..., :, None]
+                raw = library_query(packed, pts, d / torch.linalg.norm(d, dim=-1, keepdim=True))
+                if weights_only:
+                    return _weights(raw, z, d)
+                return composite_maps(raw, z, d, keep_air=True)
+
+            lib = library()
+            lib = lib if weights_only else torch.cat([lib[0], lib[2][:, None], lib[1]], -1)
+            dev = device_ms(lambda: fr._launch_render(packed, o, d, z, edr, weights_only))
+            # K1 on the same products, over the points the plain path forms: the pass
+            # without its point formation and compositing
+            pts = (o[..., None, :] + d[..., None, :] * z[..., :, None]).contiguous()
+            k1_packed = fr._sigma_table(packed) if weights_only else packed
+            k1 = device_ms(lambda: fm._launch_fwd("fused_mlp_fwd", k1_packed, pts, edr, P, S))
+            r = dict(rays=N, samples=S, points=P, out_scale=scale, max_abs_err=err32,
+                     max_abs_err_bf16_plain=err16, last_sample_jumps=int(jump.sum()),
+                     max_abs_err_all_rays=float(diff32.max()),
+                     library_max_abs_err=float((lib - ref32).abs().max()),
+                     ms=dev["device_ms"], **dev, k1_device_ms=k1["device_ms"],
+                     call_ms=_time_ms(lambda: fr.fused_render(packed, o, d, z, weights_only)),
+                     plain_ms=_time_ms(lambda: fr.fused_render_ref(packed, o, d, z, weights_only,
+                                                                   torch.float32), reps=5),
+                     library_ms=_time_ms(library), bound_ms=max(t_ops, t_bytes),
+                     bound_by="operations" if t_ops >= t_bytes else "bytes",
+                     gflop=flops / 1e9, mbytes=nbytes / 1e6, launches_per_view=chunks)
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
+            print(f"[fused render] {name}: {json.dumps(r)}", flush=True)
+            if err32 > tol or err16 > tol:
+                raise AssertionError(f"{name}: kernel vs fp32 plain max|d| {err32:.3e} (but "
+                                     f"the last sample's jumps), vs bf16 plain {err16:.3e}; "
+                                     f"want <= {KERNEL_TOL} * max({scale:.3e}, 1)")
+            results[name] = r
+    runtime.reset_launches()
+    return launches, results
 
 
 def _entry(name, replaces, launches, by_path, res, **extra):
@@ -1486,6 +1648,8 @@ def main() -> int:
                 fn = m.group(1) + ("<stash>" if "Lb1E" in line else "") if m else ""
                 mr = re.search(r"_kernelILi(\d+)E", line)     # K7's multires template
                 fn += f"<{mr.group(1)}>" if mr else ""
+                cm = re.search(r"Lb[01]ELi([12])E", line)     # K8's compositing epilogue
+                fn += {"1": "<weights>", "2": "<maps>"}[cm.group(1)] if cm else ""
             if ("Used" in line and "registers" in line) or "spill stores" in line:
                 print(f"[build] {name} {fn}: {line.strip()}", flush=True)
 
@@ -1516,13 +1680,15 @@ def main() -> int:
     del scene, state
     torch.cuda.empty_cache()
     mesh_launches, mesh_launch = mesh_phase(cfg, device)
+    torch.cuda.empty_cache()
+    fused_launches, fres = fused_render_phase(device)
 
     paths = {"render": render_launches, "train": train_launches, "train_kpe": kpe_train_launches,
              "mani_eval": eval_launches, "mani_demo": demo_launches,
              "train_scannet": scannet_train_launches, "render_scannet": scannet_render_launches,
-             "mesh": mesh_launches}
-    by_path = {name: {path: n[name] for path, n in paths.items()} for name in runtime.KERNELS}
-    for name in runtime.KERNELS:
+             "mesh": mesh_launches, "render_fused": fused_launches}
+    by_path = {name: {path: n[name] for path, n in paths.items()} for name in runtime.COUNTED}
+    for name in runtime.COUNTED:
         if sum(by_path[name].values()) == 0:
             raise AssertionError(f"{name} was never launched on the main paths")
     kernels = [
@@ -1547,6 +1713,11 @@ def main() -> int:
                                                          "issue_bound_ms", "share_of_bound",
                                                          "card")}),
     ]
+    for name in ("fused_render_weights", "fused_render_maps"):
+        kernels.append({**_entry(name, "scripts/dev/fused_render_probe.py:142",
+                                 fused_launches[name], by_path, fres[name],
+                                 **{k: fres[name][k] for k in ("call_ms", "share_of_bound")}),
+                        "source": "dmnerf_tpu_torch/kernels/csrc/fused_render.cu"})
     print(f"[done] {time.time() - t0:.1f} s from the build on", flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -79,6 +79,9 @@ __device__ __forceinline__ void embed_rows(__nv_bfloat16* dst, const float* __re
 //  ROWS_EMBEDDED    K5 / K6: `pt_src` the point embedding e [P, EP] and `ed_src` the
 //                   per-point viewdir embedding [P, EDP], both bf16, built before the
 //                   launch (e by K7, fused_pe.cu); S is 1.
-enum Rows { ROWS_RAY_TABLE = 0, ROWS_POINT_DIRS = 1, ROWS_EMBEDDED = 2 };
+//  ROWS_RAY_Z       K8 (fused_render.cu): the rays' origins and directions [N, 3] and
+//                   depths z [N, S] fp32; the embedding warps form the points o + d z
+//                   and embed them; `ed_src` as ROWS_RAY_TABLE.
+enum Rows { ROWS_RAY_TABLE = 0, ROWS_POINT_DIRS = 1, ROWS_EMBEDDED = 2, ROWS_RAY_Z = 3 };
 
 }  // namespace dmnerf

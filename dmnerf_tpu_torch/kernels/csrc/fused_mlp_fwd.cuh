@@ -10,7 +10,9 @@
 //  * fused_mlp_fwd_pe.cu (K5) replaces _fwd_kernel_pe (:471), pe_mode 'outside': the
 //    point embedding (built by K7, fused_pe.cu) and the per-point viewdir embedding
 //    come in as bf16 rows, and the kernel is the matrix-product chain alone.
-// The three differ only in how a tile's embeddings are built (Rows). What they compute
+//  * fused_render.cu (K8c, K8f) runs K1's walk over points it forms from the rays and
+//    composites the raw output along each ray (CMP, below).
+// K1, K3 and K5 differ only in how a tile's embeddings are built (Rows). What they compute
 // is set out in dmnerf_tpu_torch/kernels/fused_mlp.py, whose fused_query_ref /
 // fused_query_kpe_ref / fused_query_pe_ref are their plain versions, whose pack_params
 // builds the weights they read (wt, each layer's block transposed) and whose _fwd_plan
@@ -74,6 +76,26 @@
 // and streaming stores, two 256-byte row halves a warp instruction, while the other
 // warpgroup's products run. The products and the output are the same code, so raw is
 // bit for bit the render path's. Without STASH the added code compiles away.
+//
+// Rendering (CMP, K8c and K8f of fused_render.cu). The rows of a query are the samples
+// of rays, S a ray, and the kernel composites them into the ray's weights [N, S]
+// (CMP_WEIGHTS, with the layer table cut after sigma) or maps [N, 4+C] (CMP_MAPS:
+// rgb, depth, sigmoid of the weighted instance logits), so raw never leaves the SM.
+//  * The walk follows rays: a block takes spans of `span` consecutive tiles (the host's
+//    plan: span * 128 points hold whole rays) and walks each span's tiles in order; the
+//    two blocks of a cluster take neighbouring spans. Without CMP a span is one tile
+//    and the walk is the one above.
+//  * The consumers stage sigma (and under CMP_MAPS the output columns) of each tile in
+//    fp32 in shared memory and go on to the next tile; the embedding warps, after
+//    building the next tile's embeddings, composite the staged tile in row order: alpha
+//    and log(1 - alpha) a row, the exclusive scan along each ray in one warp (a
+//    segmented shuffle scan, the log-transmittance of a ray carried from the tile
+//    before), the weights, and under CMP_MAPS one thread a column summing w * value
+//    over the rows of each ray in order. Fixed-order sums, no atomics. The compositing
+//    runs beside the next tile's products, off the tensor cores' path.
+//  * The embedding warps form the points o + d z with round-to-nearest products and
+//    sums, no contraction: the points, and so raw, are bit for bit those of K1 on the
+//    points the plain path forms.
 #pragma once
 
 #include "fused_mlp_common.cuh"
@@ -96,11 +118,25 @@ constexpr int F_STAGES = 4;
 constexpr int MAX_FMAPS = 2 * MAX_LAYERS;
 constexpr int MAX_FCHUNKS = 7 * MAX_LAYERS;
 
-// Shared memory: the ring, two (e, ed) embedding buffers, the staging tiles, mbarriers.
-template <bool STASH>
+// What the kernel makes of raw: raw itself, or the rays' weights or maps (fused_render.cu)
+enum Cmp { CMP_NONE = 0, CMP_WEIGHTS = 1, CMP_MAPS = 2 };
+constexpr int CMP_PITCH = 53;   // staged output columns a row: c4 <= 53, odd (no bank conflict)
+// the compositing buffers: the tile's points [128][3]; sigma, alpha, log(1 - alpha), z
+// and the weights a row; under CMP_MAPS the output columns and a carried sum a column
+template <int CMP>
+__host__ __device__ constexpr size_t cmp_smem() {
+  return CMP == CMP_NONE ? 0
+                         : FT * 3 * 4 + 5 * FT * 4 +
+                               (CMP == CMP_MAPS ? (size_t)FT * CMP_PITCH * 4 + 64 * 4 : 0);
+}
+
+// Shared memory: the ring, two (e, ed) embedding buffers, the staging tiles, the
+// compositing buffers, mbarriers.
+template <bool STASH, int CMP = CMP_NONE>
 constexpr size_t fwd_smem() {
   return 1024 + (size_t)F_STAGES * F_STAGE_BYTES + 4 * (size_t)EMB_BYTES +
-         (STASH ? 2 * (size_t)STG_BYTES : 0) + (2 * F_STAGES + 4) * 8;
+         (STASH ? 2 * (size_t)STG_BYTES : 0) + cmp_smem<CMP>() +
+         (2 * F_STAGES + 4 + (CMP ? 2 : 0)) * 8;
 }
 
 enum Epilogue { EPI_RELU = 0, EPI_SIGMA = 1, EPI_OUT = 2 };
@@ -125,8 +161,10 @@ struct FwdParams {
   CUtensorMap e_map, ed_map;   // K5: its input embeddings [P, EP], [P, EDP]
   FLayer layers[MAX_LAYERS];
   FChunk chunks[MAX_FCHUNKS];
+  const float *ray_o, *ray_d, *ray_z;   // K8: the rays [N, 3], [N, 3] and depths [N, S]
   long long P, e_stash, ed_stash;
   int n_layers, n_chunks, n_tiles, S, multires, multires_views, ep, edp, c4;
+  int span, n_spans;   // the walk: tiles a span (1 without CMP), spans
 };
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -263,13 +301,32 @@ __device__ __forceinline__ void layer_product(float (&acc)[128], uint32_t (&af)[
 }
 
 // The embedding warps' share of a tile: its embedding tiles e and ed (swizzled, all 64
-// columns written, zeros past EP / EDP and past P).
+// columns written, zeros past EP / EDP and past P). ROWS_RAY_Z first forms the tile's
+// points in `xs` ([128][3] fp32 in shared memory) as the plain path does, o + (d * z).
 template <Rows ROWS>
 __device__ __forceinline__ void build_tile(__nv_bfloat16* e, __nv_bfloat16* ed,
                                            const void* pt_src, const void* ed_src,
-                                           const FwdParams& p, long long p0, int tid) {
-  embed_rows<true>(e, static_cast<const float*>(pt_src), p0, p.P, p.multires, 64, 64, tid,
-                   EMB_THREADS);
+                                           const FwdParams& p, long long p0, int tid,
+                                           float* xs) {
+  if constexpr (ROWS == ROWS_RAY_Z) {
+    bar_sync(1, EMB_THREADS);   // the last tile's embedding has read xs
+    for (int c = tid; c < FT * 3; c += EMB_THREADS) {
+      const int r = c / 3, ch = c - 3 * r;
+      const long long pt = p0 + r;
+      float v = 0.f;
+      if (pt < p.P) {
+        const long long ray = pt / p.S;
+        v = __fadd_rn(p.ray_o[ray * 3 + ch], __fmul_rn(p.ray_d[ray * 3 + ch], p.ray_z[pt]));
+      }
+      xs[c] = v;
+    }
+    bar_sync(1, EMB_THREADS);
+    const long long rows = p.P - p0 < FT ? p.P - p0 : FT;
+    embed_rows<true>(e, xs, 0, rows > 0 ? rows : 0, p.multires, 64, 64, tid, EMB_THREADS);
+  } else {
+    embed_rows<true>(e, static_cast<const float*>(pt_src), p0, p.P, p.multires, 64, 64, tid,
+                     EMB_THREADS);
+  }
   if constexpr (ROWS == ROWS_POINT_DIRS) {
     embed_rows<true>(ed, static_cast<const float*>(ed_src), p0, p.P, p.multires_views, 64, 64,
                      tid, EMB_THREADS);
@@ -287,6 +344,138 @@ __device__ __forceinline__ void build_tile(__nv_bfloat16* e, __nv_bfloat16* ed,
   }
 }
 
+// The compositing buffers of a block (cmp_smem) and the two mbarriers between the
+// consumers, which stage a tile's sigma (`sig`) and output columns (`raw`, [FT][CMP_PITCH])
+// and arrive on `full`, and the embedding warps, which composite it and arrive on `empty`.
+struct CmpBufs {
+  float *xs, *sig, *alpha, *lg, *z, *w, *raw, *carry;
+  uint64_t *full, *empty;
+};
+
+// The embedding warps (tid of EMB_THREADS) composite the `it`-th tile of the walk, rows
+// p0 .. p0 + FT, in row order, once its consumers have staged it. A ray starts at a row
+// whose sample index (row mod S) is 0; the scan warp's `carry` is the log-transmittance
+// of the ray open at the tile's start, and c.carry its sums (CMP_MAPS). Rows past P take
+// part in the sums of rays past N, which are never stored.
+template <int CMP>
+__device__ __forceinline__ void composite_tile(const FwdParams& p, float* __restrict__ out,
+                                               const CmpBufs& c, long long p0, int it, int tid,
+                                               float& carry) {
+  mbar_wait(c.full, it & 1);
+  const int S = p.S;
+  const int s0 = (int)(p0 % S);
+  // a row: alpha = 1 - exp(-relu(sigma) dist) with dist = (z' - z, or 1e10 at the ray's
+  // last sample) |d|, and log(max(1 - alpha, 1e-10)), in the plain version's order
+  for (int r = tid; r < FT; r += EMB_THREADS) {
+    const long long pt = p0 + r;
+    float a = 0.f, lg = 0.f, zz = 0.f;
+    if (pt < p.P) {
+      const long long ray = pt / S;
+      const float dx = p.ray_d[ray * 3], dy = p.ray_d[ray * 3 + 1], dz = p.ray_d[ray * 3 + 2];
+      const float dn = sqrtf(dx * dx + dy * dy + dz * dz);
+      zz = p.ray_z[pt];
+      const float dist = (pt - ray * S + 1 < S ? p.ray_z[pt + 1] - zz : 1e10f) * dn;
+      a = 1.f - expf(-fmaxf(c.sig[r], 0.f) * dist);
+      lg = logf(fmaxf(1.f - a, 1e-10f));
+    }
+    c.alpha[r] = a;
+    c.lg[r] = lg;
+    c.z[r] = zz;
+  }
+  if constexpr (CMP == CMP_WEIGHTS) mbar_arrive(c.empty);   // the staged sigma is read
+  bar_sync(1, EMB_THREADS);
+  if (tid < 32) {
+    // the exclusive scan of log(1 - alpha) along each ray, in one warp: lane l takes
+    // rows 4 l .. 4 l + 3 (ex: the sum of its rows before each since the last ray start)
+    const int lane = tid;
+    float ex[4], run = 0.f;
+    int head = 0;   // bit k: row 4 lane + k starts a ray
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int r = 4 * lane + k;
+      if ((s0 + r) % S == 0) {
+        run = 0.f;
+        head |= 1 << k;
+      }
+      ex[k] = run;
+      run += c.lg[r];
+    }
+    // a segmented inclusive scan over the lanes of their open sums: a lane that starts a
+    // ray takes nothing from the lanes before it
+    float sc = run;
+    int f = head != 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float so = __shfl_up_sync(0xffffffffu, sc, off);
+      const int fo = __shfl_up_sync(0xffffffffu, f, off);
+      if (lane >= off) {
+        if (!f) sc = so + sc;
+        f |= fo;
+      }
+    }
+    // what the lanes before give this lane's first ray: their open sum, and the tile
+    // before's where no ray starts in them
+    float pre = __shfl_up_sync(0xffffffffu, sc, 1);
+    int pf = __shfl_up_sync(0xffffffffu, f, 1);
+    if (lane == 0) {
+      pre = 0.f;
+      pf = 0;
+    }
+    if (!pf) pre = carry + pre;
+    float w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int r = 4 * lane + k;
+      const bool started = (head & ((2 << k) - 1)) != 0;   // a ray starts at or before row r
+      w[k] = c.alpha[r] * expf(started ? ex[k] : pre + ex[k]);
+      c.w[r] = w[k];
+    }
+    const float last = __shfl_sync(0xffffffffu, sc, 31);
+    carry = __shfl_sync(0xffffffffu, f, 31) ? last : carry + last;
+    if constexpr (CMP == CMP_WEIGHTS) {
+      // the weights [N, S] are the rows in order
+      const long long pt = p0 + 4 * lane;
+      if (pt + 3 < p.P) {
+        *reinterpret_cast<float4*>(out + pt) = make_float4(w[0], w[1], w[2], w[3]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (pt + k < p.P) out[pt + k] = w[k];
+      }
+    }
+  }
+  if constexpr (CMP == CMP_MAPS) {
+    bar_sync(1, EMB_THREADS);
+    // one thread a column of [sigmoid(rgb) | z | instance logits]: the sum of w * value
+    // over each ray's rows in row order, stored when the ray ends (the instance columns
+    // through a sigmoid); the ray open at the tile's end carries its sum
+    if (tid < p.c4) {
+      const int col = tid;
+      long long ray = p0 / S;
+      float acc = s0 == 0 ? 0.f : c.carry[col];
+      int s = s0;
+      for (int r = 0; r < FT; ++r) {
+        if (s == 0 && r > 0) {
+          if (ray * S < p.P) out[ray * p.c4 + col] = col < 4 ? acc : 1.f / (1.f + expf(-acc));
+          acc = 0.f;
+          ++ray;
+        }
+        float v = col == 3 ? c.z[r] : c.raw[r * CMP_PITCH + col];
+        if (col < 3) v = 1.f / (1.f + expf(-v));
+        acc += c.w[r] * v;
+        if (++s == S) s = 0;
+      }
+      if (s == 0) {
+        if (ray * S < p.P) out[ray * p.c4 + col] = col < 4 ? acc : 1.f / (1.f + expf(-acc));
+      } else {
+        c.carry[col] = acc;
+      }
+    }
+    mbar_arrive(c.empty);   // the staged tile is read
+  }
+  bar_sync(1, EMB_THREADS);   // the row buffers are free for the next tile
+}
+
 // Rows p0 .. of a swizzled [FT][64] tile, columns [0, width), to a row-major [P, width]
 // bf16 array; rows past P are not stored.
 __device__ __forceinline__ void store_tile(__nv_bfloat16* dst, const __nv_bfloat16* tile,
@@ -300,7 +489,7 @@ __device__ __forceinline__ void store_tile(__nv_bfloat16* dst, const __nv_bfloat
   }
 }
 
-template <Rows ROWS, bool STASH>
+template <Rows ROWS, bool STASH, int CMP = CMP_NONE>
 __global__ void __launch_bounds__(F_THREADS, 1)
 fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict__ pt_src,
                      const void* __restrict__ ed_src, const float* __restrict__ biases,
@@ -310,16 +499,34 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
   unsigned char* ring = smem;                                   // [stage][<=256][64] bf16
   unsigned char* emb = smem + F_STAGES * F_STAGE_BYTES;         // [buf][e, ed][128][64]
   unsigned char* stg = emb + 4 * EMB_BYTES;                     // STASH: [wg][64][128] bf16
-  uint64_t* full = reinterpret_cast<uint64_t*>(stg + (STASH ? 2 * STG_BYTES : 0));
+  float* cmp = reinterpret_cast<float*>(stg + (STASH ? 2 * STG_BYTES : 0));   // cmp_smem
+  uint64_t* full = reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(cmp) +
+                                               cmp_smem<CMP>());
   uint64_t* empty = full + F_STAGES;
   uint64_t* emb_full = empty + F_STAGES;
   uint64_t* emb_empty = emb_full + 2;
+  CmpBufs cb{};
+  if constexpr (CMP != CMP_NONE) {
+    cb.xs = cmp;
+    cb.sig = cb.xs + FT * 3;
+    cb.alpha = cb.sig + FT;
+    cb.lg = cb.alpha + FT;
+    cb.z = cb.lg + FT;
+    cb.w = cb.z + FT;
+    cb.raw = cb.w + FT;
+    cb.carry = cb.raw + FT * CMP_PITCH;
+    cb.full = emb_empty + 2;
+    cb.empty = cb.full + 1;
+  }
 
-  // a cluster of two blocks shares the weight stream: block `rank` takes tile 2 q + rank
-  // of each tile pair q; the pair's blocks walk the same pairs, the second on a tile past
-  // P (zeros, nothing stored) where the tile count is odd
+  // a cluster of two blocks shares the weight stream: of each pair q of spans (`span`
+  // tiles each; one tile without CMP) block `rank` takes span 2 q + rank and walks its
+  // tiles in order; the pair's blocks walk the same pairs, the second on tiles past P
+  // (zeros, nothing stored) where the span count is odd
   const uint32_t rank = cluster_rank();
   const int pair0 = (int)cluster_index(), pairs = (int)cluster_count();
+  const int span = CMP != CMP_NONE ? p.span : 1;
+  const int n_spans = CMP != CMP_NONE ? p.n_spans : p.n_tiles;
   if (threadIdx.x == 0) {
     for (int s = 0; s < F_STAGES; ++s) {
       mbar_init(&full[s], 1);
@@ -328,6 +535,10 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
     for (int b = 0; b < 2; ++b) {
       mbar_init(&emb_full[b], ROWS == ROWS_EMBEDDED ? 1 : EMB_THREADS);
       mbar_init(&emb_empty[b], F_CONSUMERS / 32);
+    }
+    if constexpr (CMP != CMP_NONE) {
+      mbar_init(cb.full, F_CONSUMERS);
+      mbar_init(cb.empty, EMB_THREADS);
     }
     mbar_fence_init();
   }
@@ -341,48 +552,62 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
       if (lane == 0) {
         int stage = 0;
         uint32_t ph = 0;
-        for (int q = pair0; 2 * q < p.n_tiles; q += pairs) {
-          for (int c = 0; c < p.n_chunks; ++c) {
-            const FChunk ch = p.chunks[c];
-            mbar_wait(&empty[stage], ph ^ 1);
-            mbar_expect_tx(&full[stage], (uint32_t)ch.half * 256u);
-            tma_load_2d_multicast(ring + stage * F_STAGE_BYTES + rank * ch.half * 128,
-                                  &p.maps[ch.map], &full[stage], ch.k0, (int)rank * ch.half,
-                                  (uint16_t)3);
-            if (++stage == F_STAGES) {
-              stage = 0;
-              ph ^= 1;
+        for (int q = pair0; 2 * q < n_spans; q += pairs) {
+          for (int jt = 0; jt < span; ++jt) {
+            for (int c = 0; c < p.n_chunks; ++c) {
+              const FChunk ch = p.chunks[c];
+              mbar_wait(&empty[stage], ph ^ 1);
+              mbar_expect_tx(&full[stage], (uint32_t)ch.half * 256u);
+              tma_load_2d_multicast(ring + stage * F_STAGE_BYTES + rank * ch.half * 128,
+                                    &p.maps[ch.map], &full[stage], ch.k0, (int)rank * ch.half,
+                                    (uint16_t)3);
+              if (++stage == F_STAGES) {
+                stage = 0;
+                ph ^= 1;
+              }
             }
           }
         }
       }
     } else {
-      // ---- embedding warps: each tile's embeddings, one tile ahead of the consumers ----
+      // ---- embedding warps: each tile's embeddings, one tile ahead of the consumers;
+      // under CMP then the compositing of the tile before ----
       const int tid = threadIdx.x - F_CONSUMERS - 32;
       int it = 0;
-      for (int q = pair0; 2 * q < p.n_tiles; q += pairs, ++it) {
-        const int b = it & 1;
-        const long long p0 = (long long)(2 * q + rank) * FT;
-        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(emb + 2 * b * EMB_BYTES);
-        __nv_bfloat16* ed = e + EMB_BYTES / 2;
-        if constexpr (ROWS == ROWS_EMBEDDED) {
-          if (tid == 0) {
+      long long prev_p0 = 0;
+      float carry = 0.f;   // CMP: the scan warp's log-transmittance of the open ray
+      for (int q = pair0; 2 * q < n_spans; q += pairs) {
+        for (int jt = 0; jt < span; ++jt, ++it) {
+          const int b = it & 1;
+          const long long p0 = ((long long)(2 * q + rank) * span + jt) * FT;
+          __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(emb + 2 * b * EMB_BYTES);
+          __nv_bfloat16* ed = e + EMB_BYTES / 2;
+          if constexpr (ROWS == ROWS_EMBEDDED) {
+            if (tid == 0) {
+              mbar_wait(&emb_empty[b], ((it >> 1) & 1) ^ 1);
+              mbar_expect_tx(&emb_full[b], 2 * EMB_BYTES);
+              tma_load_2d(e, &p.e_map, &emb_full[b], 0, (int)p0);
+              tma_load_2d(ed, &p.ed_map, &emb_full[b], 0, (int)p0);
+            }
+          } else {
             mbar_wait(&emb_empty[b], ((it >> 1) & 1) ^ 1);
-            mbar_expect_tx(&emb_full[b], 2 * EMB_BYTES);
-            tma_load_2d(e, &p.e_map, &emb_full[b], 0, (int)p0);
-            tma_load_2d(ed, &p.ed_map, &emb_full[b], 0, (int)p0);
+            build_tile<ROWS>(e, ed, pt_src, ed_src, p, p0, tid, cb.xs);
+            if constexpr (STASH) {
+              bar_sync(1, EMB_THREADS);
+              if (p.e_stash >= 0) store_tile(stash + p.e_stash, e, p.ep, p0, p.P, tid);
+              if (p.ed_stash >= 0) store_tile(stash + p.ed_stash, ed, p.edp, p0, p.P, tid);
+            }
+            fence_proxy_async();
+            mbar_arrive(&emb_full[b]);
           }
-        } else {
-          mbar_wait(&emb_empty[b], ((it >> 1) & 1) ^ 1);
-          build_tile<ROWS>(e, ed, pt_src, ed_src, p, p0, tid);
-          if constexpr (STASH) {
-            bar_sync(1, EMB_THREADS);
-            if (p.e_stash >= 0) store_tile(stash + p.e_stash, e, p.ep, p0, p.P, tid);
-            if (p.ed_stash >= 0) store_tile(stash + p.ed_stash, ed, p.edp, p0, p.P, tid);
+          if constexpr (CMP != CMP_NONE) {
+            if (it > 0) composite_tile<CMP>(p, out, cb, prev_p0, it - 1, tid, carry);
+            prev_p0 = p0;
           }
-          fence_proxy_async();
-          mbar_arrive(&emb_full[b]);
         }
+      }
+      if constexpr (CMP != CMP_NONE) {
+        if (it > 0) composite_tile<CMP>(p, out, cb, prev_p0, it - 1, tid, carry);
       }
     }
   } else {
@@ -405,9 +630,10 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
     float keep = 0.f;
 #endif
     int it = 0;
-    for (int q = pair0; 2 * q < p.n_tiles; q += pairs, ++it) {
+    for (int q = pair0; 2 * q < n_spans; q += pairs)
+    for (int jt = 0; jt < span; ++jt, ++it) {
       const int b = it & 1;
-      const long long p0 = (long long)(2 * q + rank) * FT;
+      const long long p0 = ((long long)(2 * q + rank) * span + jt) * FT;
       const int lr0 = (warp & 3) * 16 + g;   // the warp's first row in the warpgroup's 64
       const long long r0 = p0 + wg * 64 + lr0, r1 = r0 + 8;
       unsigned char* e_tile = emb + 2 * b * EMB_BYTES + wg * (EMB_BYTES / 2);
@@ -491,6 +717,31 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
           const float b0 = __ldg(bias);
           sg0 = acc[0] + b0;
           sg1 = acc[2] + b0;
+          if constexpr (CMP != CMP_NONE) {
+            // stage sigma once the embedding warps have composited the tile before
+            mbar_wait(cb.empty, (it & 1) ^ 1);
+            if (t == 0) {
+              cb.sig[wg * 64 + lr0] = sg0;
+              cb.sig[wg * 64 + lr0 + 8] = sg1;
+            }
+            if constexpr (CMP == CMP_WEIGHTS) mbar_arrive(cb.full);
+          }
+        } else if (CMP == CMP_MAPS) {
+          // stage the output columns (sigma's column is not read)
+#pragma unroll
+          for (int j = 0; j < 32; ++j) {
+            const int col = j * 8 + 2 * t;
+            if (col < p.c4) {
+              const float b0 = __ldg(bias + col), b1 = __ldg(bias + col + 1);
+#pragma unroll
+              for (int half = 0; half < 2; ++half) {
+                float* o = cb.raw + (wg * 64 + lr0 + 8 * half) * CMP_PITCH;
+                o[col] = acc[4 * j + 2 * half] + b0;
+                if (col + 1 < p.c4) o[col + 1] = acc[4 * j + 2 * half + 1] + b1;
+              }
+            }
+          }
+          mbar_arrive(cb.full);
         } else {
           // raw = [rgb | sigma | instance logits]: sigma from lane t == 0 into column 3
           const float s0 = __shfl_sync(0xffffffffu, sg0, lane & ~3);
@@ -545,16 +796,24 @@ inline int layer_class(int N, int* box_rows) {
 //   n_chunks rows map, k0                      (the boxes of one tile, in order)
 // With a stash (the training forward), `stash_table` is _bwd_plan's (e_off, ed_off,
 // then one offset per layer); without one, the render path's kernel runs.
-template <Rows ROWS>
+// Under CMP (ROWS_RAY_Z) `rays` is (o, d, z) and `span` the tiles of a span
+// (fused_render.py's _render_plan); `out` takes the weights [P] (CMP_WEIGHTS, the table
+// ending at sigma) or the maps [P / S, c4] (CMP_MAPS).
+template <Rows ROWS, int CMP = CMP_NONE>
 int launch_fused_mlp_fwd(const void* pt_src, const void* ed_src, const void* wt,
                          const float* biases, float* out, long long P, int S,
                          const long long* plan, void* stash, const long long* stash_table,
-                         int n_sms, void* stream) {
+                         int n_sms, void* stream, const float* const* rays = nullptr,
+                         int span = 1) {
   const long long* h = plan;
   const int n_layers = (int)h[0], n_maps = (int)h[1], n_chunks = (int)h[2];
   if (n_layers < 0 || n_layers > MAX_LAYERS || n_maps < 0 || n_maps > MAX_FMAPS ||
       n_chunks < 0 || n_chunks > MAX_FCHUNKS || P <= 0 || S <= 0 || n_sms <= 0 ||
       h[4] > 64 || h[5] > 64 || h[4] % 8 || h[5] % 8 || P > (1ll << 31) - FT)
+    return (int)cudaErrorInvalidValue;
+  if (CMP != CMP_NONE &&
+      (rays == nullptr || stash != nullptr || span <= 0 || (span * FT) % S || P % S ||
+       n_layers < 1 || (CMP == CMP_MAPS && (h[3] > CMP_PITCH || h[3] < 4))))
     return (int)cudaErrorInvalidValue;
   cudaPointerAttributes attr;
   cudaError_t e;
@@ -595,14 +854,24 @@ int launch_fused_mlp_fwd(const void* pt_src, const void* ed_src, const void* wt,
   }
   fp.e_stash = stash == nullptr ? -1 : stash_table[0];
   fp.ed_stash = stash == nullptr ? -1 : stash_table[1];
+  // the walk: spans of `span` tiles; without CMP a span is a tile
+  fp.span = CMP != CMP_NONE ? span : 1;
+  fp.n_spans = (fp.n_tiles + fp.span - 1) / fp.span;
+  fp.ray_o = CMP != CMP_NONE ? rays[0] : nullptr;
+  fp.ray_d = CMP != CMP_NONE ? rays[1] : nullptr;
+  fp.ray_z = CMP != CMP_NONE ? rays[2] : nullptr;
+  // the table of a compositing pass ends where it composites: sigma, or the output
+  if (CMP != CMP_NONE &&
+      fp.layers[n_layers - 1].epi != (CMP == CMP_WEIGHTS ? EPI_SIGMA : EPI_OUT))
+    return (int)cudaErrorInvalidValue;
 
   if (ROWS == ROWS_EMBEDDED) {
     if ((err = encode_map(&fp.e_map, pt_src, fp.ep, P, fp.ep, 64, FT)) ||
         (err = encode_map(&fp.ed_map, ed_src, fp.edp, P, fp.edp, 64, FT)))
       return err;
   }
-  // clusters of two blocks, as many as the card holds at once, at most one a tile pair
-  const int n_pairs = (fp.n_tiles + 1) / 2;
+  // clusters of two blocks, as many as the card holds at once, at most one a span pair
+  const int n_pairs = (fp.n_spans + 1) / 2;
   auto run = [&](auto kernel, size_t smem) {
     cudaError_t ee = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                           (int)smem);
@@ -629,8 +898,12 @@ int launch_fused_mlp_fwd(const void* pt_src, const void* ed_src, const void* wt,
     if (ee != cudaSuccess) return (int)ee;
     return (int)cudaGetLastError();
   };
-  if (stash == nullptr) return run(fused_mlp_fwd_kernel<ROWS, false>, fwd_smem<false>());
-  return run(fused_mlp_fwd_kernel<ROWS, true>, fwd_smem<true>());
+  if constexpr (CMP != CMP_NONE) {
+    return run(fused_mlp_fwd_kernel<ROWS, false, CMP>, fwd_smem<false, CMP>());
+  } else {
+    if (stash == nullptr) return run(fused_mlp_fwd_kernel<ROWS, false>, fwd_smem<false>());
+    return run(fused_mlp_fwd_kernel<ROWS, true>, fwd_smem<true>());
+  }
 }
 
 }  // namespace

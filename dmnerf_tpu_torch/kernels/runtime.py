@@ -7,8 +7,9 @@ their code through the headers ``csrc/*.cuh``. The build happens at first use, i
 the source, the headers and the flags, so an edited source or header is rebuilt and
 an unchanged one is not. Nothing is built or loaded when a module is imported.
 
-``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run resets it with
-``reset_launches()`` and reads it afterwards to show which kernels ran.
+``LAUNCHES`` counts, per kernel entry point (``COUNTED``), the launches its wrapper made;
+a run resets it with ``reset_launches()`` and reads it afterwards to show which kernels
+ran.
 """
 
 from __future__ import annotations
@@ -26,11 +27,13 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# K1, K2 (pe_mode 'kernel_t'), K3, K4 (pe_mode 'kernel') and K5, K6, K7 (pe_mode
-# 'outside': the forward and backward over precomputed embeddings, and the embedding)
+# the sources: K1, K2 (pe_mode 'kernel_t'), K3, K4 (pe_mode 'kernel'), K5, K6, K7 (pe_mode
+# 'outside': the forward and backward over precomputed embeddings, and the embedding) and
+# the fused render passes K8c, K8f (two entry points of one source)
 KERNELS = ("fused_mlp_fwd", "fused_mlp_bwd", "fused_mlp_fwd_kpe", "fused_mlp_bwd_kpe",
-           "fused_mlp_fwd_pe", "fused_mlp_bwd_pe", "fused_pe")
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+           "fused_mlp_fwd_pe", "fused_mlp_bwd_pe", "fused_pe", "fused_render")
+COUNTED = KERNELS[:-1] + ("fused_render_weights", "fused_render_maps")
+LAUNCHES: Dict[str, int] = {name: 0 for name in COUNTED}
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 

@@ -3,7 +3,8 @@ widths and at the flagship's, with ragged point counts; the backward kernels'
 instance-head wall and their bit-identical repeats; the training forward's stash
 against the standalone backward and the no-grad forward, bit for bit. K1/K2 take per-ray viewdirs
 (pe_mode 'kernel_t'), K3/K4 per-point directions (pe_mode 'kernel'), K5/K6 the
-embeddings that K7 and the per-ray viewdir table give (pe_mode 'outside'). These tests
+embeddings that K7 and the per-ray viewdir table give (pe_mode 'outside'); K8c/K8f (the
+fused render passes) take rays and depths and composite in the kernel. These tests
 need a CUDA card of capability 9.0 and skip without one; they import no JAX, so they
 run on a machine that has none:
 
@@ -147,7 +148,8 @@ def test_fused_mlp_bwd_wall(cuda):
     raw[..., 4:].sum().backward()
     assert runtime.LAUNCHES == {"fused_mlp_fwd": 1, "fused_mlp_bwd": 1, "fused_mlp_fwd_kpe": 0,
                                 "fused_mlp_bwd_kpe": 0, "fused_mlp_fwd_pe": 0,
-                                "fused_mlp_bwd_pe": 0, "fused_pe": 0}
+                                "fused_mlp_bwd_pe": 0, "fused_pe": 0, "fused_render_weights": 0,
+                                "fused_render_maps": 0}
     for k, v in params.items():
         if k.startswith(("trunk_", "rgb_", "density")):
             assert v.grad is None or int(torch.count_nonzero(v.grad)) == 0, k
@@ -230,7 +232,8 @@ def test_fused_mlp_bwd_kpe_wall_and_repeats(cuda):
     raw[..., 4:].sum().backward()
     assert runtime.LAUNCHES == {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0, "fused_mlp_fwd_kpe": 1,
                                 "fused_mlp_bwd_kpe": 1, "fused_mlp_fwd_pe": 0,
-                                "fused_mlp_bwd_pe": 0, "fused_pe": 0}
+                                "fused_mlp_bwd_pe": 0, "fused_pe": 0, "fused_render_weights": 0,
+                                "fused_render_maps": 0}
     for k, v in params.items():
         if k.startswith(("trunk_", "rgb_", "density")):
             assert v.grad is None or int(torch.count_nonzero(v.grad)) == 0, k
@@ -461,7 +464,8 @@ def test_fused_mlp_bwd_pe_wall_and_repeats(cuda):
     raw[..., 4:].sum().backward()
     assert runtime.LAUNCHES == {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0, "fused_mlp_fwd_kpe": 0,
                                 "fused_mlp_bwd_kpe": 0, "fused_mlp_fwd_pe": 1,
-                                "fused_mlp_bwd_pe": 1, "fused_pe": 1}
+                                "fused_mlp_bwd_pe": 1, "fused_pe": 1, "fused_render_weights": 0,
+                                "fused_render_maps": 0}
     for k, v in params.items():
         if k.startswith(("trunk_", "rgb_", "density")):
             assert v.grad is None or int(torch.count_nonzero(v.grad)) == 0, k
@@ -496,7 +500,7 @@ def test_training_forward_stashes_for_the_backward(cuda, pe_mode):
     names = {"kernel_t": ("fused_mlp_fwd", "fused_mlp_bwd"),
              "kernel": ("fused_mlp_fwd_kpe", "fused_mlp_bwd_kpe"),
              "outside": ("fused_pe", "fused_mlp_fwd_pe", "fused_mlp_bwd_pe")}[pe_mode]
-    assert runtime.LAUNCHES == {k: int(k in names) for k in runtime.KERNELS}
+    assert runtime.LAUNCHES == {k: int(k in names) for k in runtime.COUNTED}
     assert torch.equal(raw, want_raw)
     if pe_mode == "kernel_t":
         alone = fused_query_bwd(packed, pts, dirs, g)
@@ -625,3 +629,96 @@ def test_sigma_query_sweep_on_the_card(cuda, n):
     want = make_sigma_query(cfg.replace(use_pallas=False))(params, pts)
     assert got.shape == want.shape == (n,) and torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 5e-3 * max(float(want.abs().max()), 1.0)
+
+
+# ---- K8c / K8f: the fused render passes (csrc/fused_render.cu) ----
+
+def _rays(N, S, device, seed, near=1.0, far=8.0):
+    """N rays from a camera at radius 4 looking at the origin (directions of varied
+    length, the last one zero, as a padding ray), S sorted depths between near and far."""
+    rng = np.random.RandomState(seed)
+    o = np.tile(np.float32([4.0, 0.0, 1.6]), (N, 1)).astype(np.float32)
+    d = (-o + rng.randn(N, 3).astype(np.float32) * 0.5) * rng.uniform(0.2, 0.3, (N, 1))
+    d[-1] = 0.0
+    z = np.sort(rng.uniform(near, far, (N, S)), -1).astype(np.float32)
+    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in (o, d, z)]
+
+
+# (N rays, S samples): the flagship's coarse and fine chunks, a ragged count of each, and
+# sample counts whose spans are 1 tile of 4 rays, 3 tiles of 4 rays and 19 tiles of 128
+RENDER_SHAPES = [(2048, 64), (2048, 192), (37, 64), (37, 192), (300, 32), (41, 96), (130, 19)]
+
+
+@pytest.mark.parametrize("weights_only", [True, False])
+@pytest.mark.parametrize("n_s", RENDER_SHAPES)
+def test_fused_render_matches_plain(cuda, n_s, weights_only):
+    """K8c (the sigma stub's weights) and K8f (the full model's maps) at flagship widths
+    against their bf16 plain versions (the same roundings) within 5e-3 * max(scale, 1);
+    one launch of the pass's kernel and no other; two launches bit-identical."""
+    from dmnerf_tpu_torch.kernels.fused_render import fused_render, fused_render_ref
+
+    N, S = n_s
+    params, args, _, _ = _inputs((10, 4, 8, 256, (4,), 32, 1, 1), cuda, seed=10)
+    packed = pack_params(sigma_stub_params(params) if weights_only else params, *args)
+    o, d, z = _rays(N, S, cuda, seed=N + S)
+    runtime.reset_launches()
+    with torch.no_grad():
+        got = fused_render(packed, o, d, z, weights_only)
+        again = fused_render(packed, o, d, z, weights_only)
+    torch.cuda.synchronize()
+    name = "fused_render_weights" if weights_only else "fused_render_maps"
+    assert {k: v for k, v in runtime.LAUNCHES.items() if v} == {name: 2}
+    assert torch.equal(got, again)
+    assert got.shape == ((N, S) if weights_only else (N, packed.c4)) and torch.isfinite(got).all()
+    want = fused_render_ref(packed, o, d, z, weights_only, torch.bfloat16)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 5e-3 * max(scale, 1.0)
+
+
+@pytest.mark.parametrize("weights_only", [True, False])
+def test_fused_render_is_k1_then_the_compositing(cuda, weights_only):
+    """The points K8 forms and embeds are K1's: K8c / K8f against K1 on the points the
+    plain path forms (o + d * z) composited in PyTorch, within 1e-5 * max(scale, 1) (raw
+    is the same; only the order of the compositing's fp32 sums differs)."""
+    from dmnerf_tpu_torch.core.compositor import composite, composite_maps
+    from dmnerf_tpu_torch.kernels.fused_render import fused_render
+
+    params, args, _, _ = _inputs((10, 4, 8, 256, (4,), 32, 1, 1), cuda, seed=11)
+    packed = pack_params(sigma_stub_params(params) if weights_only else params, *args)
+    o, d, z = _rays(517, 192, cuda, seed=11)
+    df = torch.where(torch.sum(d * d, -1, keepdim=True) > 0, d, torch.ones_like(d))
+    with torch.no_grad():
+        got = fused_render(packed, o, d, z, weights_only)
+        raw = fused_query(packed, o[:, None, :] + df[:, None, :] * z[..., None],
+                          df / torch.linalg.norm(df, dim=-1, keepdim=True))
+    if weights_only:
+        want = composite(raw, z, df).weights
+    else:
+        rgb, ins, depth = composite_maps(raw, z, df, keep_air=True)
+        want = torch.cat([rgb, depth[:, None], ins], -1)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * max(scale, 1.0)
+
+
+def test_fused_renderer_on_the_card(cuda):
+    """make_fused_renderer over a ragged ray count (two chunks of 2048, the last partial):
+    2 launches a chunk (one K8c, one K8f) and no K1, against make_image_renderer (K1)
+    with the same weights: rgb PSNR >= 40 dB, at most 1 % of the rays on another label."""
+    from dmnerf_tpu_torch.configs import Config
+    from dmnerf_tpu_torch.render.fused_renderer import make_fused_renderer
+    from dmnerf_tpu_torch.render.renderer import make_image_renderer
+
+    cfg = Config(ins_num=32, near=1.0, far=8.0)
+    pc, _, _, _ = _inputs((10, 4, 8, 256, (4,), 32, 1, 1), cuda, seed=12)
+    pf, _, _, _ = _inputs((10, 4, 8, 256, (4,), 32, 1, 1), cuda, seed=13)
+    o, d, _ = _rays(3000, 1, cuda, seed=12)
+    d[-1] = d[0]
+    runtime.reset_launches()
+    got = make_fused_renderer(cfg)(pc, pf, o, d)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in runtime.LAUNCHES.items() if v} == \
+        {"fused_render_weights": 2, "fused_render_maps": 2}
+    want = make_image_renderer(cfg)(pc, pf, o, d)
+    mse = float(torch.mean((got["rgb"].double() - want["rgb"].double()) ** 2))
+    assert mse == 0 or -10 * np.log10(mse) >= 40
+    assert float((got["ins"].argmax(-1) != want["ins"].argmax(-1)).float().mean()) <= 0.01
