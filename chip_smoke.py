@@ -4,7 +4,7 @@
 
 0. Requires a CUDA card of capability 9.0 and prints its name and power limit.
    TF32 is off, so the fp32 plain path is really fp32.
-1. Builds every kernel of the render, train and manipulation paths (K1-K8) from
+1. Builds every kernel of the render, train and manipulation paths and the probes (K1-K10) from
    dmnerf_tpu_torch/kernels/csrc with nvcc (sm_90a), one process per source, all
    started together, and prints the build time and the compiler's register report.
 2. Kernel phase, at the flagship model's width (configs/test/dmsr/study.txt:
@@ -136,6 +136,18 @@
    compositing), the wrapper's per-call time, the fp32 plain version's, the library
    yardstick's (the bf16 addmm chain, then the PyTorch compositing) and the bound (executed matrix FLOPs over 989 TFLOP/s, or bytes over
    3.35 TB/s, whichever is larger).
+14. Head probe phase (scripts/head512_probe_torch.py and scripts/mfu_probe4_torch.py, a
+   path of its own, probe_heads): K9 in its four modes (a: head [256, 513]; b: [256, 512]
+   and a CUDA-core sigma dot; c: [256, 512]; d: [256, 512] and the n16 sigma layer) at the
+   probe's 786,432 points, and K10 (the fused head: block-diagonal output, and split) at
+   589,824 points with the operands of seeded flagship parameters: one launch a mode or
+   variant through the wrappers, each against its fp32 plain version (5e-3 * max(scale,
+   1)) and its bf16 one with exact sums (5e-3 of the scale, or twice the distance of
+   PyTorch's fp32 matmul order from exact sums where that floor is higher: a bf16
+   rounding that flips under another order runs through K9's eight layers), repeats
+   bit-identical; device_ms, TFLOP/s on model and executed FLOPs, the bound, the fp32
+   plain version's and the bf16 chain's times, and the two answers (a - c, b - c, d - c;
+   split - block-diagonal).
 
 The line before the last is a JSON object with each kernel's numbers and its
 launches on each path; the last line is {"ok": true, "device": {...}}. Any failure
@@ -1460,12 +1472,11 @@ def mesh_phase(cfg, device):
     return launches, launch
 
 
-def _fused_render_probe():
-    """scripts/fused_render_probe_torch.py as a module (the view comparison of phase 13)."""
+def _script(name):
+    """scripts/<name>.py as a module."""
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location(
-        "fused_render_probe_torch", os.path.join(REPO, "scripts", "fused_render_probe_torch.py"))
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "scripts", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -1484,7 +1495,7 @@ def fused_render_phase(device):
     from dmnerf_tpu_torch.kernels import fused_render as fr
     from dmnerf_tpu_torch.kernels import runtime
 
-    probe = _fused_render_probe()
+    probe = _script("fused_render_probe_torch")
     view = probe.compare_views(device, size=256, reps=1)
     chunks = view["chunks"]
     launches = {k: 0 for k in runtime.COUNTED}
@@ -1601,6 +1612,30 @@ def fused_render_phase(device):
     return launches, results
 
 
+def head_probes_phase(device):
+    """The head probes K9 and K10 at their probes' shapes: the launches of the probes'
+    questions (one a mode or variant), then each against its plain versions, timed."""
+    from dmnerf_tpu_torch.kernels import runtime
+
+    launches = {k: 0 for k in runtime.COUNTED}
+    res = {}
+    for name, kernel, cases in (("head512_probe_torch", "head512", "modes"),
+                                ("mfu_probe4_torch", "heads_fused", "variants")):
+        probe = _script(name)
+        r = probe.measure(device)
+        for k, n in r["launches"].items():
+            launches[k] += n
+        for case, v in r[cases].items():
+            print(f"[head probes] {kernel} {case}: {json.dumps(v)}", flush=True)
+        print(f"[head probes] {kernel} answer: {json.dumps(r['answer'])}", flush=True)
+        probe.check(r)
+        want = len(r[cases])
+        if r["launches"] != {kernel: want}:
+            raise AssertionError(f"{name}: launched {r['launches']}, want {want} {kernel}")
+        res[kernel] = r
+    return launches, res
+
+
 def _entry(name, replaces, launches, by_path, res, **extra):
     return {"name": name, "route": "cuda", "source": f"dmnerf_tpu_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": launches, "launches_by_path": by_path[name],
@@ -1682,11 +1717,13 @@ def main() -> int:
     mesh_launches, mesh_launch = mesh_phase(cfg, device)
     torch.cuda.empty_cache()
     fused_launches, fres = fused_render_phase(device)
+    torch.cuda.empty_cache()
+    probe_launches, pres = head_probes_phase(device)
 
     paths = {"render": render_launches, "train": train_launches, "train_kpe": kpe_train_launches,
              "mani_eval": eval_launches, "mani_demo": demo_launches,
              "train_scannet": scannet_train_launches, "render_scannet": scannet_render_launches,
-             "mesh": mesh_launches, "render_fused": fused_launches}
+             "mesh": mesh_launches, "render_fused": fused_launches, "probe_heads": probe_launches}
     by_path = {name: {path: n[name] for path, n in paths.items()} for name in runtime.COUNTED}
     for name in runtime.COUNTED:
         if sum(by_path[name].values()) == 0:
@@ -1718,6 +1755,20 @@ def main() -> int:
                                  fused_launches[name], by_path, fres[name],
                                  **{k: fres[name][k] for k in ("call_ms", "share_of_bound")}),
                         "source": "dmnerf_tpu_torch/kernels/csrc/fused_render.cu"})
+    # K9 by the TPU kernel's layout (mode a, head [256, 513]) and K10 by the probe's
+    # (one block-diagonal output), each with its other modes beside
+    for name, replaces, cases, main_case in (
+            ("head512", "scripts/dev/head512_probe.py:83", "modes", "a"),
+            ("heads_fused", "scripts/dev/mfu_probe4.py:79", "variants", "block_diagonal")):
+        r = pres[name]
+        worst = max(v["max_abs_err"] for v in r[cases].values())
+        kernels.append(_entry(name, replaces, probe_launches[name], by_path,
+                              {**r[cases][main_case], "max_abs_err": worst},
+                              **{cases: {k: {kk: v[kk] for kk in (
+                                  "ms", "plain_ms", "library_ms", "bound_ms", "share_of_bound",
+                                  "model_tflops", "executed_tflops", "max_abs_err",
+                                  "max_abs_err_bf16_plain")} for k, v in r[cases].items()},
+                                 "answer": r["answer"]}))
     print(f"[done] {time.time() - t0:.1f} s from the build on", flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -82,6 +82,10 @@ __device__ __forceinline__ void embed_rows(__nv_bfloat16* dst, const float* __re
 //  ROWS_RAY_Z       K8 (fused_render.cu): the rays' origins and directions [N, 3] and
 //                   depths z [N, S] fp32; the embedding warps form the points o + d z
 //                   and embed them; `ed_src` as ROWS_RAY_TABLE.
-enum Rows { ROWS_RAY_TABLE = 0, ROWS_POINT_DIRS = 1, ROWS_EMBEDDED = 2, ROWS_RAY_Z = 3 };
+//  ROWS_H           K9, K10 (head512.cu, heads_fused.cu): no embedding; `pt_src` a hidden
+//                   activation x [P, 256] bf16 that the consumers take into registers, and
+//                   an optional transposed viewdir embedding edT [E, P] bf16.
+enum Rows { ROWS_RAY_TABLE = 0, ROWS_POINT_DIRS = 1, ROWS_EMBEDDED = 2, ROWS_RAY_Z = 3,
+            ROWS_H = 4 };
 
 }  // namespace dmnerf

@@ -12,6 +12,8 @@
 //    come in as bf16 rows, and the kernel is the matrix-product chain alone.
 //  * fused_render.cu (K8c, K8f) runs K1's walk over points it forms from the rays and
 //    composites the raw output along each ray (CMP, below).
+//  * head512.cu (K9) and heads_fused.cu (K10) run the walk over a hidden activation and
+//    a layer table of their own (ROWS_H, below): the JAX package's head probes.
 // K1, K3 and K5 differ only in how a tile's embeddings are built (Rows). What they compute
 // is set out in dmnerf_tpu_torch/kernels/fused_mlp.py, whose fused_query_ref /
 // fused_query_kpe_ref / fused_query_pe_ref are their plain versions, whose pack_params
@@ -64,7 +66,7 @@
 //  * Rows past the ragged tail compute on zeros and are never stored.
 // Shared memory: 4 weight stages of 32 KB (128 KB) + 2 x (e, ed) tiles of 16 KB (64 KB)
 // + 12 mbarriers, 193 KB with the 1 KB alignment slack, of the 227 KB a block can have;
-// with STASH also two 16 KB staging tiles, 225 KB.
+// with STASH also two 16 KB staging tiles, 225 KB; with ROWS_H two 16 KB ed tiles, 225 KB.
 //
 // Training. With STASH the same kernel is the training forward: it also stores what
 // the parameter backward (fused_mlp_bwd.cuh) reads, in the layout of fused_mlp.py's
@@ -96,6 +98,20 @@
 //  * The embedding warps form the points o + d z with round-to-nearest products and
 //    sums, no contraction: the points, and so raw, are bit for bit those of K1 on the
 //    points the plain path forms.
+//
+// Head probes (ROWS_H; K9, K10). The rows are a hidden activation x [P, 256] bf16: the
+// first embedding thread loads a tile of it with TMA into the four 64-column tiles of
+// the embedding buffers (one 64 KB buffer); each consumer warpgroup takes its 64 rows
+// into the A fragments that chain the activations and releases the tile at once, so the
+// next tile loads under this one's products. The other embedding warps transpose the
+// tile's columns of edT [E, P] (K10) into an ed tile of their own (two buffers). The
+// table is the host's (head_probes.py's _probe_plan, launch_head_probe): ReLU layers
+// and sigma as above, sigma as a CUDA-core dot of the registers' h with a weight row
+// (EPI_DOT), and EPI_COLS layers whose columns (one of them may take sigma's place) go
+// to an output window [P, pitch] or into a row sum, reduced over the accumulator's quad
+// by shuffles in a fixed order. A layer may read half of h (SEG_H_LO, SEG_H_HI: two of
+// its four 64-column chunks). A head wider than 256 is several such layers over the same
+// h, whose epilogues leave the registers as they are.
 #pragma once
 
 #include "fused_mlp_common.cuh"
@@ -130,18 +146,21 @@ __host__ __device__ constexpr size_t cmp_smem() {
                                (CMP == CMP_MAPS ? (size_t)FT * CMP_PITCH * 4 + 64 * 4 : 0);
 }
 
-// Shared memory: the ring, two (e, ed) embedding buffers, the staging tiles, the
-// compositing buffers, mbarriers.
-template <bool STASH, int CMP = CMP_NONE>
+// Shared memory: the ring, two (e, ed) embedding buffers (ROWS_H: the x tile), ROWS_H's
+// two ed tiles, the staging tiles, the compositing buffers, mbarriers.
+template <bool STASH, int CMP = CMP_NONE, Rows ROWS = ROWS_RAY_TABLE>
 constexpr size_t fwd_smem() {
   return 1024 + (size_t)F_STAGES * F_STAGE_BYTES + 4 * (size_t)EMB_BYTES +
-         (STASH ? 2 * (size_t)STG_BYTES : 0) + cmp_smem<CMP>() +
-         (2 * F_STAGES + 4 + (CMP ? 2 : 0)) * 8;
+         (ROWS == ROWS_H ? 2 * (size_t)EMB_BYTES : 0) + (STASH ? 2 * (size_t)STG_BYTES : 0) +
+         cmp_smem<CMP>() + (2 * F_STAGES + 4 + (CMP ? 2 : 0) + (ROWS == ROWS_H ? 2 : 0)) * 8;
 }
 
-enum Epilogue { EPI_RELU = 0, EPI_SIGMA = 1, EPI_OUT = 2 };
-// a layer's A segments, in the order of its chunks
-enum Seg { SEG_ED = 1, SEG_E_FIRST = 2, SEG_H = 4, SEG_E_LAST = 8 };
+// EPI_COLS and EPI_DOT: the head probes' (ROWS_H) columns and CUDA-core sigma
+enum Epilogue { EPI_RELU = 0, EPI_SIGMA = 1, EPI_OUT = 2, EPI_COLS = 3, EPI_DOT = 4 };
+// a layer's A segments, in the order of its chunks (SEG_H_LO / SEG_H_HI: ROWS_H only)
+enum Seg { SEG_ED = 1, SEG_E_FIRST = 2, SEG_H = 4, SEG_E_LAST = 8, SEG_H_LO = 16, SEG_H_HI = 32 };
+// what a head-probe walk writes: columns [P, pitch], or their row sum [P]
+enum HeadOut { OUT_COLS = 0, OUT_ROWSUM = 1 };
 // instruction widths per k-step: n256; n16; 1-3 x n64
 enum Cls { CLS_256 = 0, CLS_16, CLS_64x1, CLS_64x2, CLS_64x3, N_CLS };
 
@@ -156,6 +175,13 @@ struct FChunk {
   int map, k0, half;
 };
 
+// A head-probe layer's output (ROWS_H): its first o_n columns go to output column o_col
+// on (or into the row sum), column sig_col (or none, -1) taking sigma's value; a sigma
+// layer (EPI_SIGMA, EPI_DOT) writes its one column when o_n is 1.
+struct FHeadOut {
+  int o_col, o_n, sig_col;
+};
+
 struct FwdParams {
   CUtensorMap maps[MAX_FMAPS];
   CUtensorMap e_map, ed_map;   // K5: its input embeddings [P, EP], [P, EDP]
@@ -165,6 +191,10 @@ struct FwdParams {
   long long P, e_stash, ed_stash;
   int n_layers, n_chunks, n_tiles, S, multires, multires_views, ep, edp, c4;
   int span, n_spans;   // the walk: tiles a span (1 without CMP), spans
+  // ROWS_H: x [P, 256] is e_map's; edT [edt_rows, P] (or null); the layers' outputs
+  const unsigned short* edt;
+  int edt_rows, o_kind, o_pitch;
+  FHeadOut hout[MAX_LAYERS];
 };
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -246,8 +276,9 @@ __device__ __forceinline__ void ring_next(Ring& r, int lane) {
 
 // acc = A W for one layer: its chunks in order (ed | e | h in four 64-column chunks |
 // e), each 4 k-steps of NI instructions of width NW. A from the embedding tiles (da_e,
-// da_ed: this warpgroup's 64 rows) or from the register fragments af.
-template <int NW, int NI>
+// da_ed: this warpgroup's 64 rows) or from the register fragments af. With HALVES (the
+// head probes) also h's first or last two chunks alone.
+template <int NW, int NI, bool HALVES = false>
 __device__ __forceinline__ void layer_product(float (&acc)[128], uint32_t (&af)[16][4],
                                               int segs, uint64_t da_e, uint64_t da_ed, Ring& r,
                                               int lane) {
@@ -290,6 +321,16 @@ __device__ __forceinline__ void layer_product(float (&acc)[128], uint32_t (&af)[
     DM_RS_CHUNK(1)
     DM_RS_CHUNK(2)
     DM_RS_CHUNK(3)
+  }
+  if constexpr (HALVES) {
+    if (segs & SEG_H_LO) {
+      DM_RS_CHUNK(0)
+      DM_RS_CHUNK(1)
+    }
+    if (segs & SEG_H_HI) {
+      DM_RS_CHUNK(2)
+      DM_RS_CHUNK(3)
+    }
   }
   if (segs & SEG_E_LAST) DM_SS_CHUNK(da_e)
 #undef DM_SS_CHUNK
@@ -343,6 +384,41 @@ __device__ __forceinline__ void build_tile(__nv_bfloat16* e, __nv_bfloat16* ed,
     }
   }
 }
+
+// ROWS_H: the ed tile of rows p0 .. p0 + FT from edT [edt_rows, P] bf16, transposed by
+// the embedding warps: a thread gathers one 16-byte chunk (8 columns) of a row, the
+// threads of a warp on consecutive rows, so each column's reads are contiguous. Zeros
+// past edt_rows and past P.
+__device__ __forceinline__ void build_edt(__nv_bfloat16* ed, const FwdParams& p, long long p0,
+                                          int tid) {
+  for (int c = tid; c < FT * 8; c += EMB_THREADS) {
+    const int r = c & (FT - 1), q = c >> 7;
+    const long long pt = p0 + r;
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (pt < p.P) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int row = q * 8 + k;
+        if (row < p.edt_rows) w[k >> 1] |= (uint32_t)p.edt[row * p.P + pt] << (16 * (k & 1));
+      }
+    }
+    *reinterpret_cast<uint4*>(ed + sw128(r, q * 8)) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// ROWS_H: a value of a row at an output column: stored into out [P, pitch], or added to
+// this lane's part of the row's sum
+__device__ __forceinline__ void head_emit(const FwdParams& p, float* out, long long row, int col,
+                                          float v, float& rs) {
+  if (p.o_kind == OUT_ROWSUM)
+    rs += v;
+  else if (row < p.P)
+    out[row * p.o_pitch + col] = v;
+}
+
+// bf16 x 2 (low column first) to two floats
+__device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
 
 // The compositing buffers of a block (cmp_smem) and the two mbarriers between the
 // consumers, which stage a tile's sigma (`sig`) and output columns (`raw`, [FT][CMP_PITCH])
@@ -497,14 +573,17 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   unsigned char* ring = smem;                                   // [stage][<=256][64] bf16
-  unsigned char* emb = smem + F_STAGES * F_STAGE_BYTES;         // [buf][e, ed][128][64]
-  unsigned char* stg = emb + 4 * EMB_BYTES;                     // STASH: [wg][64][128] bf16
+  unsigned char* emb = smem + F_STAGES * F_STAGE_BYTES;   // [buf][e, ed][128][64]; ROWS_H: x
+  unsigned char* hed = emb + 4 * EMB_BYTES;               // ROWS_H: [buf][128][64] ed tiles
+  unsigned char* stg = hed + (ROWS == ROWS_H ? 2 * EMB_BYTES : 0);   // STASH: [wg][64][128]
   float* cmp = reinterpret_cast<float*>(stg + (STASH ? 2 * STG_BYTES : 0));   // cmp_smem
   uint64_t* full = reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(cmp) +
                                                cmp_smem<CMP>());
   uint64_t* empty = full + F_STAGES;
   uint64_t* emb_full = empty + F_STAGES;
   uint64_t* emb_empty = emb_full + 2;
+  uint64_t* x_full = emb_empty + 2;   // ROWS_H: the x tile is loaded, and taken
+  uint64_t* x_empty = x_full + 1;
   CmpBufs cb{};
   if constexpr (CMP != CMP_NONE) {
     cb.xs = cmp;
@@ -539,6 +618,10 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
     if constexpr (CMP != CMP_NONE) {
       mbar_init(cb.full, F_CONSUMERS);
       mbar_init(cb.empty, EMB_THREADS);
+    }
+    if constexpr (ROWS == ROWS_H) {
+      mbar_init(x_full, 1);
+      mbar_init(x_empty, F_CONSUMERS / 32);
     }
     mbar_fence_init();
   }
@@ -589,6 +672,19 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
               tma_load_2d(e, &p.e_map, &emb_full[b], 0, (int)p0);
               tma_load_2d(ed, &p.ed_map, &emb_full[b], 0, (int)p0);
             }
+          } else if constexpr (ROWS == ROWS_H) {
+            // x's tile once the consumers have taken the last one; edT's into ed tile b
+            if (tid == 0) {
+              mbar_wait(x_empty, (it & 1) ^ 1);
+              mbar_expect_tx(x_full, 4 * EMB_BYTES);
+              for (int c = 0; c < 4; ++c)
+                tma_load_2d(emb + c * EMB_BYTES, &p.e_map, x_full, 64 * c, (int)p0);
+            }
+            mbar_wait(&emb_empty[b], ((it >> 1) & 1) ^ 1);
+            if (p.edt != nullptr)
+              build_edt(reinterpret_cast<__nv_bfloat16*>(hed + b * EMB_BYTES), p, p0, tid);
+            fence_proxy_async();
+            mbar_arrive(&emb_full[b]);
           } else {
             mbar_wait(&emb_empty[b], ((it >> 1) & 1) ^ 1);
             build_tile<ROWS>(e, ed, pt_src, ed_src, p, p0, tid, cb.xs);
@@ -637,13 +733,34 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
       const int lr0 = (warp & 3) * 16 + g;   // the warp's first row in the warpgroup's 64
       const long long r0 = p0 + wg * 64 + lr0, r1 = r0 + 8;
       unsigned char* e_tile = emb + 2 * b * EMB_BYTES + wg * (EMB_BYTES / 2);
+      unsigned char* ed_tile =
+          ROWS == ROWS_H ? hed + b * EMB_BYTES + wg * (EMB_BYTES / 2) : e_tile + EMB_BYTES;
       const uint64_t da_e = desc_sw128(e_tile, 16, 1024);
-      const uint64_t da_ed = desc_sw128(e_tile + EMB_BYTES, 16, 1024);
+      const uint64_t da_ed = desc_sw128(ed_tile, 16, 1024);
       mbar_wait(&emb_full[b], (it >> 1) & 1);
+      float rs0 = 0.f, rs1 = 0.f;   // ROWS_H: the row sums of rows r0, r1 (this lane's part)
+      if constexpr (ROWS == ROWS_H) {
+        // this warpgroup's 64 rows of x into the A fragments (the m64nNk16 layout: rows
+        // lr0, lr0 + 8, columns 16 ks + 2 t and + 8), then the tile goes back to the loader
+        mbar_wait(x_full, it & 1);
+        const __nv_bfloat16* xt = reinterpret_cast<const __nv_bfloat16*>(emb + wg * (EMB_BYTES / 2));
+#pragma unroll
+        for (int ks = 0; ks < 16; ++ks) {
+          const __nv_bfloat16* blk = xt + (ks >> 2) * (EMB_BYTES / 2);
+          const int c0 = (ks & 3) * 16 + 2 * t;
+          af[ks][0] = *reinterpret_cast<const uint32_t*>(blk + sw128(lr0, c0));
+          af[ks][1] = *reinterpret_cast<const uint32_t*>(blk + sw128(lr0 + 8, c0));
+          af[ks][2] = *reinterpret_cast<const uint32_t*>(blk + sw128(lr0, c0 + 8));
+          af[ks][3] = *reinterpret_cast<const uint32_t*>(blk + sw128(lr0 + 8, c0 + 8));
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(x_empty);
+      }
 
       for (int l = 0; l < p.n_layers; ++l) {
         const FLayer L = p.layers[l];
-#define DM_LAYER(NW, NI) layer_product<NW, NI>(acc, af, L.segs, da_e, da_ed, r, lane)
+#define DM_LAYER(NW, NI) \
+  layer_product<NW, NI, ROWS == ROWS_H>(acc, af, L.segs, da_e, da_ed, r, lane)
         switch (L.cls) {
           case CLS_256: DM_LAYER(256, 1); break;
           case CLS_16: DM_LAYER(16, 1); break;
@@ -726,6 +843,79 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
             }
             if constexpr (CMP == CMP_WEIGHTS) mbar_arrive(cb.full);
           }
+          if constexpr (ROWS == ROWS_H) {
+            // every lane of the quad holds its rows' sigma; written when the table asks
+            sg0 = __shfl_sync(0xffffffffu, sg0, lane & ~3);
+            sg1 = __shfl_sync(0xffffffffu, sg1, lane & ~3);
+            const FHeadOut ho = p.hout[l];
+            if (ho.o_n && t == 0) {
+              head_emit(p, out, r0, ho.o_col, sg0, rs0);
+              head_emit(p, out, r1, ho.o_col, sg1, rs1);
+            }
+          }
+        } else if (ROWS == ROWS_H && L.epi == EPI_DOT) {
+          // sigma = h . w on the CUDA cores: this lane's 64 columns of each of its two rows
+          // (the A fragments) against the weight row, then the quad's four parts
+          const float* wrow = biases + L.b_off;
+          float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+          for (int ks = 0; ks < 16; ++ks) {
+            const int c0 = ks * 16 + 2 * t;
+            const float2 w0 = __ldg(reinterpret_cast<const float2*>(wrow + c0));
+            const float2 w8 = __ldg(reinterpret_cast<const float2*>(wrow + c0 + 8));
+            s0 = fmaf(bf16_lo(af[ks][0]), w0.x, s0);
+            s0 = fmaf(bf16_hi(af[ks][0]), w0.y, s0);
+            s0 = fmaf(bf16_lo(af[ks][2]), w8.x, s0);
+            s0 = fmaf(bf16_hi(af[ks][2]), w8.y, s0);
+            s1 = fmaf(bf16_lo(af[ks][1]), w0.x, s1);
+            s1 = fmaf(bf16_hi(af[ks][1]), w0.y, s1);
+            s1 = fmaf(bf16_lo(af[ks][3]), w8.x, s1);
+            s1 = fmaf(bf16_hi(af[ks][3]), w8.y, s1);
+          }
+          s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+          s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+          sg0 = s0;
+          sg1 = s1;
+          const FHeadOut ho = p.hout[l];
+          if (ho.o_n && t == 0) {
+            head_emit(p, out, r0, ho.o_col, sg0, rs0);
+            head_emit(p, out, r1, ho.o_col, sg1, rs1);
+          }
+        } else if (ROWS == ROWS_H) {
+          // EPI_COLS: the layer's first o_n columns (+ bias; sig_col takes sigma) to the
+          // output window, or into this lane's part of the row sums; h stays as it is
+          const FHeadOut ho = p.hout[l];
+          const bool pairs = p.o_kind == OUT_COLS && ((p.o_pitch | ho.o_col) & 1) == 0;
+#pragma unroll
+          for (int j = 0; j < 32; ++j) {
+            const int col = j * 8 + 2 * t;
+            if (col < ho.o_n) {
+              const bool two = col + 1 < ho.o_n;
+              const float b0 = __ldg(bias + col), b1 = two ? __ldg(bias + col + 1) : 0.f;
+#pragma unroll
+              for (int half = 0; half < 2; ++half) {
+                const float sg = half ? sg1 : sg0;
+                const float v0 = col == ho.sig_col ? sg : acc[4 * j + 2 * half] + b0;
+                const float v1 = col + 1 == ho.sig_col ? sg : acc[4 * j + 2 * half + 1] + b1;
+                const long long row = half ? r1 : r0;
+                if (p.o_kind == OUT_ROWSUM) {
+                  float& rs = half ? rs1 : rs0;
+                  rs += v0;
+                  if (two) rs += v1;
+                } else if (row < P) {
+                  float* o = out + row * p.o_pitch + ho.o_col + col;
+                  if (two && pairs) {
+                    *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+                  } else {
+                    o[0] = v0;
+                    if (two) o[1] = v1;
+                  }
+                }
+              }
+            }
+          }
         } else if (CMP == CMP_MAPS) {
           // stage the output columns (sigma's column is not read)
 #pragma unroll
@@ -768,6 +958,20 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
       }
 #ifdef DMNERF_FWD_NO_EPILOGUE
       if (p0 < 0) out[0] = keep;
+#else
+      if constexpr (ROWS == ROWS_H) {
+        if (p.o_kind == OUT_ROWSUM) {
+          // the quad's four parts of each row sum, in a fixed order
+          rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
+          rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
+          rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
+          rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
+          if (t == 0) {
+            if (r0 < P) out[r0] = rs0;
+            if (r1 < P) out[r1] = rs1;
+          }
+        }
+      }
 #endif
       // every product that read this tile's embeddings has completed
       __syncwarp();
@@ -784,6 +988,53 @@ inline int layer_class(int N, int* box_rows) {
   const int cls = N <= 16 ? CLS_16 : N <= 192 ? CLS_16 + (N + 63) / 64 : CLS_256;
   *box_rows = cover[cls];
   return cls;
+}
+
+// The weight boxes of a plan's maps: encode each of the n_maps rows (off, cols, rows = N,
+// pitch) at `row` over the transposed weights `w` into fp.maps, its box rows into `box`.
+inline int encode_weight_maps(FwdParams& fp, const __nv_bfloat16* w, const long long* row,
+                              int n_maps, int* box) {
+  int err;
+  for (int i = 0; i < n_maps; ++i, row += 4) {
+    layer_class((int)row[2], &box[i]);
+    if (row[2] > 256 || (err = encode_map(&fp.maps[i], w + row[0], row[1], row[2], row[3], 64,
+                                          box[i] / 2)))
+      return row[2] > 256 ? (int)cudaErrorInvalidValue : err;
+  }
+  return 0;
+}
+
+// Launch a kernel of the template on `stream`: clusters of two blocks, as many as the card
+// holds at once, at most one a span pair.
+template <typename Kernel>
+int run_fwd(Kernel kernel, size_t smem, const FwdParams& fp, int n_sms, void* stream,
+            const void* pt_src, const void* ed_src, const float* biases, float* out,
+            void* stash) {
+  const int n_pairs = (fp.n_spans + 1) / 2;
+  cudaError_t ee = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        (int)smem);
+  if (ee != cudaSuccess) return (int)ee;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 2;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(2 * (n_sms / 2)), 1, 1);
+  cfg.blockDim = dim3(F_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if ((ee = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg)) != cudaSuccess)
+    return (int)ee;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  cfg.gridDim = dim3((unsigned)(2 * (clusters < n_pairs ? clusters : n_pairs)), 1, 1);
+  ee = cudaLaunchKernelEx(&cfg, kernel, fp, pt_src, ed_src, biases, out,
+                          reinterpret_cast<__nv_bfloat16*>(stash));
+  if (ee != cudaSuccess) return (int)ee;
+  return (int)cudaGetLastError();
 }
 
 // Launch on `stream`; returns 0 when the launch was accepted, a cudaError, or 10000 + a
@@ -834,12 +1085,8 @@ int launch_fused_mlp_fwd(const void* pt_src, const void* ed_src, const void* wt,
   const long long* row = plan + 8;
   const __nv_bfloat16* w = reinterpret_cast<const __nv_bfloat16*>(wt);
   int box[MAX_FMAPS], err;
-  for (int i = 0; i < n_maps; ++i, row += 4) {
-    layer_class((int)row[2], &box[i]);
-    if (row[2] > 256 || (err = encode_map(&fp.maps[i], w + row[0], row[1], row[2], row[3], 64,
-                                          box[i] / 2)))
-      return row[2] > 256 ? (int)cudaErrorInvalidValue : err;
-  }
+  if ((err = encode_weight_maps(fp, w, row, n_maps, box))) return err;
+  row += 4 * n_maps;
   for (int l = 0; l < n_layers; ++l, row += 4) {
     int rows;
     const int N = (int)row[1];
@@ -870,33 +1117,8 @@ int launch_fused_mlp_fwd(const void* pt_src, const void* ed_src, const void* wt,
         (err = encode_map(&fp.ed_map, ed_src, fp.edp, P, fp.edp, 64, FT)))
       return err;
   }
-  // clusters of two blocks, as many as the card holds at once, at most one a span pair
-  const int n_pairs = (fp.n_spans + 1) / 2;
   auto run = [&](auto kernel, size_t smem) {
-    cudaError_t ee = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                          (int)smem);
-    if (ee != cudaSuccess) return (int)ee;
-    cudaLaunchAttribute attr;
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = 2;
-    attr.val.clusterDim.y = 1;
-    attr.val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)(2 * (n_sms / 2)), 1, 1);
-    cfg.blockDim = dim3(F_THREADS, 1, 1);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = (cudaStream_t)stream;
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
-    int clusters = 0;
-    if ((ee = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg)) != cudaSuccess)
-      return (int)ee;
-    if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
-    cfg.gridDim = dim3((unsigned)(2 * (clusters < n_pairs ? clusters : n_pairs)), 1, 1);
-    ee = cudaLaunchKernelEx(&cfg, kernel, fp, pt_src, ed_src, biases, out,
-                            reinterpret_cast<__nv_bfloat16*>(stash));
-    if (ee != cudaSuccess) return (int)ee;
-    return (int)cudaGetLastError();
+    return run_fwd(kernel, smem, fp, n_sms, stream, pt_src, ed_src, biases, out, stash);
   };
   if constexpr (CMP != CMP_NONE) {
     return run(fused_mlp_fwd_kernel<ROWS, false, CMP>, fwd_smem<false, CMP>());
@@ -904,6 +1126,79 @@ int launch_fused_mlp_fwd(const void* pt_src, const void* ed_src, const void* wt,
     if (stash == nullptr) return run(fused_mlp_fwd_kernel<ROWS, false>, fwd_smem<false>());
     return run(fused_mlp_fwd_kernel<ROWS, true>, fwd_smem<true>());
   }
+}
+
+// Launch a head probe (ROWS_H: head512.cu K9, heads_fused.cu K10) on `stream`; returns as
+// launch_fused_mlp_fwd. `x` is [P, 256] bf16 (16-byte aligned), `edt` [edt_rows, P] bf16 or
+// null, `wt` and `biases` head_probes.py's ProbeOperands, `plan` the int64 table of its
+// _probe_plan:
+//   header   n_layers, n_maps, n_chunks, out kind (HeadOut), out pitch, EDP, 0, 0
+//   n_maps   rows off, cols, rows, pitch      (as launch_fused_mlp_fwd's)
+//   n_layers rows segs, N, b_off, epilogue, o_col, o_n, sig_col
+//   n_chunks rows map, k0
+// `out` takes [P, pitch] (OUT_COLS) or the row sums [P] (OUT_ROWSUM). A template, so that
+// only the sources that call it (head512.cu, heads_fused.cu) compile its kernel.
+template <Rows ROWS = ROWS_H>
+int launch_head_probe(const void* x, const void* edt, int edt_rows, const void* wt,
+                      const float* biases, float* out, long long P, const long long* plan,
+                      int n_sms, void* stream) {
+  static_assert(ROWS == ROWS_H, "the head probes walk ROWS_H");
+  const long long* h = plan;
+  const int n_layers = (int)h[0], n_maps = (int)h[1], n_chunks = (int)h[2];
+  const int o_kind = (int)h[3], o_pitch = (int)h[4], edp = (int)h[5];
+  if (n_layers < 1 || n_layers > MAX_LAYERS || n_maps < 0 || n_maps > MAX_FMAPS ||
+      n_chunks < 0 || n_chunks > MAX_FCHUNKS || P <= 0 || n_sms <= 0 || P > (1ll << 31) - FT ||
+      (o_kind != OUT_COLS && o_kind != OUT_ROWSUM) || o_pitch < 1 || edp < 0 || edp > 64 ||
+      edp % 8 || edt_rows < 0 || edt_rows > edp || (edt == nullptr) != (edt_rows == 0))
+    return (int)cudaErrorInvalidValue;
+  cudaPointerAttributes attr;
+  cudaError_t e;
+  if ((e = cudaPointerGetAttributes(&attr, wt)) != cudaSuccess ||
+      (e = cudaSetDevice(attr.device)) != cudaSuccess)
+    return (int)e;
+  static FwdParams fp;
+  fp = FwdParams{};
+  fp.P = P;
+  fp.S = 1;
+  fp.n_layers = n_layers;
+  fp.n_chunks = n_chunks;
+  fp.n_tiles = (int)((P + FT - 1) / FT);
+  fp.edp = edp;
+  fp.e_stash = fp.ed_stash = -1;
+  fp.span = 1;
+  fp.n_spans = fp.n_tiles;
+  fp.edt = static_cast<const unsigned short*>(edt);
+  fp.edt_rows = edt_rows;
+  fp.o_kind = o_kind;
+  fp.o_pitch = o_pitch;
+  int box[MAX_FMAPS], err;
+  if ((err = encode_weight_maps(fp, reinterpret_cast<const __nv_bfloat16*>(wt), plan + 8, n_maps,
+                                box)))
+    return err;
+  const long long* row = plan + 8 + 4 * n_maps;
+  const int segs_all = SEG_ED | SEG_H | SEG_H_LO | SEG_H_HI;
+  for (int l = 0; l < n_layers; ++l, row += 7) {
+    int rows;
+    const int segs = (int)row[0], N = (int)row[1], epi = (int)row[3];
+    const int o_col = (int)row[4], o_n = (int)row[5], sig = (int)row[6];
+    const bool sigma = epi == EPI_SIGMA || epi == EPI_DOT;
+    if ((segs & ~segs_all) || (epi != EPI_RELU && epi != EPI_COLS && !sigma) ||
+        ((epi == EPI_DOT) != (segs == 0)) || (epi != EPI_DOT && (N <= 0 || N > 256)) ||
+        ((segs & SEG_ED) && edp == 0) || row[2] < 0 || o_n < 0 ||
+        (epi == EPI_RELU && o_n != 0) || (sigma && o_n > 1) || (epi == EPI_COLS && o_n > N) ||
+        (o_kind == OUT_COLS && o_n > 0 && (o_col < 0 || o_col + o_n > o_pitch)) ||
+        (sig != -1 && (epi != EPI_COLS || sig < 0 || sig >= o_n)))
+      return (int)cudaErrorInvalidValue;
+    fp.layers[l] = FLayer{segs, layer_class(N, &rows), N, (int)row[2], epi, -1};
+    fp.hout[l] = FHeadOut{o_col, o_n, sig};
+  }
+  for (int c = 0; c < n_chunks; ++c, row += 2) {
+    if (row[0] < 0 || row[0] >= n_maps) return (int)cudaErrorInvalidValue;
+    fp.chunks[c] = FChunk{(int)row[0], (int)row[1], box[row[0]] / 2};
+  }
+  if ((err = encode_map(&fp.e_map, x, 256, P, 256, 64, FT))) return err;
+  return run_fwd(fused_mlp_fwd_kernel<ROWS, false>, fwd_smem<false, CMP_NONE, ROWS>(), fp,
+                 n_sms, stream, x, edt, biases, out, nullptr);
 }
 
 }  // namespace

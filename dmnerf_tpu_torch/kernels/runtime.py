@@ -28,11 +28,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # the sources: K1, K2 (pe_mode 'kernel_t'), K3, K4 (pe_mode 'kernel'), K5, K6, K7 (pe_mode
-# 'outside': the forward and backward over precomputed embeddings, and the embedding) and
-# the fused render passes K8c, K8f (two entry points of one source)
+# 'outside': the forward and backward over precomputed embeddings, and the embedding),
+# the fused render passes K8c, K8f (two entry points of one source) and the head probes
+# K9, K10
 KERNELS = ("fused_mlp_fwd", "fused_mlp_bwd", "fused_mlp_fwd_kpe", "fused_mlp_bwd_kpe",
-           "fused_mlp_fwd_pe", "fused_mlp_bwd_pe", "fused_pe", "fused_render")
-COUNTED = KERNELS[:-1] + ("fused_render_weights", "fused_render_maps")
+           "fused_mlp_fwd_pe", "fused_mlp_bwd_pe", "fused_pe", "fused_render", "head512",
+           "heads_fused")
+COUNTED = tuple(k for k in KERNELS if k != "fused_render") + ("fused_render_weights",
+                                                               "fused_render_maps")
 LAUNCHES: Dict[str, int] = {name: 0 for name in COUNTED}
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

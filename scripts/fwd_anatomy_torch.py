@@ -27,10 +27,12 @@ Each is timed (CUDA-event median of 10 launches) at the fine training query (307
 192 points), for K1 ('kernel_t'), K3 ('kernel') and K5 ('outside', over K7's
 embedding). At the render chunk (2048 x 192 fine, full model; 2048 x 64 coarse, sigma
 stub; K3 also the rgb stub) and the training queries (3072 x 192 and 3072 x 64, full
-model) it times the full kernel, the training forward (not for the stubs, which never
-train) and the bf16 torch.addmm chain
+model) it times the full kernel (``ms``: one event pair around one launch, the host's work
+included; ``device_ms``: ``chip_smoke.device_ms``, 50 back-to-back launches), the
+training forward (not for the stubs, which never train) and the bf16 torch.addmm chain
 over the same packed layers (the library yardstick, used nowhere in the port), with
-TFLOP/s and the share of the operations bound (executed matrix FLOPs over 989 TFLOP/s).
+TFLOP/s and the share of the operations bound (executed matrix FLOPs over 989 TFLOP/s),
+and at the fine render chunk the digest of the kernel's output (``chip_smoke.digest``).
 
 The chain probe is 8 plain [W, W] layers of the flagship (ReLU into the next layer) over
 the fine render chunk: the practical ceiling of the template's products. Where the
@@ -285,7 +287,10 @@ def main() -> int:
                 lib = lambda: cs.library_query(packed, pts, dirs, mode)  # noqa: E731
             r = dict(points=P, bound_ms=bound,
                      ms=cs._time_ms(lambda: launch(mode, packed, a, b, P, S)),
+                     device_ms=cs.device_ms(lambda: launch(mode, packed, a, b, P, S))["device_ms"],
                      library_ms=cs._time_ms(lib))
+            if shape == "render_fine":
+                r["digest"] = cs.digest(launch(mode, packed, a, b, P, S))
             if "stub" not in shape:   # the backward, whose stash this is, takes no stub
                 r["stash_ms"] = cs._time_ms(lambda: fm._stash_forward(mode, packed, a, b,
                                                                       P // S, S), reps=5)

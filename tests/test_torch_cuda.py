@@ -4,7 +4,9 @@ instance-head wall and their bit-identical repeats; the training forward's stash
 against the standalone backward and the no-grad forward, bit for bit. K1/K2 take per-ray viewdirs
 (pe_mode 'kernel_t'), K3/K4 per-point directions (pe_mode 'kernel'), K5/K6 the
 embeddings that K7 and the per-ray viewdir table give (pe_mode 'outside'); K8c/K8f (the
-fused render passes) take rays and depths and composite in the kernel. These tests
+fused render passes) take rays and depths and composite in the kernel; K9/K10 (the head
+probes) take a hidden activation and their own layer tables, and the forward template
+they joined still gives K1/K3/K5 their earlier bits. These tests
 need a CUDA card of capability 9.0 and skip without one; they import no JAX, so they
 run on a machine that has none:
 
@@ -149,7 +151,7 @@ def test_fused_mlp_bwd_wall(cuda):
     assert runtime.LAUNCHES == {"fused_mlp_fwd": 1, "fused_mlp_bwd": 1, "fused_mlp_fwd_kpe": 0,
                                 "fused_mlp_bwd_kpe": 0, "fused_mlp_fwd_pe": 0,
                                 "fused_mlp_bwd_pe": 0, "fused_pe": 0, "fused_render_weights": 0,
-                                "fused_render_maps": 0}
+                                "fused_render_maps": 0, "head512": 0, "heads_fused": 0}
     for k, v in params.items():
         if k.startswith(("trunk_", "rgb_", "density")):
             assert v.grad is None or int(torch.count_nonzero(v.grad)) == 0, k
@@ -233,7 +235,7 @@ def test_fused_mlp_bwd_kpe_wall_and_repeats(cuda):
     assert runtime.LAUNCHES == {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0, "fused_mlp_fwd_kpe": 1,
                                 "fused_mlp_bwd_kpe": 1, "fused_mlp_fwd_pe": 0,
                                 "fused_mlp_bwd_pe": 0, "fused_pe": 0, "fused_render_weights": 0,
-                                "fused_render_maps": 0}
+                                "fused_render_maps": 0, "head512": 0, "heads_fused": 0}
     for k, v in params.items():
         if k.startswith(("trunk_", "rgb_", "density")):
             assert v.grad is None or int(torch.count_nonzero(v.grad)) == 0, k
@@ -465,7 +467,7 @@ def test_fused_mlp_bwd_pe_wall_and_repeats(cuda):
     assert runtime.LAUNCHES == {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0, "fused_mlp_fwd_kpe": 0,
                                 "fused_mlp_bwd_kpe": 0, "fused_mlp_fwd_pe": 1,
                                 "fused_mlp_bwd_pe": 1, "fused_pe": 1, "fused_render_weights": 0,
-                                "fused_render_maps": 0}
+                                "fused_render_maps": 0, "head512": 0, "heads_fused": 0}
     for k, v in params.items():
         if k.startswith(("trunk_", "rgb_", "density")):
             assert v.grad is None or int(torch.count_nonzero(v.grad)) == 0, k
@@ -722,3 +724,130 @@ def test_fused_renderer_on_the_card(cuda):
     mse = float(torch.mean((got["rgb"].double() - want["rgb"].double()) ** 2))
     assert mse == 0 or -10 * np.log10(mse) >= 40
     assert float((got["ins"].argmax(-1) != want["ins"].argmax(-1)).float().mean()) <= 0.01
+
+
+# ---- K9, K10: the head probes (kernels/head_probes.py) ----
+
+H512_P, HEADS_P = 786_432, 589_824    # the probes' point counts
+RAGGED_P = 3 * 128 * 66 + 77          # past one walk of the persistent grid, a partial tile
+
+
+def _h512_inputs(mode, P, device, seed=0):
+    """The probe's inputs (head512_probe.py:98-108, 74-82): x [P, 256] normals and
+    weights of normals * 0.05, all bf16."""
+    from dmnerf_tpu_torch.kernels.head_probes import WIDTH
+
+    g = torch.Generator(device).manual_seed(seed)
+    rnd = lambda *s, k=1.0: (torch.randn(*s, generator=g, device=device) * k).to(torch.bfloat16)  # noqa: E731
+    x = rnd(P, WIDTH)
+    ws = [rnd(WIDTH, WIDTH, k=0.05) for _ in range(8)] + [rnd(WIDTH, 2 * WIDTH + (mode == "a"), k=0.05)]
+    return x, ws, rnd(1, WIDTH, k=0.05) if mode in "bd" else None
+
+
+def _heads_inputs(P, device, seed=0):
+    """K10's inputs: h [P, 256] and edT [27, P] normals in bf16, and the operands of
+    seeded flagship parameters (ins_num 32) through heads_operands."""
+    from dmnerf_tpu_torch.kernels.head_probes import heads_operands
+
+    params = init_dm_nerf(ins_num=32, generator=torch.Generator().manual_seed(seed), device=device)
+    ops = heads_operands(params, 4)
+    g = torch.Generator(device).manual_seed(seed)
+    h = torch.randn(P, 256, generator=g, device=device).to(torch.bfloat16)
+    edT = torch.randn(27, P, generator=g, device=device).to(torch.bfloat16)
+    return [h, edT] + [ops[k] for k in ("m1", "b1", "wrh2", "m2", "b2")]
+
+
+def _held(got, ref, *args, **kw):
+    """The kernel against ``ref``'s fp32 plain version (5e-3 * max(scale, 1)) and its bf16
+    one with exact sums (5e-3 of the scale, or twice PyTorch's own order floor where that
+    is above: head_probes.compare)."""
+    from dmnerf_tpu_torch.kernels.head_probes import compare
+
+    r = compare(got, *(ref(*args, **kw, act_dtype=a, sum_dtype=s) for a, s in (
+        (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+        (torch.bfloat16, torch.float64))))
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("P", [H512_P, RAGGED_P])
+@pytest.mark.parametrize("mode", ["a", "b", "c", "d"])
+def test_head512_matches_plain(cuda, mode, P):
+    from dmnerf_tpu_torch.kernels.head_probes import head512, head512_ref
+
+    x, ws, wd = _h512_inputs(mode, P, cuda)
+    runtime.reset_launches()
+    got = head512(mode, x, ws, wd)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["head512"] == 1 and got.shape == (P, 32)
+    _held(got, head512_ref, mode, x, ws, wd)
+
+
+@pytest.mark.parametrize("mode", ["a", "b", "c", "d"])
+def test_head512_computes_every_column(cuda, mode):
+    """store_all: every head column (and sigma) against the plain version's."""
+    from dmnerf_tpu_torch.kernels.head_probes import head512, head512_ref
+
+    x, ws, wd = _h512_inputs(mode, RAGGED_P, cuda, seed=1)
+    got = head512(mode, x, ws, wd, store_all=True)
+    assert got.shape == (RAGGED_P, 512 + (mode != "c"))
+    _held(got, head512_ref, mode, x, ws, wd, store_all=True)
+
+
+@pytest.mark.parametrize("P", [HEADS_P, RAGGED_P])
+@pytest.mark.parametrize("split", [False, True])
+def test_heads_fused_matches_plain(cuda, split, P):
+    from dmnerf_tpu_torch.kernels.head_probes import heads_fused, heads_fused_ref
+
+    args = _heads_inputs(P, cuda)
+    runtime.reset_launches()
+    got = heads_fused(*args, split=split)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["heads_fused"] == 1 and got.shape == (P, 1)
+    _held(got, lambda *a, **k: heads_fused_ref(*a, **k)[0], *args, split=split)
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_heads_fused_computes_every_column(cuda, split):
+    """store_all: the [P, 4 + C] columns before the row sum against the plain version's."""
+    from dmnerf_tpu_torch.kernels.head_probes import heads_fused, heads_fused_ref
+
+    args = _heads_inputs(RAGGED_P, cuda, seed=1)
+    got = heads_fused(*args, split=split, store_all=True)
+    assert got.shape == (RAGGED_P, 37)
+    _held(got, lambda *a, **k: heads_fused_ref(*a, **k)[1], *args, split=split)
+
+
+def test_head_probes_repeat_bit_identical(cuda):
+    from dmnerf_tpu_torch.kernels.head_probes import head512, heads_fused
+
+    for mode in ("a", "b", "c", "d"):
+        x, ws, wd = _h512_inputs(mode, RAGGED_P, cuda, seed=2)
+        assert torch.equal(head512(mode, x, ws, wd), head512(mode, x, ws, wd))
+    args = _heads_inputs(RAGGED_P, cuda, seed=2)
+    for split in (False, True):
+        assert torch.equal(heads_fused(*args, split=split), heads_fused(*args, split=split))
+
+
+def test_forward_template_outputs_unchanged(cuda):
+    """K1, K3 and K5 at the fine render chunk of scripts/fwd_anatomy_torch.py --k7 hash to
+    the digest they had before the head probes joined their template (854cbb6195d4a8e8,
+    H100 80GB HBM3)."""
+    import importlib.util
+    import os
+
+    from dmnerf_tpu_torch.configs import load_config
+    from dmnerf_tpu_torch.test import init_params
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(repo, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cfg = load_config(os.path.join(repo, "configs", "train", "dmsr", "study.txt"), ins_num=32,
+                      near=1.0, far=8.0)
+    _, pf = init_params(cfg, cuda)
+    packed = pack_params(pf, cfg.multires, cfg.multires_views, cfg.netdepth, tuple(cfg.skips))
+    pts, dirs = cs._points(2048, 192, 1.0, 8.0, torch.Generator().manual_seed(cs.SEED + 3), cuda)
+    with torch.no_grad():
+        got = {mode: cs.digest(fused_query(packed, pts, dirs, mode))
+               for mode in ("kernel_t", "kernel", "outside")}
+    assert got == dict.fromkeys(got, "854cbb6195d4a8e8")

@@ -146,9 +146,9 @@ def test_import_guard():
         "from dmnerf_tpu_torch.kernels import runtime\n"
         "assert runtime.KERNELS == ('fused_mlp_fwd', 'fused_mlp_bwd', 'fused_mlp_fwd_kpe',\n"
         "                           'fused_mlp_bwd_kpe', 'fused_mlp_fwd_pe', 'fused_mlp_bwd_pe',\n"
-        "                           'fused_pe', 'fused_render')\n"
-        "assert set(runtime.LAUNCHES) == set(runtime.COUNTED) == set(runtime.KERNELS[:-1]) | {\n"
-        "    'fused_render_weights', 'fused_render_maps'}\n"
+        "                           'fused_pe', 'fused_render', 'head512', 'heads_fused')\n"
+        "assert set(runtime.LAUNCHES) == set(runtime.COUNTED) == (\n"
+        "    set(runtime.KERNELS) - {'fused_render'}) | {'fused_render_weights', 'fused_render_maps'}\n"
         "assert all((runtime.CSRC / f'{k}.cu').exists() for k in runtime.KERNELS)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'dmnerf_tpu', 'orbax')]\n"
         "assert not bad, bad\n"
