@@ -4,7 +4,7 @@
 
 0. Requires a CUDA card of capability 9.0 and prints its name and power limit.
    TF32 is off, so the fp32 plain path is really fp32.
-1. Builds every kernel of the render, train and manipulation paths and the probes (K1-K10) from
+1. Builds every kernel of the render, train and manipulation paths and the probes (K1-K11) from
    dmnerf_tpu_torch/kernels/csrc with nvcc (sm_90a), one process per source, all
    started together, and prints the build time and the compiler's register report.
 2. Kernel phase, at the flagship model's width (configs/test/dmsr/study.txt:
@@ -47,11 +47,17 @@
    N_importance 128, over_penalize with tolerance = deta_w = 0.05, lrate 5e-4,
    perturb on) for 20 steps through dmnerf_tpu_torch.train on a synthetic DM-SR scene
    built in memory (256x256, 4 train views, 4 objects, ins_num 32, near 1, far 8).
-   Exactly 2 launches of each kernel per step, every logged loss finite (the
-   instance loss included), and one step's full-loss gradients through the kernels
-   within 2e-2 per parameter of the plain PyTorch query's, from the same parameters,
-   batch and draws. Prints the steady ms per step and rays/s, and the host time of
-   the two Hungarian assignments of a step.
+   Exactly 2 launches of each kernel per step and one of K11 (the coarse and fine
+   assignments), every logged loss finite (the instance loss included), and one step's
+   full-loss gradients through the kernels within 2e-2 per parameter of the plain
+   PyTorch query's, from the same parameters, batch and draws. Prints the steady ms per
+   step and rays/s. Then K11 against its plain version on 1,000 seeded [2, 32, 32]
+   batches (uniform costs, integer costs with ties, NaN and +-inf entries, wide costs;
+   valid 0 ... 32), col4row equal, and timed at that step's own costs and valid count:
+   device time from back-to-back launches (device_ms), the plain version's and the host
+   scipy solve's (the step's earlier host round trip, a yardstick), and the bound: the
+   Dijkstra iterations those costs need over the valid rows times one block-wide
+   argmin's latency, measured by the kernel's probe entry.
 6. Train phase under pallas_pe_mode = kernel: the same for 5 steps, with exactly 2
    launches of K3 and of K4 per step and none of K1 or K2.
 7. Manipulation phase, on a synthetic DM-SR scene built in memory (256x256, 4
@@ -148,6 +154,19 @@
    bit-identical; device_ms, TFLOP/s on model and executed FLOPs, the bound, the fp32
    plain version's and the bf16 chain's times, and the two answers (a - c, b - c, d - c;
    split - block-diagonal).
+15. Packed train phase (steps_per_dispatch), at the flagship train config of phase 5
+   with steps_per_dispatch = i_print = 10: 3 packs (one CUDA graph replay of 10 whole
+   steps each) from train()'s seeded state and generators against the same 30 steps one
+   at a time from the same draws: parameters, Adam's moments and counts and every step's
+   aux bit for bit; train() with steps_per_dispatch 10 over the same 30 steps logs 0,
+   10, 20 and ends in the same state. One more pack under torch.profiler: exactly 20
+   launches of K1's forward and of K2's bwd_data, 10 of K11, no device-to-host copy, one
+   cudaGraphLaunch. Then 10 steps each way timed in turns (unpacked, packed, packed,
+   unpacked: CUDA events, ms a step and rays/s, peak device memory) and profiled (device
+   busy share, host runtime-API ms without the synchronising waits, cudaLaunchKernel
+   calls a step), beside the card's name and power limit. The same checks (without the
+   timing) for 2 packs of 5 ScanNet steps under pallas_pe_mode = outside: 10 launches
+   each of K7, K5 and K6's bwd_data and 5 of K11 a pack.
 
 The line before the last is a JSON object with each kernel's numbers and its
 launches on each path; the last line is {"ok": true, "device": {...}}. Any failure
@@ -1031,7 +1050,7 @@ def train_phase(device, pe_mode=None, steps=TRAIN_STEPS, dataset="dmsr"):
     from dmnerf_tpu_torch.core.pipeline import make_query_fn, make_torch_query_fn, render_rays
     from dmnerf_tpu_torch.core.sampling import z_val_sample
     from dmnerf_tpu_torch.kernels import runtime
-    from dmnerf_tpu_torch.objfield.hungarian import masked_assignment
+    from dmnerf_tpu_torch.objfield.losses import compact_one_hot, pairwise_costs
     from dmnerf_tpu_torch.render.trainstep import compute_losses
     from dmnerf_tpu_torch.train import make_sampler, train
 
@@ -1048,7 +1067,7 @@ def train_phase(device, pe_mode=None, steps=TRAIN_STEPS, dataset="dmsr"):
         with open(os.path.join(cfg.log_dir, "metrics.jsonl")) as f:
             recs = [json.loads(line) for line in f]
     for name in runtime.COUNTED:
-        want = 2 * steps if name in STEP_KERNELS[pe_mode] else 0
+        want = 2 * steps if name in STEP_KERNELS[pe_mode] else steps if name == "assignment" else 0
         if launches[name] != want:
             raise AssertionError(f"{name} launched {launches[name]} times in {steps} train "
                                  f"steps under pallas_pe_mode={pe_mode}, want {want}")
@@ -1083,15 +1102,16 @@ def train_phase(device, pe_mode=None, steps=TRAIN_STEPS, dataset="dmsr"):
 
     times = steady_step_ms(cfg, scene, state.params_coarse, state.params_fine, device, state.step)
     step_ms = statistics.median(times)
-
-    # the host side of a step's two assignments: one copy of [2, C, C] costs + solves
-    cost = torch.rand((2, cfg.ins_num, cfg.ins_num), generator=gdev, device=device)
-    hung = []
-    for _ in range(20):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        masked_assignment(cost, min(5, cfg.ins_num))
-        hung.append((time.perf_counter() - t0) * 1e3)
+    k11 = None
+    if dataset == "dmsr" and pe_mode is None:
+        # the step's own two cost matrices and valid count, as the instance loss forms them
+        with torch.no_grad():
+            info = render_rays(state.params_coarse, state.params_fine, batch.rays_o, batch.rays_d,
+                               z, make_query_fn(cfg), N_importance=cfg.N_importance, perturb=True,
+                               u_z=u_z, u_pdf=u_pdf)
+            gt_ins, valid, _ = compact_one_hot(batch.target_i, cfg.ins_num)
+            cost = sum(pairwise_costs(torch.stack([info["ins_coarse"], info["ins_fine"]]), gt_ins))
+        k11 = assignment_phase(cfg, device, cost.contiguous(), valid)
 
     out = dict(steps=steps, pe_mode=pe_mode, dataset=dataset, N_ins=n_ins,
                H=scene.H, W=scene.W, ins_num=cfg.ins_num, launches=launches, train_s=train_s,
@@ -1100,13 +1120,324 @@ def train_phase(device, pe_mode=None, steps=TRAIN_STEPS, dataset="dmsr"):
                                     total_kernel=aux_k["total_loss"], total_plain=aux_p["total_loss"],
                                     ins_kernel=aux_k["ins_loss"], ins_plain=aux_p["ins_loss"]),
                step_ms=step_ms, step_ms_range=[min(times), max(times)], peak_mem_gb=peak_gb,
-               rays_per_s=cfg.N_train / (step_ms * 1e-3), hungarian_host_ms=statistics.median(hung))
+               rays_per_s=cfg.N_train / (step_ms * 1e-3))
     tag = "train scannet" if dataset == "scannet" else "train" if pe_mode is None else "train kpe"
     print(f"[{tag}] {json.dumps(out)}", flush=True)
     if rel > GRAD_TOL:
         raise AssertionError(f"train step gradients, kernel vs plain query: max rel err {rel:.3e} "
                              f"(want <= {GRAD_TOL}) at {worst}")
-    return launches, scene, state
+    return launches, scene, state, k11
+
+
+ASSIGNMENT_BATCHES = 1000   # seeded [2, ins_num, ins_num] batches K11 is held to
+
+
+def _assignment_cases(n, count, seed=SEED):
+    """``count`` seeded (costs [2, n, n] fp32, valid) batches: in turn uniform costs,
+    integer costs with ties, integer costs with NaN and +-inf entries, and wide normal
+    costs; valid runs 0 ... n."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    cases = []
+    for b in range(count):
+        kind = b % 4
+        if kind == 0:
+            c = rng.rand(2, n, n)
+        elif kind == 1:
+            c = rng.randint(0, 3, (2, n, n))
+        elif kind == 2:
+            c = rng.randint(0, 4, (2, n, n)).astype(np.float64)
+            m = rng.rand(2, n, n)
+            c[m < 0.05], c[(m >= 0.05) & (m < 0.08)], c[(m >= 0.08) & (m < 0.11)] = \
+                np.nan, np.inf, -np.inf
+        else:
+            c = rng.randn(2, n, n) * 1e3
+        cases.append((c.astype(np.float32), b % (n + 1)))
+    return cases
+
+
+def assignment_phase(cfg, device, step_cost, step_valid):
+    """K11 against its plain version on ASSIGNMENT_BATCHES seeded batches (col4row equal),
+    then timed at a train step's own costs: device time from back-to-back launches, the
+    plain version's and the host scipy solve's (the yardstick: the step's earlier host
+    round trip), and the bound: the Dijkstra iterations these costs need over the valid
+    rows times one block-wide argmin's latency (the probe's, measured)."""
+    import torch
+
+    from dmnerf_tpu_torch.kernels import assignment as asg
+    from dmnerf_tpu_torch.kernels import runtime
+    from dmnerf_tpu_torch.objfield.hungarian import masked_assignment
+    from dmnerf_tpu_torch.objfield.metrics import _lsa_rect
+
+    n = cfg.ins_num
+    differing, worst = 0, 0
+    for c, valid in _assignment_cases(n, ASSIGNMENT_BATCHES):
+        cost = torch.from_numpy(c)
+        got = masked_assignment(cost.to(device), torch.tensor(valid, device=device)).cpu()
+        want = asg.masked_assignment_ref(cost, valid)
+        if not torch.equal(got, want):
+            differing += 1
+            worst = max(worst, int((got - want).abs().max()))
+    valid_i = int(step_valid)
+    iterations = []
+    asg.masked_assignment_ref(step_cost.cpu(), valid_i, iterations)
+    valid_t = torch.full((2,), valid_i, dtype=torch.int32, device=device)
+    dev = device_ms(lambda: asg.assignment(step_cost, valid_t))
+    probe_out = torch.empty(1, device=device)
+    threads = -(-n // 32) * 32
+    probe_iters = 1000
+    probe = device_ms(lambda: asg.argmin_probe(threads, probe_iters, probe_out), reps=10)
+    argmin_us = probe["device_ms"] * 1e3 / probe_iters
+    t_serial = max(iterations) * argmin_us * 1e-3
+    nbytes = step_cost.numel() * 4 + 2 * 4 + 2 * n * 8
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+
+    def host_solve():
+        host = step_cost.cpu().numpy()
+        for m in host:
+            _lsa_rect(m[:valid_i])
+    runtime.reset_launches()
+    r = dict(batches=ASSIGNMENT_BATCHES, n=n, differing_batches=differing, max_abs_err=worst,
+             step_valid=valid_i, step_dijkstra_iterations=iterations,
+             ms=dev["device_ms"], device_us=dev["device_ms"] * 1e3, enqueue_ms=dev["enqueue_ms"],
+             plain_ms=_time_ms(lambda: asg.masked_assignment_ref(step_cost.cpu(), valid_i), reps=5),
+             host_scipy_ms=_time_ms(host_solve, reps=20),
+             argmin_latency_us=argmin_us, argmin_probe_threads=threads,
+             bound_ms=max(t_serial, t_bytes), bound_by="operations" if t_serial >= t_bytes else "bytes",
+             library_ms=None)
+    r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    print(f"[assignment] {json.dumps(r)}", flush=True)
+    if differing:
+        raise AssertionError(f"K11: col4row differs from its plain version in {differing} of "
+                             f"{ASSIGNMENT_BATCHES} batches")
+    return r
+
+
+PACK_STEPS = 10     # steps_per_dispatch (and i_print) of the flagship pack
+PACKS = 3
+SCANNET_PACK = (5, 2)   # P and packs of the ScanNet pack under 'outside'
+
+
+def _aux_rows(auxs):
+    """A runner's auxs as a [P, keys] copy."""
+    import torch
+
+    return torch.stack(list(auxs.values()), -1).clone()
+
+
+def _bits(t):
+    import torch
+
+    return t.detach().reshape(-1).view(torch.int32) if t.dtype == torch.float32 else t.detach()
+
+
+def _state_diffs(a, b):
+    """The tensors of two train states (parameters, Adam moments and counts) whose bits
+    differ, with their largest difference."""
+    diffs = {}
+    for which in ("params_coarse", "params_fine"):
+        pa, pb = getattr(a, which), getattr(b, which)
+        for k in pa:
+            sa, sb = a.opt.state[pa[k]], b.opt.state[pb[k]]
+            for name, ta, tb in [("param", pa[k], pb[k])] + [(m, sa[m], sb[m]) for m in sa]:
+                if not _equal_bits(ta, tb):
+                    diffs[f"{which}.{k}.{name}"] = float((ta.double() - tb.double()).abs().max())
+    if a.step != b.step:
+        diffs["step"] = abs(a.step - b.step)
+    return diffs
+
+
+def _equal_bits(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+
+
+def profile_calls(fn) -> dict:
+    """``fn()`` once under torch.profiler (host and device): the device kernels and
+    copies by name, the host's CUDA runtime calls by name with their ms, the device's
+    busy ms (the union of its activity) and the traced wall ms."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dmnerf_tpu_torch.tools.profile_step import _union_ms
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    on_device = [e for e in events if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    host_names = {e.name for e in events if e not in on_device}
+    kernels, copies, api, api_ms, intervals = (collections.Counter(), collections.Counter(),
+                                               collections.Counter(), collections.Counter(), [])
+    for e in on_device:
+        if e.name in host_names:
+            continue
+        intervals.append((e.time_range.start, e.time_range.end))
+        (copies if e.name.startswith(("Memcpy", "Memset")) else kernels)[e.name] += 1
+    for e in events:
+        if e not in on_device and e.name.startswith("cuda"):
+            api[e.name] += 1
+            api_ms[e.name] += e.time_range.elapsed_us() / 1e3
+    busy = _union_ms(intervals)
+    # the synchronising calls wait for the device; the rest is the host's own API work
+    work_ms = sum(ms for name, ms in api_ms.items() if "Synchronize" not in name)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy, device_busy_share=busy / wall_ms,
+                host_api_ms=work_ms, api=dict(api), api_ms=dict(api_ms),
+                kernels=dict(kernels), copies=dict(copies))
+
+
+def _count(names: dict, part: str) -> int:
+    return sum(n for k, n in names.items() if part in k)
+
+
+def packed_train_phase(device, card, pe_mode=None, dataset="dmsr", P=PACK_STEPS, packs=PACKS,
+                       timed=True):
+    """Phase 15: ``packs`` packs of P whole train steps (one CUDA graph replay each)
+    against the same steps one by one, from train()'s seeded state and generators:
+    parameters, Adam's moments and counts and every step's aux bit for bit; train() with
+    steps_per_dispatch = P over the same steps, which must end in the same state; one
+    more pack under torch.profiler (2P K1 or K5 forwards, 2P bwd_data, P K11, no
+    device-to-host copy, one cudaGraphLaunch); then, when ``timed``, P steps each way
+    timed in turns (unpacked, packed, packed, unpacked) and profiled."""
+    import tempfile
+
+    import torch
+
+    from dmnerf_tpu_torch.kernels import runtime
+    from dmnerf_tpu_torch.render.packing import StepRunner
+    from dmnerf_tpu_torch.render.trainstep import create_train_state, make_train_step
+    from dmnerf_tpu_torch.test import init_params
+    from dmnerf_tpu_torch.train import make_packed_steps, make_sampler, train
+
+    tmp = tempfile.TemporaryDirectory()
+    cfg, scene = train_setup(pe_mode, dataset, basedir=tmp.name, N_iters=packs * P, i_print=P,
+                             steps_per_dispatch=P)
+    sampler, n_ins = make_sampler(cfg, scene, device)
+
+    def start():
+        """train()'s start: its seeded parameters and generators."""
+        return (create_train_state(cfg, *init_params(cfg, device)),
+                torch.Generator().manual_seed(cfg.seed + 1),
+                torch.Generator(device=device).manual_seed(cfg.seed + 2))
+
+    st_u, gb_u, gs_u = start()
+    single = StepRunner(cfg, sampler, make_train_step(cfg, N_ins=n_ins), device, 1)
+    aux_u = torch.cat([_aux_rows(single(st_u, gb_u, gs_u)) for _ in range(packs * P)])
+    st_p, gb_p, gs_p = start()
+    packed, P_eff = make_packed_steps(cfg, sampler, n_ins, device)
+    if P_eff != P:
+        raise AssertionError(f"pack of {P_eff} steps, want {P}")
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    aux_p = [_aux_rows(packed(st_p, gb_p, gs_p))]
+    torch.cuda.synchronize()
+    first_pack_s = time.perf_counter() - t0       # warm-up, capture and the first replay
+    first_pack_mem = dict(peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          reserved_growth_gb=(torch.cuda.memory_reserved() - reserved0) / 1e9)
+    aux_p = torch.cat(aux_p + [_aux_rows(packed(st_p, gb_p, gs_p)) for _ in range(packs - 1)])
+    torch.cuda.synchronize()
+    keys = list(single.keys)
+    bad_steps = (_bits(aux_u).view(aux_u.shape) != _bits(aux_p).view(aux_p.shape)).any(-1)
+    diffs = _state_diffs(st_u, st_p)
+    out = dict(card=card, dataset=dataset, pe_mode=pe_mode, P=P, packs=packs,
+               N_train=cfg.N_train, first_pack_s=first_pack_s, first_pack_memory=first_pack_mem,
+               state_tensors_differing=len(diffs),
+               aux_steps_differing=int(bad_steps.sum()),
+               aux_step0=dict(zip(keys, aux_p[0].tolist())),
+               aux_last=dict(zip(keys, aux_p[-1].tolist())))
+    if diffs or bool(bad_steps.any()):
+        first = int(bad_steps.nonzero()[0]) if bool(bad_steps.any()) else None
+        out.update(first_differing_step=first, differing=dict(list(diffs.items())[:12]),
+                   aux_first_unpacked=None if first is None else aux_u[first].tolist(),
+                   aux_first_packed=None if first is None else aux_p[first].tolist())
+        print(f"[packed train] {json.dumps(out)}", flush=True)
+        raise AssertionError(f"packed steps differ from the same steps one by one ({dataset}): "
+                             f"{len(diffs)} state tensors, {int(bad_steps.sum())} steps' auxs")
+    if not all(torch.isfinite(aux_p[:, keys.index(k)]).all() for k in ("total_loss", "ins_loss")):
+        raise AssertionError("packed steps: losses not finite")
+
+    # the entry point: train() with steps_per_dispatch = P from the same start ends where
+    # the runners did
+    runtime.reset_launches()
+    state = train(cfg, scene, device)
+    torch.cuda.synchronize()
+    launches = dict(runtime.LAUNCHES)
+    with open(os.path.join(cfg.log_dir, "metrics.jsonl")) as f:
+        logged = [json.loads(line)["step"] for line in f]
+    tmp.cleanup()
+    if logged != list(range(0, packs * P, P)):
+        raise AssertionError(f"train() with packs of {P} logged steps {logged}")
+    if _state_diffs(st_u, state):
+        raise AssertionError("train() with steps_per_dispatch ended in another state than the "
+                             "runners")
+    del state
+    out["train_logged_steps"] = logged
+    out["train_launches_counted"] = {k: v for k, v in launches.items() if v}
+
+    # one more pack under the profiler
+    prof = profile_calls(lambda: packed(st_p, gb_p, gs_p))
+    k = prof["kernels"]
+    fwd = "fused_pe_kernel" if pe_mode == "outside" else None
+    counts = {"fused_mlp_fwd_kernel": _count(k, "fused_mlp_fwd_kernel"),
+              "bwd_data_kernel": _count(k, "bwd_data_kernel"),
+              "assignment_kernel": _count(k, "assignment_kernel"),
+              "device_to_host_copies": _count(prof["copies"], "DtoH"),
+              "cudaGraphLaunch": prof["api"].get("cudaGraphLaunch", 0)}
+    want = {"fused_mlp_fwd_kernel": 2 * P, "bwd_data_kernel": 2 * P, "assignment_kernel": P,
+            "device_to_host_copies": 0, "cudaGraphLaunch": 1}
+    if fwd:
+        counts[fwd], want[fwd] = _count(k, fwd), 2 * P
+    out["pack_profile"] = dict(counts=counts, activities=sum(k.values()),
+                               copies=prof["copies"], api=prof["api"])
+    if counts != want:
+        print(f"[packed train] {json.dumps(out)}", flush=True)
+        raise AssertionError(f"a pack's device activity {counts}, want {want}")
+
+    if timed:
+        def unpacked():
+            for _ in range(P):
+                single(st_u, gb_u, gs_u)
+
+        def one_pack():
+            packed(st_p, gb_p, gs_p)
+
+        turns = []
+        for name, fn in (("unpacked", unpacked), ("packed", one_pack), ("packed", one_pack),
+                         ("unpacked", unpacked)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start_e, end_e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start_e.record()
+            fn()
+            end_e.record()
+            end_e.synchronize()
+            ms = start_e.elapsed_time(end_e) / P
+            turns.append(dict(mode=name, ms_per_step=ms, host_ms_per_step=(time.perf_counter() - t0)
+                              * 1e3 / P, rays_per_s=cfg.N_train / (ms * 1e-3),
+                              peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                              reserved_gb=torch.cuda.memory_reserved() / 1e9))
+        out["turns"] = turns
+        for name, fn in (("unpacked", unpacked), ("packed", one_pack)):
+            p = profile_calls(fn)
+            out[f"profile_{name}"] = dict(
+                wall_ms_per_step=p["wall_ms"] / P, device_busy_ms_per_step=p["device_busy_ms"] / P,
+                device_busy_share=p["device_busy_share"], host_api_ms_per_step=p["host_api_ms"] / P,
+                cudaLaunchKernel_per_step=p["api"].get("cudaLaunchKernel", 0) / P,
+                runtime_calls_per_step={a: n / P for a, n in p["api"].items()},
+                device_activities_per_step=(sum(p["kernels"].values()) + sum(p["copies"].values())) / P)
+    del packed, single
+    print(f"[packed train] {json.dumps(out)}", flush=True)
+    return launches, out
 
 
 def render_scannet_phase(device, scene, params_coarse, params_fine):
@@ -1698,17 +2029,17 @@ def main() -> int:
                             ins_num=32, near=1.0, far=8.0)
     bres = bwd_kernel_phase(train_cfg, device)
     bres_kpe = bwd_kernel_phase(train_cfg, device, "kernel")
-    train_launches, _, _ = train_phase(device)
+    train_launches, _, _, k11 = train_phase(device)
     torch.cuda.empty_cache()
-    kpe_train_launches, _, _ = train_phase(device, "kernel", KPE_TRAIN_STEPS)
+    kpe_train_launches, _, _, _ = train_phase(device, "kernel", KPE_TRAIN_STEPS)
     torch.cuda.empty_cache()
     eval_launches, demo_launches = mani_phase(device)
     torch.cuda.empty_cache()
     kres_pe = kernel_pe_phase(cfg, device, smi_line)
     bres_pe = bwd_kernel_phase(train_cfg, device, "outside")
     torch.cuda.empty_cache()
-    scannet_train_launches, scene, state = train_phase(device, "outside", SCANNET_TRAIN_STEPS,
-                                                       "scannet")
+    scannet_train_launches, scene, state, _ = train_phase(device, "outside", SCANNET_TRAIN_STEPS,
+                                                          "scannet")
     torch.cuda.empty_cache()
     scannet_render_launches = render_scannet_phase(device, scene, state.params_coarse,
                                                    state.params_fine)
@@ -1719,11 +2050,17 @@ def main() -> int:
     fused_launches, fres = fused_render_phase(device)
     torch.cuda.empty_cache()
     probe_launches, pres = head_probes_phase(device)
+    torch.cuda.empty_cache()
+    packed_launches, _ = packed_train_phase(device, smi_line)
+    torch.cuda.empty_cache()
+    packed_scannet_launches, _ = packed_train_phase(device, smi_line, "outside", "scannet",
+                                                    *SCANNET_PACK, timed=False)
 
     paths = {"render": render_launches, "train": train_launches, "train_kpe": kpe_train_launches,
              "mani_eval": eval_launches, "mani_demo": demo_launches,
              "train_scannet": scannet_train_launches, "render_scannet": scannet_render_launches,
-             "mesh": mesh_launches, "render_fused": fused_launches, "probe_heads": probe_launches}
+             "mesh": mesh_launches, "render_fused": fused_launches, "probe_heads": probe_launches,
+             "train_packed": packed_launches, "train_packed_scannet": packed_scannet_launches}
     by_path = {name: {path: n[name] for path, n in paths.items()} for name in runtime.COUNTED}
     for name in runtime.COUNTED:
         if sum(by_path[name].values()) == 0:
@@ -1769,6 +2106,10 @@ def main() -> int:
                                   "model_tflops", "executed_tflops", "max_abs_err",
                                   "max_abs_err_bf16_plain")} for k, v in r[cases].items()},
                                  "answer": r["answer"]}))
+    kernels.append(_entry("assignment", "dmnerf_tpu/objfield/hungarian.py:123",
+                          train_launches["assignment"], by_path, k11,
+                          **{k: k11[k] for k in ("device_us", "host_scipy_ms", "argmin_latency_us",
+                                                 "step_dijkstra_iterations", "share_of_bound")}))
     print(f"[done] {time.time() - t0:.1f} s from the build on", flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -104,6 +104,19 @@ def resolve_pe_mode(pe_mode) -> str:
 # Host-side packing (dmnerf_tpu/kernels/fused_mlp.py:98-180)
 # ---------------------------------------------------------------------------
 
+_CONSTANTS: dict = {}    # (what, device) -> a constant tensor of the packing, made once
+
+
+def _device_constant(what, device, make) -> torch.Tensor:
+    """``make()`` (a host tensor) on ``device``, copied there once and kept: the packing
+    and the embedding read their index tables without a host-to-device copy a call, so a
+    train step can be captured in a CUDA graph."""
+    key = (what, str(torch.device(device)))
+    if key not in _CONSTANTS:
+        _CONSTANTS[key] = make().to(device)
+    return _CONSTANTS[key]
+
+
 def _freq_matrix(multires: int, d: int = 3) -> np.ndarray:
     """F [d, d*multires] with F[c, f*d + c] = 2**f:  (x @ F)[:, f*d+c] = x_c * 2^f."""
     F = np.zeros((d, d * multires), np.float32)
@@ -141,22 +154,24 @@ def _pack(params: Params, multires: int, multires_views: int, D: int,
     kernel order, then the fused head [M1, b1, Wrh2, 0, Wro, bro, Wio, bio].
     Biases are [1, n]. The rgb/ins feature linears have no activation, so they fold
     into the hidden linears by associativity, in fp32."""
-    permp = torch.as_tensor(_emb_perm(multires))
-    permd = torch.as_tensor(_emb_perm(multires_views))
+    dev = params["trunk_0_w"].device
+    permp = _device_constant(("perm", multires), dev, lambda: torch.as_tensor(_emb_perm(multires)))
+    permd = _device_constant(("perm", multires_views), dev,
+                             lambda: torch.as_tensor(_emb_perm(multires_views)))
     emb = _emb_dim(multires)
     out: List[torch.Tensor] = []
     for i, kind in enumerate(_layer_kinds(D, skips)):
         w, b = params[f"trunk_{i}_w"], params[f"trunk_{i}_b"][None, :]
         if kind == "emb0":
-            out += [w[permp.to(w.device)], b]
+            out += [w[permp], b]
         elif kind == "split":
             hs = w.shape[0] - emb
-            out += [torch.cat([w[:hs], w[hs:][permp.to(w.device)]], dim=0), b]
+            out += [torch.cat([w[:hs], w[hs:][permp]], dim=0), b]
         else:
             out += [w, b]
     wrh = params["rgb_hid_w"]
     hsd = wrh.shape[0] - _emb_dim(multires_views)
-    wrh1, wrh2 = wrh[:hsd], wrh[hsd:][permd.to(wrh.device)]
+    wrh1, wrh2 = wrh[:hsd], wrh[hsd:][permd]
     wih = params["ins_hid_w"]
     Hr = wrh1.shape[1]
     m1 = torch.cat([params["rgb_feat_w"] @ wrh1, params["ins_feat_w"] @ wih,
@@ -283,8 +298,12 @@ def _embedding(x: torch.Tensor, multires: int, width: int) -> torch.Tensor:
     """[x | sin(x @ F) | cos(x @ F) | 0 pad] in fp32, F = _freq_matrix: lane f*3+c
     holds x_c * 2^f. The product is taken lane by lane, not as a matmul, so it is
     exact whatever the matmul precision: a rounded phase at 2^9 |x| is an O(1) error."""
-    F = torch.from_numpy(_freq_matrix(multires, x.shape[-1])).to(x.device)
-    xs = x[:, F.argmax(dim=0)] * F.amax(dim=0)
+    d = x.shape[-1]
+    F = _freq_matrix(multires, d)
+    lanes = _device_constant(("lanes", multires, d), x.device,
+                             lambda: torch.from_numpy(F.argmax(axis=0)))
+    scale = _device_constant(("scale", multires, d), x.device, lambda: torch.from_numpy(F.max(axis=0)))
+    xs = x[:, lanes] * scale
     e = torch.cat([x, torch.sin(xs), torch.cos(xs)], dim=-1)
     return torch.nn.functional.pad(e, (0, width - e.shape[-1]))
 
@@ -619,7 +638,7 @@ def _launch_fwd(name: str, packed: Packed, pts: torch.Tensor, ed_src: torch.Tens
     if err != 0:
         raise RuntimeError(f"{name} launch failed: error {err} (a cudaError, or 10000 + the "
                            f"CUresult of the tensor-map encoder)")
-    runtime.LAUNCHES[name] += 1
+    runtime.count_launch(name)
     return out
 
 
@@ -738,7 +757,7 @@ def _pe_launcher(x: torch.Tensor, e: torch.Tensor, multires: int):
         err = fn(*args)
         if err != 0:
             raise RuntimeError(f"fused_pe launch failed: cudaError {err}")
-        runtime.LAUNCHES["fused_pe"] += 1
+        runtime.count_launch("fused_pe")
     return launch
 
 
@@ -935,7 +954,7 @@ def _launch_bwd(pe_mode: str, packed: Packed, plan: dict, stash: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"{name} launch failed: error {err} (a cudaError, or 10000 + the "
                            f"CUresult of the tensor-map encoder)")
-    runtime.LAUNCHES[name] += 1
+    runtime.count_launch(name)
     return dw, db
 
 

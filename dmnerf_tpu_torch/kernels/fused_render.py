@@ -148,7 +148,7 @@ def _launch_render(packed: Packed, rays_o: torch.Tensor, d: torch.Tensor, z: tor
     if err != 0:
         raise RuntimeError(f"{name} launch failed: error {err} (a cudaError, or 10000 + the "
                            f"CUresult of the tensor-map encoder)")
-    runtime.LAUNCHES[name] += 1
+    runtime.count_launch(name)
     return out
 
 

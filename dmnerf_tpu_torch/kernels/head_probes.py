@@ -354,7 +354,7 @@ def _launch_probe(name: str, ops: ProbeOperands, x: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"{name} launch failed: error {err} (a cudaError, or 10000 + the "
                            f"CUresult of the tensor-map encoder)")
-    runtime.LAUNCHES[name] += 1
+    runtime.count_launch(name)
     return out
 
 

@@ -7,9 +7,9 @@ their code through the headers ``csrc/*.cuh``. The build happens at first use, i
 the source, the headers and the flags, so an edited source or header is rebuilt and
 an unchanged one is not. Nothing is built or loaded when a module is imported.
 
-``LAUNCHES`` counts, per kernel entry point (``COUNTED``), the launches its wrapper made;
-a run resets it with ``reset_launches()`` and reads it afterwards to show which kernels
-ran.
+``LAUNCHES`` counts, per kernel entry point (``COUNTED``), the launches its wrapper made
+(``count_launch``; a launch recorded into a CUDA graph is not one); a run resets it with
+``reset_launches()`` and reads it afterwards to show which kernels ran.
 """
 
 from __future__ import annotations
@@ -29,11 +29,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # the sources: K1, K2 (pe_mode 'kernel_t'), K3, K4 (pe_mode 'kernel'), K5, K6, K7 (pe_mode
 # 'outside': the forward and backward over precomputed embeddings, and the embedding),
-# the fused render passes K8c, K8f (two entry points of one source) and the head probes
-# K9, K10
+# the fused render passes K8c, K8f (two entry points of one source), the head probes
+# K9, K10 and the instance loss's assignment K11
 KERNELS = ("fused_mlp_fwd", "fused_mlp_bwd", "fused_mlp_fwd_kpe", "fused_mlp_bwd_kpe",
            "fused_mlp_fwd_pe", "fused_mlp_bwd_pe", "fused_pe", "fused_render", "head512",
-           "heads_fused")
+           "heads_fused", "assignment")
 COUNTED = tuple(k for k in KERNELS if k != "fused_render") + ("fused_render_weights",
                                                                "fused_render_maps")
 LAUNCHES: Dict[str, int] = {name: 0 for name in COUNTED}
@@ -43,6 +43,16 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """One launch of ``name``'s kernel, made by its wrapper on the current stream. While
+    that stream is being captured into a CUDA graph nothing runs, so nothing is counted;
+    a graph's launches show in torch.profiler's device activity instead."""
+    import torch
+
+    if not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:

@@ -3,12 +3,12 @@
  * img2mse / mse2psnr.
  * ins_criterion: GT labels -> compacted one-hot over the image's valid instances;
    pairwise cost = pixel-mean BCE + (1 - soft IoU); optimal row -> column matching
-   (objfield.hungarian, on the host, no gradient); loss = mean matched CE + mean of
+   (objfield.hungarian: K11 on the card, no gradient); loss = mean matched CE + mean of
    the unmatched columns' predictions + mean matched soft-IoU. Gradients flow through
    the matched cost entries only.
 
 Every function takes a leading batch axis: ``ins_criterion`` on ``[B, N, C]``
-predictions costs one host copy for all B assignments (the coarse and the fine one
+predictions costs one assignment launch for all B matrices (the coarse and the fine one
 of a training step). ``ray_mask`` [N] bool drops padded rays from every sum.
 """
 

@@ -44,8 +44,7 @@ def emptiness_penalizer(
 
     pred_ins = torch.sigmoid(raw[..., 4:])
     n_ch = pred_ins.shape[-1]
-    air = torch.zeros(n_ch, dtype=raw.dtype, device=raw.device)
-    air[-1] = 1.0
+    air = (torch.arange(n_ch, device=raw.device) == n_ch - 1).to(raw.dtype)   # one-hot, last
     bce_before = -air * torch.log(torch.clamp(pred_ins, min=1e-8)) \
         - (1.0 - air) * torch.log(torch.clamp(1.0 - pred_ins, min=1e-8))
     w_before = gauss_air * mask_before

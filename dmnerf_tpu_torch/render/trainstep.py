@@ -17,8 +17,13 @@ ScanNet's labeled-suffix variant: with ``N_ins`` the instance loss sees only the
 N_ins rays of the batch, and ``Batch.target_valid`` masks the padded ones.
 
 The step runs eagerly: the point queries are the fused kernels' autograd function
-on the card (kernels.fused_mlp), and the two Hungarian assignments of a step cross
-to the host in one copy.
+on the card (kernels.fused_mlp) and the two assignments of a step one launch of K11
+(objfield.hungarian), so a step on the card reads nothing back to the host and can be
+captured in a CUDA graph (``render.packing``). For that, the Adam of parameters on the
+card is ``capturable`` with its learning rate a device tensor, which each step writes
+(``lr`` may be a device value, as a graph's step reads it); on the CPU it is the plain
+Adam with a float learning rate. ``finite`` takes debug_nans' checks as device flags
+instead of a host read, for a step inside a graph.
 """
 
 from __future__ import annotations
@@ -60,9 +65,40 @@ def lr_at_step(cfg: Config, step) -> float:
 
 def make_adam(params_coarse, params_fine, lr: float) -> torch.optim.Adam:
     """The run's Adam: one group of the coarse tensors then the fine ones, in each
-    dict's order."""
-    return torch.optim.Adam([*params_coarse.values(), *params_fine.values()], lr=lr,
-                            betas=(0.9, 0.999), eps=1e-8)
+    dict's order. On the card it is capturable, its learning rate an fp32 device tensor."""
+    params = [*params_coarse.values(), *params_fine.values()]
+    if params[0].device.type != "cuda":
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    lr_t = torch.full((), lr, dtype=torch.float32, device=params[0].device)
+    return torch.optim.Adam(params, lr=lr_t, betas=(0.9, 0.999), eps=1e-8, capturable=True)
+
+
+def load_adam_state(opt: torch.optim.Adam, opt_state: Dict) -> None:
+    """Load a saved Adam state into ``opt`` and keep ``opt``'s form: a checkpoint written
+    on either device restores onto either (a capturable Adam keeps its device learning
+    rate tensor, which every step writes, and its step counts on the card)."""
+    forms = [(g["lr"], g["capturable"]) for g in opt.param_groups]
+    opt.load_state_dict(opt_state)
+    for group, (lr, capturable) in zip(opt.param_groups, forms):
+        group["lr"], group["capturable"] = lr, capturable
+        for p in group["params"]:
+            st = opt.state.get(p)
+            if st and "step" in st:
+                st["step"] = (st["step"].to(device=p.device, dtype=torch.float32) if capturable
+                              else st["step"].cpu())
+
+
+def set_lr(opt: torch.optim.Adam, lr) -> None:
+    """Write the learning rate of every group: a float, or a device value copied into a
+    capturable Adam's tensor."""
+    for group in opt.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            if isinstance(lr, torch.Tensor):
+                group["lr"].copy_(lr)
+            else:
+                group["lr"].fill_(lr)
+        else:
+            group["lr"] = float(lr)
 
 
 def create_train_state(cfg: Config, params_coarse, params_fine, step: int = 0) -> TrainState:
@@ -86,7 +122,7 @@ def compute_losses(cfg: Config, info: Dict[str, torch.Tensor], batch: Batch,
         ins_coarse, ins_fine, target_i = info["ins_coarse"], info["ins_fine"], batch.target_i
         ray_mask = batch.target_valid
 
-    # coarse and fine together: one host copy for both assignments
+    # coarse and fine together: one launch of K11 for both assignments
     ins_losses, vces, ices, vsious = ins_criterion(
         torch.stack([ins_coarse, ins_fine]), target_i, cfg.ins_num, ray_mask)
 
@@ -117,27 +153,49 @@ def compute_losses(cfg: Config, info: Dict[str, torch.Tensor], batch: Batch,
 LOSS_KEYS = ("rgb_loss", "ins_loss", "emptiness_loss", "total_loss")
 
 
+def _grads(state: TrainState):
+    return [(f"{which} {k}", p.grad) for which, params in (("coarse", state.params_coarse),
+                                                           ("fine", state.params_fine))
+            for k, p in params.items() if p.grad is not None]
+
+
+def check_names(state: TrainState):
+    """The names of debug_nans' checks in order: the loss components, then each parameter
+    gradient that exists (coarse, then fine)."""
+    return [f"loss {k}" for k in LOSS_KEYS] + [f"gradient of {n}" for n, _ in _grads(state)]
+
+
+def finite_flags(state: TrainState, aux: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """debug_nans' checks (``check_names``) as a bool device tensor, True where finite."""
+    return torch.stack([torch.isfinite(aux[k]).all() for k in LOSS_KEYS]
+                       + [torch.isfinite(g).all() for _, g in _grads(state)])
+
+
+def raise_non_finite(step: int, names, ok) -> None:
+    """Raise FloatingPointError naming ``step`` and the first check of ``ok`` (host bools,
+    one per name) that failed; nothing when all passed."""
+    if not bool(ok.all()):
+        bad = names[int((~ok).nonzero()[0])]
+        raise FloatingPointError(f"debug_nans: step {step}: non-finite {bad}")
+
+
 def check_finite(state: TrainState, aux: Dict[str, torch.Tensor]) -> None:
     """Raise FloatingPointError at the first non-finite loss component of ``aux`` or,
     after those, the first parameter gradient with a non-finite entry (coarse, then
     fine). One host read for all of them."""
-    grads = [(f"{which} {k}", p.grad) for which, params in (("coarse", state.params_coarse),
-                                                              ("fine", state.params_fine))
-             for k, p in params.items() if p.grad is not None]
-    names = [f"loss {k}" for k in LOSS_KEYS] + [f"gradient of {n}" for n, _ in grads]
-    ok = torch.stack([torch.isfinite(aux[k]).all() for k in LOSS_KEYS]
-                     + [torch.isfinite(g).all() for _, g in grads]).cpu()
-    if not bool(ok.all()):
-        bad = names[int((~ok).nonzero()[0])]
-        raise FloatingPointError(f"debug_nans: step {state.step}: non-finite {bad}")
+    raise_non_finite(state.step, check_names(state), finite_flags(state, aux).cpu())
 
 
 def make_train_step(cfg: Config, query_fn: Optional[QueryFn] = None,
                     N_ins: Optional[int] = None):
-    """Returns ``step_fn(state, batch, generator=None, u_z=None, u_pdf=None) -> aux``,
-    which renders, backpropagates and updates ``state`` in place. With ``cfg.perturb``
-    the draws come from ``generator`` or the injected uniforms (``u_z`` [N, N_samples]
-    for the jitter, ``u_pdf`` [N, N_importance] for sample_pdf), as in render_rays."""
+    """Returns ``step_fn(state, batch, generator=None, u_z=None, u_pdf=None, lr=None,
+    finite=None) -> aux``, which renders, backpropagates and updates ``state`` in place.
+    With ``cfg.perturb`` the draws come from ``generator`` or the injected uniforms
+    (``u_z`` [N, N_samples] for the jitter, ``u_pdf`` [N, N_importance] for sample_pdf),
+    as in render_rays. ``lr`` replaces lr_at_step(state.step) (a float or a device
+    value). With ``cfg.debug_nans`` the step raises before the update at a non-finite
+    loss or gradient, or, given ``finite`` (a bool device tensor, one per check of
+    ``finite_flags``), writes the checks there and goes on."""
     if query_fn is None:
         query_fn = make_query_fn(cfg)
 
@@ -150,14 +208,16 @@ def make_train_step(cfg: Config, query_fn: Optional[QueryFn] = None,
         return compute_losses(cfg, info, batch, N_ins)
 
     def step_fn(state: TrainState, batch: Batch, generator: Optional[torch.Generator] = None,
-                u_z: Optional[torch.Tensor] = None, u_pdf: Optional[torch.Tensor] = None):
+                u_z: Optional[torch.Tensor] = None, u_pdf: Optional[torch.Tensor] = None,
+                lr=None, finite: Optional[torch.Tensor] = None):
         total, aux = loss_fn(state, batch, generator, u_z, u_pdf)
         state.opt.zero_grad(set_to_none=True)
         total.backward()
-        if cfg.debug_nans:
+        if cfg.debug_nans and finite is None:
             check_finite(state, aux)
-        for group in state.opt.param_groups:
-            group["lr"] = lr_at_step(cfg, state.step)
+        elif cfg.debug_nans:
+            finite.copy_(finite_flags(state, aux))
+        set_lr(state.opt, lr_at_step(cfg, state.step) if lr is None else lr)
         state.opt.step()
         state.step += 1
         return aux

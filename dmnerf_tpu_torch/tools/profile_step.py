@@ -49,7 +49,7 @@ from dmnerf_tpu_torch.utils.device import resolve_device
 # the device functions of kernels/csrc: K1/K3/K5 (and their STASH forms), the backward's
 # launches (K2/K4/K6) and K7
 PORT_KERNELS = ("fused_mlp_fwd_kernel", "bwd_data_kernel", "dw_kernel", "sum_rows_kernel",
-                "fused_pe_kernel")
+                "fused_pe_kernel", "assignment_kernel")
 # the profiler's own host work inside the window
 PROFILER_OWN = ("Activity Buffer Request",)
 

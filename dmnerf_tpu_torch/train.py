@@ -12,9 +12,14 @@ A scene with a crop mask and labelled pixel ids (ScanNet) trains on the crop
 sampler, whose labelled rays form the batch suffix that the instance loss sees
 (``N_ins``); every other scene on the full-image sampler.
 
-Steps run one by one. ``steps_per_dispatch`` packs TPU dispatches in the JAX package
-and leaves the trajectory unchanged, so it changes nothing here. ``multihost`` raises
-NotImplementedError. With ``profile_dir`` the steps ``profile_start`` to
+Each step runs from inputs drawn ahead into static buffers (``render.packing``).
+``steps_per_dispatch`` packs P = gcd(steps_per_dispatch, i_print) whole steps into one
+dispatch, as the JAX package packs them into one ``lax.scan``: on the card one CUDA graph
+replay a pack, on the CPU the same P steps eagerly; the trajectory is the one by one
+trajectory, bit for bit. A pack starts on a multiple of P, fits in N_iters and holds no
+checkpoint boundary, no evaluation boundary when the scene has test views, and none is
+taken under ``profile_dir`` (``pack_ok``); a print boundary logs the pack's first aux.
+``multihost`` raises NotImplementedError. With ``profile_dir`` the steps ``profile_start`` to
 ``profile_start + profile_steps - 1`` run under ``torch.profiler`` (host and, on the
 card, device activity), and their Chrome trace is written under ``profile_dir``
 (``profile_trace``). ``debug_nans`` stops the run with
@@ -26,6 +31,7 @@ Usage:  python -m dmnerf_tpu_torch.train --config configs/train/dmsr/study.txt [
 
 from __future__ import annotations
 
+import math
 import os
 import sys
 import time
@@ -38,7 +44,9 @@ from dmnerf_tpu_torch.configs import Config, dump_config, parse_cli
 from dmnerf_tpu_torch.data.samplers import make_crop_sampler, make_full_sampler
 from dmnerf_tpu_torch.data.scene import SceneData, load_scene
 from dmnerf_tpu_torch.render.evaluation import render_test
-from dmnerf_tpu_torch.render.trainstep import TrainState, create_train_state, make_train_step
+from dmnerf_tpu_torch.render.packing import StepRunner
+from dmnerf_tpu_torch.render.trainstep import (
+    TrainState, create_train_state, load_adam_state, make_train_step)
 from dmnerf_tpu_torch.test import init_params
 from dmnerf_tpu_torch.utils.checkpoint import (
     load_checkpoint, resolve_ckpt_path, restore_checkpoint, save_checkpoint)
@@ -50,7 +58,7 @@ def _state_from(cfg: Config, loaded) -> TrainState:
     pc, pf, step, opt_state = loaded
     state = create_train_state(cfg, pc, pf, step)
     if opt_state is not None:
-        state.opt.load_state_dict(opt_state)
+        load_adam_state(state.opt, opt_state)
     return state
 
 
@@ -91,6 +99,32 @@ def make_sampler(cfg: Config, scene: SceneData, device):
                              scene.i_train, cfg.N_train, device=device), None
 
 
+def make_packed_steps(cfg: Config, sampler, n_ins: Optional[int], device):
+    """``(packed_fn, P)``, where ``packed_fn(state, gen_batch, gen_step)`` runs P whole
+    train steps (``render.packing.StepRunner``) and returns their auxs as [P] tensors,
+    or None when the pack would be one step. P = gcd(steps_per_dispatch, i_print), so
+    print boundaries land on pack starts (``dmnerf_tpu/train.py:94-125``)."""
+    P = math.gcd(cfg.steps_per_dispatch, cfg.i_print)
+    if P != cfg.steps_per_dispatch:
+        print(f"[train] steps_per_dispatch={cfg.steps_per_dispatch} reduced to "
+              f"gcd with i_print={cfg.i_print}: effective pack size {P}")
+    if P <= 1:
+        print("[train] steps_per_dispatch: effective pack size 1 — packing disabled")
+        return None
+    return StepRunner(cfg, sampler, make_train_step(cfg, N_ins=n_ins), resolve_device(device), P), P
+
+
+def pack_ok(cfg: Config, i: int, P: int, has_test_views: bool) -> bool:
+    """A pack [i, i + P) may replace P single steps only when it starts on a pack
+    boundary, fits the schedule, runs without ``profile_dir`` and holds no checkpoint
+    or evaluation boundary, whose artifacts must see the state mid-pack; an evaluation
+    boundary counts only when the scene has test views (``dmnerf_tpu/train.py:175-190``)."""
+    if i % P != 0 or i + P > cfg.N_iters or cfg.profile_dir is not None:
+        return False
+    return not any(j > 0 and (j % cfg.i_save == 0 or (has_test_views and j % cfg.i_test == 0))
+                   for j in range(i, i + P))
+
+
 def train(cfg: Config, scene: Optional[SceneData] = None, device=None) -> TrainState:
     """Train on ``device`` (default: the CUDA card) and return the final state."""
     device = resolve_device(device)
@@ -99,9 +133,6 @@ def train(cfg: Config, scene: Optional[SceneData] = None, device=None) -> TrainS
                                   "(ROADMAP.md queue 1, 'Multi-GPU')")
     if scene is None:
         scene = load_scene(cfg)
-    if cfg.steps_per_dispatch > 1:
-        print(f"[train] steps_per_dispatch={cfg.steps_per_dispatch} packs TPU dispatches in the "
-              "JAX package; here the same steps run one by one")
     cfg = cfg.replace(ins_num=scene.ins_num)
     log_dir = cfg.log_dir
     os.makedirs(log_dir, exist_ok=True)
@@ -123,22 +154,30 @@ def train(cfg: Config, scene: Optional[SceneData] = None, device=None) -> TrainS
         print(f"[train] fine-tuning from {cfg.ft_path} (step {state.step})")
 
     sampler, n_ins = make_sampler(cfg, scene, device)
-    step_fn = make_train_step(cfg, N_ins=n_ins)
+    single = StepRunner(cfg, sampler, make_train_step(cfg, N_ins=n_ins), device, 1)
+    packed = make_packed_steps(cfg, sampler, n_ins, device) if cfg.steps_per_dispatch > 1 else None
+    P = packed[1] if packed is not None else 1
+    has_test_views = len(scene.i_test) > 0
     gen_batch = torch.Generator().manual_seed(cfg.seed + 1)
     gen_step = torch.Generator(device=device).manual_seed(cfg.seed + 2)
 
     t_last = time.time()
     rays_done = 0
     prof, prof_from = None, None
-    for i in range(state.step, cfg.N_iters):
+    i = state.step
+    while i < cfg.N_iters:
         if cfg.profile_dir is not None:
             if i == cfg.profile_start:
                 prof, prof_from = profile_trace(device), i
             elif prof is not None and i == cfg.profile_start + cfg.profile_steps:
                 _write_trace(prof, cfg, device, prof_from, i - 1)
                 prof = None
-        aux = step_fn(state, sampler(gen_batch), generator=gen_step)
-        rays_done += cfg.N_train
+        if packed is not None and pack_ok(cfg, i, P, has_test_views):
+            auxs, stepped = packed[0](state, gen_batch, gen_step), P
+        else:
+            auxs, stepped = single(state, gen_batch, gen_step), 1
+        aux = {k: v[0] for k, v in auxs.items()}     # the aux of iteration i
+        rays_done += cfg.N_train * stepped
 
         if i % cfg.i_print == 0:
             aux = {k: float(v) for k, v in aux.items()}
@@ -162,6 +201,7 @@ def train(cfg: Config, scene: Optional[SceneData] = None, device=None) -> TrainS
                         gt_imgs=scene.images[ids], gt_labels=scene.gt_labels[ids],
                         ins_rgbs=scene.ins_rgbs, savedir=os.path.join(log_dir, f"testset_{i:06d}"),
                         crop_mask=scene.crop_mask, device=device)
+        i += stepped
 
     if prof is not None:
         _write_trace(prof, cfg, device, prof_from, cfg.N_iters - 1)

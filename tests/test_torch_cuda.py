@@ -151,7 +151,8 @@ def test_fused_mlp_bwd_wall(cuda):
     assert runtime.LAUNCHES == {"fused_mlp_fwd": 1, "fused_mlp_bwd": 1, "fused_mlp_fwd_kpe": 0,
                                 "fused_mlp_bwd_kpe": 0, "fused_mlp_fwd_pe": 0,
                                 "fused_mlp_bwd_pe": 0, "fused_pe": 0, "fused_render_weights": 0,
-                                "fused_render_maps": 0, "head512": 0, "heads_fused": 0}
+                                "fused_render_maps": 0, "head512": 0, "heads_fused": 0,
+                                "assignment": 0}
     for k, v in params.items():
         if k.startswith(("trunk_", "rgb_", "density")):
             assert v.grad is None or int(torch.count_nonzero(v.grad)) == 0, k
@@ -235,7 +236,8 @@ def test_fused_mlp_bwd_kpe_wall_and_repeats(cuda):
     assert runtime.LAUNCHES == {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0, "fused_mlp_fwd_kpe": 1,
                                 "fused_mlp_bwd_kpe": 1, "fused_mlp_fwd_pe": 0,
                                 "fused_mlp_bwd_pe": 0, "fused_pe": 0, "fused_render_weights": 0,
-                                "fused_render_maps": 0, "head512": 0, "heads_fused": 0}
+                                "fused_render_maps": 0, "head512": 0, "heads_fused": 0,
+                                "assignment": 0}
     for k, v in params.items():
         if k.startswith(("trunk_", "rgb_", "density")):
             assert v.grad is None or int(torch.count_nonzero(v.grad)) == 0, k
@@ -467,7 +469,8 @@ def test_fused_mlp_bwd_pe_wall_and_repeats(cuda):
     assert runtime.LAUNCHES == {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0, "fused_mlp_fwd_kpe": 0,
                                 "fused_mlp_bwd_kpe": 0, "fused_mlp_fwd_pe": 1,
                                 "fused_mlp_bwd_pe": 1, "fused_pe": 1, "fused_render_weights": 0,
-                                "fused_render_maps": 0, "head512": 0, "heads_fused": 0}
+                                "fused_render_maps": 0, "head512": 0, "heads_fused": 0,
+                                "assignment": 0}
     for k, v in params.items():
         if k.startswith(("trunk_", "rgb_", "density")):
             assert v.grad is None or int(torch.count_nonzero(v.grad)) == 0, k
@@ -851,3 +854,95 @@ def test_forward_template_outputs_unchanged(cuda):
         got = {mode: cs.digest(fused_query(packed, pts, dirs, mode))
                for mode in ("kernel_t", "kernel", "outside")}
     assert got == dict.fromkeys(got, "854cbb6195d4a8e8")
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(repo, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+@pytest.mark.parametrize("n", [1, 5, 32, 33, 100])
+def test_assignment_matches_plain(cuda, n):
+    """K11's col4row equals its plain version's (the JAX solver's) on seeded [2, n, n]
+    batches: uniform costs, integer costs with ties, NaN and +-inf entries, wide costs,
+    every valid count from 0 to n; one launch a batch."""
+    from dmnerf_tpu_torch.kernels.assignment import masked_assignment_ref
+    from dmnerf_tpu_torch.objfield.hungarian import masked_assignment
+
+    cases = _chip_smoke()._assignment_cases(n, 4 * (n + 1), seed=n)
+    runtime.reset_launches()
+    for c, valid in cases:
+        cost = torch.from_numpy(c)
+        got = masked_assignment(cost.to(cuda), torch.tensor(valid, device=cuda))
+        assert torch.equal(got.cpu(), masked_assignment_ref(cost, valid)), (n, valid)
+    assert runtime.LAUNCHES["assignment"] == len(cases)
+
+
+def _pack_setup(cuda, P=3, **kw):
+    from dmnerf_tpu_torch.configs import Config
+    from dmnerf_tpu_torch.data.synthetic import build_dmsr_scene
+    from dmnerf_tpu_torch.train import make_sampler
+
+    scene = build_dmsr_scene(n_train=4, n_test=1, H=32, W=32, n_objects=3, ins_num=8, seed=0)
+    cfg = Config(netdepth=2, netwidth=32, multires=4, multires_views=2, skips=(0,), N_samples=16,
+                 N_importance=16, N_train=256, near=2.0, far=7.0, ins_num=8, lrate=5e-3,
+                 perturb=1.0, penalize=True, tolerance=0.05, deta_w=0.05, steps_per_dispatch=P,
+                 i_print=P, **kw)
+    sampler, n_ins = make_sampler(cfg, scene, cuda)
+
+    def start():
+        from dmnerf_tpu_torch.render.trainstep import create_train_state
+        from dmnerf_tpu_torch.test import init_params
+
+        return (create_train_state(cfg, *init_params(cfg, cuda)),
+                torch.Generator().manual_seed(1), torch.Generator(device=cuda).manual_seed(2))
+    return cfg, sampler, n_ins, start
+
+
+@pytest.mark.parametrize("pe_mode", [None, "outside"])
+def test_graph_replay_equals_eager_steps(cuda, pe_mode):
+    """Two packs of 3 steps (one CUDA graph replay each) against 6 eager steps from the
+    same state and draws: parameters, Adam's moments and counts and every aux, bit for
+    bit; the capture counts no launch that did not run."""
+    from dmnerf_tpu_torch.render.packing import StepRunner
+    from dmnerf_tpu_torch.render.trainstep import make_train_step
+    from dmnerf_tpu_torch.train import make_packed_steps
+
+    cs = _chip_smoke()
+    cfg, sampler, n_ins, start = _pack_setup(cuda, pallas_pe_mode=pe_mode)
+    st_u, gb, gs = start()
+    single = StepRunner(cfg, sampler, make_train_step(cfg, N_ins=n_ins), cuda, 1)
+    eager = torch.cat([cs._aux_rows(single(st_u, gb, gs)) for _ in range(6)])
+    st_p, gb, gs = start()
+    packed, P = make_packed_steps(cfg, sampler, n_ins, cuda)
+    runtime.reset_launches()
+    packs = torch.cat([cs._aux_rows(packed(st_p, gb, gs)) for _ in range(2)])
+    torch.cuda.synchronize()
+    fwd = "fused_mlp_fwd_pe" if pe_mode == "outside" else "fused_mlp_fwd"
+    assert runtime.LAUNCHES[fwd] == 2 * 2 and runtime.LAUNCHES["assignment"] == 2   # warm-up only
+    assert torch.equal(eager.view(torch.int32), packs.view(torch.int32))
+    assert not cs._state_diffs(st_u, st_p)
+
+
+def test_a_pack_copies_nothing_to_the_host_and_launches_each_kernel_per_step(cuda):
+    """One pack under torch.profiler: one cudaGraphLaunch, no device-to-host copy, 2P
+    forward launches (the training forward), 2P bwd_data launches and P of K11."""
+    from dmnerf_tpu_torch.train import make_packed_steps
+
+    cs = _chip_smoke()
+    cfg, sampler, n_ins, start = _pack_setup(cuda, P=4)
+    st, gb, gs = start()
+    packed, P = make_packed_steps(cfg, sampler, n_ins, cuda)
+    packed(st, gb, gs)
+    prof = cs.profile_calls(lambda: packed(st, gb, gs))
+    k = prof["kernels"]
+    assert prof["api"].get("cudaGraphLaunch", 0) == 1
+    assert cs._count(prof["copies"], "DtoH") == 0
+    assert (cs._count(k, "fused_mlp_fwd_kernel"), cs._count(k, "bwd_data_kernel"),
+            cs._count(k, "assignment_kernel")) == (2 * P, 2 * P, P)

@@ -146,7 +146,8 @@ def test_import_guard():
         "from dmnerf_tpu_torch.kernels import runtime\n"
         "assert runtime.KERNELS == ('fused_mlp_fwd', 'fused_mlp_bwd', 'fused_mlp_fwd_kpe',\n"
         "                           'fused_mlp_bwd_kpe', 'fused_mlp_fwd_pe', 'fused_mlp_bwd_pe',\n"
-        "                           'fused_pe', 'fused_render', 'head512', 'heads_fused')\n"
+        "                           'fused_pe', 'fused_render', 'head512', 'heads_fused',\n"
+        "                           'assignment')\n"
         "assert set(runtime.LAUNCHES) == set(runtime.COUNTED) == (\n"
         "    set(runtime.KERNELS) - {'fused_render'}) | {'fused_render_weights', 'fused_render_maps'}\n"
         "assert all((runtime.CSRC / f'{k}.cu').exists() for k in runtime.KERNELS)\n"
