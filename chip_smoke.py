@@ -141,7 +141,11 @@
    the plain path forms (k1_device_ms: the pass without its point formation and
    compositing), the wrapper's per-call time, the fp32 plain version's, the library
    yardstick's (the bf16 addmm chain, then the PyTorch compositing) and the bound (executed matrix FLOPs over 989 TFLOP/s, or bytes over
-   3.35 TB/s, whichever is larger).
+   3.35 TB/s, whichever is larger). K8f also under both schedules of the forward
+   template's consumers' products, lockstep and pipelined (its path's,
+   fused_render.MAPS_SCHEDULE), in turns (schedule_turns): each one's device time and
+   share of the bound, pipelined's maps bit for bit lockstep's, repeats bit-identical;
+   and K8f's register, spill and wgmma-serialization lines from the build.
 14. Head probe phase (scripts/head512_probe_torch.py and scripts/mfu_probe4_torch.py, a
    path of its own, probe_heads): K9 in its four modes (a: head [256, 513]; b: [256, 512]
    and a CUDA-core sigma dot; c: [256, 512]; d: [256, 512] and the n16 sigma layer) at the
@@ -153,7 +157,9 @@
    rounding that flips under another order runs through K9's eight layers), repeats
    bit-identical; device_ms, TFLOP/s on model and executed FLOPs, the bound, the fp32
    plain version's and the bf16 chain's times, and the two answers (a - c, b - c, d - c;
-   split - block-diagonal).
+   split - block-diagonal). Then K10's variants under both schedules in turns (as K8f
+   above; bits equal to lockstep's), and its answer under each. K10's path takes
+   pipelined products (head_probes.HEADS_FUSED_SCHEDULE); K9's source builds lockstep.
 15. Packed train phase (steps_per_dispatch), at the flagship train config of phase 5
    with steps_per_dispatch = i_print = 10: 3 packs (one CUDA graph replay of 10 whole
    steps each) from train()'s seeded state and generators against the same 30 steps one
@@ -195,6 +201,36 @@ TRAIN_STEPS = 20
 KPE_TRAIN_STEPS = 5
 SCANNET_TRAIN_STEPS = 5
 SEED = 0
+
+
+def _kernel_label(line: str) -> str:
+    """A kernel's name in a line of ptxas output, with its template's arguments:
+    <stash>, K7's <multires>, K8's <weights> / <maps> and the forward template's
+    schedule (<pipelined>)."""
+    m = re.search(r"\d([a-z_]+_kernel)", line)
+    fn = m.group(1) + ("<stash>" if "Lb1E" in line else "") if m else ""
+    mr = re.search(r"_kernelILi(\d+)E", line)     # K7's multires template
+    fn += f"<{mr.group(1)}>" if mr else ""
+    cm = re.search(r"Lb[01]ELi([12])E", line)     # K8's compositing epilogue
+    fn += {"1": "<weights>", "2": "<maps>"}[cm.group(1)] if cm else ""
+    sm = re.search(r"Lb[01]ELi\dELi(\d)E", line)  # the consumers' schedule
+    fn += "<pipelined>" if sm and sm.group(1) == "1" else ""
+    return fn
+
+
+def register_lines(report: str) -> list:
+    """(kernel, line) of each register and spill line of an ``nvcc -Xptxas -v`` report,
+    and of each kernel whose wgmma ptxas serialized (its note C7511), the kernel named by
+    ``_kernel_label``."""
+    out, fn = [], ""
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            fn = _kernel_label(line)
+        if ("Used" in line and "registers" in line) or "spill stores" in line:
+            out.append((fn, line.strip()))
+        if "C7511" in line:
+            out.append((_kernel_label(line), "wgmma serialized (ptxas C7511)"))
+    return out
 
 
 def _time_ms(fn, reps: int = 10, warmup: int = 3) -> float:
@@ -242,6 +278,29 @@ def device_ms(launch, reps: int = 50, runs: int = 5) -> dict:
         host.append((t1 - t0) * 1e3 / reps)
     return dict(device_ms=statistics.median(dev), enqueue_ms=statistics.median(host),
                 device_ms_runs=dev)
+
+
+def schedule_turns(launch) -> dict:
+    """A kernel of the forward template under both schedules of its consumers' products
+    in one call, in turns (lockstep, pipelined, pipelined, lockstep): ``launch(schedule)``
+    enqueues one launch and returns its output. Each schedule's device time (``<name>_ms``,
+    the mean of its two turns of ``device_ms``), whether pipelined's output equals
+    lockstep's bit for bit and whether each schedule's repeats do."""
+    import torch
+
+    from dmnerf_tpu_torch.kernels.fused_mlp import LOCKSTEP, PIPELINED, SCHEDULE_NAMES
+
+    order = [LOCKSTEP, PIPELINED]
+    turns = {sc: [] for sc in order}
+    for sched in order + order[::-1]:
+        turns[sched].append(device_ms(lambda: launch(sched))["device_ms"])
+    outs = {sched: [launch(sched), launch(sched)] for sched in order}
+    torch.cuda.synchronize()
+    res = {f"{SCHEDULE_NAMES[sc]}_ms": statistics.mean(t) for sc, t in turns.items()}
+    res["turns_ms"] = {SCHEDULE_NAMES[sc]: t for sc, t in turns.items()}
+    res["bits_equal_lockstep"] = bool(torch.equal(outs[PIPELINED][0], outs[LOCKSTEP][0]))
+    res["repeats_bit_identical"] = all(bool(torch.equal(a, b)) for a, b in outs.values())
+    return res
 
 
 def digest(t) -> str:
@@ -1813,6 +1872,34 @@ def _script(name):
     return mod
 
 
+def fused_chunk(device):
+    """The first chunk (N_test rays) of scripts/fused_render_probe_torch.py's view with
+    the seeded flagship weights: the packed sigma stub (``pcs``) and fine model (``pfs``),
+    the rays (``o``, ``d``, ``edr``), the coarse depths ``z_c`` and the fine depths ``z_f``
+    sample_pdf draws from K8c's weights, as the fused renderer takes them."""
+    import torch
+
+    from dmnerf_tpu_torch.core.mlp import sigma_stub_params
+    from dmnerf_tpu_torch.core.sampling import sample_pdf, z_val_sample
+    from dmnerf_tpu_torch.kernels import fused_mlp as fm
+    from dmnerf_tpu_torch.kernels import fused_render as fr
+
+    cfg, pc, pf, rays_o, rays_d = _script("fused_render_probe_torch").scene_view(device)
+    args = (cfg.multires, cfg.multires_views, cfg.netdepth, tuple(cfg.skips))
+    N = cfg.N_test
+    stub = sigma_stub_params(pc)
+    pcs, pfs = fm.pack_params(stub, *args), fm.pack_params(pf, *args)
+    o = rays_o[:N].contiguous()
+    d, edr = fr.ray_table(pfs, rays_d[:N])
+    z_c = z_val_sample(N, cfg.near, cfg.far, cfg.N_samples, device=device).contiguous()
+    with torch.no_grad():
+        w = fr.fused_render(pcs, o, d, z_c, True)
+        z_mids = 0.5 * (z_c[..., 1:] + z_c[..., :-1])
+        z_f = torch.sort(torch.cat([z_c, sample_pdf(z_mids, w[..., 1:-1], cfg.N_importance)], -1),
+                         -1).values.contiguous()
+    return dict(cfg=cfg, stub=stub, pf=pf, pcs=pcs, pfs=pfs, o=o, d=d, edr=edr, z_c=z_c, z_f=z_f)
+
+
 def fused_render_phase(device):
     """The fused render path: one 256² view through make_fused_renderer (K8c, K8f) and
     through make_image_renderer (K1) with the same weights, then K8c and K8f at the
@@ -1820,14 +1907,12 @@ def fused_render_phase(device):
     import torch
 
     from dmnerf_tpu_torch.core.compositor import _weights, composite_maps
-    from dmnerf_tpu_torch.core.mlp import sigma_stub_params
-    from dmnerf_tpu_torch.core.sampling import sample_pdf, z_val_sample
     from dmnerf_tpu_torch.kernels import fused_mlp as fm
     from dmnerf_tpu_torch.kernels import fused_render as fr
     from dmnerf_tpu_torch.kernels import runtime
 
     probe = _script("fused_render_probe_torch")
-    view = probe.compare_views(device, size=256, reps=1)
+    view = probe.compare_views(device, size=256, reps=2)
     chunks = view["chunks"]
     launches = {k: 0 for k in runtime.COUNTED}
     launches.update(view["fused"]["launches"])
@@ -1854,20 +1939,12 @@ def fused_render_phase(device):
                              f"<= {MAX_LABEL_FLIP})")
 
     # K8c and K8f at the view's first chunk against their plain versions, timed
-    cfg, pc, pf, rays_o, rays_d = probe.scene_view(device)
-    args = (cfg.multires, cfg.multires_views, cfg.netdepth, tuple(cfg.skips))
+    ch = fused_chunk(device)
+    cfg, stub, pf, pcs, pfs = (ch[k] for k in ("cfg", "stub", "pf", "pcs", "pfs"))
+    o, d, edr, z_c, z_f = (ch[k] for k in ("o", "d", "edr", "z_c", "z_f"))
     N = cfg.N_test
-    stub = sigma_stub_params(pc)
-    pcs, pfs = fm.pack_params(stub, *args), fm.pack_params(pf, *args)
-    o = rays_o[:N].contiguous()
-    d, edr = fr.ray_table(pfs, rays_d[:N])
-    z_c = z_val_sample(N, cfg.near, cfg.far, cfg.N_samples, device=device).contiguous()
     results = {}
     with torch.no_grad():
-        w = fr.fused_render(pcs, o, d, z_c, True)
-        z_mids = 0.5 * (z_c[..., 1:] + z_c[..., :-1])
-        z_f = torch.sort(torch.cat([z_c, sample_pdf(z_mids, w[..., 1:-1], cfg.N_importance)], -1),
-                         -1).values
         for name, params, packed, z, weights_only in (
                 ("fused_render_weights", stub, pcs, z_c, True),
                 ("fused_render_maps", pf, pfs, z_f, False)):
@@ -1933,12 +2010,27 @@ def fused_render_phase(device):
                      bound_by="operations" if t_ops >= t_bytes else "bytes",
                      gflop=flops / 1e9, mbytes=nbytes / 1e6, launches_per_view=chunks)
             r["share_of_bound"] = r["bound_ms"] / r["ms"]
+            if not weights_only:
+                # K8f under both schedules, in turns: device time, share, bits equal
+                r["schedule"] = fm.SCHEDULE_NAMES[fr.MAPS_SCHEDULE]
+                r.update(schedule_turns(lambda sc: fr._launch_render(packed, o, d, z, edr, False,
+                                                                      sc)))
+                for sname in fm.SCHEDULE_NAMES.values():
+                    r[f"{sname}_share_of_bound"] = r["bound_ms"] / r[f"{sname}_ms"]
             print(f"[fused render] {name}: {json.dumps(r)}", flush=True)
+            if not weights_only and not (r["bits_equal_lockstep"] and r["repeats_bit_identical"]):
+                raise AssertionError(f"{name}: pipelined's bits equal to lockstep's "
+                                     f"{r['bits_equal_lockstep']}, repeats "
+                                     f"{r['repeats_bit_identical']}")
             if err32 > tol or err16 > tol:
                 raise AssertionError(f"{name}: kernel vs fp32 plain max|d| {err32:.3e} (but "
                                      f"the last sample's jumps), vs bf16 plain {err16:.3e}; "
                                      f"want <= {KERNEL_TOL} * max({scale:.3e}, 1)")
             results[name] = r
+    log = runtime.library_path("fused_render").with_suffix(".log").read_text()
+    for fn, line in register_lines(log):
+        if "<maps>" in fn:
+            print(f"[fused render] registers {fn}: {line}", flush=True)
     runtime.reset_launches()
     return launches, results
 
@@ -1946,7 +2038,9 @@ def fused_render_phase(device):
 def head_probes_phase(device):
     """The head probes K9 and K10 at their probes' shapes: the launches of the probes'
     questions (one a mode or variant), then each against its plain versions, timed."""
+    from dmnerf_tpu_torch.kernels import head_probes as hpr
     from dmnerf_tpu_torch.kernels import runtime
+    from dmnerf_tpu_torch.kernels.fused_mlp import SCHEDULE_NAMES
 
     launches = {k: 0 for k in runtime.COUNTED}
     res = {}
@@ -1964,6 +2058,24 @@ def head_probes_phase(device):
         if r["launches"] != {kernel: want}:
             raise AssertionError(f"{name}: launched {r['launches']}, want {want} {kernel}")
         res[kernel] = r
+    # K10's variants under both schedules, in turns; its answer under each
+    r, by_schedule = res["heads_fused"], {sname: {} for sname in SCHEDULE_NAMES.values()}
+    mfu4 = _script("mfu_probe4_torch")
+    for case, launch in mfu4.launchers(device).items():
+        t = schedule_turns(launch)
+        v = r["variants"][case]
+        v.update(t, schedule=SCHEDULE_NAMES[hpr.HEADS_FUSED_SCHEDULE])
+        for sname in SCHEDULE_NAMES.values():
+            v[f"{sname}_share_of_bound"] = v["bound_ms"] / t[f"{sname}_ms"]
+            by_schedule[sname][case] = t[f"{sname}_ms"]
+        print(f"[head probes] heads_fused {case} schedules: {json.dumps(t)}", flush=True)
+        if not (t["bits_equal_lockstep"] and t["repeats_bit_identical"]):
+            raise AssertionError(f"heads_fused {case}: pipelined's bits equal to lockstep's "
+                                 f"{t['bits_equal_lockstep']}, repeats "
+                                 f"{t['repeats_bit_identical']}")
+    r["answer_by_schedule"] = {sname: mfu4.answer(ms) for sname, ms in by_schedule.items()}
+    print(f"[head probes] heads_fused answer by schedule: {json.dumps(r['answer_by_schedule'])}",
+          flush=True)
     return launches, res
 
 
@@ -2007,17 +2119,8 @@ def main() -> int:
     reports = runtime.build()
     print(f"[build] {len(reports)} kernel(s) in {time.time() - t0:.1f} s", flush=True)
     for name, rep in reports.items():
-        fn = ""
-        for line in rep.splitlines():
-            if "Compiling entry function" in line:
-                m = re.search(r"\d([a-z_]+_kernel)", line)
-                fn = m.group(1) + ("<stash>" if "Lb1E" in line else "") if m else ""
-                mr = re.search(r"_kernelILi(\d+)E", line)     # K7's multires template
-                fn += f"<{mr.group(1)}>" if mr else ""
-                cm = re.search(r"Lb[01]ELi([12])E", line)     # K8's compositing epilogue
-                fn += {"1": "<weights>", "2": "<maps>"}[cm.group(1)] if cm else ""
-            if ("Used" in line and "registers" in line) or "spill stores" in line:
-                print(f"[build] {name} {fn}: {line.strip()}", flush=True)
+        for fn, line in register_lines(rep):
+            print(f"[build] {name} {fn}: {line}", flush=True)
 
     device = torch.device("cuda")
     cfg = load_config(os.path.join(REPO, "configs", "test", "dmsr", "study.txt"), ins_num=32)
@@ -2087,10 +2190,12 @@ def main() -> int:
                                                          "issue_bound_ms", "share_of_bound",
                                                          "card")}),
     ]
+    sched_keys = ("schedule", "lockstep_ms", "bits_equal_lockstep")
     for name in ("fused_render_weights", "fused_render_maps"):
+        keys = ("call_ms", "share_of_bound") + (sched_keys if name == "fused_render_maps" else ())
         kernels.append({**_entry(name, "scripts/dev/fused_render_probe.py:142",
                                  fused_launches[name], by_path, fres[name],
-                                 **{k: fres[name][k] for k in ("call_ms", "share_of_bound")}),
+                                 **{k: fres[name][k] for k in keys}),
                         "source": "dmnerf_tpu_torch/kernels/csrc/fused_render.cu"})
     # K9 by the TPU kernel's layout (mode a, head [256, 513]) and K10 by the probe's
     # (one block-diagonal output), each with its other modes beside
@@ -2099,13 +2204,17 @@ def main() -> int:
             ("heads_fused", "scripts/dev/mfu_probe4.py:79", "variants", "block_diagonal")):
         r = pres[name]
         worst = max(v["max_abs_err"] for v in r[cases].values())
+        keys = sched_keys if name == "heads_fused" else ()
         kernels.append(_entry(name, replaces, probe_launches[name], by_path,
                               {**r[cases][main_case], "max_abs_err": worst},
+                              **{k: r[cases][main_case][k] for k in keys},
                               **{cases: {k: {kk: v[kk] for kk in (
                                   "ms", "plain_ms", "library_ms", "bound_ms", "share_of_bound",
                                   "model_tflops", "executed_tflops", "max_abs_err",
-                                  "max_abs_err_bf16_plain")} for k, v in r[cases].items()},
-                                 "answer": r["answer"]}))
+                                  "max_abs_err_bf16_plain") + keys}
+                                  for k, v in r[cases].items()},
+                                 "answer": r["answer"],
+                                 **{k: r[k] for k in ("answer_by_schedule",) if k in r}}))
     kernels.append(_entry("assignment", "dmnerf_tpu/objfield/hungarian.py:123",
                           train_launches["assignment"], by_path, k11,
                           **{k: k11[k] for k in ("device_us", "host_scipy_ms", "argmin_latency_us",

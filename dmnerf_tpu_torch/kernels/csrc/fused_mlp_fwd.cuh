@@ -64,6 +64,13 @@
 //  * Sigma is a layer of its own ([W, 16], column 0) kept in fp32 in registers; the
 //    output layer writes it into column 3.
 //  * Rows past the ragged tail compute on zeros and are never stored.
+//  * The schedule of the consumers' products (SCHED, a template parameter). Under
+//    SCHED_LOCKSTEP each layer runs at the narrowest instruction width that covers it
+//    (n16, n64 one to three times, n256); ptxas then serializes every wgmma of the
+//    kernel, each waiting for the one before. SCHED_PIPELINED runs every layer at one of
+//    two widths, which ptxas pipelines (below). The rows each warpgroup owns, each
+//    product's inputs and the order of every sum are the same under both, so their
+//    outputs are equal bit for bit. K8f and K10 take SCHED_PIPELINED (PERF.md).
 // Shared memory: 4 weight stages of 32 KB (128 KB) + 2 x (e, ed) tiles of 16 KB (64 KB)
 // + 12 mbarriers, 193 KB with the 1 KB alignment slack, of the 227 KB a block can have;
 // with STASH also two 16 KB staging tiles, 225 KB; with ROWS_H two 16 KB ed tiles, 225 KB.
@@ -114,6 +121,8 @@
 // h, whose epilogues leave the registers as they are.
 #pragma once
 
+#include <type_traits>
+
 #include "fused_mlp_common.cuh"
 #include "fused_mlp_sm90.cuh"
 
@@ -134,6 +143,85 @@ constexpr int F_STAGES = 4;
 constexpr int MAX_FMAPS = 2 * MAX_LAYERS;
 constexpr int MAX_FCHUNKS = 7 * MAX_LAYERS;
 
+// The consumers' schedule (see the design notes above): SCHED_PIPELINED runs every layer
+// at one of two instruction widths, n256, or one n64 for a layer of at most 64 columns,
+// so that ptxas pipelines each warpgroup's products (beside n16 and two or three n64 a
+// k-step it serializes every wgmma of the kernel, C7511). The wider instruction reads
+// stage rows past the layer's box into accumulator columns at or past its N, which no
+// epilogue reads (the launchers refuse a table whose output columns pass N). A launcher
+// whose schedule is not given takes lockstep; a measurement build with
+// DMNERF_FWD_SCHED=1 gives every such launcher the pipelined one instead.
+enum Sched { SCHED_LOCKSTEP = 0, SCHED_PIPELINED = 1 };
+#ifdef DMNERF_FWD_SCHED
+constexpr int FWD_DEFAULT_SCHED = DMNERF_FWD_SCHED;
+#else
+constexpr int FWD_DEFAULT_SCHED = SCHED_LOCKSTEP;
+#endif
+
+// DMNERF_FWD_STAMPS (a measurement build): every consumer warp and embedding warp sums
+// the clock cycles of its parts of the walk in a row of its own in shared memory (not
+// in registers, which the consumers have none to spare for), and the launch adds them
+// into g_fwd_stamps, which dmnerf_fwd_stamps reads; without it the stamps compile away.
+enum Stamp {
+  ST_WALK = 0,   // consumers: the whole walk
+  ST_FULL,       // ring_take's wait for a box (ring starvation)
+  ST_PACE,       // wgmma.wait_group 1 after each chunk (the products' own pace)
+  ST_DRAIN,      // wgmma.wait_group 0 at a layer's end
+  ST_EPI,        // the epilogues, without the hand-off waits inside them
+  ST_HANDOFF,    // waits for the embedding warps: emb_full, x_full, cb.empty
+  ST_TILES,      // tiles walked (a count, not cycles)
+  ST_E_WALK,     // embedding warps: the whole walk
+  ST_E_BUILD,    // building a tile's embeddings (points, sincosf, ed, edT)
+  ST_E_WAIT,     // waits for the consumers: emb_empty, x_empty
+  ST_E_CMP,      // compositing a staged tile, its wait on cb.full included
+  ST_E_CMPWAIT,  // the wait on cb.full alone
+  ST_E_TILES,    // tiles walked
+  ST_WARPS,      // consumer warps that reported
+  ST_E_WARPS,    // embedding warps that reported
+  N_STAMPS
+};
+#ifdef DMNERF_FWD_STAMPS
+constexpr size_t STAMP_BYTES = (F_THREADS / 32) * N_STAMPS * 4;   // a row a warp
+__device__ unsigned long long g_fwd_stamps[N_STAMPS];
+__device__ __forceinline__ uint32_t stamp_clock() {
+  uint32_t c;
+  asm volatile("mov.u32 %0, %%clock;\n" : "=r"(c)::"memory");
+  return c;
+}
+// ACC is a word of the warp's row; all lanes add to it, and one lane's time stays
+#define DM_TIMED(ACC, ...)                   \
+  do {                                       \
+    const uint32_t t0_ = stamp_clock();      \
+    __VA_ARGS__;                             \
+    (ACC) += stamp_clock() - t0_;            \
+  } while (0)
+#define DM_STAMP_START(T) const uint32_t T = stamp_clock()
+#define DM_STAMP_ADD(ACC, T) (ACC) += stamp_clock() - (T)
+// lane 0 of a warp adds its row's sums [first, first + n) into g_fwd_stamps, then a
+// count of the warps that reported at count_at
+__device__ __forceinline__ void stamps_flush(const uint32_t* row, int first, int n, int count_at,
+                                             int lane) {
+  __syncwarp();
+  if (lane == 0) {
+    for (int i = first; i < first + n; ++i)
+      atomicAdd(&g_fwd_stamps[i], (unsigned long long)row[i]);
+    atomicAdd(&g_fwd_stamps[count_at], 1ull);
+  }
+}
+#else
+constexpr size_t STAMP_BYTES = 0;
+#define DM_TIMED(ACC, ...) \
+  do {                     \
+    __VA_ARGS__;           \
+  } while (0)
+#define DM_STAMP_START(T) \
+  do {                    \
+  } while (0)
+#define DM_STAMP_ADD(ACC, T) \
+  do {                       \
+  } while (0)
+#endif
+
 // What the kernel makes of raw: raw itself, or the rays' weights or maps (fused_render.cu)
 enum Cmp { CMP_NONE = 0, CMP_WEIGHTS = 1, CMP_MAPS = 2 };
 constexpr int CMP_PITCH = 53;   // staged output columns a row: c4 <= 53, odd (no bank conflict)
@@ -146,13 +234,20 @@ __host__ __device__ constexpr size_t cmp_smem() {
                                (CMP == CMP_MAPS ? (size_t)FT * CMP_PITCH * 4 + 64 * 4 : 0);
 }
 
+// The mbarriers: the ring's full and empty, the embedding buffers' full and empty, CMP's
+// or ROWS_H's hand-off pair.
+template <int CMP, Rows ROWS>
+__host__ __device__ constexpr int fwd_barriers() {
+  return 2 * F_STAGES + 4 + (CMP != CMP_NONE || ROWS == ROWS_H ? 2 : 0);
+}
+
 // Shared memory: the ring, two (e, ed) embedding buffers (ROWS_H: the x tile), ROWS_H's
-// two ed tiles, the staging tiles, the compositing buffers, mbarriers.
+// two ed tiles, the staging tiles, the compositing buffers, mbarriers, the stamps' rows.
 template <bool STASH, int CMP = CMP_NONE, Rows ROWS = ROWS_RAY_TABLE>
 constexpr size_t fwd_smem() {
   return 1024 + (size_t)F_STAGES * F_STAGE_BYTES + 4 * (size_t)EMB_BYTES +
          (ROWS == ROWS_H ? 2 * (size_t)EMB_BYTES : 0) + (STASH ? 2 * (size_t)STG_BYTES : 0) +
-         cmp_smem<CMP>() + (2 * F_STAGES + 4 + (CMP ? 2 : 0) + (ROWS == ROWS_H ? 2 : 0)) * 8;
+         cmp_smem<CMP>() + fwd_barriers<CMP, ROWS>() * 8 + STAMP_BYTES;
 }
 
 // EPI_COLS and EPI_DOT: the head probes' (ROWS_H) columns and CUDA-core sigma
@@ -244,10 +339,13 @@ struct Ring {
   uint64_t *full, *empty;
   int stage, prev;
   uint32_t ph;
+#ifdef DMNERF_FWD_STAMPS
+  uint32_t* st;   // this warp's row of stamps in shared memory
+#endif
 };
 
 __device__ __forceinline__ uint64_t ring_take(Ring& r) {
-  mbar_wait(&r.full[r.stage], r.ph);
+  DM_TIMED(r.st[ST_FULL], mbar_wait(&r.full[r.stage], r.ph));
   return desc_sw128(r.base + r.stage * F_STAGE_BYTES, 16, 1024);
 }
 
@@ -265,7 +363,7 @@ __device__ __forceinline__ void ring_release(Ring& r, int stage, int lane) {
 // that one's stage back.
 __device__ __forceinline__ void ring_next(Ring& r, int lane) {
   wg_commit();
-  wg_wait<1>();
+  DM_TIMED(r.st[ST_PACE], wg_wait<1>());
   if (r.prev >= 0) ring_release(r, r.prev, lane);
   r.prev = r.stage;
   if (++r.stage == F_STAGES) {
@@ -335,7 +433,7 @@ __device__ __forceinline__ void layer_product(float (&acc)[128], uint32_t (&af)[
   if (segs & SEG_E_LAST) DM_SS_CHUNK(da_e)
 #undef DM_SS_CHUNK
 #undef DM_RS_CHUNK
-  wg_wait<0>();
+  DM_TIMED(r.st[ST_DRAIN], wg_wait<0>());
   fence_regs(acc);
   fence_regs(af);
   if (r.prev >= 0) ring_release(r, r.prev, lane);
@@ -343,8 +441,11 @@ __device__ __forceinline__ void layer_product(float (&acc)[128], uint32_t (&af)[
 
 // The embedding warps' share of a tile: its embedding tiles e and ed (swizzled, all 64
 // columns written, zeros past EP / EDP and past P). ROWS_RAY_Z first forms the tile's
-// points in `xs` ([128][3] fp32 in shared memory) as the plain path does, o + (d * z).
-template <Rows ROWS>
+// points in `xs` ([128][3] fp32 in shared memory) as the plain path does, o + (d * z);
+// under CMP_MAPS (K8f) the flagship's multires 10 is a constant of the embedding's index
+// arithmetic, whose divisions then compile to multiplications (the same values; K8f
+// 3.7 % faster on an H100 80GB HBM3 at 700 W, PERF.md §6).
+template <Rows ROWS, int CMP = CMP_NONE>
 __device__ __forceinline__ void build_tile(__nv_bfloat16* e, __nv_bfloat16* ed,
                                            const void* pt_src, const void* ed_src,
                                            const FwdParams& p, long long p0, int tid,
@@ -363,7 +464,10 @@ __device__ __forceinline__ void build_tile(__nv_bfloat16* e, __nv_bfloat16* ed,
     }
     bar_sync(1, EMB_THREADS);
     const long long rows = p.P - p0 < FT ? p.P - p0 : FT;
-    embed_rows<true>(e, xs, 0, rows > 0 ? rows : 0, p.multires, 64, 64, tid, EMB_THREADS);
+    if (CMP == CMP_MAPS && p.multires == 10)
+      embed_rows<true>(e, xs, 0, rows > 0 ? rows : 0, 10, 64, 64, tid, EMB_THREADS);
+    else
+      embed_rows<true>(e, xs, 0, rows > 0 ? rows : 0, p.multires, 64, 64, tid, EMB_THREADS);
   } else {
     embed_rows<true>(e, static_cast<const float*>(pt_src), p0, p.P, p.multires, 64, 64, tid,
                      EMB_THREADS);
@@ -432,12 +536,18 @@ struct CmpBufs {
 // p0 .. p0 + FT, in row order, once its consumers have staged it. A ray starts at a row
 // whose sample index (row mod S) is 0; the scan warp's `carry` is the log-transmittance
 // of the ray open at the tile's start, and c.carry its sums (CMP_MAPS). Rows past P take
-// part in the sums of rays past N, which are never stored.
+// part in the sums of rays past N, which are never stored. `wait` sums the cycles of the
+// wait for the staged tile (DMNERF_FWD_STAMPS).
 template <int CMP>
 __device__ __forceinline__ void composite_tile(const FwdParams& p, float* __restrict__ out,
                                                const CmpBufs& c, long long p0, int it, int tid,
-                                               float& carry) {
-  mbar_wait(c.full, it & 1);
+                                               float& carry, uint32_t& wait) {
+  DM_TIMED(wait, mbar_wait(c.full, it & 1));
+#ifdef DMNERF_FWD_NO_COMPOSITE
+  // a measurement build: the hand-off without the compositing
+  mbar_arrive(c.empty);
+  return;
+#endif
   const int S = p.S;
   const int s0 = (int)(p0 % S);
   // a row: alpha = 1 - exp(-relu(sigma) dist) with dist = (z' - z, or 1e10 at the ray's
@@ -457,6 +567,14 @@ __device__ __forceinline__ void composite_tile(const FwdParams& p, float* __rest
     c.alpha[r] = a;
     c.lg[r] = lg;
     c.z[r] = zz;
+    if constexpr (CMP == CMP_MAPS) {
+      // the sigmoid of the row's rgb here, a row a thread, not in the column sums' loop
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        float& v = c.raw[r * CMP_PITCH + k];
+        v = 1.f / (1.f + expf(-v));
+      }
+    }
   }
   if constexpr (CMP == CMP_WEIGHTS) mbar_arrive(c.empty);   // the staged sigma is read
   bar_sync(1, EMB_THREADS);
@@ -522,22 +640,23 @@ __device__ __forceinline__ void composite_tile(const FwdParams& p, float* __rest
   }
   if constexpr (CMP == CMP_MAPS) {
     bar_sync(1, EMB_THREADS);
-    // one thread a column of [sigmoid(rgb) | z | instance logits]: the sum of w * value
-    // over each ray's rows in row order, stored when the ray ends (the instance columns
-    // through a sigmoid); the ray open at the tile's end carries its sum
+    // one thread a column of [sigmoid(rgb) | z | instance logits] (the rgb sigmoids taken
+    // above): the sum of w * value over each ray's rows in row order, stored when the ray
+    // ends (the instance columns through a sigmoid); the ray open at the tile's end
+    // carries its sum
     if (tid < p.c4) {
       const int col = tid;
       long long ray = p0 / S;
       float acc = s0 == 0 ? 0.f : c.carry[col];
       int s = s0;
+#pragma unroll 4
       for (int r = 0; r < FT; ++r) {
         if (s == 0 && r > 0) {
           if (ray * S < p.P) out[ray * p.c4 + col] = col < 4 ? acc : 1.f / (1.f + expf(-acc));
           acc = 0.f;
           ++ray;
         }
-        float v = col == 3 ? c.z[r] : c.raw[r * CMP_PITCH + col];
-        if (col < 3) v = 1.f / (1.f + expf(-v));
+        const float v = col == 3 ? c.z[r] : c.raw[r * CMP_PITCH + col];
         acc += c.w[r] * v;
         if (++s == S) s = 0;
       }
@@ -565,7 +684,7 @@ __device__ __forceinline__ void store_tile(__nv_bfloat16* dst, const __nv_bfloat
   }
 }
 
-template <Rows ROWS, bool STASH, int CMP = CMP_NONE>
+template <Rows ROWS, bool STASH, int CMP = CMP_NONE, int SCHED = SCHED_LOCKSTEP>
 __global__ void __launch_bounds__(F_THREADS, 1)
 fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict__ pt_src,
                      const void* __restrict__ ed_src, const float* __restrict__ biases,
@@ -584,6 +703,11 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
   uint64_t* emb_empty = emb_full + 2;
   uint64_t* x_full = emb_empty + 2;   // ROWS_H: the x tile is loaded, and taken
   uint64_t* x_empty = x_full + 1;
+#ifdef DMNERF_FWD_STAMPS
+  uint32_t* stamp_row = reinterpret_cast<uint32_t*>(full + fwd_barriers<CMP, ROWS>()) +
+                        (threadIdx.x >> 5) * N_STAMPS;
+  for (int i = threadIdx.x & 31; i < N_STAMPS; i += 32) stamp_row[i] = 0u;
+#endif
   CmpBufs cb{};
   if constexpr (CMP != CMP_NONE) {
     cb.xs = cmp;
@@ -659,6 +783,11 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
       int it = 0;
       long long prev_p0 = 0;
       float carry = 0.f;   // CMP: the scan warp's log-transmittance of the open ray
+      uint32_t cmp_wait = 0;
+#ifdef DMNERF_FWD_STAMPS
+      uint32_t* es = stamp_row;
+      const uint32_t t_walk = stamp_clock();
+#endif
       for (int q = pair0; 2 * q < n_spans; q += pairs) {
         for (int jt = 0; jt < span; ++jt, ++it) {
           const int b = it & 1;
@@ -675,19 +804,26 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
           } else if constexpr (ROWS == ROWS_H) {
             // x's tile once the consumers have taken the last one; edT's into ed tile b
             if (tid == 0) {
-              mbar_wait(x_empty, (it & 1) ^ 1);
+              DM_TIMED(es[ST_E_WAIT], mbar_wait(x_empty, (it & 1) ^ 1));
               mbar_expect_tx(x_full, 4 * EMB_BYTES);
               for (int c = 0; c < 4; ++c)
                 tma_load_2d(emb + c * EMB_BYTES, &p.e_map, x_full, 64 * c, (int)p0);
             }
-            mbar_wait(&emb_empty[b], ((it >> 1) & 1) ^ 1);
+            DM_TIMED(es[ST_E_WAIT], mbar_wait(&emb_empty[b], ((it >> 1) & 1) ^ 1));
+            DM_STAMP_START(t_build);
+#ifndef DMNERF_FWD_NO_BUILD
             if (p.edt != nullptr)
               build_edt(reinterpret_cast<__nv_bfloat16*>(hed + b * EMB_BYTES), p, p0, tid);
+#endif
             fence_proxy_async();
             mbar_arrive(&emb_full[b]);
+            DM_STAMP_ADD(es[ST_E_BUILD], t_build);
           } else {
-            mbar_wait(&emb_empty[b], ((it >> 1) & 1) ^ 1);
-            build_tile<ROWS>(e, ed, pt_src, ed_src, p, p0, tid, cb.xs);
+            DM_TIMED(es[ST_E_WAIT], mbar_wait(&emb_empty[b], ((it >> 1) & 1) ^ 1));
+            DM_STAMP_START(t_build);
+#ifndef DMNERF_FWD_NO_BUILD
+            build_tile<ROWS, CMP>(e, ed, pt_src, ed_src, p, p0, tid, cb.xs);
+#endif
             if constexpr (STASH) {
               bar_sync(1, EMB_THREADS);
               if (p.e_stash >= 0) store_tile(stash + p.e_stash, e, p.ep, p0, p.P, tid);
@@ -695,16 +831,31 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
             }
             fence_proxy_async();
             mbar_arrive(&emb_full[b]);
+            DM_STAMP_ADD(es[ST_E_BUILD], t_build);
           }
           if constexpr (CMP != CMP_NONE) {
-            if (it > 0) composite_tile<CMP>(p, out, cb, prev_p0, it - 1, tid, carry);
+            if (it > 0)
+              DM_TIMED(es[ST_E_CMP],
+                       composite_tile<CMP>(p, out, cb, prev_p0, it - 1, tid, carry, cmp_wait));
             prev_p0 = p0;
           }
         }
       }
       if constexpr (CMP != CMP_NONE) {
-        if (it > 0) composite_tile<CMP>(p, out, cb, prev_p0, it - 1, tid, carry);
+        if (it > 0)
+          DM_TIMED(es[ST_E_CMP],
+                   composite_tile<CMP>(p, out, cb, prev_p0, it - 1, tid, carry, cmp_wait));
       }
+#ifdef DMNERF_FWD_STAMPS
+      const uint32_t walk = stamp_clock() - t_walk;
+      __syncwarp();
+      if (lane == 0) {
+        es[ST_E_WALK] = walk;
+        es[ST_E_CMPWAIT] = cmp_wait;
+        es[ST_E_TILES] = (uint32_t)it;
+      }
+      stamps_flush(es, ST_E_WALK, ST_E_TILES - ST_E_WALK + 1, ST_E_WARPS, lane);
+#endif
     }
   } else {
     // ---- consumers: warpgroup wg owns points [64 wg, 64 wg + 64) of each tile ----
@@ -725,6 +876,10 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
 #ifdef DMNERF_FWD_NO_EPILOGUE
     float keep = 0.f;
 #endif
+#ifdef DMNERF_FWD_STAMPS
+    r.st = stamp_row;
+    const uint32_t t_walk = stamp_clock();
+#endif
     int it = 0;
     for (int q = pair0; 2 * q < n_spans; q += pairs)
     for (int jt = 0; jt < span; ++jt, ++it) {
@@ -737,12 +892,12 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
           ROWS == ROWS_H ? hed + b * EMB_BYTES + wg * (EMB_BYTES / 2) : e_tile + EMB_BYTES;
       const uint64_t da_e = desc_sw128(e_tile, 16, 1024);
       const uint64_t da_ed = desc_sw128(ed_tile, 16, 1024);
-      mbar_wait(&emb_full[b], (it >> 1) & 1);
+      DM_TIMED(r.st[ST_HANDOFF], mbar_wait(&emb_full[b], (it >> 1) & 1));
       float rs0 = 0.f, rs1 = 0.f;   // ROWS_H: the row sums of rows r0, r1 (this lane's part)
       if constexpr (ROWS == ROWS_H) {
         // this warpgroup's 64 rows of x into the A fragments (the m64nNk16 layout: rows
         // lr0, lr0 + 8, columns 16 ks + 2 t and + 8), then the tile goes back to the loader
-        mbar_wait(x_full, it & 1);
+        DM_TIMED(r.st[ST_HANDOFF], mbar_wait(x_full, it & 1));
         const __nv_bfloat16* xt = reinterpret_cast<const __nv_bfloat16*>(emb + wg * (EMB_BYTES / 2));
 #pragma unroll
         for (int ks = 0; ks < 16; ++ks) {
@@ -761,18 +916,33 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
         const FLayer L = p.layers[l];
 #define DM_LAYER(NW, NI) \
   layer_product<NW, NI, ROWS == ROWS_H>(acc, af, L.segs, da_e, da_ed, r, lane)
-        switch (L.cls) {
-          case CLS_256: DM_LAYER(256, 1); break;
-          case CLS_16: DM_LAYER(16, 1); break;
-          case CLS_64x1: DM_LAYER(64, 1); break;
-          case CLS_64x2: DM_LAYER(64, 2); break;
-          default: DM_LAYER(64, 3); break;
+        if constexpr (SCHED == SCHED_PIPELINED) {
+          // the wider instruction reads stage rows past the layer's box into columns at
+          // or past L.N, which no epilogue reads
+          if (L.cls == CLS_16 || L.cls == CLS_64x1) DM_LAYER(64, 1);
+          else DM_LAYER(256, 1);
+        } else {
+          switch (L.cls) {
+            case CLS_256: DM_LAYER(256, 1); break;
+            case CLS_16: DM_LAYER(16, 1); break;
+            case CLS_64x1: DM_LAYER(64, 1); break;
+            case CLS_64x2: DM_LAYER(64, 2); break;
+            default: DM_LAYER(64, 3); break;
+          }
         }
 #undef DM_LAYER
+#ifdef DMNERF_FWD_STAMPS
+        const uint32_t t_epi = stamp_clock(), handoff0 = r.st[ST_HANDOFF];
+#endif
 #ifdef DMNERF_FWD_NO_EPILOGUE
         // keep every layer's products live: the compiler may drop products whose sums
         // are never read, and each layer's first k-step overwrites the sums
         keep += acc[0];
+        if constexpr (CMP != CMP_NONE) {
+          // the compositing hand-offs stay (the staged values are not written)
+          if (L.epi == EPI_SIGMA) mbar_wait(cb.empty, (it & 1) ^ 1);
+          if (L.epi == (CMP == CMP_WEIGHTS ? EPI_SIGMA : EPI_OUT)) mbar_arrive(cb.full);
+        }
 #else
         const float* bias = biases + L.b_off;
         const bool stashed = STASH && L.epi == EPI_RELU && L.stash_off >= 0;
@@ -836,7 +1006,7 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
           sg1 = acc[2] + b0;
           if constexpr (CMP != CMP_NONE) {
             // stage sigma once the embedding warps have composited the tile before
-            mbar_wait(cb.empty, (it & 1) ^ 1);
+            DM_TIMED(r.st[ST_HANDOFF], mbar_wait(cb.empty, (it & 1) ^ 1));
             if (t == 0) {
               cb.sig[wg * 64 + lr0] = sg0;
               cb.sig[wg * 64 + lr0 + 8] = sg1;
@@ -955,6 +1125,9 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
           }
         }
 #endif
+#ifdef DMNERF_FWD_STAMPS
+        r.st[ST_EPI] += (stamp_clock() - t_epi) - (r.st[ST_HANDOFF] - handoff0);
+#endif
       }
 #ifdef DMNERF_FWD_NO_EPILOGUE
       if (p0 < 0) out[0] = keep;
@@ -977,6 +1150,15 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
       __syncwarp();
       if (lane == 0) mbar_arrive(&emb_empty[b]);
     }
+#ifdef DMNERF_FWD_STAMPS
+    const uint32_t walk = stamp_clock() - t_walk;
+    __syncwarp();
+    if (lane == 0) {
+      r.st[ST_WALK] = walk;
+      r.st[ST_TILES] = (uint32_t)it;
+    }
+    stamps_flush(r.st, ST_WALK, ST_TILES + 1, ST_WARPS, lane);
+#endif
   }
   // neither block leaves while the other may still send it boxes or arrivals
   cluster_sync();
@@ -1049,8 +1231,8 @@ int run_fwd(Kernel kernel, size_t smem, const FwdParams& fp, int n_sms, void* st
 // then one offset per layer); without one, the render path's kernel runs.
 // Under CMP (ROWS_RAY_Z) `rays` is (o, d, z) and `span` the tiles of a span
 // (fused_render.py's _render_plan); `out` takes the weights [P] (CMP_WEIGHTS, the table
-// ending at sigma) or the maps [P / S, c4] (CMP_MAPS).
-template <Rows ROWS, int CMP = CMP_NONE>
+// ending at sigma) or the maps [P / S, c4] (CMP_MAPS). SCHED is the consumers' schedule.
+template <Rows ROWS, int CMP = CMP_NONE, int SCHED = FWD_DEFAULT_SCHED>
 int launch_fused_mlp_fwd(const void* pt_src, const void* ed_src, const void* wt,
                          const float* biases, float* out, long long P, int S,
                          const long long* plan, void* stash, const long long* stash_table,
@@ -1090,7 +1272,9 @@ int launch_fused_mlp_fwd(const void* pt_src, const void* ed_src, const void* wt,
   for (int l = 0; l < n_layers; ++l, row += 4) {
     int rows;
     const int N = (int)row[1];
-    if (N <= 0 || N > 256 || row[0] <= 0 || row[0] > 15 || row[3] < 0 || row[3] > EPI_OUT)
+    // the output epilogue reads the sums of columns [0, c4): all of them the layer's
+    if (N <= 0 || N > 256 || row[0] <= 0 || row[0] > 15 || row[3] < 0 || row[3] > EPI_OUT ||
+        (row[3] == EPI_OUT && h[3] > N))
       return (int)cudaErrorInvalidValue;
     fp.layers[l] = FLayer{(int)row[0], layer_class(N, &rows), N, (int)row[2], (int)row[3],
                           stash == nullptr ? -1 : stash_table[2 + l]};
@@ -1121,10 +1305,13 @@ int launch_fused_mlp_fwd(const void* pt_src, const void* ed_src, const void* wt,
     return run_fwd(kernel, smem, fp, n_sms, stream, pt_src, ed_src, biases, out, stash);
   };
   if constexpr (CMP != CMP_NONE) {
-    return run(fused_mlp_fwd_kernel<ROWS, false, CMP>, fwd_smem<false, CMP>());
+    return run(fused_mlp_fwd_kernel<ROWS, false, CMP, SCHED>, fwd_smem<false, CMP, ROWS>());
   } else {
-    if (stash == nullptr) return run(fused_mlp_fwd_kernel<ROWS, false>, fwd_smem<false>());
-    return run(fused_mlp_fwd_kernel<ROWS, true>, fwd_smem<true>());
+    if (stash == nullptr)
+      return run(fused_mlp_fwd_kernel<ROWS, false, CMP_NONE, SCHED>,
+                 fwd_smem<false, CMP_NONE, ROWS>());
+    return run(fused_mlp_fwd_kernel<ROWS, true, CMP_NONE, SCHED>,
+               fwd_smem<true, CMP_NONE, ROWS>());
   }
 }
 
@@ -1136,9 +1323,10 @@ int launch_fused_mlp_fwd(const void* pt_src, const void* ed_src, const void* wt,
 //   n_maps   rows off, cols, rows, pitch      (as launch_fused_mlp_fwd's)
 //   n_layers rows segs, N, b_off, epilogue, o_col, o_n, sig_col
 //   n_chunks rows map, k0
-// `out` takes [P, pitch] (OUT_COLS) or the row sums [P] (OUT_ROWSUM). A template, so that
-// only the sources that call it (head512.cu, heads_fused.cu) compile its kernel.
-template <Rows ROWS = ROWS_H>
+// `out` takes [P, pitch] (OUT_COLS) or the row sums [P] (OUT_ROWSUM); SCHED is the
+// consumers' schedule. A template, so that only the sources that call it (head512.cu,
+// heads_fused.cu) compile its kernel.
+template <int SCHED = FWD_DEFAULT_SCHED, Rows ROWS = ROWS_H>
 int launch_head_probe(const void* x, const void* edt, int edt_rows, const void* wt,
                       const float* biases, float* out, long long P, const long long* plan,
                       int n_sms, void* stream) {
@@ -1197,8 +1385,33 @@ int launch_head_probe(const void* x, const void* edt, int edt_rows, const void* 
     fp.chunks[c] = FChunk{(int)row[0], (int)row[1], box[row[0]] / 2};
   }
   if ((err = encode_map(&fp.e_map, x, 256, P, 256, 64, FT))) return err;
-  return run_fwd(fused_mlp_fwd_kernel<ROWS, false>, fwd_smem<false, CMP_NONE, ROWS>(), fp,
-                 n_sms, stream, x, edt, biases, out, nullptr);
+  return run_fwd(fused_mlp_fwd_kernel<ROWS, false, CMP_NONE, SCHED>,
+                 fwd_smem<false, CMP_NONE, ROWS>(), fp, n_sms, stream, x, edt, biases, out,
+                 nullptr);
+}
+
+// A launch under a schedule given at run time, one of the compiled schedules S...:
+// `launch` is called with it as a compile-time constant; any other value is refused.
+template <int... S, typename Launch>
+int with_schedule(int schedule, Launch launch) {
+  int err = (int)cudaErrorInvalidValue;
+  (void)((schedule == S ? (err = launch(std::integral_constant<int, S>{}), true) : false) || ...);
+  return err;
 }
 
 }  // namespace
+
+#ifdef DMNERF_FWD_STAMPS
+// The stamps of the launches since the last reset (DMNERF_FWD_STAMPS builds): copies the
+// N_STAMPS sums into `host` when it is not null, then zeroes them when `reset` is set.
+extern "C" int dmnerf_fwd_stamps(unsigned long long* host, int reset) {
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess && host != nullptr)
+    e = cudaMemcpyFromSymbol(host, g_fwd_stamps, sizeof(g_fwd_stamps));
+  if (e == cudaSuccess && reset) {
+    static const unsigned long long zeros[N_STAMPS] = {};
+    e = cudaMemcpyToSymbol(g_fwd_stamps, zeros, sizeof(zeros));
+  }
+  return (int)e;
+}
+#endif

@@ -28,13 +28,14 @@
 
 namespace {
 
-template <int CMP>
+template <int CMP, int SCHED = SCHED_LOCKSTEP>
 int launch_render(const float* rays_o, const float* rays_d, const float* z, const void* edr,
                   const void* wt, const float* biases, float* out, long long N, int S,
                   int span, const long long* plan, int n_sms, void* stream) {
   const float* rays[3] = {rays_o, rays_d, z};
-  return launch_fused_mlp_fwd<ROWS_RAY_Z, CMP>(nullptr, edr, wt, biases, out, N * S, S, plan,
-                                               nullptr, nullptr, n_sms, stream, rays, span);
+  return launch_fused_mlp_fwd<ROWS_RAY_Z, CMP, SCHED>(nullptr, edr, wt, biases, out, N * S, S,
+                                                      plan, nullptr, nullptr, n_sms, stream,
+                                                      rays, span);
 }
 
 }  // namespace
@@ -42,7 +43,7 @@ int launch_render(const float* rays_o, const float* rays_d, const float* z, cons
 // `rays_o`, `rays_d` [N, 3] fp32 (no zero direction), `z` [N, S] fp32, `edr` the per-ray
 // viewdir embedding [N, EDP] bf16; `wt` is pack_params's transposed weights and `plan`
 // _fwd_plan's table cut after sigma; `span` the plan's tiles a span. Writes the weights
-// [N, S] fp32.
+// [N, S] fp32. The consumers run in lockstep.
 extern "C" int dmnerf_fused_render_weights(const float* rays_o, const float* rays_d,
                                            const float* z, const void* edr, const void* wt,
                                            const float* biases, float* out, long long N, int S,
@@ -52,12 +53,16 @@ extern "C" int dmnerf_fused_render_weights(const float* rays_o, const float* ray
                                     n_sms, stream);
 }
 
-// The same over _fwd_plan's whole table; writes the maps [N, 4 + C] fp32.
+// The same over _fwd_plan's whole table; writes the maps [N, 4 + C] fp32. `schedule` is
+// the consumers' (Sched: 0 lockstep, 1 pipelined products, the path's); both give the same
+// bits.
 extern "C" int dmnerf_fused_render_maps(const float* rays_o, const float* rays_d,
                                         const float* z, const void* edr, const void* wt,
                                         const float* biases, float* out, long long N, int S,
                                         int span, const long long* plan, int n_sms,
-                                        void* stream) {
-  return launch_render<CMP_MAPS>(rays_o, rays_d, z, edr, wt, biases, out, N, S, span, plan,
-                                 n_sms, stream);
+                                        void* stream, int schedule) {
+  return with_schedule<SCHED_LOCKSTEP, SCHED_PIPELINED>(schedule, [&](auto sched) {
+    return launch_render<CMP_MAPS, decltype(sched)::value>(rays_o, rays_d, z, edr, wt, biases,
+                                                           out, N, S, span, plan, n_sms, stream);
+  });
 }

@@ -23,11 +23,15 @@
 #include "fused_mlp_fwd.cuh"
 
 // `x` is h [P, 256] bf16, `edt` edT [edt_rows, P] bf16 (edt_rows <= 64); `wt`, `biases`
-// and `plan` are head_probes.py's heads_fused_operands and _probe_plan. Writes the row
-// sums [P] fp32, or the columns [P, pitch].
+// and `plan` are head_probes.py's heads_fused_operands and _probe_plan; `schedule` the
+// consumers' (Sched: 0 lockstep, 1 pipelined products, the path's; both give the same
+// bits). Writes the row sums [P] fp32, or the columns [P, pitch].
 extern "C" int dmnerf_heads_fused(const void* x, const void* edt, int edt_rows, const void* wt,
                                   const float* biases, float* out, long long P,
-                                  const long long* plan, int n_sms, void* stream) {
+                                  const long long* plan, int n_sms, void* stream, int schedule) {
   if (edt == nullptr || edt_rows <= 0) return (int)cudaErrorInvalidValue;
-  return launch_head_probe(x, edt, edt_rows, wt, biases, out, P, plan, n_sms, stream);
+  return with_schedule<SCHED_LOCKSTEP, SCHED_PIPELINED>(schedule, [&](auto sched) {
+    return launch_head_probe<decltype(sched)::value>(x, edt, edt_rows, wt, biases, out, P, plan,
+                                                     n_sms, stream);
+  });
 }

@@ -88,6 +88,10 @@ _EPI = {"sigma": 1, "out": 2}   # every other layer: ReLU into h
 # a forward layer's A segments (csrc/fused_mlp_fwd.cuh Seg), in the order of its chunks
 _SEG = {"ed": 1, "e_first": 2, "h": 4, "e_last": 8}
 _FWD_BOX_K = 64        # K columns of a forward weight box
+# csrc/fused_mlp_fwd.cuh Sched, the forward template's schedules of the consumers'
+# products: lockstep (every launcher's unless its entry takes a schedule) and pipelined
+LOCKSTEP, PIPELINED = 0, 1
+SCHEDULE_NAMES = {LOCKSTEP: "lockstep", PIPELINED: "pipelined"}
 
 
 def resolve_pe_mode(pe_mode) -> str:
@@ -603,6 +607,9 @@ def _fwd_plan(packed: Packed) -> dict:
             segs |= _SEG[src]
             n_boxes = _N_MAX // _FWD_BOX_K if src == "h" else 1
             chunks += [(len(maps) - 1, _FWD_BOX_K * i) for i in range(n_boxes)]
+        if layer.kind == "out" and packed.c4 > layer.N:
+            # the output epilogue reads the sums of columns [0, c4), the layer's alone
+            raise ValueError(f"output layer of {layer.N} columns holds no {packed.c4}")
         layers.append((segs, layer.N, layer.b_off, _EPI.get(layer.kind, 0)))
     header = [len(layers), len(maps), len(chunks), packed.c4, packed.ep, packed.edp,
               packed.multires, packed.multires_views]

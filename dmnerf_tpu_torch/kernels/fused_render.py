@@ -21,7 +21,9 @@ SM. K8c reads the layer table only up to sigma, which is all the weights need.
 
 The kernel is K1's template (``csrc/fused_mlp_fwd.cuh`` with its CMP epilogue), so it
 takes the packed layout of ``kernels.fused_mlp`` and its products are K1's; the walk
-follows rays (``_render_plan``).
+follows rays (``_render_plan``). K8f's entry takes the schedule of the template's
+consumers' products (lockstep or pipelined, the same bits); its path takes pipelined
+(``MAPS_SCHEDULE``). K8c's source builds lockstep, as K1's.
 """
 
 from __future__ import annotations
@@ -36,12 +38,15 @@ import torch
 from dmnerf_tpu_torch.core.compositor import _weights, composite_maps
 from dmnerf_tpu_torch.kernels import runtime
 from dmnerf_tpu_torch.kernels.fused_mlp import (
-    Packed, _check_device_inputs, _check_kernel_inputs, _fwd_plan, fused_query_ref,
-    view_embedding)
+    LOCKSTEP, PIPELINED, Packed, _check_device_inputs, _check_kernel_inputs, _fwd_plan,
+    fused_query_ref, view_embedding)
 
 _TILE = 128        # points a tile (csrc/fused_mlp_fwd.cuh FT)
 _CMP_PITCH = 53    # the staged output columns a row hold (csrc/fused_mlp_fwd.cuh CMP_PITCH)
 _ENTRY = {True: "fused_render_weights", False: "fused_render_maps"}
+# K8f's schedule of the consumers' products on its path (fused_mlp.PIPELINED; its entry
+# also takes LOCKSTEP, the bit reference); K8c's entry takes none, its source builds lockstep
+MAPS_SCHEDULE = PIPELINED
 
 
 # ---------------------------------------------------------------------------
@@ -127,9 +132,15 @@ def _check_render_inputs(packed: Packed, rays_o, d, z, edr, weights_only: bool) 
 
 
 def _launch_render(packed: Packed, rays_o: torch.Tensor, d: torch.Tensor, z: torch.Tensor,
-                   edr: torch.Tensor, weights_only: bool) -> torch.Tensor:
-    """One launch of K8c (``weights_only``) or K8f over checked inputs."""
+                   edr: torch.Tensor, weights_only: bool,
+                   schedule: Optional[int] = None) -> torch.Tensor:
+    """One launch of K8c (``weights_only``) or K8f over checked inputs. K8f's consumers
+    run under ``schedule`` (default ``MAPS_SCHEDULE``); K8c takes none."""
     name = _ENTRY[weights_only]
+    if not weights_only:
+        schedule = MAPS_SCHEDULE if schedule is None else schedule
+    if schedule not in ((None,) if weights_only else (LOCKSTEP, PIPELINED)):
+        raise ValueError(f"{name} takes no schedule {schedule}")
     N, S = z.shape
     out = torch.empty((N, S) if weights_only else (N, packed.c4), dtype=torch.float32,
                       device=z.device)
@@ -138,13 +149,14 @@ def _launch_render(packed: Packed, rays_o: torch.Tensor, d: torch.Tensor, z: tor
     c_table = (ctypes.c_longlong * len(table))(*table)
     fn = getattr(runtime.load("fused_render"), f"dmnerf_{name}")
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                                           ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] \
+        + ([] if weights_only else [ctypes.c_int])
     fn.restype = ctypes.c_int
     dev = z.device
     err = fn(rays_o.data_ptr(), d.data_ptr(), z.data_ptr(), edr.data_ptr(),
              packed.wt_bf16.data_ptr(), packed.b.data_ptr(), out.data_ptr(), N, S, plan["span"],
              ctypes.addressof(c_table), torch.cuda.get_device_properties(dev).multi_processor_count,
-             torch.cuda.current_stream(dev).cuda_stream)
+             torch.cuda.current_stream(dev).cuda_stream, *(() if weights_only else (schedule,)))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: error {err} (a cudaError, or 10000 + the "
                            f"CUresult of the tensor-map encoder)")

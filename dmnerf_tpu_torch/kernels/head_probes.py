@@ -25,6 +25,10 @@ forward template (``csrc/fused_mlp_fwd.cuh``), so both kernels are that template
 layer table of their own: K9 whether a CUDA-core sigma dot beats the n16 sigma layer,
 K10 whether two output products beat the block-diagonal one.
 
+K10's entry takes the schedule of the template's consumers' products as an argument
+(lockstep or pipelined, the same bits); its path takes pipelined
+(``HEADS_FUSED_SCHEDULE``). K9's source builds lockstep, as K1's.
+
 The kernels read x or h [P, W] through TMA into the template's swizzled tiles and
 their consumers take it into the registers that hold every hidden activation; edT is
 transposed into a swizzled ed tile by the embedding warps. ``store_all`` (tests only)
@@ -42,7 +46,7 @@ import torch
 
 from dmnerf_tpu_torch.kernels import runtime
 from dmnerf_tpu_torch.kernels.fused_mlp import (
-    _FWD_BOX_K, _check_device_inputs, _pack, _round_up, _rounder)
+    _FWD_BOX_K, LOCKSTEP, PIPELINED, _check_device_inputs, _pack, _round_up, _rounder)
 
 H512_MODES = ("a", "b", "c", "d")
 H512_OUT = 32                # columns the probe stores
@@ -53,6 +57,9 @@ WIDTH = 256                  # the width both kernels hold (x / h is four 64-col
 _PSEG = {"ed": 1, "h": 4, "h_lo": 16, "h_hi": 32}
 _PEPI = {"relu": 0, "sigma": 1, "cols": 3, "dot": 4}
 _OUT_COLS, _OUT_ROWSUM = 0, 1
+# K10's schedule of the consumers' products on its path (fused_mlp.PIPELINED; its entry
+# also takes LOCKSTEP, the bit reference); K9's entry takes none, its source builds lockstep
+HEADS_FUSED_SCHEDULE = PIPELINED
 
 
 # ---------------------------------------------------------------------------
@@ -320,6 +327,9 @@ def _probe_plan(ops: ProbeOperands) -> dict:
             segs |= _PSEG[src]
             n_boxes = {"ed": 1, "h": 4, "h_lo": 2, "h_hi": 2}[src]
             chunks += [(len(maps) - 1, _FWD_BOX_K * i) for i in range(n_boxes)]
+        if L.epi == "cols" and L.o_n > L.N:
+            # the epilogue reads the sums of columns [0, o_n), the layer's alone
+            raise ValueError(f"a layer of {L.N} columns writes no {L.o_n}")
         layers.append((segs, L.N, L.b_off, _PEPI[L.epi], L.o_col, L.o_n, L.sig_col))
     header = [len(layers), len(maps), len(chunks), _OUT_ROWSUM if ops.rowsum else _OUT_COLS,
               ops.o_pitch, ops.edp, 0, 0]
@@ -332,9 +342,14 @@ def _probe_plan(ops: ProbeOperands) -> dict:
 # ---------------------------------------------------------------------------
 
 def _launch_probe(name: str, ops: ProbeOperands, x: torch.Tensor,
-                  edT: Optional[torch.Tensor]) -> torch.Tensor:
+                  edT: Optional[torch.Tensor], schedule: Optional[int] = None) -> torch.Tensor:
     """One launch of K9 (``head512``) or K10 (``heads_fused``) over checked inputs: x or
-    h [P, 256] bf16, edT [E, P] bf16 or None. Returns [P, o_pitch] fp32."""
+    h [P, 256] bf16, edT [E, P] bf16 or None. K10's consumers run under ``schedule``
+    (default ``HEADS_FUSED_SCHEDULE``); K9 takes none. Returns [P, o_pitch] fp32."""
+    if name == "heads_fused":
+        schedule = HEADS_FUSED_SCHEDULE if schedule is None else schedule
+    if schedule not in ((LOCKSTEP, PIPELINED) if name == "heads_fused" else (None,)):
+        raise ValueError(f"{name} takes no schedule {schedule}")
     P = x.shape[0]
     out = torch.empty((P, ops.o_pitch), dtype=torch.float32, device=x.device)
     if P == 0:
@@ -343,14 +358,15 @@ def _launch_probe(name: str, ops: ProbeOperands, x: torch.Tensor,
     c_table = (ctypes.c_longlong * len(table))(*table)
     fn = getattr(runtime.load(name), f"dmnerf_{name}")
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3 \
-        + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] \
+        + [ctypes.c_int] * (schedule is not None)
     fn.restype = ctypes.c_int
     dev = x.device
     err = fn(x.data_ptr(), None if edT is None else edT.data_ptr(),
              0 if edT is None else edT.shape[0], ops.wt.data_ptr(), ops.b.data_ptr(),
              out.data_ptr(), P, ctypes.addressof(c_table),
              torch.cuda.get_device_properties(dev).multi_processor_count,
-             torch.cuda.current_stream(dev).cuda_stream)
+             torch.cuda.current_stream(dev).cuda_stream, *(() if schedule is None else (schedule,)))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: error {err} (a cudaError, or 10000 + the "
                            f"CUresult of the tensor-map encoder)")

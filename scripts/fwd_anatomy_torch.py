@@ -39,8 +39,10 @@ the fine render chunk: the practical ceiling of the template's products. Where t
 template has the compile-time switch DMNERF_FWD_NO_EPILOGUE, the same chain is also
 built without its epilogues (products only).
 
-Also the compiler's register report for each forward kernel. The last line of stdout
-is one JSON object with all of it, also appended to ``--out``.
+Also the compiler's register report for each forward kernel, and each kernel's wgmma
+(HGMMA) and wgmma waits (WARPGROUP.DEPBAR) in its SASS (``cuobjdump -sass``): a wait for
+every product means ptxas serialized them. The last line of stdout is one JSON object
+with all of it, also appended to ``--out``.
 
 With ``--k7`` it times K7 (the point embedding of pe_mode 'outside') instead, at the
 render chunk (2048 x 192 fine, 2048 x 64 coarse) and the training queries (3072 x 192,
@@ -52,6 +54,29 @@ counted in SASS) and the digest of its output; at the fine render chunk also the
 compute-only and store-only builds where the source has their switches
 (DMNERF_PE_NO_STORE, DMNERF_PE_STORE_ONLY); and the digests of K1, K3 and K5 at the
 fine render chunk, which a change of K7 alone leaves as they were.
+
+With ``--split SCHEDULES`` (comma-separated: ``lockstep``, ``pipelined``) it splits the
+time of K8f (the fused render's maps pass, at phase 13's fine render chunk, 2048 x 192)
+and K10 (the fused head probe, block-diagonal output, at its 589,824 points) instead,
+under each schedule of the consumers' products. It builds the sources with
+DMNERF_FWD_STAMPS, under which every consumer warp sums the clock cycles of its walk
+waiting for a weight box (ring starvation), waiting for its products after each chunk
+(their pace) and at a layer's end (the drain), in its epilogues, waiting for the
+embedding warps (hand-offs), and every embedding warp those
+of building a tile's embeddings, waiting for the consumers and compositing; each part is
+printed as a share of the walk and in microseconds a tile (the walk's cycles over the
+launch's device time give the clock). Beside the split: the device time of the plain
+build and of the stamped one (the stamps' cost: their sums push the consumers past their
+registers, so read their shares, not their times), and the ablations, each a build that
+leaves out a part of the walk: DMNERF_FWD_NO_EPILOGUE (the epilogues), DMNERF_FWD_NO_BUILD
+(the embedding warps' tiles: points and sincosf, or K10's edT), DMNERF_FWD_NO_COMPOSITE
+(K8f's compositing), and their combinations.
+
+In its default mode the script also times K8c and K8f at chip_smoke.py phase 13's render
+chunk and K9 / K10 at their probes' shapes under the checkout's path schedules, each
+with the digest of its output (``probes``), and K1 and K9 built with DMNERF_FWD_SCHED=1
+(their products pipelined, variants no path runs) in turns against the checkout's own
+builds, with each digest (``pipelined_variants``).
 """
 
 from __future__ import annotations
@@ -80,13 +105,32 @@ def _chip_smoke():
     return mod
 
 
+def wgmma_counts(cs, runtime, so) -> dict:
+    """For each kernel of the library ``so``: its HGMMA instructions (wgmma) and its
+    WARPGROUP.DEPBAR waits in the SASS (``cuobjdump -sass``). As many waits as products
+    means that ptxas serialized them, each waiting for the one before."""
+    cuobjdump = os.path.join(os.path.dirname(runtime._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = cs._kernel_label(m.group(1))
+            counts[fn] = {"HGMMA": 0, "DEPBAR": 0}
+        elif fn is not None:
+            counts[fn]["HGMMA"] += "HGMMA" in line
+            counts[fn]["DEPBAR"] += "WARPGROUP.DEPBAR" in line
+    return {k: v for k, v in counts.items() if v["HGMMA"]}
+
+
 def _variant_lib(runtime, name, repo, define):
     """``name``'s library built from a copy of ``repo``'s sources: with the macros of
     ``define`` set (-D each, comma-separated), or, when ``define`` is None, with the
     template's refusal of an empty layer table lifted."""
     src = runtime.CSRC
     tag = re.sub(r"[^a-z0-9]+", "_", define.lower()) if define else "empty"
-    dst = os.path.join(repo, "build", f"fwd_anatomy_{tag}")
+    dst = os.path.join(repo, "build", f"fwd_anatomy_{name}_{tag}")
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(src, dst)
     if define is None:
@@ -96,7 +140,10 @@ def _variant_lib(runtime, name, repo, define):
     so = os.path.join(dst, f"{name}.so")
     macros = [f"-D{d}" for d in (define or "").split(",") if d]
     cmd = [runtime._nvcc(), *runtime.NVCC_FLAGS, *macros, "-o", so, os.path.join(dst, f"{name}.cu")]
-    out = subprocess.run(cmd, check=True, capture_output=True, text=True)
+    out = subprocess.run(cmd, capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvcc {' '.join(macros)} {name}.cu exited {out.returncode}:\n"
+                           f"{out.stdout}{out.stderr}")
     with open(so + ".log", "w") as f:      # the compiler's register report
         f.write(out.stdout + out.stderr)
     return ctypes.CDLL(so)
@@ -195,6 +242,197 @@ def k7_part(cs, fm, runtime, repo, device, pf, args):
     return res
 
 
+# csrc/fused_mlp_fwd.cuh Stamp, in order
+STAMPS = ("walk", "full", "pace", "drain", "epi", "handoff", "tiles", "e_walk", "e_build",
+          "e_wait", "e_cmp", "e_cmpwait", "e_tiles", "warps", "e_warps")
+# the measurement builds that leave out a part of the walk: the epilogues (the compositing
+# hand-offs kept), the embedding warps' tiles (points, sincosf; edT), the compositing
+NO_EPI, NO_BUILD, NO_CMP = "DMNERF_FWD_NO_EPILOGUE", "DMNERF_FWD_NO_BUILD", "DMNERF_FWD_NO_COMPOSITE"
+ABLATIONS = {"k8f": {"no_epilogue": NO_EPI, "no_build": NO_BUILD, "no_composite": NO_CMP,
+                     "no_build_composite": f"{NO_BUILD},{NO_CMP}",
+                     "products_only": f"{NO_EPI},{NO_BUILD},{NO_CMP}"},
+             "k10": {"no_epilogue": NO_EPI, "no_build": NO_BUILD,
+                     "products_only": f"{NO_EPI},{NO_BUILD}"}}
+
+
+def _stamps(lib, launch, reps=10):
+    """The stamps of ``reps`` launches of a DMNERF_FWD_STAMPS build, summed."""
+    vals = (ctypes.c_ulonglong * len(STAMPS))()
+    fn = lib.dmnerf_fwd_stamps
+    fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    launch()
+    if fn(None, 1):
+        raise RuntimeError("dmnerf_fwd_stamps failed")
+    for _ in range(reps):
+        launch()
+    if fn(ctypes.addressof(vals), 1):
+        raise RuntimeError("dmnerf_fwd_stamps failed")
+    return dict(zip(STAMPS, (int(v) for v in vals)))
+
+
+def _split(st, device_ms):
+    """The walk's parts as shares and microseconds a tile (see the docstring)."""
+    warps, e_warps = st["warps"], st["e_warps"]     # warps a launch x launches
+    walk = st["walk"] / warps                       # cycles a consumer warp a launch
+    tiles = st["tiles"] / warps                     # tiles a consumer warp (a block) a launch
+    mhz = walk / (device_ms * 1e3)                  # cycles a microsecond
+    parts = ("full", "pace", "drain", "epi", "handoff")
+    c = {k: st[k] / warps for k in parts}
+    c["issue_rest"] = walk - sum(c.values())
+    e = {k: st[k] / max(e_warps, 1) for k in ("e_build", "e_wait", "e_cmp", "e_cmpwait")}
+    e["e_cmp"] -= e["e_cmpwait"]
+    e["e_rest"] = st["e_walk"] / max(e_warps, 1) - sum(e.values())
+    return dict(tiles_per_block=tiles, implied_mhz=mhz, walk_us_per_tile=walk / tiles / mhz,
+                consumer_share={k: v / walk for k, v in c.items()},
+                consumer_us_per_tile={k: v / tiles / mhz for k, v in c.items()},
+                embedding_us_per_tile={k: v / tiles / mhz for k, v in e.items()})
+
+
+def split_part(cs, runtime, repo, device, schedules):
+    """K8f's and K10's walks split by the stamps, under each of ``schedules``."""
+    import torch
+
+    from dmnerf_tpu_torch.kernels import fused_mlp as fm
+    from dmnerf_tpu_torch.kernels import fused_render as fr
+    from dmnerf_tpu_torch.kernels import head_probes as hpr
+
+    by_name = {name: sc for sc, name in fm.SCHEDULE_NAMES.items()}
+    variants = [("fused_render", "DMNERF_FWD_STAMPS"), ("heads_fused", "DMNERF_FWD_STAMPS")]
+    variants += [("fused_render", d) for d in ABLATIONS["k8f"].values()]
+    variants += [("heads_fused", d) for d in ABLATIONS["k10"].values()]
+    with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:   # nvcc in parallel
+        libs = dict(zip(variants, pool.map(lambda v: _variant_lib(runtime, v[0], repo, v[1]), variants)))
+    res = {"registers": {}}
+    for (name, define), lib in libs.items():
+        for fn, line in cs.register_lines(open(lib._name + ".log").read()):
+            res["registers"].setdefault(f"{name} {define} {fn}", []).append(line)
+    ch = cs.fused_chunk(device)
+    k8f = (ch["pfs"], ch["o"], ch["d"], ch["z_f"], ch["edr"], False)
+    mfu4 = cs._script("mfu_probe4_torch")
+    h_args = mfu4.inputs(mfu4.P, device)
+    ops = hpr.heads_fused_operands(*h_args[2:])
+    kernels = {"k8f": ("fused_render", lambda sc: fr._launch_render(*k8f, schedule=sc)),
+               "k10": ("heads_fused", lambda sc: hpr._launch_probe("heads_fused", ops, h_args[0],
+                                                                   h_args[1], sc))}
+
+    def with_lib(name, lib, fn):
+        keep = runtime._LOADED.get(name)
+        runtime._LOADED[name] = lib
+        try:
+            return fn()
+        finally:
+            runtime._LOADED[name] = keep
+
+    ref = {k: launch(fm.LOCKSTEP) for k, (_, launch) in kernels.items()}   # lockstep's bits
+    for sname in schedules:
+        sc = by_name[sname]
+        for kname, (lib_name, launch) in kernels.items():
+            r = dict(device_ms=cs.device_ms(lambda: launch(sc))["device_ms"],
+                     bits_equal_lockstep=bool(torch.equal(launch(sc), ref[kname])))
+            stamped = libs[(lib_name, "DMNERF_FWD_STAMPS")]
+            r["stamped_device_ms"] = with_lib(lib_name, stamped, lambda: cs.device_ms(
+                lambda: launch(sc))["device_ms"])
+            r["stamps"] = with_lib(lib_name, stamped, lambda: _stamps(stamped, lambda: launch(sc)))
+            r.update(_split(r["stamps"], r["stamped_device_ms"]))
+            torch.cuda.synchronize()
+            print(f"[anatomy split] {kname} {sname}: {json.dumps(r)}", flush=True)
+            # the same launch built without parts of its work (the outputs are not kept)
+            r["ablation_ms"] = {}
+            for aname, define in ABLATIONS[kname].items():
+                r["ablation_ms"][aname] = with_lib(lib_name, libs[(lib_name, define)],
+                                                   lambda: cs.device_ms(lambda: launch(sc))[
+                                                       "device_ms"])
+                torch.cuda.synchronize()
+            print(f"[anatomy split] {kname} {sname} ablations: device_ms {r['device_ms']:.4f}, "
+                  f"{json.dumps(r['ablation_ms'])}", flush=True)
+            res[f"{kname}/{sname}"] = r
+    return res
+
+
+def pipelined_variants_part(cs, fm, runtime, repo, device, pf, args, shapes):
+    """K1 and K9, whose paths run lockstep, built with DMNERF_FWD_SCHED=1 (their products
+    pipelined; variants no path runs) against the checkout's builds, in turns (lockstep,
+    pipelined, pipelined, lockstep): K1 at the fine render chunk and the fine training
+    query, K9 in its four modes at its probe's shape, with each build's digest."""
+    import torch
+
+    from dmnerf_tpu_torch.kernels import head_probes as hpr
+
+    h512 = cs._script("head512_probe_torch")
+    names = (FWD["kernel_t"], "head512")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:   # nvcc in parallel
+        variants = dict(zip(names, pool.map(lambda n: _variant_lib(
+            runtime, n, repo, f"DMNERF_FWD_SCHED={fm.PIPELINED}"), names)))
+    packed = fm.pack_params(pf, *args)
+    cases = [(f"k1_{shape}", FWD["kernel_t"], shape) for shape in ("render_fine", "train_fine")]
+    cases += [(f"k9_{mode}", "head512", mode) for mode in hpr.H512_MODES]
+    res = {}
+    for case, lib_name, which in cases:
+        if lib_name == "head512":
+            x, ws, wd = h512.inputs(which, h512.P, device)
+            ops = hpr.head512_operands(which, ws, wd)
+            launch = lambda: hpr._launch_probe("head512", ops, x, None)   # noqa: E731
+        else:
+            pts, dirs = shapes[which][1]
+            a, b, P, S = _inputs(fm, packed, pts, dirs, "kernel_t")
+            launch = lambda: fm._launch_fwd(lib_name, packed, a, b, P, S)   # noqa: E731
+        libs = {fm.LOCKSTEP: runtime.load(lib_name), fm.PIPELINED: variants[lib_name]}
+        order = [fm.LOCKSTEP, fm.PIPELINED]
+        r = {"turns_ms": {fm.SCHEDULE_NAMES[sc]: [] for sc in order}, "digest": {}}
+        for sc in order + order[::-1]:
+            runtime._LOADED[lib_name] = libs[sc]
+            try:
+                r["turns_ms"][fm.SCHEDULE_NAMES[sc]].append(cs.device_ms(launch)["device_ms"])
+                r["digest"][fm.SCHEDULE_NAMES[sc]] = cs.digest(launch())
+            finally:
+                runtime._LOADED[lib_name] = libs[fm.LOCKSTEP]
+        r["ms"] = {k: sum(v) / len(v) for k, v in r["turns_ms"].items()}
+        r["bits_equal"] = len(set(r["digest"].values())) == 1
+        torch.cuda.synchronize()
+        print(f"[anatomy pipelined variants] {case}: {json.dumps(r)}", flush=True)
+        res[case] = r
+        launch = None
+        torch.cuda.empty_cache()
+    return res
+
+
+def probes_part(cs, device):
+    """K8c and K8f at phase 13's render chunk (through ``fused_render``) and K9 (its four
+    modes) and K10 (both variants) at their probes' shapes (one launch over operands
+    built once, ``_launch_probe``), each under the checkout's path schedule: device ms and
+    the digest of the output. Those calls take the same arguments on the parent of the
+    consumer schedules, so a run with --repo on that parent measures it alike."""
+    import torch
+
+    from dmnerf_tpu_torch.kernels import fused_render as fr
+    from dmnerf_tpu_torch.kernels import head_probes as hpr
+
+    res = {}
+    ch = cs.fused_chunk(device)
+    table = (ch["d"], ch["edr"])
+    for name, packed, z, weights_only in (("k8c", ch["pcs"], ch["z_c"], True),
+                                          ("k8f", ch["pfs"], ch["z_f"], False)):
+        call = lambda: fr.fused_render(packed, ch["o"], ch["d"], z, weights_only, table)  # noqa: E731
+        with torch.no_grad():
+            res[name] = dict(device_ms=cs.device_ms(call)["device_ms"], digest=cs.digest(call()))
+    h512, mfu4 = cs._script("head512_probe_torch"), cs._script("mfu_probe4_torch")
+    for mode in hpr.H512_MODES:
+        x, ws, wd = h512.inputs(mode, h512.P, device)
+        ops = hpr.head512_operands(mode, ws, wd)
+        call = lambda: hpr._launch_probe("head512", ops, x, None)   # noqa: E731
+        res[f"k9_{mode}"] = dict(device_ms=cs.device_ms(call)["device_ms"], digest=cs.digest(call()))
+        del x, ws, wd, ops
+    args = mfu4.inputs(mfu4.P, device)
+    for variant, split in mfu4.VARIANTS.items():
+        ops = hpr.heads_fused_operands(*args[2:], split=split)
+        call = lambda: hpr._launch_probe("heads_fused", ops, args[0], args[1])   # noqa: E731
+        res[f"k10_{variant}"] = dict(device_ms=cs.device_ms(call)["device_ms"],
+                                     digest=cs.digest(call()))
+    torch.cuda.synchronize()
+    print(f"[anatomy probes] {json.dumps(res)}", flush=True)
+    return res
+
+
 def _inputs(fm, packed, pts, dirs, mode):
     """(a, b, P, S): the launch inputs of ``mode``'s forward kernel."""
     N, S, _ = pts.shape
@@ -208,6 +446,8 @@ def main() -> int:
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default="")
     ap.add_argument("--k7", action="store_true", help="time K7 only (see the docstring)")
+    ap.add_argument("--split", default="", help="split K8f's and K10's walks under these "
+                    "schedules (comma-separated: lockstep, pipelined; see the docstring)")
     a_ = ap.parse_args()
     import torch
 
@@ -225,26 +465,24 @@ def main() -> int:
     from dmnerf_tpu_torch.test import init_params
 
     t0 = time.time()
-    reports = runtime.build([*FWD.values(), "fused_pe"])
+    names = ["fused_render", "heads_fused"] if a_.split else [*FWD.values(), "fused_pe"]
+    reports = runtime.build(names)
     regs = {}
-    for name in [*FWD.values(), "fused_pe"]:
-        fn = ""
-        for line in reports[name].splitlines():
-            if "Compiling entry function" in line:
-                m = re.search(r"\d([a-z_]+_kernel)", line)
-                fn = (m.group(1) if m else "?") + ("<stash>" if "Lb1E" in line else "")
-                mr = re.search(r"_kernelILi(\d+)E", line)     # K7's multires template
-                fn += f"<{mr.group(1)}>" if mr else ""
-            if "Used" in line and "registers" in line:
-                regs[f"{name} {fn}"] = line.strip()
+    for name in names:
+        for fn, line in cs.register_lines(reports[name]):
+            regs.setdefault(f"{name} {fn}", []).append(line)
     device = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     res = dict(tag=a_.tag, repo=repo, device=torch.cuda.get_device_name(0), card=smi,
-               build_s=time.time() - t0, registers=regs)
+               build_s=time.time() - t0, registers=regs,
+               wgmma={name: wgmma_counts(cs, runtime, runtime.library_path(name))
+                      for name in names})
     print(f"[anatomy] {smi} build {res['build_s']:.1f} s", flush=True)
     for k, v in regs.items():
         print(f"[anatomy] {k}: {v}", flush=True)
+    for name, counts in res["wgmma"].items():
+        print(f"[anatomy] {name} wgmma and waits in SASS: {json.dumps(counts)}", flush=True)
 
     test_cfg = load_config(os.path.join(HERE, "configs", "test", "dmsr", "study.txt"), ins_num=32)
     cfg = load_config(os.path.join(HERE, "configs", "train", "dmsr", "study.txt"), ins_num=32,
@@ -253,6 +491,9 @@ def main() -> int:
     args = (cfg.multires, cfg.multires_views, cfg.netdepth, tuple(cfg.skips))
     if a_.k7:
         res["k7"] = k7_part(cs, fm, runtime, repo, device, pf, args)
+        return _emit(res, a_.out)
+    if a_.split:
+        res["split"] = split_part(cs, runtime, repo, device, a_.split.split(","))
         return _emit(res, a_.out)
     gen = torch.Generator().manual_seed(cs.SEED + 3)
     S_f, S_c = cfg.N_samples + cfg.N_importance, cfg.N_samples
@@ -350,6 +591,12 @@ def main() -> int:
         probe["no_epilogue_tflops"] = flops / (probe["no_epilogue_ms"] * 1e-3) / 1e12
     print(f"[anatomy] chain probe: {json.dumps(probe)}", flush=True)
     res["chain_probe"] = probe
+    del a, b
+    torch.cuda.empty_cache()
+    res["probes"] = probes_part(cs, device)
+    if "DMNERF_FWD_SCHED" in header:
+        res["pipelined_variants"] = pipelined_variants_part(cs, fm, runtime, repo, device, pf,
+                                                            args, shapes)
     return _emit(res, a_.out)
 
 

@@ -25,9 +25,11 @@ output and the split one:
     whether two launches are bit-identical.
 
 Then the answer: split against one block-diagonal product, in microseconds and as a share
-of the block-diagonal time. On this card the kernel is bound by the bytes of h, which the
-products sit under. Needs a card of capability 9.0. The last line of stdout is one JSON
-object with all of it, also appended to ``--out``.
+of the block-diagonal time. The launches run K10's path schedule
+(``head_probes.HEADS_FUSED_SCHEDULE``, pipelined products); ``launchers`` gives
+chip_smoke.py phase 14 a launch under either schedule. On this card the kernel is bound by
+the bytes of h, which the products sit under. Needs a card of capability 9.0. The last line
+of stdout is one JSON object with all of it, also appended to ``--out``.
 """
 
 from __future__ import annotations
@@ -145,10 +147,26 @@ def measure(device, reps: int = 5) -> dict:
                                           - ref(torch.float32, torch.float32)).abs().max())
         r["share_of_bound"] = r["bound_ms"] / ms
         res["variants"][v] = r
-    bd, sp = res["variants"]["block_diagonal"]["ms"], res["variants"]["split"]["ms"]
-    res["answer"] = {"split-block_diagonal": {"us": (sp - bd) * 1e3, "share": (sp - bd) / bd}}
+    res["answer"] = answer({v: r["ms"] for v, r in res["variants"].items()})
     runtime.reset_launches()
     return res
+
+
+def answer(ms: dict) -> dict:
+    """The probe's answer from each variant's ms: split against block-diagonal."""
+    bd, sp = ms["block_diagonal"], ms["split"]
+    return {"split-block_diagonal": {"us": (sp - bd) * 1e3, "share": (sp - bd) / bd}}
+
+
+def launchers(device) -> dict:
+    """For each variant, ``launch(schedule)``: one K10 launch over ``measure``'s inputs
+    with the consumers under ``schedule`` (``fused_mlp.LOCKSTEP`` or ``PIPELINED``)."""
+    from dmnerf_tpu_torch.kernels import head_probes as hpr
+
+    args = inputs(P, device)
+    return {v: (lambda sc, ops=hpr.heads_fused_operands(*args[2:], split=s):
+                hpr._launch_probe("heads_fused", ops, args[0], args[1], sc))
+            for v, s in VARIANTS.items()}
 
 
 def check(res: dict) -> None:

@@ -23,10 +23,11 @@ torch = pytest.importorskip("torch")
 from dmnerf_tpu_torch.core.mlp import init_dm_nerf, rgb_stub_params, sigma_stub_params  # noqa: E402
 from dmnerf_tpu_torch.kernels import fused_mlp, runtime  # noqa: E402
 from dmnerf_tpu_torch.kernels.fused_mlp import (  # noqa: E402
-    _embedding, _forward, _forward_kpe, _forward_pe, _pe_launcher, _point_dirs, fused_query,
-    fused_query_bwd, fused_query_bwd_ref, fused_query_kpe_bwd, fused_query_kpe_bwd_ref,
-    fused_query_kpe_ref, fused_query_pe_bwd, fused_query_pe_bwd_ref, fused_query_pe_ref,
-    fused_query_ref, pack_params, pe_points, pe_points_ref, point_view_embedding)
+    LOCKSTEP, PIPELINED, _embedding, _forward, _forward_kpe, _forward_pe, _pe_launcher,
+    _point_dirs, fused_query, fused_query_bwd, fused_query_bwd_ref, fused_query_kpe_bwd,
+    fused_query_kpe_bwd_ref, fused_query_kpe_ref, fused_query_pe_bwd, fused_query_pe_bwd_ref,
+    fused_query_pe_ref, fused_query_ref, pack_params, pe_points, pe_points_ref,
+    point_view_embedding)
 
 SHAPES = [
     # (multires, multires_views, D, W, skips, ins_num, N, S)
@@ -829,6 +830,49 @@ def test_head_probes_repeat_bit_identical(cuda):
     args = _heads_inputs(RAGGED_P, cuda, seed=2)
     for split in (False, True):
         assert torch.equal(heads_fused(*args, split=split), heads_fused(*args, split=split))
+
+
+# ---- the consumers' schedules (csrc/fused_mlp_fwd.cuh Sched): lockstep, pipelined ----
+
+@pytest.mark.parametrize("n_s", [(2048, 192), (2048, 64), (37, 192), (130, 19)])
+def test_fused_render_maps_schedules_bit_equal(cuda, n_s):
+    """K8f with its products pipelined gives lockstep's bits, at the fine and the coarse
+    render chunk's shapes and at ragged ones; each schedule's repeats are bit-identical;
+    the wrapper's call is its path's schedule's launch."""
+    from dmnerf_tpu_torch.kernels import fused_render as fr
+
+    N, S = n_s
+    params, args, _, _ = _inputs((10, 4, 8, 256, (4,), 32, 1, 1), cuda, seed=14)
+    packed = pack_params(params, *args)
+    o, d, z = _rays(N, S, cuda, seed=N + S + 1)
+    d, edr = fr.ray_table(packed, d)
+    with torch.no_grad():
+        outs = {sc: [fr._launch_render(packed, o, d, z, edr, False, sc) for _ in range(2)]
+                for sc in (LOCKSTEP, PIPELINED)}
+        path = fr.fused_render(packed, o, d, z, False, (d, edr))
+    torch.cuda.synchronize()
+    for sc, (a, b) in outs.items():
+        assert torch.equal(a, b), sc
+    assert torch.equal(outs[PIPELINED][0], outs[LOCKSTEP][0])
+    assert torch.equal(path, outs[fr.MAPS_SCHEDULE][0])
+
+
+@pytest.mark.parametrize("P", [HEADS_P, RAGGED_P])
+@pytest.mark.parametrize("split", [False, True])
+def test_heads_fused_schedules_bit_equal(cuda, split, P):
+    """K10 with its products pipelined gives lockstep's row sums and store_all columns,
+    bit for bit; repeats bit-identical."""
+    from dmnerf_tpu_torch.kernels import head_probes as hpr
+
+    args = _heads_inputs(P, cuda, seed=3)
+    for store_all in (False, True):
+        ops = hpr.heads_fused_operands(*args[2:], split=split, store_all=store_all)
+        outs = {sc: [hpr._launch_probe("heads_fused", ops, args[0], args[1], sc)
+                     for _ in range(2)] for sc in (LOCKSTEP, PIPELINED)}
+        torch.cuda.synchronize()
+        for sc, (a, b) in outs.items():
+            assert torch.equal(a, b), sc
+        assert torch.equal(outs[PIPELINED][0], outs[LOCKSTEP][0])
 
 
 def test_forward_template_outputs_unchanged(cuda):

@@ -346,3 +346,124 @@ def test_fused_render_on_a_card_takes_the_kernel_or_raises(monkeypatch):
                          "c4": 60})
     with pytest.raises(ValueError, match="output columns"):
         tfr.fused_render(wide, *args, False)
+
+
+# ---- the consumers' schedule each entry point takes (csrc/fused_mlp_fwd.cuh Sched) ----
+
+# digests of the flagship tables (D 8, W 256, multires 10 / 4, skips (4,), ins_num 32) as
+# they were before the template had a schedule: the full model's (K1, K3, K5, K8f), the
+# sigma stub's (K1's coarse query) and K8c's cut of the stub after sigma
+FLAGSHIP_TABLES = {"full": "1714187fad8c6ce5", "stub": "b2c50ecaa7cf3523",
+                   "k8c": "4f7417547fad5eab"}
+
+
+def _digest(table):
+    import hashlib
+
+    return hashlib.sha256(repr([int(v) for v in table]).encode()).hexdigest()[:16]
+
+
+def recording_loader(monkeypatch, calls, table_arg, layer_row=4):
+    """Stand in for a card: ``runtime.load`` gives a library whose entry points record
+    (entry, arguments, the int64 table at argument ``table_arg[entry]`` as the kernel
+    reads it) and return 0, and CUDA's device queries answer for an H100."""
+    import ctypes
+    import types
+
+    def entry(name):
+        def fn(*args):
+            addr = args[table_arg[name]]
+            n_layers, n_maps, n_chunks = ctypes.c_longlong.from_address(addr), \
+                ctypes.c_longlong.from_address(addr + 8), ctypes.c_longlong.from_address(addr + 16)
+            n = 8 + 4 * n_maps.value + layer_row * n_layers.value + 2 * n_chunks.value
+            calls.append((name, args, list((ctypes.c_longlong * n).from_address(addr))))
+            return 0
+        return fn
+
+    lib = types.SimpleNamespace(**{f"dmnerf_{k}": entry(k) for k in table_arg})
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda *a: (9, 0))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda *a: types.SimpleNamespace(multi_processor_count=132))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(runtime, "load", lambda name: lib)
+
+
+def test_entry_points_take_their_schedules(monkeypatch):
+    """K8f's entry takes a schedule argument (lockstep or pipelined, refused otherwise)
+    and its path asks for pipelined products; K8c's entry and K1 / K3 / K5's take none
+    (their sources build lockstep); the flagship tables they receive are the ones they
+    received before, element by element."""
+    import re
+
+    calls = []
+    recording_loader(monkeypatch, calls, {"fused_render_weights": 10, "fused_render_maps": 10,
+                                          "fused_mlp_fwd": 7, "fused_mlp_fwd_kpe": 6,
+                                          "fused_mlp_fwd_pe": 6})
+    tp = tmlp.init_dm_nerf(ins_num=32, generator=torch.Generator().manual_seed(0), device="cpu")
+    meta = lambda t: t.to("meta")   # noqa: E731
+    packs = {}
+    for kind, params in (("full", tp), ("stub", tmlp.sigma_stub_params(tp))):
+        pk = tfm.pack_params(params, 10, 4, 8, (4,))
+        packs[kind] = tfm.Packed(**{f: (meta(getattr(pk, f)) if isinstance(getattr(pk, f),
+                                                                              torch.Tensor)
+                                        else getattr(pk, f)) for f in tfm.Packed.__dataclass_fields__})
+    N, S = 6, 192
+    o, d, z = (torch.zeros(N, 3, device="meta"), torch.ones(N, 3, device="meta"),
+               torch.zeros(N, S, device="meta"))
+    edr = torch.zeros(N, packs["full"].edp, dtype=torch.bfloat16, device="meta")
+    runtime.reset_launches()
+    tfr.fused_render(packs["stub"], o, d, z, True, (d, edr))
+    tfr.fused_render(packs["full"], o, d, z, False, (d, edr))
+    bf = torch.bfloat16
+    for name, a, b in (("fused_mlp_fwd", torch.zeros(N * S, 3), torch.zeros(N, 32, dtype=bf)),
+                       ("fused_mlp_fwd_kpe", torch.zeros(N * S, 3), torch.zeros(N * S, 3)),
+                       ("fused_mlp_fwd_pe", torch.zeros(N * S, 64, dtype=bf),
+                        torch.zeros(N * S, 32, dtype=bf))):
+        for kind in ("full", "stub"):
+            tfm._launch_fwd(name, packs[kind], meta(a), meta(b), N * S, S)
+    got = {}
+    for name, args, table in calls:
+        got.setdefault(name, []).append((len(args), args[-1], _digest(table)))
+    maps_args, maps_sched, maps_table = got["fused_render_maps"][0]
+    assert (maps_args, maps_sched) == (14, tfr.MAPS_SCHEDULE) == (14, tfm.PIPELINED) == (14, 1)
+    assert maps_table == FLAGSHIP_TABLES["full"]
+    for sched in (tfm.LOCKSTEP, tfm.PIPELINED):
+        tfr._launch_render(packs["full"], o, d, z, edr, False, sched)
+        assert calls[-1][1][-1] == sched and _digest(calls[-1][2]) == FLAGSHIP_TABLES["full"]
+    assert got["fused_render_weights"] == [(13, 0, FLAGSHIP_TABLES["k8c"])]   # the stream, 0
+    for name, n_args in (("fused_mlp_fwd", 12), ("fused_mlp_fwd_kpe", 11), ("fused_mlp_fwd_pe", 11)):
+        assert [(n, t) for n, _, t in got[name]] == [(n_args, FLAGSHIP_TABLES["full"]),
+                                                     (n_args, FLAGSHIP_TABLES["stub"])], name
+    # the sources: K1 / K3 / K5 and K8c launch the template with its default schedule,
+    # which is lockstep unless a measurement build asks otherwise
+    csrc = os.path.join(REPO, "dmnerf_tpu_torch", "kernels", "csrc")
+    for src in ("fused_mlp_fwd.cu", "fused_mlp_fwd_kpe.cu", "fused_mlp_fwd_pe.cu"):
+        text = open(os.path.join(csrc, src)).read()
+        assert re.search(r"launch_fused_mlp_fwd<ROWS_\w+>\(", text), src
+    render = open(os.path.join(csrc, "fused_render.cu")).read()
+    assert "launch_render<CMP_WEIGHTS>(" in render and "int SCHED = SCHED_LOCKSTEP" in render
+    header = open(os.path.join(csrc, "fused_mlp_fwd.cuh")).read()
+    assert re.search(r"#else\nconstexpr int FWD_DEFAULT_SCHED = SCHED_LOCKSTEP;", header)
+    assert "enum Sched { SCHED_LOCKSTEP = 0, SCHED_PIPELINED = 1 };" in header
+    # a schedule the entry does not take is refused before any launch
+    n_calls = len(calls)
+    with pytest.raises(ValueError, match="schedule"):
+        tfr._launch_render(packs["stub"], o, d, z, edr, True, tfr.PIPELINED)
+    with pytest.raises(ValueError, match="schedule"):
+        tfr._launch_render(packs["full"], o, d, z, edr, False, 2)
+    assert len(calls) == n_calls
+
+
+def test_fwd_plan_refuses_output_columns_past_the_output_layer():
+    """An output layer narrower than the columns it writes (c4) is refused by the plan:
+    the pipelined schedule computes columns past a layer's N from stage rows past its
+    box, so no epilogue may read them."""
+    import dataclasses
+
+    tp = tmlp.init_dm_nerf(ins_num=32, generator=torch.Generator().manual_seed(0), device="cpu")
+    packed = tfm.pack_params(tp, 10, 4, 8, (4,))
+    out = packed.layers[-1]
+    assert out.kind == "out" and packed.c4 <= out.N
+    tfm._fwd_plan(packed)
+    with pytest.raises(ValueError, match="output layer"):
+        tfm._fwd_plan(dataclasses.replace(packed, c4=out.N + 1))

@@ -9,6 +9,7 @@ import, shapes refused.
 The CUDA kernels themselves run only on the card: tests/test_torch_cuda.py."""
 
 import ast
+import dataclasses
 import functools
 import importlib.util
 import os
@@ -26,6 +27,7 @@ from jax.experimental import pallas as pl  # noqa: E402
 from dmnerf_tpu.core.mlp import init_dm_nerf  # noqa: E402
 from dmnerf_tpu.kernels import fused_mlp as jfm  # noqa: E402
 from dmnerf_tpu_torch.core import mlp as tmlp  # noqa: E402
+from dmnerf_tpu_torch.kernels import fused_mlp as tfm  # noqa: E402
 from dmnerf_tpu_torch.kernels import head_probes as hpr  # noqa: E402
 from dmnerf_tpu_torch.kernels import runtime  # noqa: E402
 
@@ -457,3 +459,68 @@ def test_head_probes_import_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          env={**os.environ, "PYTHONPATH": REPO})
     assert out.returncode == 0, out.stderr
+
+
+# ---- the consumers' schedule each probe takes (csrc/fused_mlp_fwd.cuh Sched) ----
+
+# digests of the probe tables at the probes' shapes (K9 W 256, heads 512 / 513; K10 of the
+# flagship's operands, ins_num 32) as they were before the template had a schedule
+PROBE_TABLES = {"a": "fb3cd0782833400b", "b": "23ba0c018779f858", "c": "360f360454d86dc8",
+                "d": "6326e6c7084321e6", "block_diagonal": "0ec5625bfc380683",
+                "split": "88cf166ff97a98db"}
+
+
+def test_probes_take_their_schedules(monkeypatch):
+    """K10's launch asks for pipelined products (``HEADS_FUSED_SCHEDULE``) and K9's
+    takes no schedule (its source builds lockstep), over the tables they received before,
+    element by element; a schedule an entry does not take is refused before any launch."""
+    from test_torch_fused_render import _digest, recording_loader
+
+    calls = []
+    recording_loader(monkeypatch, calls, {"head512": 7, "heads_fused": 7}, layer_row=7)
+    meta = lambda *ts: [t.to("meta") for t in ts]   # noqa: E731
+    for mode in hpr.H512_MODES:
+        ws = [torch.zeros(256, 256) for _ in range(8)] + [torch.zeros(256, 512 + (mode == "a"))]
+        wd = torch.zeros(1, 256) if mode in "bd" else None
+        hpr.head512(mode, *meta(torch.zeros(4, 256, dtype=torch.bfloat16)), meta(*ws),
+                    *(() if wd is None else meta(wd)))
+    params = tmlp.init_dm_nerf(ins_num=32, generator=torch.Generator().manual_seed(0),
+                               device="cpu")
+    ops = hpr.heads_operands(params, 4)
+    h, edT = torch.zeros(4, 256, dtype=torch.bfloat16), torch.zeros(27, 4, dtype=torch.bfloat16)
+    for split in (False, True):
+        hpr.heads_fused(*meta(h, edT, *(ops[k] for k in ("m1", "b1", "wrh2", "m2", "b2"))),
+                        split=split)
+    got = [(name, len(args), args[-1], _digest(table)) for name, args, table in calls]
+    assert hpr.HEADS_FUSED_SCHEDULE == tfm.PIPELINED == 1
+    # K9: ten arguments, the last the stream (0); K10: eleven, the last the schedule
+    assert got == [("head512", 10, 0, PROBE_TABLES[m]) for m in hpr.H512_MODES] + [
+        ("heads_fused", 11, tfm.PIPELINED, PROBE_TABLES[v]) for v in ("block_diagonal", "split")]
+    probe_ops = hpr.heads_fused_operands(*meta(*(ops[k] for k in ("m1", "b1", "wrh2", "m2",
+                                                                   "b2"))))
+    hpr._launch_probe("heads_fused", probe_ops, *meta(h, edT), tfm.LOCKSTEP)
+    assert calls[-1][1][-1] == tfm.LOCKSTEP
+    with pytest.raises(ValueError, match="schedule"):
+        hpr._launch_probe("heads_fused", probe_ops, *meta(h, edT), 2)
+    h512_ops = hpr.head512_operands("c", [torch.zeros(256, 256)] * 8 + [torch.zeros(256, 512)])
+    with pytest.raises(ValueError, match="schedule"):
+        hpr._launch_probe("head512", h512_ops, *meta(h), None, tfm.PIPELINED)
+    assert len(calls) == 7
+
+
+def test_probe_plan_refuses_output_columns_past_a_layer():
+    """An output window wider than its layer is refused by the plan: the pipelined
+    schedule computes columns past a layer's N from stage rows past its box, so no
+    epilogue may read them."""
+    params = tmlp.init_dm_nerf(ins_num=32, generator=torch.Generator().manual_seed(0),
+                               device="cpu")
+    ops = hpr.heads_operands(params, 4)
+    probe_ops = hpr.heads_fused_operands(*(ops[k] for k in ("m1", "b1", "wrh2", "m2", "b2")),
+                                         store_all=True)
+    hpr._probe_plan(probe_ops)
+    i = next(i for i, L in enumerate(probe_ops.layers) if L.epi == "cols")
+    wide = dataclasses.replace(probe_ops.layers[i], o_n=probe_ops.layers[i].N + 1)
+    bad = dataclasses.replace(probe_ops, layers=probe_ops.layers[:i] + (wide,)
+                              + probe_ops.layers[i + 1:])
+    with pytest.raises(ValueError, match="columns"):
+        hpr._probe_plan(bad)
