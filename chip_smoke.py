@@ -53,11 +53,19 @@
    PyTorch query's, from the same parameters, batch and draws. Prints the steady ms per
    step and rays/s. Then K11 against its plain version on 1,000 seeded [2, 32, 32]
    batches (uniform costs, integer costs with ties, NaN and +-inf entries, wide costs;
-   valid 0 ... 32), col4row equal, and timed at that step's own costs and valid count:
-   device time from back-to-back launches (device_ms), the plain version's and the host
-   scipy solve's (the step's earlier host round trip, a yardstick), and the bound: the
-   Dijkstra iterations those costs need over the valid rows times one block-wide
-   argmin's latency, measured by the kernel's probe entry.
+   valid 0 ... 32), col4row equal, through the entry (the warp design at n <= 32) and
+   the block design forced (assignment_block); then timed at that step's own costs and
+   valid count: device_us from 50 back-to-back launches (device_ms), profiler_us (K11's
+   own duration in torch.profiler over 50 launches), the plain version's and the host
+   scipy solve's times (the step's earlier host round trip, a yardstick), and the
+   bounds: chain_floor_us, the Dijkstra iterations those costs need over the valid rows
+   times the latency of the shortest warp step one iteration can take (a dependent
+   shared load, redux.sync, vote.ballot + __ffs, a shuffle; the chain probe, which
+   calls nothing of K11) plus one L2 load's latency, and bytes_bound_us (costs read
+   once, col4row written once, over 3.35 TB/s); the earlier bound by the block design's
+   own argmin latency beside them (own_block_argmin_*), and the K11 kernels' register
+   lines. Phase 15 adds in_pack_us: K11's durations in a replayed pack.
+   (scripts/assignment_anatomy_torch.py times a parent's build in turns with this one.)
 6. Train phase under pallas_pe_mode = kernel: the same for 5 steps, with exactly 2
    launches of K3 and of K4 per step and none of K1 or K2.
 7. Manipulation phase, on a synthetic DM-SR scene built in memory (256x256, 4
@@ -251,22 +259,50 @@ def _time_ms(fn, reps: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+_SLEEP_CYCLES_PER_MS = []
+
+
+def _sleep_cycles_per_ms() -> float:
+    """``torch.cuda._sleep``'s cycles a millisecond on this card, timed once a process."""
+    import torch
+
+    if not _SLEEP_CYCLES_PER_MS:
+        cycles = 20_000_000
+        torch.cuda._sleep(cycles // 10)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(cycles / start.elapsed_time(end))
+    return _SLEEP_CYCLES_PER_MS[0]
+
+
 def device_ms(launch, reps: int = 50, runs: int = 5) -> dict:
     """The device time of one launch, for kernels of microseconds, where an event pair
     around one call times the host: ``launch`` (no arguments) only enqueues. After a
-    warm-up the card is held busy (``torch.cuda._sleep``) while the host enqueues
-    ``reps`` launches back to back between two events; device_ms is the events' time
-    over ``reps``, the median of ``runs`` such runs. enqueue_ms is the host's time per
-    enqueue in the same runs: where it nears device_ms the queue ran dry."""
+    warm-up the card is held busy (``torch.cuda._sleep``) while the host enqueues ``reps``
+    launches back to back between two events; device_ms is the events' time over
+    ``reps``, the median of ``runs`` such runs. The hold lasts twice the warm-up's
+    enqueue time of ``reps`` launches, and at least 1 ms. A run whose enqueues outlast 90 %
+    of its hold let the queue run dry, so its time would be the host's: it is taken again
+    with the hold doubled (``dry_runs`` counts them). enqueue_ms is the host's time per
+    enqueue in the kept runs, hold_ms the last hold."""
     import torch
 
     for _ in range(5):
         launch()
     torch.cuda.synchronize()
-    dev, host = [], []
-    for _ in range(runs):
+    t0 = time.perf_counter()
+    for _ in range(5):
+        launch()
+    hold_ms = max(1.0, 2 * reps * (time.perf_counter() - t0) * 1e3 / 5)
+    torch.cuda.synchronize()
+    per_ms = _sleep_cycles_per_ms()
+    dev, host, dry = [], [], 0
+    while len(dev) < runs:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)     # ≈ 1 ms of the card's clock: the queue fills
+        torch.cuda._sleep(int(hold_ms * per_ms))     # the card waits while the queue fills
         start.record()
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -274,10 +310,16 @@ def device_ms(launch, reps: int = 50, runs: int = 5) -> dict:
         t1 = time.perf_counter()
         end.record()
         end.synchronize()
+        if (t1 - t0) * 1e3 > 0.9 * hold_ms:
+            dry += 1
+            if hold_ms > 1000:
+                raise RuntimeError(f"device_ms: {reps} enqueues outlast a {hold_ms:.0f} ms hold")
+            hold_ms *= 2
+            continue
         dev.append(start.elapsed_time(end) / reps)
         host.append((t1 - t0) * 1e3 / reps)
     return dict(device_ms=statistics.median(dev), enqueue_ms=statistics.median(host),
-                device_ms_runs=dev)
+                device_ms_runs=dev, hold_ms=hold_ms, dry_runs=dry)
 
 
 def schedule_turns(launch) -> dict:
@@ -1216,12 +1258,36 @@ def _assignment_cases(n, count, seed=SEED):
     return cases
 
 
+def kernel_us(launch, part: str, reps: int = 50, tries: int = 3) -> list:
+    """The device durations (µs, torch.profiler) of the kernels whose name holds ``part``
+    over ``reps`` launches of ``launch`` enqueued back to back. A trace that lost some of
+    them (a process's first trace may hold none) is taken again, up to ``tries`` times;
+    the fullest is returned."""
+    for _ in range(3):
+        launch()
+
+    def run():
+        for _ in range(reps):
+            launch()
+    best = []
+    for _ in range(tries):
+        got = [d for name, ds in profile_calls(run)["durations_us"].items() if part in name
+               for d in ds]
+        best = max(best, got, key=len)
+        if len(best) >= reps:
+            break
+    return best
+
+
 def assignment_phase(cfg, device, step_cost, step_valid):
-    """K11 against its plain version on ASSIGNMENT_BATCHES seeded batches (col4row equal),
-    then timed at a train step's own costs: device time from back-to-back launches, the
-    plain version's and the host scipy solve's (the yardstick: the step's earlier host
-    round trip), and the bound: the Dijkstra iterations these costs need over the valid
-    rows times one block-wide argmin's latency (the probe's, measured)."""
+    """K11 against its plain version on ASSIGNMENT_BATCHES seeded batches (col4row equal;
+    the block design, forced, too), then timed at a train step's own costs: device time
+    from back-to-back launches (device_us), its own duration from torch.profiler over the
+    same launches (profiler_us), the plain version's and the host scipy solve's times (the
+    yardstick: the step's earlier host round trip), and the bounds: chain_floor_us, the
+    Dijkstra iterations these costs need over the valid rows times the chain probe's warp
+    step (calls nothing of K11) plus one L2 load, and bytes_bound_us; the earlier bound by
+    the block design's own argmin latency beside them (own_block_argmin_*)."""
     import torch
 
     from dmnerf_tpu_torch.kernels import assignment as asg
@@ -1230,46 +1296,86 @@ def assignment_phase(cfg, device, step_cost, step_valid):
     from dmnerf_tpu_torch.objfield.metrics import _lsa_rect
 
     n = cfg.ins_num
-    differing, worst = 0, 0
+    differing, worst, block_differing = 0, 0, 0
     for c, valid in _assignment_cases(n, ASSIGNMENT_BATCHES):
         cost = torch.from_numpy(c)
-        got = masked_assignment(cost.to(device), torch.tensor(valid, device=device)).cpu()
+        cost_d = cost.to(device)
+        got = masked_assignment(cost_d, torch.tensor(valid, device=device)).cpu()
+        block = asg.assignment_block(cost_d, torch.full((2,), valid, dtype=torch.int32,
+                                                        device=device)).cpu()
         want = asg.masked_assignment_ref(cost, valid)
         if not torch.equal(got, want):
             differing += 1
             worst = max(worst, int((got - want).abs().max()))
+        block_differing += not torch.equal(block, want)
     valid_i = int(step_valid)
     iterations = []
     asg.masked_assignment_ref(step_cost.cpu(), valid_i, iterations)
-    valid_t = torch.full((2,), valid_i, dtype=torch.int32, device=device)
-    dev = device_ms(lambda: asg.assignment(step_cost, valid_t))
+    B = step_cost.shape[0]
+    valid_t = torch.full((B,), valid_i, dtype=torch.int32, device=device)
+    launch = lambda: asg.assignment(step_cost, valid_t)     # noqa: E731
+    dev = device_ms(launch)
+    prof = kernel_us(launch, "assignment_kernel")
+
+    # the chain floor: the warp step's latency (slope over two chain lengths) and an L2 load's
+    out_i = torch.zeros(1, dtype=torch.int32, device=device)
+    ring = torch.remainder(torch.arange(1 << 16, dtype=torch.int32, device=device) + 33, 1 << 16)
+    ring = ring.to(torch.int32).contiguous()
+    step_lat, fixed = {}, {}
+    for mode, name in ((0, "warp_step"), (1, "l2_load")):
+        t = [device_ms(lambda k=k: asg.chain_probe(mode, k, ring, out_i), reps=10)["device_ms"]
+             for k in (2000, 12000)]
+        step_lat[name] = (t[1] - t[0]) * 1e3 / 10000
+        fixed[name] = t[0] * 1e3 - 2000 * step_lat[name]   # the launch's own, back to back
+    chain_floor_us = max(iterations) * step_lat["warp_step"] + step_lat["l2_load"]
+    # the least duration the profiler shows for a one-warp kernel: the probe, one step
+    probe_prof = kernel_us(lambda: asg.chain_probe(0, 1, ring, out_i), "chain_probe_kernel")
+    nbytes = step_cost.numel() * 4 + B * 4 + B * n * 8
+    bytes_bound_us = nbytes / PEAK_BYTES * 1e6
+
+    # the earlier bound: the block design's own block-wide argmin latency
     probe_out = torch.empty(1, device=device)
     threads = -(-n // 32) * 32
     probe_iters = 1000
     probe = device_ms(lambda: asg.argmin_probe(threads, probe_iters, probe_out), reps=10)
-    argmin_us = probe["device_ms"] * 1e3 / probe_iters
-    t_serial = max(iterations) * argmin_us * 1e-3
-    nbytes = step_cost.numel() * 4 + 2 * 4 + 2 * n * 8
-    t_bytes = nbytes / PEAK_BYTES * 1e3
+    own_us = probe["device_ms"] * 1e3 / probe_iters
 
     def host_solve():
         host = step_cost.cpu().numpy()
         for m in host:
             _lsa_rect(m[:valid_i])
     runtime.reset_launches()
+    device_us = dev["device_ms"] * 1e3
     r = dict(batches=ASSIGNMENT_BATCHES, n=n, differing_batches=differing, max_abs_err=worst,
+             block_design_differing_batches=block_differing,
              step_valid=valid_i, step_dijkstra_iterations=iterations,
-             ms=dev["device_ms"], device_us=dev["device_ms"] * 1e3, enqueue_ms=dev["enqueue_ms"],
+             ms=dev["device_ms"], device_us=device_us, enqueue_ms=dev["enqueue_ms"],
+             hold_ms=dev["hold_ms"], dry_runs=dev["dry_runs"],
+             profiler_us=statistics.median(prof), profiler_us_range=[min(prof), max(prof)],
+             profiler_launches=len(prof),
              plain_ms=_time_ms(lambda: asg.masked_assignment_ref(step_cost.cpu(), valid_i), reps=5),
              host_scipy_ms=_time_ms(host_solve, reps=20),
-             argmin_latency_us=argmin_us, argmin_probe_threads=threads,
-             bound_ms=max(t_serial, t_bytes), bound_by="operations" if t_serial >= t_bytes else "bytes",
-             library_ms=None)
+             warp_step_us=step_lat["warp_step"], l2_load_us=step_lat["l2_load"],
+             probe_launch_fixed_us=fixed["warp_step"],
+             probe_profiler_fixed_us=statistics.median(probe_prof),
+             chain_floor_us=chain_floor_us, bytes_bound_us=bytes_bound_us,
+             bound_ms=max(chain_floor_us, bytes_bound_us) * 1e-3,
+             bound_by="operations" if chain_floor_us >= bytes_bound_us else "bytes",
+             library_ms=None,
+             own_block_argmin_latency_us=own_us, own_block_argmin_threads=threads,
+             own_block_argmin_bound_ms=max(iterations) * own_us * 1e-3)
     r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    r["share_of_chain_floor"] = chain_floor_us / device_us
+    r["share_of_chain_floor_profiler"] = chain_floor_us / r["profiler_us"]
+    r["own_block_argmin_share"] = r["own_block_argmin_bound_ms"] / r["ms"]
+    log = runtime.library_path("assignment").with_suffix(".log").read_text()
+    r["registers"] = [f"{fn}: {line}" for fn, line in register_lines(log)
+                      if "assignment_kernel" in fn]
     print(f"[assignment] {json.dumps(r)}", flush=True)
-    if differing:
+    if differing or block_differing:
         raise AssertionError(f"K11: col4row differs from its plain version in {differing} of "
-                             f"{ASSIGNMENT_BATCHES} batches")
+                             f"{ASSIGNMENT_BATCHES} batches ({block_differing} by the block "
+                             f"design)")
     return r
 
 
@@ -1315,8 +1421,8 @@ def _equal_bits(a, b) -> bool:
 
 def profile_calls(fn) -> dict:
     """``fn()`` once under torch.profiler (host and device): the device kernels and
-    copies by name, the host's CUDA runtime calls by name with their ms, the device's
-    busy ms (the union of its activity) and the traced wall ms."""
+    copies by name with each one's µs, the host's CUDA runtime calls by name with their
+    ms, the device's busy ms (the union of its activity) and the traced wall ms."""
     import collections
 
     import torch
@@ -1335,10 +1441,12 @@ def profile_calls(fn) -> dict:
     host_names = {e.name for e in events if e not in on_device}
     kernels, copies, api, api_ms, intervals = (collections.Counter(), collections.Counter(),
                                                collections.Counter(), collections.Counter(), [])
+    durations = collections.defaultdict(list)
     for e in on_device:
         if e.name in host_names:
             continue
         intervals.append((e.time_range.start, e.time_range.end))
+        durations[e.name].append(e.time_range.elapsed_us())
         (copies if e.name.startswith(("Memcpy", "Memset")) else kernels)[e.name] += 1
     for e in events:
         if e not in on_device and e.name.startswith("cuda"):
@@ -1349,7 +1457,7 @@ def profile_calls(fn) -> dict:
     work_ms = sum(ms for name, ms in api_ms.items() if "Synchronize" not in name)
     return dict(wall_ms=wall_ms, device_busy_ms=busy, device_busy_share=busy / wall_ms,
                 host_api_ms=work_ms, api=dict(api), api_ms=dict(api_ms),
-                kernels=dict(kernels), copies=dict(copies))
+                kernels=dict(kernels), copies=dict(copies), durations_us=dict(durations))
 
 
 def _count(names: dict, part: str) -> int:
@@ -1456,7 +1564,9 @@ def packed_train_phase(device, card, pe_mode=None, dataset="dmsr", P=PACK_STEPS,
     if fwd:
         counts[fwd], want[fwd] = _count(k, fwd), 2 * P
     out["pack_profile"] = dict(counts=counts, activities=sum(k.values()),
-                               copies=prof["copies"], api=prof["api"])
+                               copies=prof["copies"], api=prof["api"],
+                               assignment_kernel_us=[d for name, ds in prof["durations_us"].items()
+                                                     if "assignment_kernel" in name for d in ds])
     if counts != want:
         print(f"[packed train] {json.dumps(out)}", flush=True)
         raise AssertionError(f"a pack's device activity {counts}, want {want}")
@@ -2079,6 +2189,14 @@ def head_probes_phase(device):
     return launches, res
 
 
+K11_KEYS = ("device_us", "profiler_us", "in_pack_us", "chain_floor_us", "bytes_bound_us",
+            "share_of_chain_floor", "share_of_chain_floor_profiler",
+            "share_of_chain_floor_in_pack", "warp_step_us", "l2_load_us",
+            "probe_launch_fixed_us", "probe_profiler_fixed_us", "own_block_argmin_latency_us",
+            "own_block_argmin_bound_ms", "own_block_argmin_share", "host_scipy_ms",
+            "step_dijkstra_iterations", "share_of_bound")
+
+
 def _entry(name, replaces, launches, by_path, res, **extra):
     return {"name": name, "route": "cuda", "source": f"dmnerf_tpu_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": launches, "launches_by_path": by_path[name],
@@ -2154,7 +2272,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     probe_launches, pres = head_probes_phase(device)
     torch.cuda.empty_cache()
-    packed_launches, _ = packed_train_phase(device, smi_line)
+    packed_launches, pk = packed_train_phase(device, smi_line)
+    in_pack = pk["pack_profile"]["assignment_kernel_us"]
+    k11.update(in_pack_us=statistics.median(in_pack), in_pack_us_all=in_pack,
+               share_of_chain_floor_in_pack=k11["chain_floor_us"] / statistics.median(in_pack))
+    in_pack_keys = ("in_pack_us", "in_pack_us_all", "share_of_chain_floor_in_pack")
+    print(f"[assignment] in pack: {json.dumps({k: k11[k] for k in in_pack_keys})}", flush=True)
     torch.cuda.empty_cache()
     packed_scannet_launches, _ = packed_train_phase(device, smi_line, "outside", "scannet",
                                                     *SCANNET_PACK, timed=False)
@@ -2217,8 +2340,7 @@ def main() -> int:
                                  **{k: r[k] for k in ("answer_by_schedule",) if k in r}}))
     kernels.append(_entry("assignment", "dmnerf_tpu/objfield/hungarian.py:123",
                           train_launches["assignment"], by_path, k11,
-                          **{k: k11[k] for k in ("device_us", "host_scipy_ms", "argmin_latency_us",
-                                                 "step_dijkstra_iterations", "share_of_bound")}))
+                          **{k: k11[k] for k in K11_KEYS if k in k11}))
     print(f"[done] {time.time() - t0:.1f} s from the build on", flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,14 +4,16 @@ and its wrapper.
 The JAX package solves the assignment on the device, inside the jitted train step: a
 Jonker-Volgenant shortest-augmenting-path solver written with ``lax`` loops
 (``dmnerf_tpu/objfield/hungarian.py:29-159``). ``csrc/assignment.cu`` is that solver as a
-Hopper kernel (one block a matrix, one thread a column), so a train step makes no host
-round trip and fits in a CUDA graph. ``masked_assignment_ref`` is the same algorithm in
-PyTorch, line by line against the JAX function: the same fp32 operations in the same
+Hopper kernel (one warp a matrix up to n = 32, one block a matrix above), so a train step
+makes no host round trip and fits in a CUDA graph. ``masked_assignment_ref`` is the same
+algorithm in PyTorch, line by line against the JAX function: the same fp32 operations in the same
 order, ``argmin`` with NaN first and the lowest index on ties, the same loop bounds. Both
 give JAX's ``col4row`` exactly, not only an assignment of the same cost.
 
 ``objfield.hungarian.masked_assignment`` routes: a CPU tensor gets the plain version, a
-CUDA tensor the kernel (``assignment``) or an error.
+CUDA tensor the kernel (``assignment``) or an error. ``argmin_key`` is the plain twin of
+the warp design's argmin key (tests hold it to ``torch.argmin`` and ``jnp.argmin``); the
+probes and ``assignment_block`` are measurements and card tests, launched by no path.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import torch
 from dmnerf_tpu_torch.kernels import runtime
 
 MAX_N = 1024    # csrc/assignment.cu: one thread a column, at most 1024 a block
+WARP_N = 32     # n <= WARP_N: one warp a matrix
+PAD_KEY = 0xFFFFFFFF    # the key of a lane past n: above +inf's
 _INF = float("inf")
 
 
@@ -38,8 +42,26 @@ def _valid_count(valid_rows: Union[int, torch.Tensor], batch: int) -> List[int]:
 
 def _argmin(x: torch.Tensor) -> int:
     """jnp.argmin's index: the first NaN if there is one, else the first minimum
-    (torch.argmin's order too)."""
+    (torch.argmin's order too). Subnormals compare exactly, where JAX's CPU backend reads
+    them as 0."""
     return int(torch.argmin(x))
+
+
+def argmin_key(x: torch.Tensor, lanes: Optional[int] = None) -> torch.Tensor:
+    """K11's argmin order key (``csrc/assignment.cu`` ``order_key``) of each element of fp32
+    ``x`` [..., L], as int64 holding the uint32 key: NaN of any sign and payload -> 0, -0
+    read as +0, a float f >= 0 -> bits(f) | 0x80000000, f < 0 -> ~bits(f). Unsigned key
+    order is ``jnp.argmin``'s order, so the first lowest key is its index. ``lanes`` (>= L)
+    pads the last axis to a warp's lanes with ``PAD_KEY``, which no real lane reaches."""
+    x = x.float()
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = torch.where(bits == 0x80000000, 0, bits)
+    key = torch.where(bits >= 0x80000000, ~bits & 0xFFFFFFFF, bits | 0x80000000)
+    key = torch.where(torch.isnan(x), 0, key)
+    if lanes is not None and lanes > key.shape[-1]:
+        pad = key.new_full((*key.shape[:-1], lanes - key.shape[-1]), PAD_KEY)
+        key = torch.cat([key, pad], -1)
+    return key
 
 
 def _solve(cost: torch.Tensor, valid: int, iterations: Optional[List[int]]) -> torch.Tensor:
@@ -127,10 +149,7 @@ def masked_assignment_ref(cost: torch.Tensor, valid_rows: Union[int, torch.Tenso
     return out.reshape(cost.shape[:-1])
 
 
-def assignment(cost: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """One launch of K11: costs [B, n, n] fp32 and the valid row counts [B] int32, both
-    contiguous on the card -> col4row [B, n] int64, on the current stream. Makes no host
-    read and no allocation but its output, so it can be captured in a CUDA graph."""
+def _check(cost: torch.Tensor, valid: torch.Tensor) -> None:
     if cost.dim() != 3 or cost.shape[1] != cost.shape[2] or not 1 <= cost.shape[-1] <= MAX_N:
         raise ValueError(f"assignment wants costs [B, n, n] with 1 <= n <= {MAX_N}, got "
                          f"{tuple(cost.shape)}")
@@ -142,36 +161,91 @@ def assignment(cost: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         if t.device != dev or t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{what}: want a contiguous {dt} {list(shape)} tensor on {dev}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _raise(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")
+
+
+def assignment(cost: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """One launch of K11: costs [B, n, n] fp32 and the valid row counts [B] int32, both
+    contiguous on the card -> col4row [B, n] int64, on the current stream (one warp a
+    matrix for n <= 32, one block a matrix above). Makes no host read and no allocation
+    but its output, so it can be captured in a CUDA graph."""
+    _check(cost, valid)
+    dev = cost.device
     B, n = cost.shape[0], cost.shape[-1]
     out = torch.empty((B, n), dtype=torch.long, device=dev)
     if B == 0:
         return out
-    fn = _lib().dmnerf_assignment
-    err = fn(cost.data_ptr(), valid.data_ptr(), out.data_ptr(), B, n,
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"assignment launch failed: cudaError {err}")
+    _raise(_lib().dmnerf_assignment(cost.data_ptr(), valid.data_ptr(), out.data_ptr(), B, n,
+                                    torch.cuda.current_stream(dev).cuda_stream), "assignment")
     runtime.count_launch("assignment")
     return out
 
 
+def assignment_block(cost: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """K11's function by the block design at any n (the entry takes it above n = 32 only),
+    so card tests can hold the two designs to each other: not counted, no path's launch."""
+    _check(cost, valid)
+    B, n = cost.shape[0], cost.shape[-1]
+    out = torch.empty((B, n), dtype=torch.long, device=cost.device)
+    _raise(_lib().dmnerf_assignment_block(
+        cost.data_ptr(), valid.data_ptr(), out.data_ptr(), B, n,
+        torch.cuda.current_stream(cost.device).cuda_stream), "assignment block design")
+    return out
+
+
 def argmin_probe(threads: int, iters: int, out: torch.Tensor) -> None:
-    """Launch csrc/assignment.cu's latency probe: ``iters`` dependent block-wide argmins in
-    one block of ``threads``; out [1] fp32 on the card. A measurement, not a kernel of
-    any path: it is not counted."""
-    err = _lib().dmnerf_assignment_argmin_probe(threads, iters, out.data_ptr(),
-                                                torch.cuda.current_stream(out.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"assignment argmin probe launch failed: cudaError {err}")
+    """Launch csrc/assignment.cu's block-argmin probe: ``iters`` dependent block-wide
+    argmins (the block design's, its earlier bound) in one block of ``threads``; out [1] fp32
+    on the card. A measurement, not a kernel of any path: it is not counted."""
+    _raise(_lib().dmnerf_assignment_argmin_probe(
+        threads, iters, out.data_ptr(), torch.cuda.current_stream(out.device).cuda_stream),
+        "assignment argmin probe")
+
+
+def chain_probe(mode: int, iters: int, ring: Optional[torch.Tensor], out: torch.Tensor) -> None:
+    """Launch the chain floor's probe, which calls nothing of the solver: one warp chains
+    ``iters`` warp steps (mode 0: a dependent shared-memory load, redux.sync.min.u32,
+    vote.ballot + __ffs, __shfl_sync) or dependent L2 loads through ``ring`` (mode 1: int32
+    on the card, each entry an index into it). out [1] int32 on the card. Not counted."""
+    _raise(_lib().dmnerf_assignment_chain_probe(
+        mode, iters, None if ring is None else ring.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(out.device).cuda_stream), "assignment chain probe")
+
+
+def key_probe(x: torch.Tensor):
+    """K11's own order key and warp argmin on x [count, n] fp32 (n <= 32) on the card ->
+    (keys [count, 32] int64 holding the uint32 keys, lanes past n padded; argmin [count]
+    int64). A card test's probe: not counted."""
+    if x.dim() != 2 or not 1 <= x.shape[1] <= WARP_N or x.dtype != torch.float32 \
+            or not x.is_contiguous() or x.shape[0] < 1:
+        raise ValueError(f"key_probe wants a contiguous fp32 [count, n <= {WARP_N}] tensor, "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    count, n = x.shape
+    keys = torch.empty((count, WARP_N), dtype=torch.int32, device=x.device)
+    idx = torch.empty(count, dtype=torch.int32, device=x.device)
+    _raise(_lib().dmnerf_assignment_key_probe(x.data_ptr(), n, count, keys.data_ptr(),
+                                              idx.data_ptr(),
+                                              torch.cuda.current_stream(x.device).cuda_stream),
+           "assignment key probe")
+    return keys.to(torch.int64) & 0xFFFFFFFF, idx.to(torch.int64)
 
 
 def _lib() -> ctypes.CDLL:
     lib = runtime.load("assignment")
     if not getattr(lib, "typed", False):
-        lib.dmnerf_assignment.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-        lib.dmnerf_assignment_argmin_probe.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                                                       ctypes.c_void_p]
-        for fn in (lib.dmnerf_assignment, lib.dmnerf_assignment_argmin_probe):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.dmnerf_assignment.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
+        lib.dmnerf_assignment_block.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
+        lib.dmnerf_assignment_argmin_probe.argtypes = [i32, i32, ptr, ptr]
+        lib.dmnerf_assignment_chain_probe.argtypes = [i32, i32, ptr, ptr, ptr]
+        lib.dmnerf_assignment_key_probe.argtypes = [ptr, i32, i32, ptr, ptr, ptr]
+        for fn in (lib.dmnerf_assignment, lib.dmnerf_assignment_block,
+                   lib.dmnerf_assignment_argmin_probe, lib.dmnerf_assignment_chain_probe,
+                   lib.dmnerf_assignment_key_probe):
             fn.restype = ctypes.c_int
         lib.typed = True
     return lib

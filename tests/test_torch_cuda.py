@@ -911,7 +911,7 @@ def _chip_smoke():
     return cs
 
 
-@pytest.mark.parametrize("n", [1, 5, 32, 33, 100])
+@pytest.mark.parametrize("n", [1, 2, 5, 31, 32, 33, 100])
 def test_assignment_matches_plain(cuda, n):
     """K11's col4row equals its plain version's (the JAX solver's) on seeded [2, n, n]
     batches: uniform costs, integer costs with ties, NaN and +-inf entries, wide costs,
@@ -926,6 +926,102 @@ def test_assignment_matches_plain(cuda, n):
         got = masked_assignment(cost.to(cuda), torch.tensor(valid, device=cuda))
         assert torch.equal(got.cpu(), masked_assignment_ref(cost, valid)), (n, valid)
     assert runtime.LAUNCHES["assignment"] == len(cases)
+
+
+def _adversarial_batch(n, seed=0):
+    """[6, n, n] costs a tie-breaking or non-finite fault would show on: -0 and +0 ties,
+    all-equal costs, an all-NaN row, +-inf columns, integer ties with a NaN row and an
+    inf column, and a -inf row; with the valid counts that reach those rows."""
+    rng = np.random.RandomState(seed)
+    c = np.zeros((6, n, n), np.float32)
+    c[0] = np.where(rng.rand(n, n) < 0.5, np.float32(-0.0), np.float32(0.0))
+    c[1] = 0.25
+    c[2] = rng.randint(0, 3, (n, n))
+    c[2, n // 2] = np.nan
+    c[3] = rng.rand(n, n)
+    c[3][:, rng.rand(n) < 0.3] = np.inf
+    c[3][:, rng.rand(n) < 0.3] = -np.inf
+    c[4] = rng.randint(0, 2, (n, n))
+    c[4, 0] = np.nan
+    c[4][:, n - 1] = np.inf
+    c[5] = rng.rand(n, n)
+    c[5, n - 1] = -np.inf
+    valid = np.array([n, n, n // 2 + 1, n, max(n - 1, 1), n], np.int32)
+    return c, valid
+
+
+@pytest.mark.parametrize("n", [2, 5, 31, 32, 33])
+def test_assignment_adversarial_batch(cuda, n):
+    """-0/+0 ties, all-equal costs, an all-NaN row and +-inf columns: K11's col4row is its
+    plain version's, in one launch of the whole batch."""
+    from dmnerf_tpu_torch.kernels.assignment import assignment, masked_assignment_ref
+
+    c, valid = _adversarial_batch(n, seed=n)
+    got = assignment(torch.from_numpy(c).to(cuda), torch.from_numpy(valid).to(cuda))
+    want = masked_assignment_ref(torch.from_numpy(c), torch.from_numpy(valid))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 31, 32])
+def test_assignment_warp_design_equals_block_design(cuda, n):
+    """At n <= 32 the warp design (the entry's there) gives the block design's col4row on
+    the seeded batches and the adversarial one."""
+    from dmnerf_tpu_torch.kernels.assignment import assignment, assignment_block
+
+    cases = [(c, np.full(2, v, np.int32)) for c, v in
+             _chip_smoke()._assignment_cases(n, 2 * (n + 1), seed=100 + n)]
+    cases.append(_adversarial_batch(n, seed=7))
+    for c, valid in cases:
+        cost, val = torch.from_numpy(c).to(cuda), torch.from_numpy(valid).to(cuda)
+        assert torch.equal(assignment(cost, val), assignment_block(cost, val)), (n, valid)
+
+
+def test_assignment_repeats_bit_identical(cuda):
+    """Ten launches on the same [2, 32, 32] and [2, 33, 33] batches give the same
+    col4row."""
+    from dmnerf_tpu_torch.kernels.assignment import assignment
+
+    for n in (32, 33):
+        for c, valid in _chip_smoke()._assignment_cases(n, 8, seed=3):
+            cost = torch.from_numpy(c).to(cuda)
+            val = torch.full((2,), valid, dtype=torch.int32, device=cuda)
+            outs = [assignment(cost, val) for _ in range(10)]
+            assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+def test_assignment_key_probe_matches_argmin_key(cuda):
+    """K11's order key and warp argmin on the card (key_probe) against argmin_key and
+    torch.argmin: NaN of either sign and payload, +-inf, -0/+0, subnormals, all-inf,
+    all-NaN, at 1 to 32 lanes with the padding lanes' key."""
+    from dmnerf_tpu_torch.kernels.assignment import argmin_key, key_probe
+
+    rng = np.random.RandomState(0)
+    specials = np.array([np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-45, -1e-45, 1.0, -1.0],
+                        np.float32)
+    payload_nans = (np.uint32(0x7F800000) | rng.randint(1, 1 << 23, 16).astype(np.uint32)
+                    | (rng.randint(0, 2, 16).astype(np.uint32) << 31)).view(np.float32)
+    pool = np.concatenate([specials, payload_nans, rng.randn(16).astype(np.float32)])
+    for n in (1, 2, 5, 31, 32):
+        x = rng.choice(pool, (256, n)).astype(np.float32)
+        x[0], x[1] = np.inf, np.nan
+        keys, idx = key_probe(torch.from_numpy(x).to(cuda))
+        want = argmin_key(torch.from_numpy(x), 32)
+        assert torch.equal(keys.cpu(), want), n
+        assert torch.equal(idx.cpu(), torch.argmin(want, -1)), n
+        assert torch.equal(idx.cpu(), torch.argmin(torch.from_numpy(x), -1)), n
+
+
+def test_assignment_chain_probe_launches(cuda):
+    """The chain floor's probe runs both modes (not counted as K11's launches)."""
+    from dmnerf_tpu_torch.kernels.assignment import chain_probe
+
+    ring = torch.roll(torch.arange(4096, dtype=torch.int32, device=cuda), -1)
+    out = torch.zeros(1, dtype=torch.int32, device=cuda)
+    runtime.reset_launches()
+    chain_probe(0, 100, None, out)
+    chain_probe(1, 100, ring, out)
+    torch.cuda.synchronize()
+    assert int(out) == 100 and runtime.LAUNCHES["assignment"] == 0
 
 
 def _pack_setup(cuda, P=3, **kw):
