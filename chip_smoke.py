@@ -181,6 +181,22 @@
    calls a step), beside the card's name and power limit. The same checks (without the
    timing) for 2 packs of 5 ScanNet steps under pallas_pe_mode = outside: 10 launches
    each of K7, K5 and K6's bwd_data and 5 of K11 a pack.
+16. Sharded phase (dmnerf_tpu_torch.parallel.mesh), at the flagship train config of
+   phase 5. (a) An NCCL world of one process on the card: 5 sharded steps (every sum of
+   the losses and the gradient all-reduced) against the unsharded step from the same
+   state, batches and draws, the first within rtol 1e-4 (total loss) and rtol 2e-4 /
+   atol 2e-6 (every parameter), the gap after 5 printed; 10 sharded steps one at a time
+   (the path train_sharded: 20 K1, 20 K2, 10 K11) against a pack of the 10 captured with
+   their NCCL all-reduces into one CUDA graph, bit for bit; a packed step sharded and
+   unsharded, in turns (CUDA events); a sharded 256^2 view (render_sharded) bit-equal to
+   render_test's. (b) A gloo world of two processes (this script with --gloo-rank), both
+   ranks on cuda:0 (NCCL refuses two ranks on one card), each killed past its limit: 3
+   sharded steps of 1536 rays a rank, a sharded 256^2 view and a sharded K = 1
+   manipulated view in det mode (K3), against the same on one device in this process:
+   the replicas bit-identical, every step's total loss within 1e-4 and the first
+   step's gradient within the kernels' gradient bar (2e-2), the parameters' gap by step
+   printed; the views >= 40 dB and <= 1 %
+   label flips, max |d| printed. A failed rank fails the run.
 
 The line before the last is a JSON object with each kernel's numbers and its
 launches on each path; the last line is {"ok": true, "device": {...}}. Any failure
@@ -2189,6 +2205,378 @@ def head_probes_phase(device):
     return launches, res
 
 
+SHARDED_STEPS = 5    # sharded against unsharded steps of the world of one, the gap printed
+SHARDED_PACK = 10    # the world of one's pack of sharded steps (one CUDA graph replay)
+GLOO_WORLD = 2       # processes of the gloo world, all on cuda:0
+GLOO_STEPS = 3       # its sharded train steps (N_train 3072: 1536 rays a rank)
+RANK_LIMIT_S = 600   # a rank of the gloo world still running past this is killed
+STEP_RTOL, STEP_ATOL = 2e-4, 2e-6   # parameters after sharded vs unsharded steps
+LOSS_RTOL = 1e-4
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _params(state) -> dict:
+    return {f"{w}.{k}": p.detach() for w, ps in (("coarse", state.params_coarse),
+                                                 ("fine", state.params_fine))
+            for k, p in ps.items()}
+
+
+def _step_gap(got: dict, want: dict) -> dict:
+    """Parameters of two states: the largest |d|, the largest |d| / (atol + rtol |want|)
+    of the step bar and the count of entries past it."""
+    worst, ratio, past = 0.0, 0.0, 0
+    for k, w in want.items():
+        d = (got[k].double() - w.double()).abs()
+        tol = STEP_ATOL + STEP_RTOL * w.double().abs()
+        worst, ratio = max(worst, float(d.max())), max(ratio, float((d / tol).max()))
+        past += int((d > tol).sum())
+    return dict(max_abs=worst, max_over_bar=ratio, entries_past_bar=past)
+
+
+def _view_gap(got: dict, want: dict) -> dict:
+    """rgb PSNR, argmax label flips and max|d| of every map of two views."""
+    import numpy as np
+    import torch
+
+    mse = float(torch.mean((got["rgb"].double() - want["rgb"].double()) ** 2))
+    return dict(rgb_psnr_db=float("inf") if mse == 0 else float(-10.0 * np.log10(mse)),
+                label_flip_share=float((got["ins"].argmax(-1) != want["ins"].argmax(-1))
+                                       .float().mean()),
+                max_abs={k: float((got[k].double() - want[k].double()).abs().max()) for k in want})
+
+
+def sharded_phase(device, card, test_cfg):
+    """Phase 16 (a): an NCCL world of one process on the card (parallel.mesh), at the
+    flagship train config."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from dmnerf_tpu_torch.parallel.mesh import init_process_group
+
+    mesh = init_process_group(device, f"tcp://127.0.0.1:{_free_port()}", rank=0, world_size=1,
+                              timeout=datetime.timedelta(seconds=300))
+    try:
+        return _world_one(mesh, card, test_cfg)
+    finally:
+        dist.destroy_process_group()
+
+
+def _world_one(mesh, card, test_cfg):
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dmnerf_tpu_torch.core.rays import rays_from_K
+    from dmnerf_tpu_torch.data.synthetic import build_dmsr_scene
+    from dmnerf_tpu_torch.kernels import runtime
+    from dmnerf_tpu_torch.parallel.mesh import (
+        make_packed_sharded_steps, make_sharded_image_renderer, make_sharded_train_step)
+    from dmnerf_tpu_torch.render.evaluation import render_test
+    from dmnerf_tpu_torch.render.packing import StepRunner
+    from dmnerf_tpu_torch.render.renderer import make_image_renderer
+    from dmnerf_tpu_torch.render.trainstep import create_train_state, make_train_step
+    from dmnerf_tpu_torch.test import init_params
+    from dmnerf_tpu_torch.train import make_packed_steps, make_sampler
+
+    device, P = mesh.device, SHARDED_PACK
+    tmp = tempfile.TemporaryDirectory()
+    cfg, scene = train_setup(None, "dmsr", basedir=tmp.name, N_iters=P, i_print=P,
+                             steps_per_dispatch=P)
+    sampler, n_ins = make_sampler(cfg, scene, device)
+
+    def start():
+        return (create_train_state(cfg, *init_params(cfg, device)),
+                torch.Generator().manual_seed(cfg.seed + 1),
+                torch.Generator(device=device).manual_seed(cfg.seed + 2))
+
+    # sharded against unsharded steps from the same state, batches and draws
+    sharded = make_sharded_train_step(cfg, mesh, N_ins=n_ins)
+    (st_u, gb_u, gs_u), (st_s, gb_s, gs_s) = start(), start()
+    gaps = []
+    for i in range(SHARDED_STEPS):
+        a_u = make_train_step(cfg, N_ins=n_ins)(st_u, sampler(gb_u), generator=gs_u)
+        a_s = sharded(st_s, sampler(gb_s), generator=gs_s)
+        lu, ls = float(a_u["total_loss"]), float(a_s["total_loss"])
+        gaps.append(dict(step=i, total_loss=ls, total_loss_unsharded=lu,
+                         loss_rel=abs(ls - lu) / abs(lu), **_step_gap(_params(st_s), _params(st_u))))
+    out = dict(card=card, world=mesh.size, backend="nccl", N_train=cfg.N_train, first_step=gaps[0],
+               gap_after_steps=gaps[-1], gaps=gaps)
+
+    # the sharded steps one at a time (the path's counted launches), then a pack of P of
+    # them captured, NCCL all-reduces included, into one CUDA graph: bit for bit
+    st_1, gb_1, gs_1 = start()
+    single = StepRunner(cfg, sampler, sharded, device, 1)
+    runtime.reset_launches()
+    aux_1 = torch.cat([_aux_rows(single(st_1, gb_1, gs_1)) for _ in range(P)])
+    torch.cuda.synchronize()
+    train_launches = dict(runtime.LAUNCHES)
+    st_p, gb_p, gs_p = start()
+    packed_s = make_packed_sharded_steps(cfg, sampler, n_ins, mesh, P)
+    aux_p = _aux_rows(packed_s(st_p, gb_p, gs_p))
+    torch.cuda.synchronize()
+    diffs = _state_diffs(st_1, st_p)
+    aux_steps_differing = int((_bits(aux_1).view(aux_1.shape)
+                               != _bits(aux_p).view(aux_p.shape)).any(-1).sum())
+    out.update(pack=P, pack_state_tensors_differing=len(diffs),
+               pack_aux_steps_differing=aux_steps_differing, train_launches=train_launches)
+
+    # ms a packed step, sharded against unsharded, CUDA events in turns
+    packed_u, _ = make_packed_steps(cfg, sampler, n_ins, device)
+    st_q, gb_q, gs_q = start()
+    packed_u(st_q, gb_q, gs_q)          # its capture
+    turns = []
+    for name, fn in (("unsharded", lambda: packed_u(st_q, gb_q, gs_q)),
+                     ("sharded", lambda: packed_s(st_p, gb_p, gs_p)),
+                     ("sharded", lambda: packed_s(st_p, gb_p, gs_p)),
+                     ("unsharded", lambda: packed_u(st_q, gb_q, gs_q))):
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        turns.append(dict(mode=name, ms_per_step=e0.elapsed_time(e1) / P))
+    out["packed_turns"] = turns
+    del packed_u, packed_s, single
+    tmp.cleanup()
+
+    # a sharded 256^2 view against render_test's
+    H = W = 256
+    vscene = build_dmsr_scene(n_train=1, n_test=1, H=H, W=W, n_objects=4, ins_num=32, seed=SEED)
+    vcfg = test_cfg.replace(near=1.0, far=8.0, ins_num=vscene.ins_num, perturb=0.0)
+    pc, pf = init_params(vcfg, device)
+    ids = vscene.i_test
+    res = render_test(vcfg, pc, pf, vscene.poses[ids], vscene.hwk, savedir=None, verbose=False,
+                      device=device)
+    o, d = rays_from_K(H, W, torch.as_tensor(vscene.K, device=device),
+                       torch.as_tensor(vscene.poses[ids[0]], device=device))
+    runtime.reset_launches()
+    view = make_sharded_image_renderer(vcfg, mesh)(pc, pf, o.reshape(-1, 3), d.reshape(-1, 3))
+    torch.cuda.synchronize()
+    render_launches = dict(runtime.LAUNCHES)
+    plain = make_image_renderer(vcfg)(pc, pf, o.reshape(-1, 3), d.reshape(-1, 3))
+    view_equal = bool(np.array_equal(view["rgb"].cpu().numpy().reshape(H, W, 3), res["images"][0])
+                      and all(torch.equal(view[k], plain[k]) for k in plain))
+    out.update(view_bit_equal_render_test=view_equal, render_launches=render_launches)
+    print(f"[sharded] {json.dumps(out)}", flush=True)
+
+    first = gaps[0]
+    if first["loss_rel"] > LOSS_RTOL or first["entries_past_bar"]:
+        raise AssertionError(f"a sharded step in a world of one vs the unsharded step: total loss "
+                             f"{first['loss_rel']:.2e} relative (want <= {LOSS_RTOL}), "
+                             f"{first['entries_past_bar']} parameter entries past the bar")
+    if diffs or aux_steps_differing:
+        raise AssertionError(f"a pack of {P} sharded steps differs from them one by one: "
+                             f"{len(diffs)} state tensors, {aux_steps_differing} steps' auxs")
+    for name in ("fused_mlp_fwd", "fused_mlp_bwd", "assignment"):
+        want = P if name == "assignment" else 2 * P
+        if train_launches[name] != want:
+            raise AssertionError(f"{name} launched {train_launches[name]} times in {P} sharded "
+                                 f"steps, want {want}")
+    if not view_equal:
+        raise AssertionError("the sharded 256^2 view in a world of one is not render_test's view")
+    return {"train_sharded": train_launches, "render_sharded": render_launches}, out
+
+
+def _gloo_run(device, test_cfg, mesh=None):
+    """What the gloo phase compares: GLOO_STEPS train steps (the flagship train config)
+    from train()'s seeded state and generators, a 256^2 view and a K = 1 manipulated
+    view in det mode (pallas_pe_mode = kernel) with seeded weights, each sharded over
+    ``mesh`` or, without one, on one device; with the launches of each part, the
+    parameters after each step and Adam's first moment after the first (0.1 x the
+    gradient)."""
+    import numpy as np
+    import torch
+
+    from dmnerf_tpu_torch.configs import load_config
+    from dmnerf_tpu_torch.core.rays import rays_from_K
+    from dmnerf_tpu_torch.data.synthetic import build_dmsr_mani_scene, build_dmsr_scene
+    from dmnerf_tpu_torch.kernels import runtime
+    from dmnerf_tpu_torch.parallel.mesh import (
+        make_sharded_image_renderer, make_sharded_manipulator_renderer, make_sharded_train_step)
+    from dmnerf_tpu_torch.render.manipulator import make_manipulator_renderer
+    from dmnerf_tpu_torch.render.packing import StepRunner
+    from dmnerf_tpu_torch.render.renderer import make_image_renderer
+    from dmnerf_tpu_torch.render.trainstep import create_train_state, make_train_step
+    from dmnerf_tpu_torch.test import init_params
+    from dmnerf_tpu_torch.tools.pose_gen import eval_poses
+    from dmnerf_tpu_torch.train import make_sampler
+
+    out = {}
+    cfg, scene = train_setup(None, "dmsr", N_iters=GLOO_STEPS, i_print=1)
+    sampler, n_ins = make_sampler(cfg, scene, device)
+    step = (make_train_step(cfg, N_ins=n_ins) if mesh is None
+            else make_sharded_train_step(cfg, mesh, N_ins=n_ins))
+    state = create_train_state(cfg, *init_params(cfg, device))
+    gb, gs = torch.Generator().manual_seed(cfg.seed + 1), torch.Generator(device=device).manual_seed(cfg.seed + 2)
+    runner = StepRunner(cfg, sampler, step, device, 1)
+    runtime.reset_launches()
+    out["total_loss"], out["params_by_step"] = [], []
+    for i in range(GLOO_STEPS):
+        out["total_loss"].append(float(runner(state, gb, gs)["total_loss"][0]))
+        out["params_by_step"].append({k: v.to("cpu", copy=True) for k, v in _params(state).items()})
+        if i == 0:
+            out["first_moment"] = {f"{w}.{k}": state.opt.state[p]["exp_avg"].to("cpu", copy=True)
+                                   for w, ps in (("coarse", state.params_coarse),
+                                                 ("fine", state.params_fine))
+                                   for k, p in ps.items()}
+    out["train_launches"] = dict(runtime.LAUNCHES)
+    out["params"] = out["params_by_step"][-1]
+    del state, runner, sampler
+
+    H = W = 256
+    vscene = build_dmsr_scene(n_train=1, n_test=1, H=H, W=W, n_objects=4, ins_num=32, seed=SEED)
+    vcfg = test_cfg.replace(near=1.0, far=8.0, ins_num=32, perturb=0.0)
+    pc, pf = init_params(vcfg, device)
+    K = torch.as_tensor(vscene.K, device=device)
+    o, d = rays_from_K(H, W, K, torch.as_tensor(vscene.poses[vscene.i_test[0]], device=device))
+    render = (make_image_renderer(vcfg) if mesh is None
+              else make_sharded_image_renderer(vcfg, mesh))
+    runtime.reset_launches()
+    out["view"] = {k: v.cpu() for k, v in render(pc, pf, o.reshape(-1, 3), d.reshape(-1, 3)).items()}
+    out["render_launches"] = dict(runtime.LAUNCHES)
+
+    mscene = build_dmsr_mani_scene("translation", n_test=1, H=H, W=W, n_objects=4, ins_num=32,
+                                   seed=SEED)
+    mcfg = load_config(os.path.join(REPO, "configs", "manipulation", "dmsr",
+                                    "manipulation_translation", "study.txt"),
+                       near=1.0, far=8.0, ins_num=32, target_label=1, perturb=0.0,
+                       pallas_pe_mode="kernel")
+    trans = np.asarray(eval_poses(mcfg)["transformations"][0]["transformation"], np.float32)
+    pose = mscene.poses[0]
+    (oo, od), (to, td) = [(r[0].reshape(-1, 3), r[1].reshape(-1, 3)) for r in (
+        rays_from_K(H, W, K, torch.as_tensor(c2w, device=device)) for c2w in (pose, trans @ pose))]
+    run = (make_manipulator_renderer(mcfg, 1) if mesh is None
+           else make_sharded_manipulator_renderer(mcfg, mesh, 1))
+    runtime.reset_launches()
+    out["mani"] = {k: v.cpu() for k, v in run(pc, pf, oo, od, to[None], td[None], (1,)).items()}
+    out["mani_launches"] = dict(runtime.LAUNCHES)
+    return out
+
+
+def gloo_rank_main(rank: int, port: int, out_dir: str) -> int:
+    """One rank of the gloo phase: joins the gloo world on cuda:0, runs ``_gloo_run``
+    sharded and saves its results to out_dir/rank<rank>.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from dmnerf_tpu_torch.configs import load_config
+    from dmnerf_tpu_torch.parallel.mesh import init_process_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = init_process_group(torch.device("cuda", 0), f"tcp://127.0.0.1:{port}", rank=rank,
+                              world_size=GLOO_WORLD, backend="gloo",
+                              timeout=datetime.timedelta(seconds=RANK_LIMIT_S))
+    try:
+        test_cfg = load_config(os.path.join(REPO, "configs", "test", "dmsr", "study.txt"),
+                               ins_num=32)
+        torch.save(_gloo_run(mesh.device, test_cfg, mesh), os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def gloo_phase(device, card, test_cfg):
+    """Phase 16 (b): a gloo world of GLOO_WORLD processes, every rank on cuda:0 (NCCL
+    refuses two ranks on one card), against the world of one in this process."""
+    import tempfile
+
+    import torch
+
+    tmp = tempfile.TemporaryDirectory()
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gloo-rank", str(r),
+                               str(port), tmp.name], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(GLOO_WORLD)]
+    try:
+        ref = _gloo_run(device, test_cfg)
+        deadline = time.time() + RANK_LIMIT_S
+        outs = []
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=max(1.0, deadline - time.time()))[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate()[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"gloo rank {r} exited {p.returncode}:\n{text[-4000:]}")
+    res = [torch.load(os.path.join(tmp.name, f"rank{r}.pt"), weights_only=False)
+           for r in range(GLOO_WORLD)]
+    tmp.cleanup()
+    return _gloo_compare(res, ref, card)
+
+
+def _gloo_compare(res, ref, card):
+    """The gloo ranks' results against the world of one's, printed and held to the bars:
+    the replicas bit-identical and every rank's views the same; the total loss of every
+    step within LOSS_RTOL; the first step's gradient (Adam's first moment) within the
+    kernels' own gradient bar (GRAD_TOL of each tensor's largest entry); the views within
+    the render bars. The parameters' gap to the world of one is printed by step and held
+    to no bar: K2 sums each dW over the points of its launch in ranges that the launch's
+    size sets, so 1536 rays a launch give another gradient than 3072, further from it
+    than the same rays shuffled give, while with the fp32 plain query the two gaps are
+    alike (scripts/sharded_gradient_torch.py measures the four); Adam's normalised update
+    lr m / (sqrt(v) + eps) moves an entry whose gradient is near 0 by up to lr on such a
+    difference."""
+    import torch
+
+    replicas_equal = all(_equal_bits(r["params"][k], res[0]["params"][k])
+                         for r in res[1:] for k in res[0]["params"])
+    by_step = [_step_gap(got, want) for got, want in zip(res[0]["params_by_step"],
+                                                         ref["params_by_step"])]
+    grad_rel = _rel_err(res[0]["first_moment"], ref["first_moment"])[0]
+    views_equal = all(torch.equal(r[w][k], res[0][w][k]) for r in res[1:]
+                      for w in ("view", "mani") for k in res[0][w])
+    out = dict(card=card, world=GLOO_WORLD, backend="gloo", rays_per_rank=3072 // GLOO_WORLD,
+               steps=GLOO_STEPS, replicas_bit_identical=replicas_equal,
+               ranks_return_the_same_views=views_equal,
+               params_by_step=by_step, first_gradient_max_rel_err=grad_rel,
+               total_loss=res[0]["total_loss"], total_loss_world_one=ref["total_loss"],
+               view_vs_world_one=_view_gap(res[0]["view"], ref["view"]),
+               mani_vs_world_one=_view_gap(res[0]["mani"], ref["mani"]),
+               rank0_launches={k: res[0][k] for k in ("train_launches", "render_launches",
+                                                      "mani_launches")})
+    print(f"[sharded gloo] {json.dumps(out)}", flush=True)
+    if not replicas_equal or not views_equal:
+        raise AssertionError(f"gloo world: replicas bit-identical {replicas_equal}, the ranks' "
+                             f"views equal {views_equal}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(res[0]["total_loss"], ref["total_loss"]))
+    if loss_rel > LOSS_RTOL or grad_rel > GRAD_TOL:
+        raise AssertionError(f"gloo world against the world of one: total loss {loss_rel:.2e} "
+                             f"relative (want <= {LOSS_RTOL}), first gradient {grad_rel:.2e} "
+                             f"(want <= {GRAD_TOL})")
+    for what in ("view_vs_world_one", "mani_vs_world_one"):
+        if out[what]["rgb_psnr_db"] < MIN_PSNR_DB or out[what]["label_flip_share"] > MAX_LABEL_FLIP:
+            raise AssertionError(f"gloo world, {what}: {out[what]}")
+    launches = res[0]["train_launches"]
+    for name in ("fused_mlp_fwd", "fused_mlp_bwd", "assignment"):
+        want = GLOO_STEPS if name == "assignment" else 2 * GLOO_STEPS
+        if launches[name] != want:
+            raise AssertionError(f"gloo rank 0: {name} launched {launches[name]} times in "
+                                 f"{GLOO_STEPS} steps, want {want}")
+    return out
+
+
 K11_KEYS = ("device_us", "profiler_us", "in_pack_us", "chain_floor_us", "bytes_bound_us",
             "share_of_chain_floor", "share_of_chain_floor_profiler",
             "share_of_chain_floor_in_pack", "warp_step_us", "l2_load_us",
@@ -2282,7 +2670,14 @@ def main() -> int:
     packed_scannet_launches, _ = packed_train_phase(device, smi_line, "outside", "scannet",
                                                     *SCANNET_PACK, timed=False)
 
-    paths = {"render": render_launches, "train": train_launches, "train_kpe": kpe_train_launches,
+    torch.cuda.empty_cache()
+    sharded_launches, _ = sharded_phase(device, smi_line, cfg)
+    torch.cuda.empty_cache()
+    gloo = gloo_phase(device, smi_line, cfg)["rank0_launches"]
+
+    paths = {**sharded_launches, "train_sharded_gloo": gloo["train_launches"],
+             "render_sharded_gloo": gloo["render_launches"],
+             "mani_sharded_gloo": gloo["mani_launches"], "render": render_launches, "train": train_launches, "train_kpe": kpe_train_launches,
              "mani_eval": eval_launches, "mani_demo": demo_launches,
              "train_scannet": scannet_train_launches, "render_scannet": scannet_render_launches,
              "mesh": mesh_launches, "render_fused": fused_launches, "probe_heads": probe_launches,
@@ -2350,4 +2745,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gloo-rank"]:        # a rank of phase 16's gloo world
+        sys.exit(gloo_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -12,9 +12,11 @@ the JAX package: ``None`` or ``'kernel_t'`` the per-ray viewdir table kernels (K
 forward, K2 backward), ``'kernel'`` the per-point in-kernel embedding kernels (K3,
 K4), ``'outside'`` the embedding kernel (K7) and the kernels over precomputed
 embeddings (K5 forward, K6 backward); any other value is refused here. The tile knobs
-(``pallas_tile_fwd``, ``pallas_tile_bwd``) size the TPU's grid tiles and the
-JAX-only switches (``data_axis``, ``multihost``) are parsed so that config files stay
-interchangeable, and have no effect here. ``steps_per_dispatch`` packs whole train
+(``pallas_tile_fwd``, ``pallas_tile_bwd``), which size the TPU's grid tiles, and
+``data_axis``, which the JAX package does not read either, are parsed so that config
+files stay interchangeable, and have no effect here. ``multihost`` makes the entry points
+join a ``torch.distributed`` process group from the environment (``parallel.mesh``), as
+``torchrun`` does with ``WORLD_SIZE`` > 1. ``steps_per_dispatch`` packs whole train
 steps into one dispatch, one CUDA graph replay on the card (``train.make_packed_steps``).
 ``debug_nans``
 makes every train step check its losses and gradients for finiteness and raise

@@ -5,7 +5,9 @@ with a plain C interface and loaded with ctypes. The sources of a kernel pair sh
 their code through the headers ``csrc/*.cuh``. The build happens at first use, into
 ``build/kernels/`` at the root of the checkout, under a file name keyed by a hash of
 the source, the headers and the flags, so an edited source or header is rebuilt and
-an unchanged one is not. Nothing is built or loaded when a module is imported.
+an unchanged one is not. Nothing is built or loaded when a module is imported. A build
+holds a file lock in ``build/kernels/``, so the ranks of a process group on one host
+build each source once and load what the first one built.
 
 ``LAUNCHES`` counts, per kernel entry point (``COUNTED``), the launches its wrapper made
 (``count_launch``; a launch recorded into a CUDA graph is not one); a run resets it with
@@ -15,6 +17,7 @@ an unchanged one is not. Nothing is built or loaded when a module is imported.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -75,9 +78,16 @@ def library_path(name: str) -> Path:
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     """Compile every named source that is not built yet, one nvcc process per
-    source, all started together. Returns each source's compiler report (register
-    and shared-memory use from ``-Xptxas -v``); raises on the first failure."""
+    source, all started together, under the build directory's lock. Returns each
+    source's compiler report (register and shared-memory use from ``-Xptxas -v``);
+    raises on the first failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)      # released when the file closes or we exit
+        return _build(names)
+
+
+def _build(names: Iterable[str]) -> Dict[str, str]:
     procs: List = []
     reports: Dict[str, str] = {}
     for name in names:

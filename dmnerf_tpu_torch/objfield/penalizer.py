@@ -8,7 +8,9 @@
  * at the surface (within tol): BCE of the air channel against 0, weighted by g,
    normalised by mask count;
  * depth is detached: the penalizer shapes the instance field, not the geometry.
-Log arguments are clamped at 1e-8, as the JAX package does.
+Log arguments are clamped at 1e-8, as the JAX package does. With ``reduce`` the rays
+are sharded over a process group and the four sums are summed over the ranks before
+the ratios (``objfield.losses``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from dmnerf_tpu_torch.objfield.losses import Reduce, reduce_sums
 
 
 def emptiness_penalizer(
@@ -25,6 +29,7 @@ def emptiness_penalizer(
     rays_d: torch.Tensor,   # [N, 3]
     tolerance: float,
     deta_w: float,
+    reduce: Reduce = None,
 ) -> torch.Tensor:
     depth = depth.detach()[..., None]
     norm = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
@@ -48,15 +53,21 @@ def emptiness_penalizer(
     bce_before = -air * torch.log(torch.clamp(pred_ins, min=1e-8)) \
         - (1.0 - air) * torch.log(torch.clamp(1.0 - pred_ins, min=1e-8))
     w_before = gauss_air * mask_before
-    loss_before = torch.sum(bce_before * w_before[..., None]) / (
-        n_ch * torch.clamp(mask_before.sum(), min=1e-8))
-
     bce_middle = -torch.log(torch.clamp(1.0 - pred_ins[..., -1], min=1e-8))
     w_middle = gauss * mask_middle
-    loss_middle = torch.sum(bce_middle * w_middle) / torch.clamp(mask_middle.sum(), min=1e-8)
-    return loss_before + loss_middle
+    if reduce is None:
+        loss_before = torch.sum(bce_before * w_before[..., None]) / (
+            n_ch * torch.clamp(mask_before.sum(), min=1e-8))
+        loss_middle = torch.sum(bce_middle * w_middle) / torch.clamp(mask_middle.sum(), min=1e-8)
+        return loss_before + loss_middle
+    sum_before, n_before, sum_middle, n_middle = reduce_sums(
+        reduce, torch.sum(bce_before * w_before[..., None]), mask_before.sum(),
+        torch.sum(bce_middle * w_middle), mask_middle.sum())
+    return sum_before / (n_ch * torch.clamp(n_before, min=1e-8)) \
+        + sum_middle / torch.clamp(n_middle, min=1e-8)
 
 
-def ins_penalizer(raw, z_vals, depth, rays_d, tolerance: float, deta_w: float):
+def ins_penalizer(raw, z_vals, depth, rays_d, tolerance: float, deta_w: float,
+                  reduce: Reduce = None):
     """The reference's ins_penalizer (penalizer.py:58-62); depth is detached inside."""
-    return emptiness_penalizer(raw, z_vals, depth, rays_d, tolerance, deta_w)
+    return emptiness_penalizer(raw, z_vals, depth, rays_d, tolerance, deta_w, reduce)

@@ -1,11 +1,12 @@
-"""Test-set rendering and evaluation (``dmnerf_tpu/render/evaluation.py``,
-single-device branch).
+"""Test-set rendering and evaluation (``dmnerf_tpu/render/evaluation.py``).
 
 Per test pose: a chunked full-image render (render.renderer) -> PSNR / SSIM / LPIPS
 against the GT image, per-view instance mAP (objfield.metrics.ins_eval) and the
 pred->GT label map. ScanNet crop path: GT and prediction restricted to the crop,
 eval with the < ins_num validity mask. Files: per-view RGB, instance, GT instance
 and GT mask PNGs, matching_log.json and test_results.txt (9 columns + mean row).
+In a process group of more than one the views render sharded over the ranks
+(``parallel.mesh.make_sharded_image_renderer``), and every rank returns the results.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from dmnerf_tpu_torch.core.rays import rays_from_K
 from dmnerf_tpu_torch.objfield.metrics import compact_gt_one_hot_np, ins_eval
 from dmnerf_tpu_torch.render.renderer import make_image_renderer
 from dmnerf_tpu_torch.tools.visualizer import render_gt_label2img, render_label2img
-from dmnerf_tpu_torch.utils.device import resolve_device
+from dmnerf_tpu_torch.utils.device import resolve_device, world_size
 from dmnerf_tpu_torch.utils.image_metrics import lpips_np, psnr_np, ssim_np, to8b
 from dmnerf_tpu_torch.utils.metrics_log import write_matching_log, write_test_results
 
@@ -55,7 +56,12 @@ def render_test(
     of each view (``times``, host clock around a synchronised render)."""
     device = resolve_device(device)
     H, W, K = hwk
-    if renderer is None:
+    if renderer is None and world_size() > 1:
+        # every rank renders its share of each view's rays (params replicated)
+        from dmnerf_tpu_torch.parallel.mesh import make_mesh, make_sharded_image_renderer
+
+        renderer = make_sharded_image_renderer(cfg, make_mesh(device=device))
+    elif renderer is None:
         renderer = make_image_renderer(cfg)
     if color_dict is None:
         color_dict = {str(i): i for i in range(cfg.ins_num)}

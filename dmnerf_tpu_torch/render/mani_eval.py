@@ -1,5 +1,7 @@
-"""Manipulation entry points (``dmnerf_tpu/render/mani_eval.py``, single-device branch):
-evaluation against the manipulated ground truth, and the multi-object demo.
+"""Manipulation entry points (``dmnerf_tpu/render/mani_eval.py``): evaluation against
+the manipulated ground truth, and the multi-object demo. In a process group of more than
+one the views render sharded over the ranks
+(``parallel.mesh.make_sharded_manipulator_renderer``).
 
  * ``manipulator_eval``: one rigid edit (the target bundle is rendered from
    trans @ ori_pose), a chunked full-image manipulation render per view, PSNR / SSIM /
@@ -30,13 +32,23 @@ from dmnerf_tpu_torch.core.rays import rays_from_K
 from dmnerf_tpu_torch.objfield.metrics import compact_gt_one_hot_np, ins_eval
 from dmnerf_tpu_torch.render.manipulator import deform_ray_offsets, make_manipulator_renderer
 from dmnerf_tpu_torch.tools.visualizer import render_gt_label2img, render_label2img
-from dmnerf_tpu_torch.utils.device import resolve_device
+from dmnerf_tpu_torch.utils.device import resolve_device, world_size
 from dmnerf_tpu_torch.utils.image_metrics import lpips_np, psnr_np, ssim_np, to8b
 from dmnerf_tpu_torch.utils.metrics_log import write_matching_log, write_test_results
 
 # 8-phase deformation ramp of the demo
 DEFORM_V = np.concatenate([np.linspace(0, 0.18, 2), np.linspace(0.18, 0, 2),
                            np.linspace(0, -0.18, 2), np.linspace(-0.18, 0, 2)])
+
+
+def _make_mani_renderer(cfg: Config, n_targets: int, device):
+    """The single-device manipulation renderer, or the ray-sharded one in a process group
+    of more than one."""
+    if world_size() > 1:
+        from dmnerf_tpu_torch.parallel.mesh import make_mesh, make_sharded_manipulator_renderer
+
+        return make_sharded_manipulator_renderer(cfg, make_mesh(device=device), n_targets)
+    return make_manipulator_renderer(cfg, n_targets)
 
 
 def _imwrite(path: str, img: np.ndarray) -> None:
@@ -96,7 +108,7 @@ def manipulator_eval(
         save_dir = os.path.join(save_dir, trans_dict["mode"])
         os.makedirs(save_dir, exist_ok=True)
 
-    run = make_manipulator_renderer(cfg, n_targets=1)
+    run = _make_mani_renderer(cfg, 1, device)
     psnrs, ssims, lpipses, aps, images, times, full_map = [], [], [], [], [], [], {}
     for i, ori_pose in enumerate(np.asarray(ori_poses)):
         ori_o, ori_d = _flat_rays(H, W, K, ori_pose, device)
@@ -171,7 +183,7 @@ def manipulator_demo(
         save_dir = os.path.join(save_dir, "mani_output")
         os.makedirs(save_dir, exist_ok=True)
 
-    run = make_manipulator_renderer(cfg, n_targets=len(objs))
+    run = _make_mani_renderer(cfg, len(objs), device)
     images, labels_out, times = [], [], []
     for i, ori_pose in enumerate(np.asarray(view_poses)):
         ori_o, ori_d = _flat_rays(H, W, K, ori_pose, device)

@@ -16,6 +16,12 @@ naming the step and the first non-finite value (the JAX package turns on
 ScanNet's labeled-suffix variant: with ``N_ins`` the instance loss sees only the last
 N_ins rays of the batch, and ``Batch.target_valid`` masks the padded ones.
 
+``make_train_step(..., shard=mesh)`` (``parallel.mesh.make_sharded_train_step``) makes
+the step of one rank of a process group: it takes the global batch and the global
+draws, which every rank makes alike, renders its own rows, reduces every sum of the
+losses over the ranks (``objfield.losses``), all-reduces the gradient as one flat
+buffer and then updates its replica of the parameters.
+
 The step runs eagerly: the point queries are the fused kernels' autograd function
 on the card (kernels.fused_mlp) and the two assignments of a step one launch of K11
 (objfield.hungarian), so a step on the card reads nothing back to the host and can be
@@ -110,29 +116,33 @@ def create_train_state(cfg: Config, params_coarse, params_fine, step: int = 0) -
 
 
 def compute_losses(cfg: Config, info: Dict[str, torch.Tensor], batch: Batch,
-                   N_ins: Optional[int]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    rgb_loss_coarse = img2mse(info["rgb_coarse"], batch.target_c)
-    rgb_loss_fine = img2mse(info["rgb_fine"], batch.target_c)
+                   N_ins: Optional[int], reduce=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The step's total loss and its aux. ``N_ins``: the instance loss sees the last
+    N_ins rays (0: none of this rank's). ``reduce``: the rays are one rank's share and
+    every sum is reduced over the ranks (``objfield.losses``)."""
+    rgb_loss_coarse = img2mse(info["rgb_coarse"], batch.target_c, reduce)
+    rgb_loss_fine = img2mse(info["rgb_fine"], batch.target_c, reduce)
 
     if N_ins is not None:
-        ins_coarse, ins_fine = info["ins_coarse"][-N_ins:], info["ins_fine"][-N_ins:]
-        target_i = batch.target_i[-N_ins:]
-        ray_mask = None if batch.target_valid is None else batch.target_valid[-N_ins:]
+        rows = slice(batch.target_i.shape[0] - N_ins, None)
+        ins_coarse, ins_fine = info["ins_coarse"][rows], info["ins_fine"][rows]
+        target_i = batch.target_i[rows]
+        ray_mask = None if batch.target_valid is None else batch.target_valid[rows]
     else:
         ins_coarse, ins_fine, target_i = info["ins_coarse"], info["ins_fine"], batch.target_i
         ray_mask = batch.target_valid
 
     # coarse and fine together: one launch of K11 for both assignments
     ins_losses, vces, ices, vsious = ins_criterion(
-        torch.stack([ins_coarse, ins_fine]), target_i, cfg.ins_num, ray_mask)
+        torch.stack([ins_coarse, ins_fine]), target_i, cfg.ins_num, ray_mask, reduce)
 
     total = rgb_loss_coarse + rgb_loss_fine + ins_losses[0] + ins_losses[1]
     emptiness = torch.zeros((), dtype=total.dtype, device=total.device)
     if cfg.penalize:
         emptiness = ins_penalizer(info["raw_coarse"], info["z_vals_coarse"], info["depth_coarse"],
-                                  batch.rays_d, cfg.tolerance, cfg.deta_w) \
+                                  batch.rays_d, cfg.tolerance, cfg.deta_w, reduce) \
             + ins_penalizer(info["raw_fine"], info["z_vals_fine"], info["depth_fine"],
-                            batch.rays_d, cfg.tolerance, cfg.deta_w)
+                            batch.rays_d, cfg.tolerance, cfg.deta_w, reduce)
         total = total + emptiness
 
     aux = {
@@ -153,10 +163,14 @@ def compute_losses(cfg: Config, info: Dict[str, torch.Tensor], batch: Batch,
 LOSS_KEYS = ("rgb_loss", "ins_loss", "emptiness_loss", "total_loss")
 
 
+def _params(state: TrainState):
+    return [(f"{which} {k}", p) for which, params in (("coarse", state.params_coarse),
+                                                      ("fine", state.params_fine))
+            for k, p in params.items()]
+
+
 def _grads(state: TrainState):
-    return [(f"{which} {k}", p.grad) for which, params in (("coarse", state.params_coarse),
-                                                           ("fine", state.params_fine))
-            for k, p in params.items() if p.grad is not None]
+    return [(name, p.grad) for name, p in _params(state) if p.grad is not None]
 
 
 def check_names(state: TrainState):
@@ -187,7 +201,7 @@ def check_finite(state: TrainState, aux: Dict[str, torch.Tensor]) -> None:
 
 
 def make_train_step(cfg: Config, query_fn: Optional[QueryFn] = None,
-                    N_ins: Optional[int] = None):
+                    N_ins: Optional[int] = None, shard=None):
     """Returns ``step_fn(state, batch, generator=None, u_z=None, u_pdf=None, lr=None,
     finite=None) -> aux``, which renders, backpropagates and updates ``state`` in place.
     With ``cfg.perturb`` the draws come from ``generator`` or the injected uniforms
@@ -195,24 +209,48 @@ def make_train_step(cfg: Config, query_fn: Optional[QueryFn] = None,
     as in render_rays. ``lr`` replaces lr_at_step(state.step) (a float or a device
     value). With ``cfg.debug_nans`` the step raises before the update at a non-finite
     loss or gradient, or, given ``finite`` (a bool device tensor, one per check of
-    ``finite_flags``), writes the checks there and goes on."""
+    ``finite_flags``), writes the checks there and goes on.
+
+    ``shard`` (a ``parallel.mesh.Mesh`` with a process group) makes it one rank's step of
+    the global batch: the global ``u_z`` / ``u_pdf`` are drawn from ``generator`` when
+    not given, in the order ``render_rays`` draws them, then the rank takes its rows of
+    the batch and of the draws."""
     if query_fn is None:
         query_fn = make_query_fn(cfg)
+    perturb = cfg.perturb > 0.0
 
-    def loss_fn(state: TrainState, batch: Batch, generator, u_z, u_pdf):
+    def loss_fn(state: TrainState, batch: Batch, generator, u_z, u_pdf, n_ins, reduce):
         z = z_val_sample(batch.rays_o.shape[0], cfg.near, cfg.far, cfg.N_samples,
                          device=batch.rays_o.device)
         info = render_rays(state.params_coarse, state.params_fine, batch.rays_o, batch.rays_d,
                            z, query_fn, N_importance=cfg.N_importance,
-                           perturb=cfg.perturb > 0.0, generator=generator, u_z=u_z, u_pdf=u_pdf)
-        return compute_losses(cfg, info, batch, N_ins)
+                           perturb=perturb, generator=generator, u_z=u_z, u_pdf=u_pdf)
+        return compute_losses(cfg, info, batch, n_ins, reduce)
+
+    def shard_inputs(batch: Batch, generator, u_z, u_pdf):
+        """This rank's rows of the batch and the draws, and its labelled row count."""
+        n = batch.rays_o.shape[0]
+        if perturb and u_z is None and generator is not None:
+            dev = batch.rays_o.device
+            u_z = torch.rand((n, cfg.N_samples), generator=generator, device=dev)
+            u_pdf = torch.rand((n, cfg.N_importance), generator=generator, device=dev)
+        rows = shard.rows(n)
+        n_ins = None if N_ins is None else max(0, rows.stop - max(rows.start, n - N_ins))
+        return (Batch(*(None if x is None else x[rows] for x in batch)),
+                None if u_z is None else u_z[rows], None if u_pdf is None else u_pdf[rows], n_ins)
 
     def step_fn(state: TrainState, batch: Batch, generator: Optional[torch.Generator] = None,
                 u_z: Optional[torch.Tensor] = None, u_pdf: Optional[torch.Tensor] = None,
                 lr=None, finite: Optional[torch.Tensor] = None):
-        total, aux = loss_fn(state, batch, generator, u_z, u_pdf)
+        if shard is None:
+            total, aux = loss_fn(state, batch, generator, u_z, u_pdf, N_ins, None)
+        else:
+            batch, u_z, u_pdf, n_ins = shard_inputs(batch, generator, u_z, u_pdf)
+            total, aux = loss_fn(state, batch, generator, u_z, u_pdf, n_ins, shard.reduce)
         state.opt.zero_grad(set_to_none=True)
         total.backward()
+        if shard is not None:
+            shard.reduce_grads([p.grad for _, p in _params(state)])
         if cfg.debug_nans and finite is None:
             check_finite(state, aux)
         elif cfg.debug_nans:

@@ -8,8 +8,14 @@ moving over ``views`` frames; ``mesh`` sweeps the fine model's density over a
 vertices by instance (tools.mesh_extract). The query's kernel pair follows
 ``pallas_pe_mode``. ``run_test`` returns what the mode's function returns.
 
+Under ``torchrun`` (``WORLD_SIZE`` > 1) or ``multihost`` each rank joins the process
+group (``parallel.mesh``) and the mode renders sharded over the ranks; every rank reads
+the checkpoint, and only rank 0 writes (images, ``test_results.txt``, PLY files, the pose
+files), the others waiting for it at a barrier.
+
 Usage:  python -m dmnerf_tpu_torch.test --config configs/test/dmsr/study.txt [key=value ...]
         [--device cpu]    (default: the CUDA card; without one it raises)
+        torchrun --nproc_per_node=N -m dmnerf_tpu_torch.test --config ... [key=value ...]
 """
 
 from __future__ import annotations
@@ -24,9 +30,10 @@ from dmnerf_tpu_torch.configs import Config, parse_cli
 from dmnerf_tpu_torch.core.embedding import embed_dim
 from dmnerf_tpu_torch.core.mlp import init_dm_nerf
 from dmnerf_tpu_torch.data.scene import load_scene
+from dmnerf_tpu_torch.parallel.mesh import init_process_group, multi_process
 from dmnerf_tpu_torch.render.evaluation import render_test
 from dmnerf_tpu_torch.utils.checkpoint import load_checkpoint, resolve_ckpt_path, restore_checkpoint
-from dmnerf_tpu_torch.utils.device import resolve_device
+from dmnerf_tpu_torch.utils.device import barrier, is_writer, resolve_device
 
 def load_color_dict(cfg: Config):
     """data/color_dict.json keyed [dataset][scene]; else a per-scene
@@ -91,6 +98,24 @@ def run_test(cfg: Config, device=None, scene=None):
     """Run the config's test mode on ``device`` (default: the CUDA card) over ``scene``
     (default: the config's dataset, read from ``datadir``)."""
     device = resolve_device(device)
+    if multi_process(cfg):
+        init_process_group(device)
+    result = _run_mode(cfg, device, scene)
+    barrier()
+    return result
+
+
+def _savedir(cfg: Config, name: str):
+    """The mode's output directory under the run, made by rank 0; None on the others,
+    which write nothing."""
+    if not is_writer():
+        return None
+    savedir = os.path.join(cfg.log_dir, name)
+    os.makedirs(savedir, exist_ok=True)
+    return savedir
+
+
+def _run_mode(cfg: Config, device, scene):
     if scene is None and cfg.mani_eval:
         from dmnerf_tpu_torch.data.dmsr_mani import load_dmsr_mani
 
@@ -102,15 +127,13 @@ def run_test(cfg: Config, device=None, scene=None):
     color_dict = load_color_dict(cfg)
 
     if cfg.render:
-        savedir = os.path.join(
-            cfg.log_dir, f"render_{'test' if cfg.render_test else 'path'}_{iteration:06d}")
-        os.makedirs(savedir, exist_ok=True)
+        savedir = _savedir(cfg, f"render_{'test' if cfg.render_test else 'path'}_{iteration:06d}")
         ids = scene.i_test
         result = render_test(
             cfg, params_coarse, params_fine, scene.poses[ids], scene.hwk,
             gt_imgs=scene.images[ids], gt_labels=scene.gt_labels[ids],
             ins_rgbs=scene.ins_rgbs, savedir=savedir, crop_mask=scene.crop_mask,
-            color_dict=color_dict, device=device,
+            color_dict=color_dict, verbose=is_writer(), device=device,
         )
         print("Rendering Done", savedir)
 
@@ -119,9 +142,10 @@ def run_test(cfg: Config, device=None, scene=None):
         from dmnerf_tpu_torch.render.mani_eval import manipulator_eval
         from dmnerf_tpu_torch.tools.pose_gen import generate_poses_eval
 
-        generate_poses_eval(cfg)
-        savedir = os.path.join(cfg.log_dir, f"mani_eval_{iteration:06d}")
-        os.makedirs(savedir, exist_ok=True)
+        if is_writer():
+            generate_poses_eval(cfg)
+        barrier()
+        savedir = _savedir(cfg, f"mani_eval_{iteration:06d}")
         result = manipulator_eval(
             cfg, params_coarse, params_fine, scene.poses, scene.hwk,
             trans_dicts=load_mani_poses(cfg.datadir), save_dir=savedir,
@@ -135,9 +159,10 @@ def run_test(cfg: Config, device=None, scene=None):
         from dmnerf_tpu_torch.render.mani_eval import manipulator_demo
         from dmnerf_tpu_torch.tools.pose_gen import generate_poses_demo
 
-        generate_poses_demo(scene.objs, cfg)
-        savedir = os.path.join(cfg.log_dir, f"mani_demo_{iteration:06d}")
-        os.makedirs(savedir, exist_ok=True)
+        if is_writer():
+            generate_poses_demo(scene.objs, cfg)
+        barrier()
+        savedir = _savedir(cfg, f"mani_demo_{iteration:06d}")
         result = manipulator_demo(
             cfg, params_coarse, params_fine, scene.hwk,
             objs_trans=load_obj_poses(cfg.datadir), save_dir=savedir,
@@ -149,8 +174,7 @@ def run_test(cfg: Config, device=None, scene=None):
     elif cfg.mesh:
         from dmnerf_tpu_torch.tools.mesh_extract import mesh_main
 
-        savedir = os.path.join(cfg.log_dir, f"mesh_{iteration:06d}")
-        os.makedirs(savedir, exist_ok=True)
+        savedir = _savedir(cfg, f"mesh_{iteration:06d}")
         result = mesh_main(cfg, params_coarse, params_fine, scene.ins_rgbs, savedir,
                            ins_map=scene.ins_map, color_dict=color_dict,
                            grid_dim=cfg.mesh_grid_dim, level=cfg.mesh_level, device=device)

@@ -1,5 +1,4 @@
-"""Colored instance mesh extraction (``dmnerf_tpu/tools/mesh_extract.py``,
-single-device branch).
+"""Colored instance mesh extraction (``dmnerf_tpu/tools/mesh_extract.py``).
 
  * sampling frame: oriented bounds of the dataset's mesh.ply (PCA OBB, see
    tools.meshing.oriented_bounds_pca) or the identity; the reference's scene extents
@@ -19,7 +18,10 @@ single-device branch).
 
 The sweep and the vertex render run on the parameters' device; everything else is
 host NumPy, as in the JAX package. Each host stage's seconds and the process's peak
-resident memory are printed and returned.
+resident memory are printed and returned. In a process group of more than one the
+sweep and the vertex render are sharded over the ranks (``parallel.mesh``); the host
+stages run on rank 0, which alone writes the PLY files and sends the vertex rays to
+the others.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ from dmnerf_tpu_torch.tools.meshing import (
     write_ply,
 )
 from dmnerf_tpu_torch.tools.visualizer import render_label2world
-from dmnerf_tpu_torch.utils.device import resolve_device
+from dmnerf_tpu_torch.utils.device import is_writer, resolve_device, world_size
 
 DEFAULT_EXTENTS = np.array([1.9, 7.0, 7.0])  # reference mesh_generator.py:27
 LEVEL = 0.45
@@ -134,12 +136,67 @@ def mesh_main(
     else:
         scene_transform = np.eye(4)
 
+    mesh_cfg = cfg.replace(near=0.01, far=15.0, perturb=0.0)
+    if world_size() > 1:
+        from dmnerf_tpu_torch.parallel.mesh import (
+            broadcast_object, make_mesh, make_sharded_image_renderer, make_sharded_sigma_query)
+
+        device_mesh = make_mesh(device=device)
+        print(f"[mesh] sharded over {device_mesh.size}-device mesh {device_mesh.shape}")
+        sigma_query = make_sharded_sigma_query(cfg, device_mesh)
+        renderer = make_sharded_image_renderer(mesh_cfg, device_mesh)
+    else:
+        device_mesh = None
+        sigma_query = make_sigma_query(cfg)
+        renderer = make_image_renderer(mesh_cfg)
+
     t = time.perf_counter()
     grid = build_grid(scene_transform, np.asarray(extents), grid_dim)
     t = stage("grid", t)
-    sigma = make_sigma_query(cfg)(params_fine, torch.from_numpy(grid).to(device)).cpu().numpy()
+    sigma = sigma_query(params_fine, torch.from_numpy(grid).to(device)).cpu().numpy()
     t = stage("sweep", t)
 
+    surface = None
+    if is_writer():
+        surface = _surface(cfg, sigma, grid_dim, level, np.asarray(extents), scene_transform,
+                           threshold, save_dir, stats, stage)
+    rays = None if surface is None else surface[3:]
+    if device_mesh is not None:
+        rays = broadcast_object(device_mesh, rays)
+    if rays is None:
+        stats["peak_rss_gb"] = _peak_rss_gb()
+        return stats
+
+    t = time.perf_counter()
+    rays_o_t = torch.as_tensor(rays[0], dtype=torch.float32, device=device)
+    rays_d_t = torch.as_tensor(rays[1], dtype=torch.float32, device=device)
+    out = renderer(params_coarse, params_fine, rays_o_t, rays_d_t)
+    pred_label = out["ins"].argmax(-1).cpu().numpy()
+    t = stage("color_render", t)
+    stats.update(rays_o=rays_o_t, rays_d=rays_d_t, labels=pred_label)
+    if surface is None:                 # a rank other than 0: nothing to write
+        stats["peak_rss_gb"] = _peak_rss_gb()
+        return stats
+    verts_c, faces_c, normals = surface[:3]
+    colors = render_label2world(pred_label, ins_rgbs, color_dict, ins_map)
+
+    out_path = os.path.join(save_dir, "color_mesh.ply")
+    write_ply(out_path, verts_c.astype(np.float32), faces_c, colors=colors, normals=normals)
+    stage("color_ply", t)
+    stats.update(path=out_path, clean_verts=len(verts_c), clean_faces=len(faces_c),
+                 peak_rss_gb=_peak_rss_gb())
+    print("[mesh] color_mesh.ply written; host seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+          + f"; peak RSS {stats['peak_rss_gb']:.2f} GB")
+    return stats
+
+
+def _surface(cfg: Config, sigma, grid_dim, level, extents, scene_transform, threshold,
+             save_dir, stats, stage):
+    """The host stages from the swept sigma: occupancy, marching, mesh.ply, cleaning,
+    normals and the vertex rays. ``(verts, faces, normals, rays_o, rays_d)`` of the
+    cleaned mesh, or None for an empty iso-surface."""
+    t = time.perf_counter()
     voxel = (cfg.far - cfg.near) / cfg.N_importance
     occ = 1.0 - np.exp(-np.maximum(sigma, 0) * voxel)
     occ = occ.reshape(grid_dim, grid_dim, grid_dim)
@@ -151,12 +208,11 @@ def mesh_main(
     stats.update(verts=len(verts), faces=len(faces))
     if len(faces) == 0:
         print("[mesh] empty iso-surface; nothing to write")
-        stats["peak_rss_gb"] = _peak_rss_gb()
-        return stats
+        return None
     # grid index -> [0,1] -> [-1,1] -> scene frame
     verts = verts / (grid_dim - 1)
     verts = (verts - 0.5) * 2.0
-    verts = verts * (np.asarray(extents) / 2.0)
+    verts = verts * (extents / 2.0)
     verts = verts @ scene_transform[:3, :3].T + scene_transform[:3, 3]
 
     write_ply(os.path.join(save_dir, "mesh.ply"), verts.astype(np.float32), faces)
@@ -178,22 +234,4 @@ def mesh_main(
     v_sw = verts_c[:, [0, 2, 1]].copy()
     v_sw[:, 1] *= -1
     rays_o = v_sw - rays_d * 0.03 * cfg.near
-
-    renderer = make_image_renderer(cfg.replace(near=0.01, far=15.0, perturb=0.0))
-    rays_o_t = torch.as_tensor(rays_o, dtype=torch.float32, device=device)
-    rays_d_t = torch.as_tensor(rays_d, dtype=torch.float32, device=device)
-    out = renderer(params_coarse, params_fine, rays_o_t, rays_d_t)
-    pred_label = out["ins"].argmax(-1).cpu().numpy()
-    t = stage("color_render", t)
-    colors = render_label2world(pred_label, ins_rgbs, color_dict, ins_map)
-
-    out_path = os.path.join(save_dir, "color_mesh.ply")
-    write_ply(out_path, verts_c.astype(np.float32), faces_c, colors=colors, normals=normals)
-    stage("color_ply", t)
-    stats.update(path=out_path, clean_verts=len(verts_c), clean_faces=len(faces_c),
-                 rays_o=rays_o_t, rays_d=rays_d_t, labels=pred_label,
-                 peak_rss_gb=_peak_rss_gb())
-    print("[mesh] color_mesh.ply written; host seconds "
-          + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
-          + f"; peak RSS {stats['peak_rss_gb']:.2f} GB")
-    return stats
+    return verts_c, faces_c, normals, rays_o, rays_d

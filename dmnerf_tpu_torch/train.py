@@ -19,7 +19,15 @@ replay a pack, on the CPU the same P steps eagerly; the trajectory is the one by
 trajectory, bit for bit. A pack starts on a multiple of P, fits in N_iters and holds no
 checkpoint boundary, no evaluation boundary when the scene has test views, and none is
 taken under ``profile_dir`` (``pack_ok``); a print boundary logs the pack's first aux.
-``multihost`` raises NotImplementedError. With ``profile_dir`` the steps ``profile_start`` to
+
+Several GPUs: one process a card in a ``torch.distributed`` group (``parallel.mesh``).
+``torchrun`` (``WORLD_SIZE`` > 1), ``multihost`` or ``$DMNERF_MULTIHOST=1`` join the group
+from the environment (``env://``; across hosts too), each rank on ``cuda:{LOCAL_RANK}``.
+In a group of more than one the steps are sharded over the ranks when N_train is a
+multiple of the world size (``build_sampler_and_step``; otherwise every rank runs the
+unsharded step, loudly), and the evaluations render sharded. Every rank reads a
+checkpoint to resume; only rank 0 writes checkpoints, ``metrics.jsonl``, images and
+traces. With ``profile_dir`` the steps ``profile_start`` to
 ``profile_start + profile_steps - 1`` run under ``torch.profiler`` (host and, on the
 card, device activity), and their Chrome trace is written under ``profile_dir``
 (``profile_trace``). ``debug_nans`` stops the run with
@@ -27,6 +35,7 @@ FloatingPointError at the first step whose loss or parameter gradients are not f
 before Adam applies them (render.trainstep.check_finite).
 
 Usage:  python -m dmnerf_tpu_torch.train --config configs/train/dmsr/study.txt [key=value ...]
+        torchrun --nproc_per_node=N -m dmnerf_tpu_torch.train --config ... [key=value ...]
 """
 
 from __future__ import annotations
@@ -43,6 +52,9 @@ import torch
 from dmnerf_tpu_torch.configs import Config, dump_config, parse_cli
 from dmnerf_tpu_torch.data.samplers import make_crop_sampler, make_full_sampler
 from dmnerf_tpu_torch.data.scene import SceneData, load_scene
+from dmnerf_tpu_torch.parallel.mesh import (
+    Mesh, init_process_group, make_mesh, make_packed_sharded_steps, make_sharded_train_step,
+    multi_process)
 from dmnerf_tpu_torch.render.evaluation import render_test
 from dmnerf_tpu_torch.render.packing import StepRunner
 from dmnerf_tpu_torch.render.trainstep import (
@@ -50,7 +62,7 @@ from dmnerf_tpu_torch.render.trainstep import (
 from dmnerf_tpu_torch.test import init_params
 from dmnerf_tpu_torch.utils.checkpoint import (
     load_checkpoint, resolve_ckpt_path, restore_checkpoint, save_checkpoint)
-from dmnerf_tpu_torch.utils.device import resolve_device
+from dmnerf_tpu_torch.utils.device import is_writer, resolve_device
 from dmnerf_tpu_torch.utils.metrics_log import MetricsLogger
 
 
@@ -99,11 +111,13 @@ def make_sampler(cfg: Config, scene: SceneData, device):
                              scene.i_train, cfg.N_train, device=device), None
 
 
-def make_packed_steps(cfg: Config, sampler, n_ins: Optional[int], device):
+def make_packed_steps(cfg: Config, sampler, n_ins: Optional[int], device,
+                      mesh: Optional[Mesh] = None):
     """``(packed_fn, P)``, where ``packed_fn(state, gen_batch, gen_step)`` runs P whole
     train steps (``render.packing.StepRunner``) and returns their auxs as [P] tensors,
     or None when the pack would be one step. P = gcd(steps_per_dispatch, i_print), so
-    print boundaries land on pack starts (``dmnerf_tpu/train.py:94-125``)."""
+    print boundaries land on pack starts (``dmnerf_tpu/train.py:94-125``). ``mesh``: the
+    P steps are sharded steps (``parallel.mesh.make_packed_sharded_steps``)."""
     P = math.gcd(cfg.steps_per_dispatch, cfg.i_print)
     if P != cfg.steps_per_dispatch:
         print(f"[train] steps_per_dispatch={cfg.steps_per_dispatch} reduced to "
@@ -111,7 +125,43 @@ def make_packed_steps(cfg: Config, sampler, n_ins: Optional[int], device):
     if P <= 1:
         print("[train] steps_per_dispatch: effective pack size 1 — packing disabled")
         return None
+    if mesh is not None:
+        return make_packed_sharded_steps(cfg, sampler, n_ins, mesh, P), P
     return StepRunner(cfg, sampler, make_train_step(cfg, N_ins=n_ins), resolve_device(device), P), P
+
+
+def build_sampler_and_step(cfg: Config, scene: SceneData, device, mesh: Optional[Mesh] = None):
+    """``(sampler, single, n_ins, packed)`` (``dmnerf_tpu/train.py:54-96``): ``single`` runs
+    one step (a ``StepRunner`` of one), ``packed`` is ``make_packed_steps``'s or None. In
+    a mesh of more than one (default: the process group that is up) the steps are
+    sharded when N_train is a multiple of its size; otherwise every rank runs the
+    unsharded step, and says so loudly."""
+    device = resolve_device(device)
+    mesh = make_mesh(device=device) if mesh is None else mesh
+    n_devices = mesh.size
+    sampler, n_ins = make_sampler(cfg, scene, device)
+    sharded = None
+    if n_devices > 1 and cfg.N_train % n_devices == 0:
+        sharded = mesh
+        step = make_sharded_train_step(cfg, mesh, N_ins=n_ins)
+        if is_writer():
+            print(f"[train] sharded over {n_devices}-device mesh {mesh.shape}")
+    else:
+        if n_devices > 1 and is_writer():
+            bar = "!" * 70
+            print(f"[train] {bar}\n"
+                  f"[train] WARNING: N_train={cfg.N_train} is NOT divisible by the "
+                  f"{n_devices} visible devices.\n"
+                  f"[train] FALLING BACK TO SINGLE-DEVICE training "
+                  f"(~{n_devices}x throughput lost).\n"
+                  f"[train] Set N_train to a multiple of {n_devices} to shard over "
+                  f"the mesh.\n[train] {bar}")
+        step = make_train_step(cfg, N_ins=n_ins)
+    single = StepRunner(cfg, sampler, step, device, 1)
+    packed = (make_packed_steps(cfg, sampler, n_ins, device, sharded)
+              if cfg.steps_per_dispatch > 1 else None)
+    return sampler, single, n_ins, packed
+
 
 
 def pack_ok(cfg: Config, i: int, P: int, has_test_views: bool) -> bool:
@@ -126,17 +176,19 @@ def pack_ok(cfg: Config, i: int, P: int, has_test_views: bool) -> bool:
 
 
 def train(cfg: Config, scene: Optional[SceneData] = None, device=None) -> TrainState:
-    """Train on ``device`` (default: the CUDA card) and return the final state."""
+    """Train on ``device`` (default: the CUDA card, ``cuda:{LOCAL_RANK}`` under
+    ``torchrun``) and return the final state."""
     device = resolve_device(device)
-    if cfg.multihost or os.environ.get("DMNERF_MULTIHOST", "") == "1":
-        raise NotImplementedError("multi-host training is not ported yet "
-                                  "(ROADMAP.md queue 1, 'Multi-GPU')")
+    if multi_process(cfg):
+        mesh = init_process_group(device)
+        print(f"[train] multi-process: rank {mesh.rank}/{mesh.size} on {mesh.device}")
     if scene is None:
         scene = load_scene(cfg)
     cfg = cfg.replace(ins_num=scene.ins_num)
     log_dir = cfg.log_dir
-    os.makedirs(log_dir, exist_ok=True)
-    dump_config(cfg, log_dir)
+    if is_writer():
+        os.makedirs(log_dir, exist_ok=True)
+        dump_config(cfg, log_dir)
     logger = MetricsLogger(log_dir)
 
     state = create_train_state(cfg, *init_params(cfg, device))
@@ -153,9 +205,7 @@ def train(cfg: Config, scene: Optional[SceneData] = None, device=None) -> TrainS
             raise ValueError(f"checkpoint {path} carries step={state.step}, its name says {step}")
         print(f"[train] fine-tuning from {cfg.ft_path} (step {state.step})")
 
-    sampler, n_ins = make_sampler(cfg, scene, device)
-    single = StepRunner(cfg, sampler, make_train_step(cfg, N_ins=n_ins), device, 1)
-    packed = make_packed_steps(cfg, sampler, n_ins, device) if cfg.steps_per_dispatch > 1 else None
+    _, single, _, packed = build_sampler_and_step(cfg, scene, device)
     P = packed[1] if packed is not None else 1
     has_test_views = len(scene.i_test) > 0
     gen_batch = torch.Generator().manual_seed(cfg.seed + 1)
@@ -166,7 +216,7 @@ def train(cfg: Config, scene: Optional[SceneData] = None, device=None) -> TrainS
     prof, prof_from = None, None
     i = state.step
     while i < cfg.N_iters:
-        if cfg.profile_dir is not None:
+        if cfg.profile_dir is not None and is_writer():
             if i == cfg.profile_start:
                 prof, prof_from = profile_trace(device), i
             elif prof is not None and i == cfg.profile_start + cfg.profile_steps:
@@ -179,7 +229,7 @@ def train(cfg: Config, scene: Optional[SceneData] = None, device=None) -> TrainS
         aux = {k: v[0] for k, v in auxs.items()}     # the aux of iteration i
         rays_done += cfg.N_train * stepped
 
-        if i % cfg.i_print == 0:
+        if i % cfg.i_print == 0 and is_writer():
             aux = {k: float(v) for k, v in aux.items()}
             dt = time.time() - t_last
             rays_s = rays_done / dt if dt > 0 else 0.0
@@ -191,7 +241,9 @@ def train(cfg: Config, scene: Optional[SceneData] = None, device=None) -> TrainS
             logger.log(i, {**aux, "rays_per_sec": rays_s})
 
         if i > 0 and i % cfg.i_save == 0:
-            print(f"[train] checkpoint {_save(log_dir, state)}")
+            path = _save(log_dir, state)
+            if is_writer():
+                print(f"[train] checkpoint {path}")
 
         if i > 0 and i % cfg.i_test == 0 and len(scene.i_test) > 0:
             n_views = min(10, len(scene.i_test))
@@ -199,8 +251,9 @@ def train(cfg: Config, scene: Optional[SceneData] = None, device=None) -> TrainS
             ids = scene.i_test[sel]
             render_test(cfg, state.params_coarse, state.params_fine, scene.poses[ids], scene.hwk,
                         gt_imgs=scene.images[ids], gt_labels=scene.gt_labels[ids],
-                        ins_rgbs=scene.ins_rgbs, savedir=os.path.join(log_dir, f"testset_{i:06d}"),
-                        crop_mask=scene.crop_mask, device=device)
+                        ins_rgbs=scene.ins_rgbs,
+                        savedir=os.path.join(log_dir, f"testset_{i:06d}") if is_writer() else None,
+                        crop_mask=scene.crop_mask, verbose=is_writer(), device=device)
         i += stepped
 
     if prof is not None:

@@ -3,7 +3,8 @@ opt_state}``; ``opt_state`` is the Adam ``state_dict`` of a training run (None f
 parameters saved without one), and callers that only render ignore it.
 
 A run keeps them as ``<run>/checkpoints/<step>.pt``, written zero-padded
-(``000100.pt``); the reader takes padded and unpadded names alike.
+(``000100.pt``); the reader takes padded and unpadded names alike. In a process group
+only rank 0 writes, and every rank waits for it; every rank reads.
 
 ``checkpoint_from_numpy`` turns the JAX package's checkpoint, read as numpy
 (``scripts/orbax_to_torch.py`` reads it from Orbax), into this format.
@@ -20,6 +21,7 @@ import torch
 
 from dmnerf_tpu_torch.core.mlp import params_from_numpy
 from dmnerf_tpu_torch.render.trainstep import make_adam
+from dmnerf_tpu_torch.utils.device import barrier, is_writer
 
 _NAME = re.compile(r"(\d+)\.pt")
 
@@ -40,17 +42,21 @@ def _to_cpu(obj):
 
 def save_checkpoint(log_dir: str, params_coarse: Dict, params_fine: Dict, step: int,
                     opt_state: Optional[Dict] = None) -> str:
+    """Writes the checkpoint of ``step`` (rank 0 of a process group; the others wait)
+    and returns its path."""
     path = _ckpt_path(log_dir, step)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    payload = {
-        "step": int(step),
-        "params_coarse": _to_cpu(params_coarse),
-        "params_fine": _to_cpu(params_fine),
-        "opt_state": _to_cpu(opt_state),
-    }
-    tmp = path + ".tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    if is_writer():
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        payload = {
+            "step": int(step),
+            "params_coarse": _to_cpu(params_coarse),
+            "params_fine": _to_cpu(params_fine),
+            "opt_state": _to_cpu(opt_state),
+        }
+        tmp = path + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    barrier()
     return path
 
 

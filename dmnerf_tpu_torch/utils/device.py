@@ -1,18 +1,45 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution for the port's entry points, and this process's place in a
+``torch.distributed`` group (one process a GPU; ``parallel.mesh``)."""
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
-    """``None`` means the CUDA card. Without one, raise rather than run on the CPU
-    unasked: a caller that wants the CPU passes ``device="cpu"``."""
+    """``None`` means the CUDA card: ``cuda:{LOCAL_RANK}`` in a process that ``torchrun``
+    started, else ``cuda``. Without one, raise rather than run on the CPU unasked: a
+    caller that wants the CPU passes ``device="cpu"``."""
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU")
+    if "LOCAL_RANK" in os.environ:
+        return torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     return torch.device("cuda")
+
+
+def distributed() -> bool:
+    """True when a process group is up."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def world_size() -> int:
+    """The process group's size; 1 without one."""
+    return dist.get_world_size() if distributed() else 1
+
+
+def is_writer() -> bool:
+    """Only rank 0 of a process group writes checkpoints, logs, images and meshes."""
+    return not distributed() or dist.get_rank() == 0
+
+
+def barrier() -> None:
+    """Every rank waits here for the others; nothing without a process group."""
+    if distributed():
+        dist.barrier()

@@ -1,7 +1,8 @@
 """Structured metric logging, a copy of ``dmnerf_tpu/utils/metrics_log.py``.
 
 JSONL scalars per step window, and the reference's result files (test_results.txt
-in its 9-column layout, matching_log.json) that the evaluation writes.
+in its 9-column layout, matching_log.json) that the evaluation writes. In a process
+group only rank 0 logs: the logger of another rank opens no file and writes nothing.
 """
 
 from __future__ import annotations
@@ -13,22 +14,29 @@ from typing import Dict, List
 
 import numpy as np
 
+from dmnerf_tpu_torch.utils.device import is_writer
+
 
 class MetricsLogger:
     def __init__(self, log_dir: str, filename: str = "metrics.jsonl"):
-        os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, filename)
-        self._f = open(self.path, "a")
+        self._f = None
+        if is_writer():
+            os.makedirs(log_dir, exist_ok=True)
+            self._f = open(self.path, "a")
         self._t0 = time.time()
 
     def log(self, step: int, scalars: Dict[str, float]) -> None:
+        if self._f is None:
+            return
         rec = {"step": int(step), "t": round(time.time() - self._t0, 3)}
         rec.update({k: float(v) for k, v in scalars.items()})
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 def write_test_results(

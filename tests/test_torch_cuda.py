@@ -6,7 +6,9 @@ against the standalone backward and the no-grad forward, bit for bit. K1/K2 take
 embeddings that K7 and the per-ray viewdir table give (pe_mode 'outside'); K8c/K8f (the
 fused render passes) take rays and depths and composite in the kernel; K9/K10 (the head
 probes) take a hidden activation and their own layer tables, and the forward template
-they joined still gives K1/K3/K5 their earlier bits. These tests
+they joined still gives K1/K3/K5 their earlier bits. In an NCCL world of one process
+(``parallel.mesh``) the sharded step matches the unsharded one, and a pack of sharded
+steps, its all-reduces captured in the graph, equals its steps one at a time. These tests
 need a CUDA card of capability 9.0 and skip without one; they import no JAX, so they
 run on a machine that has none:
 
@@ -1086,3 +1088,63 @@ def test_a_pack_copies_nothing_to_the_host_and_launches_each_kernel_per_step(cud
     assert cs._count(prof["copies"], "DtoH") == 0
     assert (cs._count(k, "fused_mlp_fwd_kernel"), cs._count(k, "bwd_data_kernel"),
             cs._count(k, "assignment_kernel")) == (2 * P, 2 * P, P)
+
+
+@pytest.fixture
+def nccl_world(cuda):
+    """A world of one NCCL process on the card (``parallel.mesh``), torn down after."""
+    import datetime
+    import socket
+
+    from dmnerf_tpu_torch.parallel.mesh import init_process_group
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mesh = init_process_group(cuda, f"tcp://127.0.0.1:{port}", rank=0, world_size=1,
+                              timeout=datetime.timedelta(seconds=60))
+    yield mesh
+    torch.distributed.destroy_process_group()
+
+
+def test_world_one_sharded_step_matches_unsharded(nccl_world):
+    """Two steps of the sharded step in an NCCL world of one (every loss sum and the
+    gradient all-reduced) against the unsharded step from the same state, batches and
+    generator: the total loss within 1e-4, parameters within rtol 2e-4 / atol 2e-6."""
+    from dmnerf_tpu_torch.parallel.mesh import make_sharded_train_step
+    from dmnerf_tpu_torch.render.trainstep import make_train_step
+
+    cfg, sampler, n_ins, start = _pack_setup(nccl_world.device)
+    runs = []
+    for step in (make_train_step(cfg, N_ins=n_ins),
+                 make_sharded_train_step(cfg, nccl_world, N_ins=n_ins)):
+        st, gb, gs = start()
+        auxs = [step(st, sampler(gb), generator=gs) for _ in range(2)]
+        runs.append((st, [float(a["total_loss"]) for a in auxs]))
+    (st_u, loss_u), (st_s, loss_s) = runs
+    np.testing.assert_allclose(loss_s, loss_u, rtol=1e-4)
+    for which in ("params_coarse", "params_fine"):
+        for k, p in getattr(st_u, which).items():
+            np.testing.assert_allclose(getattr(st_s, which)[k].detach().cpu().numpy(),
+                                       p.detach().cpu().numpy(), rtol=2e-4, atol=2e-6, err_msg=k)
+
+
+def test_packed_sharded_graph_equals_its_steps_one_by_one(nccl_world):
+    """Two packs of 3 sharded steps, captured with their NCCL all-reduces into one CUDA
+    graph, against 6 sharded steps one at a time: state and auxs bit for bit."""
+    from dmnerf_tpu_torch.parallel.mesh import make_packed_sharded_steps, make_sharded_train_step
+    from dmnerf_tpu_torch.render.packing import StepRunner
+
+    cs = _chip_smoke()
+    cfg, sampler, n_ins, start = _pack_setup(nccl_world.device)
+    st_u, gb, gs = start()
+    single = StepRunner(cfg, sampler, make_sharded_train_step(cfg, nccl_world, N_ins=n_ins),
+                        nccl_world.device, 1)
+    eager = torch.cat([cs._aux_rows(single(st_u, gb, gs)) for _ in range(6)])
+    st_p, gb, gs = start()
+    packed = make_packed_sharded_steps(cfg, sampler, n_ins, nccl_world, 3)
+    packs = torch.cat([cs._aux_rows(packed(st_p, gb, gs)) for _ in range(2)])
+    torch.cuda.synchronize()
+    assert packed.graph is not None
+    assert torch.equal(eager.view(torch.int32), packs.view(torch.int32))
+    assert not cs._state_diffs(st_u, st_p)
