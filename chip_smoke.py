@@ -197,6 +197,15 @@
    step's gradient within the kernels' gradient bar (2e-2), the parameters' gap by step
    printed; the views >= 40 dB and <= 1 %
    label flips, max |d| printed. A failed rank fails the run.
+17. Bench phase: ``python -m dmnerf_tpu_torch.bench`` (the port's bench: train, dense-
+   instance, packed and bf16 steps, the 256^2 view, the manipulated views, the 256^3
+   sweep, MFU, the kernel query against the plain one) in a subprocess, killed past
+   BENCH_TIMEOUT, on the kernels built in phase 1. Its last stdout line must carry every
+   detail key of the JAX bench, no section with an error, kernel_parity and bf16_parity
+   passing, phase 0's card as device_kind, and the packed section's first pack bit for
+   bit the same 10 steps one at a time; the bench must exit 0. The line is printed
+   prefixed [bench], with the seconds the phase took; its sections' launches are the
+   path "bench".
 
 The line before the last is a JSON object with each kernel's numbers and its
 launches on each path; the last line is {"ok": true, "device": {...}}. Any failure
@@ -2585,6 +2594,53 @@ K11_KEYS = ("device_us", "profiler_us", "in_pack_us", "chain_floor_us", "bytes_b
             "step_dijkstra_iterations", "share_of_bound")
 
 
+BENCH_TIMEOUT = 600
+
+
+def bench_phase(card: str) -> dict:
+    """Phase 17: the port's bench in a subprocess, its line checked (see the docstring).
+    Returns its kernel launches, summed over its sections, by kernel."""
+    import torch
+
+    from dmnerf_tpu_torch import bench
+    from dmnerf_tpu_torch.kernels import runtime
+
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "dmnerf_tpu_torch.bench"], cwd=REPO,
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    seconds = time.time() - t0
+    for line in proc.stderr.splitlines():
+        if line.startswith("[bench]"):
+            print(line, flush=True)
+    out = proc.stdout.strip().splitlines()
+    if not out:
+        raise AssertionError(f"bench: no line (rc {proc.returncode}):\n{proc.stderr[-4000:]}")
+    line = json.loads(out[-1])
+    print(f"[bench] {json.dumps(line)}", flush=True)
+    detail = line["detail"]
+    missing = set(bench.JAX_DETAIL_KEYS) - set(detail)
+    errors = {k: v["error"] for k, v in detail.items() if isinstance(v, dict) and "error" in v}
+    packed = detail.get("train_fp32_packed", {})
+    checks = {
+        "metric": line["metric"] == "train_rays_per_sec",
+        "every JAX detail key": not missing,
+        "no section error": not errors,
+        "kernel_parity.pass": detail.get("kernel_parity", {}).get("pass") is True,
+        "bf16_parity.pass": detail.get("bf16_parity", {}).get("pass") is True,
+        "device_kind is the card": detail.get("device_kind") == torch.cuda.get_device_name(0),
+        "packed = single, bit for bit": packed.get("bits_equal_single") is True
+        and packed.get("first_pack_losses") == packed.get("single_step_losses"),
+        "exit code 0": proc.returncode == 0,
+    }
+    print(f"[bench] phase 17: {seconds:.1f} s, rc {proc.returncode}, {card}; checks "
+          f"{json.dumps(checks)}", flush=True)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"bench: {failed} (missing {sorted(missing)}, errors {errors})")
+    return {name: sum(v.get("launches", {}).get(name, 0) for v in detail.values()
+                      if isinstance(v, dict)) for name in runtime.COUNTED}
+
+
 def _entry(name, replaces, launches, by_path, res, **extra):
     return {"name": name, "route": "cuda", "source": f"dmnerf_tpu_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": launches, "launches_by_path": by_path[name],
@@ -2674,6 +2730,8 @@ def main() -> int:
     sharded_launches, _ = sharded_phase(device, smi_line, cfg)
     torch.cuda.empty_cache()
     gloo = gloo_phase(device, smi_line, cfg)["rank0_launches"]
+    torch.cuda.empty_cache()
+    bench_launches = bench_phase(smi_line)
 
     paths = {**sharded_launches, "train_sharded_gloo": gloo["train_launches"],
              "render_sharded_gloo": gloo["render_launches"],
@@ -2681,7 +2739,8 @@ def main() -> int:
              "mani_eval": eval_launches, "mani_demo": demo_launches,
              "train_scannet": scannet_train_launches, "render_scannet": scannet_render_launches,
              "mesh": mesh_launches, "render_fused": fused_launches, "probe_heads": probe_launches,
-             "train_packed": packed_launches, "train_packed_scannet": packed_scannet_launches}
+             "train_packed": packed_launches, "train_packed_scannet": packed_scannet_launches,
+             "bench": bench_launches}
     by_path = {name: {path: n[name] for path, n in paths.items()} for name in runtime.COUNTED}
     for name in runtime.COUNTED:
         if sum(by_path[name].values()) == 0:

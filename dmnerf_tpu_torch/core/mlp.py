@@ -26,11 +26,13 @@ Params = Dict[str, torch.Tensor]
 
 
 def _linear_init(gen: torch.Generator, fan_in: int, fan_out: int, dtype):
-    """torch.nn.Linear's default: U(-1/sqrt(fan_in), +1/sqrt(fan_in)) for w and b."""
+    """torch.nn.Linear's default: U(-1/sqrt(fan_in), +1/sqrt(fan_in)) for w and b, drawn
+    in fp32 and rounded to ``dtype``, so a bf16 model is the fp32 one rounded (the draws
+    of ``torch.rand`` in bf16 are another sequence, which differs between versions)."""
     bound = 1.0 / float(np.sqrt(fan_in))
-    w = (torch.rand((fan_in, fan_out), generator=gen, dtype=dtype) * 2.0 - 1.0) * bound
-    b = (torch.rand((fan_out,), generator=gen, dtype=dtype) * 2.0 - 1.0) * bound
-    return w, b
+    w = (torch.rand((fan_in, fan_out), generator=gen) * 2.0 - 1.0) * bound
+    b = (torch.rand((fan_out,), generator=gen) * 2.0 - 1.0) * bound
+    return w.to(dtype), b.to(dtype)
 
 
 def init_dm_nerf(
@@ -71,7 +73,11 @@ def params_from_numpy(d: Mapping[str, np.ndarray], device=None) -> Params:
 
 
 def _matmul(x, w, b):
-    return (x @ w).to(x.dtype) + b
+    """The JAX package's ``jnp.dot(x, w, preferred_element_type=f32).astype(x.dtype) + b``:
+    the operands meet in their promoted type (fp32 embeddings against bf16 weights
+    multiply in fp32), the product takes x's type, and a bf16 bias promotes it."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return (x.to(dt) @ w.to(dt)).to(x.dtype) + b
 
 
 def dm_nerf_apply(

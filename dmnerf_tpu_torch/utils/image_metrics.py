@@ -5,8 +5,8 @@
    border-cropped mean).
  * lpips_np is the LPIPS-VGG16 distance (unit-normalized features at
    relu{1_2,2_2,3_3,4_3,5_3}, learned 1x1 weights, spatial mean, layer sum) as a
-   torch forward over weights from ``$DMNERF_LPIPS_WEIGHTS`` (the .npz schema of
-   ``dmnerf_tpu/tools/export_lpips_weights.py``). Without the weights it returns
+   torch forward over weights from ``$DMNERF_LPIPS_WEIGHTS`` (the .npz that
+   ``tools/export_lpips_weights.py`` writes). Without the weights it returns
    NaN and says so, once, on stderr.
 """
 
@@ -98,7 +98,7 @@ def lpips_np(img: np.ndarray, gt: np.ndarray, device="cpu") -> float:
         if not _lpips_warned[0]:
             _lpips_warned[0] = True
             print("[metrics] LPIPS: weights absent — reporting NaN. Export them on a "
-                  "weights-capable host with `python -m dmnerf_tpu.tools.export_lpips_weights "
+                  "weights-capable host with `python -m dmnerf_tpu_torch.tools.export_lpips_weights "
                   "lpips_vgg.npz` and set $DMNERF_LPIPS_WEIGHTS (see docs/LPIPS.md).",
                   file=sys.stderr, flush=True)
         return float("nan")

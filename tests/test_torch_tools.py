@@ -17,6 +17,7 @@ import json
 import os
 import pickle
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -338,3 +339,66 @@ def test_profile_step_tables_on_the_cpu(capsys):
         assert t["top_host"] and "device_ms" not in t and t["wall_ms"] > 0
     assert "top ops by host self time" in capsys.readouterr().out
     assert ps._union_ms([(0, 1000), (500, 2000), (3000, 3500)]) == 2.5
+
+
+# ---- the LPIPS weight exporter (tools/export_lpips_weights.py) ----
+
+def _lpips_state_dicts(seed: int, layout: str):
+    """Random torchvision ``vgg16().features`` and ``lpips.LPIPS(net='vgg')`` state
+    dicts (numpy), with lpips's keys as ``lin{k}`` or ``lins.{k}``."""
+    from dmnerf_tpu_torch.tools.export_lpips_weights import CONV_SEQ_IDX, TAP_CH, VGG16_CONV_CH
+
+    rng = np.random.RandomState(seed)
+    vgg, c_in = {}, 3
+    for si, c_out in zip(CONV_SEQ_IDX, VGG16_CONV_CH):
+        vgg[f"{si}.weight"] = (rng.randn(c_out, c_in, 3, 3) * 0.2 / np.sqrt(c_in * 9)).astype(np.float32)
+        vgg[f"{si}.bias"] = (rng.randn(c_out) * 0.01).astype(np.float32)
+        c_in = c_out
+    key = "lin{}.model.1.weight" if layout == "lin" else "lins.{}.model.1.weight"
+    lp = {key.format(k): rng.rand(1, c, 1, 1).astype(np.float32) for k, c in enumerate(TAP_CH)}
+    return vgg, lp
+
+
+@pytest.mark.parametrize("layout", ["lin", "lins"])
+def test_lpips_export_converts_like_the_jax_tool(layout):
+    from dmnerf_tpu.tools import export_lpips_weights as jexp
+    from dmnerf_tpu_torch.tools import export_lpips_weights as texp
+
+    assert (texp.VGG16_CONV_CH, texp.TAP_CH) == (jexp.VGG16_CONV_CH, jexp.TAP_CH)
+    vgg, lp = _lpips_state_dicts(1, layout)
+    got, want = texp.convert_state_dicts(vgg, lp), jexp.convert_state_dicts(vgg, lp)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype == np.float32 and np.array_equal(got[k], want[k]), k
+    with pytest.raises(KeyError, match="lin2"):
+        texp.convert_state_dicts(vgg, {k: v for k, v in lp.items()
+                                       if k not in ("lin2.model.1.weight", "lins.2.model.1.weight")})
+
+
+def test_lpips_export_cli_scores_like_jax(tmp_path, monkeypatch, capsys):
+    """The CLI's torch-only route writes the .npz that both packages' lpips_np read from
+    $DMNERF_LPIPS_WEIGHTS: within 1e-5 of each other on two seeded 32x32 images; without
+    lpips and torchvision the other route exits 1, as the JAX tool does."""
+    from dmnerf_tpu.utils import image_metrics as jim
+    from dmnerf_tpu_torch.tools.export_lpips_weights import main
+    from dmnerf_tpu_torch.utils import image_metrics as tim
+
+    vgg, lp = _lpips_state_dicts(2, "lin")
+    torch.save({k: torch.from_numpy(v) for k, v in vgg.items()}, tmp_path / "vgg.pt")
+    torch.save({k: torch.from_numpy(v) for k, v in lp.items()}, tmp_path / "lpips.pt")
+    out = tmp_path / "lpips_vgg.npz"
+    assert main([str(out), "--lpips-state", str(tmp_path / "lpips.pt"),
+                 "--vgg-state", str(tmp_path / "vgg.pt")]) == 0
+    assert f"wrote {out}" in capsys.readouterr().out
+    monkeypatch.setenv("DMNERF_LPIPS_WEIGHTS", str(out))
+    rng = np.random.RandomState(3)
+    img = rng.rand(32, 32, 3).astype(np.float32)
+    gt = np.clip(img + rng.randn(32, 32, 3).astype(np.float32) * 0.1, 0, 1).astype(np.float32)
+    got, want = tim.lpips_np(img, gt), jim.lpips_np(img, gt)
+    assert np.isfinite(got) and got > 0 and abs(got - want) <= 1e-5, (got, want)
+    assert tim.lpips_np(img, img) == pytest.approx(0.0, abs=1e-7)
+
+    monkeypatch.setitem(sys.modules, "lpips", None)        # import lpips raises ImportError
+    assert main([str(tmp_path / "other.npz")]) == 1
+    assert "--lpips-state/--vgg-state" in capsys.readouterr().err
+    assert not (tmp_path / "other.npz").exists()

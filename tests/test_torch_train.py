@@ -218,6 +218,56 @@ def test_train_trajectory_tracks_jax(trajectories):
     assert rows[-1][0]["total_loss"] < rows[0][0]["total_loss"]
 
 
+@pytest.mark.parametrize("use_pallas", [True, False], ids=["fused", "plain"])
+def test_bf16_train_step_tracks_jax(scene, use_pallas):
+    """precision = bfloat16 (bf16 parameters, the JAX package's
+    ``dmnerf_tpu/render/trainstep.py:74``): 5 steps from the same bf16 parameters on the
+    trajectory fixture's batches, perturb = 0, through the fused query (its fp32 plain
+    version on the CPU) and the plain one, each within the training-parity bar of the
+    JAX bf16 step's total loss (2 %, tests/test_training_parity.py:43-62); the
+    parameters, their gradients and Adam's moments stay bf16. The JAX parameters cross
+    as float32 (exact for bf16 values) and are cast back."""
+    cfg = Config(**{**TINY, "precision": "bfloat16", "use_pallas": use_pallas})
+    jcfg = JConfig(**{**TINY, "precision": "bfloat16"})
+    jstate = jts.create_train_state(jcfg, jax.random.PRNGKey(0))
+    jstep = jts.make_train_step(jcfg)
+
+    def to_port(p):
+        d = params_from_numpy({k: np.asarray(v, np.float32) for k, v in p.items()}, "cpu")
+        return {k: v.to(torch.bfloat16) for k, v in d.items()}
+
+    pc, pf = to_port(jstate.params_coarse), to_port(jstate.params_fine)
+    assert all(np.array_equal(pf[k].float().numpy(), np.asarray(v, np.float32))
+               for k, v in jstate.params_fine.items())
+    state = tts.create_train_state(cfg, pc, pf)
+    step = tts.make_train_step(cfg)
+    for i, b in enumerate(_batches(scene, 5, TINY["N_train"])):
+        aux = step(state, b)
+        jstate, jaux = jstep(jstate, jts.Batch(*(jnp.asarray(t.numpy()) for t in b[:4])),
+                             jax.random.PRNGKey(0))
+        ours, ref = float(aux["total_loss"]), float(jaux["total_loss"])
+        assert np.isfinite(ours) and abs(ours - ref) <= 0.02 * max(abs(ref), 1.0), (i, ours, ref)
+    for p in [*state.params_coarse.values(), *state.params_fine.values()]:
+        assert p.dtype == p.grad.dtype == torch.bfloat16
+        assert all(t.dtype == torch.bfloat16 for k, t in state.opt.state[p].items() if k != "step")
+    assert all(v.dtype == jnp.bfloat16 for v in jstate.params_fine.values())
+
+
+def test_bf16_init_is_the_fp32_init_rounded():
+    """A bf16 model's seeded init is the fp32 init rounded to bf16, draw for draw:
+    ``core.mlp`` draws in fp32 whatever the dtype (``torch.rand``'s own bf16 draws are
+    another sequence, and another again on other torch versions)."""
+    from dmnerf_tpu_torch.test import init_params
+
+    cfg = Config(**TINY)
+    fp32, bf16 = init_params(cfg, "cpu"), init_params(cfg.replace(precision="bfloat16"), "cpu")
+    for a, b in zip(fp32, bf16):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert a[k].dtype == torch.float32 and b[k].dtype == torch.bfloat16, k
+            assert torch.equal(a[k].to(torch.bfloat16), b[k]), k
+
+
 def test_first_update_uses_lr_at_step_zero(scene):
     """After one step Adam has moved each parameter by about lr_at_step(0): the first
     Adam update is lr * g / (|g| + eps)."""
