@@ -42,7 +42,10 @@
    backward, fwd_bwd_ms), of the plain fp32 autograd backward, of the backward and the
    forward + backward through the bf16 addmm chain (the library yardsticks), and the
    bound: the backward's own matrix FLOPs over 989 TFLOP/s, or bytes over 3.35 TB/s,
-   whichever is larger. The train phases print their peak device memory.
+   whichever is larger; the same for the training forward (stash_bound_ms: its products,
+   and its inputs, weights, raw and stash each moved once) beside the bf16 chain's
+   forward under autograd, which keeps its activations (library_stash_fwd_ms). The
+   train phases print their peak device memory.
 5. Train phase: the flagship train config (N_train 3072, N_samples 64,
    N_importance 128, over_penalize with tolerance = deta_w = 0.05, lrate 5e-4,
    perturb on) for 20 steps through dmnerf_tpu_torch.train on a synthetic DM-SR scene
@@ -206,6 +209,21 @@
    bit the same 10 steps one at a time; the bench must exit 0. The line is printed
    prefixed [bench], with the seconds the phase took; its sections' launches are the
    path "bench".
+18. CLI cycle phase (scripts/e2e_cycle_torch.py at its "smoke" depth): for DM-SR (64²,
+   5 objects, the manipulated ground truth), Replica and ScanNet (96x128, 6 objects;
+   ScanNet under pallas_pe_mode = outside, a 96x64 crop), the three families at once,
+   each as a user runs it: the scene written to disk, ``python -m dmnerf_tpu_torch.train``
+   from the family's shipped config, packed (steps_per_dispatch 10), SIGTERMed once its
+   first checkpoint (step 151) is on disk, relaunched to resume and run to 301; then
+   ``python -m dmnerf_tpu_torch.test`` in render mode from the trained step and from the
+   seeded init (no_reload), and for DM-SR mani_eval, mani_demo (2 frames) and mesh
+   (128³). It holds every command to exit 0, the restored parameters and Adam state to
+   the checkpoint file bit for bit, the mean F_PSNR of the first three logged windows after
+   the resume to at most 2 dB below that of the last three before the kill (the single
+   values printed beside), every mode to have loaded the trained step, and each
+   family's held-out render PSNR to at least 5 dB above the seeded init's (both printed).
+   Each command counts its own launches and prints them ([report] lines); they are the
+   paths cli_train_<family> and cli_test_<family>.
 
 The line before the last is a JSON object with each kernel's numbers and its
 launches on each path; the last line is {"ok": true, "device": {...}}. Any failure
@@ -218,8 +236,10 @@ import json
 import os
 import re
 import statistics
+import shutil
 import subprocess
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1052,6 +1072,12 @@ def bwd_kernel_phase(cfg, device, mode="kernel_t"):
                 return _bwd(mode, packed, pts, dirs, g)
         n_s = (pts.shape[0], pts.shape[1]) if mode == "kernel_t" else (P, 1)
         _, plan, stash = fm._stash_forward(mode, packed, a, d, *n_s)
+        # the training forward's bound: its products, and its inputs, weights, raw and
+        # stash each moved once
+        stash_flops = 2.0 * query_macs(params) * P
+        stash_bytes = (in_bytes + packed.w_bf16.numel() * 2 + packed.b.numel() * 4
+                       + P * packed.c4 * 4 + plan["stash_size"] * 2)
+        s_ops, s_bytes = stash_flops / PEAK_BF16_FLOPS * 1e3, stash_bytes / PEAK_BYTES * 1e3
         g_flat = g.reshape(P, -1)
         ms = _time_ms(lambda: fm._launch_bwd(mode, packed, plan, stash, g_flat, *emb), reps=5)
         stash_fwd_ms = _time_ms(lambda: fm._stash_forward(mode, packed, a, d, *n_s), reps=5)
@@ -1073,6 +1099,9 @@ def bwd_kernel_phase(cfg, device, mode="kernel_t"):
         del raw32
         lib = dataclasses.replace(packed, w_bf16=packed.w_bf16.detach().clone().requires_grad_(True),
                                   b=packed.b.detach().clone().requires_grad_(True))
+        # the library's training forward: the bf16 chain under autograd, which keeps its
+        # activations for the backward
+        library_stash_fwd_ms = _time_ms(lambda: library_query(lib, pts, dirs, mode), reps=5)
         raw16 = library_query(lib, pts, dirs, mode)
         library_ms = _time_ms(lambda: torch.autograd.grad(raw16, [lib.w_bf16, lib.b], g,
                                                           retain_graph=True), reps=5)
@@ -1087,7 +1116,10 @@ def bwd_kernel_phase(cfg, device, mode="kernel_t"):
         r = dict(points=P, max_rel_err=rel, max_abs_err=err, grad_scale=scale, worst_param=worst,
                  max_rel_err_bf16_plain=rel16, max_abs_err_bf16_plain=err16, bit_identical=same,
                  ms=ms, launch_ms=launch_ms, entry_ms=entry_ms, fwd_ms=fwd_ms,
-                 stash_fwd_ms=stash_fwd_ms, fwd_bwd_ms=fwd_bwd_ms, plain_ms=plain_ms,
+                 stash_fwd_ms=stash_fwd_ms, stash_bound_ms=max(s_ops, s_bytes),
+                 stash_bound_by="operations" if s_ops >= s_bytes else "bytes",
+                 stash_mbytes=stash_bytes / 1e6, library_stash_fwd_ms=library_stash_fwd_ms,
+                 fwd_bwd_ms=fwd_bwd_ms, plain_ms=plain_ms,
                  library_ms=library_ms, library_fwd_bwd_ms=library_fwd_bwd_ms,
                  bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
                  gflop=flops / 1e9, tflops=flops / (ms * 1e-3) / 1e12)
@@ -2003,6 +2035,7 @@ def _script(name):
 
     spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "scripts", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod         # dataclasses look their module up there
     spec.loader.exec_module(mod)
     return mod
 
@@ -2641,6 +2674,64 @@ def bench_phase(card: str) -> dict:
                       if isinstance(v, dict)) for name in runtime.COUNTED}
 
 
+CLI_FAMILIES = ("dmsr", "replica", "scannet")
+CLI_MIN_GAIN_DB = 5.0        # held-out render PSNR of the trained step over the seeded init's
+
+
+def cli_cycle_phase(card: str) -> dict:
+    """Phase 18: the three families' CLI cycles at once (see the docstring). Returns their
+    commands' kernel launches by path."""
+    e2e = _script("e2e_cycle_torch")
+    work = os.path.join(REPO, "build", "chip_smoke_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    records = {}
+
+    def run(family):
+        try:
+            records[family] = e2e.run_cycle(e2e.cycle(family, "smoke"), work, "cuda")
+        except Exception as ex:     # noqa: BLE001 -- the phase names it below and fails
+            records[family] = {"family": family, "failures": [f"{type(ex).__name__}: {ex}"]}
+
+    t0 = time.time()
+    threads = [threading.Thread(target=run, args=(f,)) for f in CLI_FAMILIES]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    seconds = time.time() - t0
+    failed, paths = [], {}
+    for family in CLI_FAMILIES:
+        rec = records[family]
+        failed += [f"{family}: {msg}" for msg in rec["failures"]]
+        if "modes" not in rec:
+            continue
+        render, init = rec["modes"].get("render", {}), rec["modes"].get("render_init", {})
+        gain = rec.get("render_psnr_over_init_db")
+        if gain is None or gain < CLI_MIN_GAIN_DB:
+            failed.append(f"{family}: held-out PSNR {render.get('psnr')} from the trained step, "
+                          f"{init.get('psnr')} from the seeded init (want >= {CLI_MIN_GAIN_DB} dB "
+                          "more)")
+        res = rec["resume"]
+        summary = {
+            "render_psnr": render.get("psnr"), "init_psnr": init.get("psnr"), "gain_db": gain,
+            "ssim": render.get("ssim"), "ap50": render.get("ap50"), "map": render.get("map"),
+            "resume": {k: res[k] for k in ("newest_checkpoint", "resumed_line_step",
+                                           "bits_equal", "psnr_drop_db", "psnr_drop_db_single",
+                                           "killed_rc")},
+            "rays_per_sec_median": rec["train"]["rays_per_sec_median"],
+            "peak_device_gb": rec["train"]["peak_device_gb"],
+            "modes": {k: {kk: v.get(kk) for kk in ("loaded_step", "psnr", "ap50", "s_per_frame_warm",
+                                                    "clean_verts", "clean_faces", "command_s", "error")
+                          if kk in v} for k, v in rec["modes"].items()},
+            "seconds": rec["seconds"]}
+        print(f"[cli] {family}: {json.dumps(summary)}", flush=True)
+        paths.update(rec["launches"])
+    print(f"[cli] phase 18: {seconds:.1f} s, {card}; failures {json.dumps(failed)}", flush=True)
+    if failed:
+        raise AssertionError(f"CLI cycle: {failed}")
+    return paths
+
+
 def _entry(name, replaces, launches, by_path, res, **extra):
     return {"name": name, "route": "cuda", "source": f"dmnerf_tpu_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": launches, "launches_by_path": by_path[name],
@@ -2732,6 +2823,8 @@ def main() -> int:
     gloo = gloo_phase(device, smi_line, cfg)["rank0_launches"]
     torch.cuda.empty_cache()
     bench_launches = bench_phase(smi_line)
+    torch.cuda.empty_cache()
+    cli_launches = cli_cycle_phase(smi_line)
 
     paths = {**sharded_launches, "train_sharded_gloo": gloo["train_launches"],
              "render_sharded_gloo": gloo["render_launches"],
@@ -2740,7 +2833,7 @@ def main() -> int:
              "train_scannet": scannet_train_launches, "render_scannet": scannet_render_launches,
              "mesh": mesh_launches, "render_fused": fused_launches, "probe_heads": probe_launches,
              "train_packed": packed_launches, "train_packed_scannet": packed_scannet_launches,
-             "bench": bench_launches}
+             "bench": bench_launches, **cli_launches}
     by_path = {name: {path: n[name] for path, n in paths.items()} for name in runtime.COUNTED}
     for name in runtime.COUNTED:
         if sum(by_path[name].values()) == 0:

@@ -9,8 +9,8 @@
    the negative-fy blender convention;
  * demo view poses: poses[view_id] repeated, else a spherical path.
 
-imageio and h5py are imported inside the functions that read files, so the
-in-memory scene path (data.synthetic.build_dmsr_scene) needs neither.
+Images are read through Pillow (``utils.image_io``) and the palette by the port's own
+HDF5 reader (``utils.hdf5``), so neither imageio nor h5py is needed.
 """
 
 from __future__ import annotations
@@ -23,12 +23,12 @@ import numpy as np
 
 from dmnerf_tpu_torch.configs import Config
 from dmnerf_tpu_torch.data.scene import SceneData
+from dmnerf_tpu_torch.utils.hdf5 import read_dataset
+from dmnerf_tpu_torch.utils.image_io import imread
 
 
 def _read_image(path: str) -> np.ndarray:
-    import imageio.v2 as imageio
-
-    return np.asarray(imageio.imread(path))
+    return imread(path)
 
 
 def _sorted_files(d: str) -> List[str]:
@@ -79,10 +79,7 @@ def _load_split(basedir: str, split: str, skip: int):
 
 
 def load_palette(basedir: str) -> np.ndarray:
-    import h5py
-
-    with h5py.File(os.path.join(basedir, "ins_rgb.hdf5"), "r") as f:
-        return f["datasets"][:]
+    return read_dataset(os.path.join(basedir, "ins_rgb.hdf5"), "datasets")
 
 
 def load_dmsr(cfg: Config) -> SceneData:

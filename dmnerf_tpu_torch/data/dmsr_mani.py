@@ -6,9 +6,8 @@
  * ``load_mani_poses`` / ``load_obj_poses`` read the transformation_matrix.json that
    ``tools.pose_gen`` writes (eval and demo layouts).
 
-imageio and h5py are imported inside the functions that read files
-(``data.dmsr``); ``data.synthetic.build_dmsr_mani_scene`` builds the same SceneData
-in memory.
+Files are read as ``data.dmsr`` reads them; ``data.synthetic.build_dmsr_mani_scene``
+builds the same SceneData in memory.
 """
 
 from __future__ import annotations

@@ -12,8 +12,8 @@
    views), phi -65, radius 7 (DM-SR's path runs over linspace(0, 180)).
 
 ``scene_from_arrays`` is everything after the file reads, so
-``data.synthetic.build_replica_scene`` builds the same SceneData in memory. imageio
-and h5py are imported inside the functions that read files.
+``data.synthetic.build_replica_scene`` builds the same SceneData in memory. Files are
+read as ``data.dmsr`` reads them (Pillow, the port's HDF5 reader).
 """
 
 from __future__ import annotations

@@ -14,8 +14,8 @@
    (``selected_pixels``), the same draws as the JAX package's.
 
 ``scene_from_arrays`` is everything after the file reads, so
-``data.synthetic.build_scannet_scene`` builds the same SceneData in memory. imageio
-and h5py are imported inside the functions that read files.
+``data.synthetic.build_scannet_scene`` builds the same SceneData in memory. Files are
+read as ``data.dmsr`` reads them (Pillow, the port's HDF5 reader).
 """
 
 from __future__ import annotations

@@ -11,7 +11,9 @@ its ``mani_modes``, the manipulated ground truth (indoor_{mode}_test/, the test 
 re-rendered with object 0 moved: translation by -0.25 in y, scale by 1.2; rotation
 leaves a sphere as it is). ``build_dmsr_scene`` and ``build_dmsr_mani_scene`` build in
 memory the SceneData that writing and then ``load_dmsr`` / ``load_dmsr_mani`` would
-give, PNG quantization included, without imageio or h5py.
+give, PNG quantization included. The writers write images through Pillow
+(``utils.image_io``, the bytes imageio writes) and the palette with the port's HDF5
+writer (``utils.hdf5``, which h5py reads).
 
 ``write_replica_scene`` and ``write_scannet_scene`` write Replica and ScanNet trees
 (the same files, draws included, as the JAX package's writers). Both datasets store
@@ -35,6 +37,8 @@ from dmnerf_tpu_torch.configs import Config
 from dmnerf_tpu_torch.data import replica, scannet
 from dmnerf_tpu_torch.data.dmsr import demo_view_poses, dmsr_intrinsics
 from dmnerf_tpu_torch.data.scene import SceneData
+from dmnerf_tpu_torch.utils.hdf5 import write_dataset
+from dmnerf_tpu_torch.utils.image_io import imwrite
 
 _CV_FLIP = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)   # blender <-> OpenCV camera axes
 
@@ -151,13 +155,11 @@ def _mani_gt_frames(spec, c2ws, H: int, W: int, mode: str):
 
 
 def _write_frames(root: str, frames) -> None:
-    import imageio.v2 as imageio
-
     os.makedirs(os.path.join(root, "rgbs"), exist_ok=True)
     os.makedirs(os.path.join(root, "semantic_instance"), exist_ok=True)
     for t, (rgb, label) in enumerate(frames):
-        imageio.imwrite(os.path.join(root, "rgbs", f"{t:04d}.png"), rgb)
-        imageio.imwrite(os.path.join(root, "semantic_instance", f"{t:04d}.png"), label)
+        imwrite(os.path.join(root, "rgbs", f"{t:04d}.png"), rgb)
+        imwrite(os.path.join(root, "semantic_instance", f"{t:04d}.png"), label)
 
 
 def write_dmsr_scene(out_dir: str, n_train: int = 12, n_test: int = 4, H: int = 64,
@@ -166,8 +168,6 @@ def write_dmsr_scene(out_dir: str, n_train: int = 12, n_test: int = 4, H: int = 
     """Writes a DM-SR-format scene; returns the spec. ins_num >= n_objects + 1. With
     ``mani_modes``, also the top-level transforms.json (the test split's) and the
     manipulated ground truth of each mode, which ``load_dmsr_mani`` reads."""
-    import h5py
-
     spec, splits, angle_x, palette, objs_info = _dmsr_scene(
         n_train, n_test, H, W, n_objects, ins_num, seed, radius)
     for split, frames in splits.items():
@@ -175,8 +175,7 @@ def write_dmsr_scene(out_dir: str, n_train: int = 12, n_test: int = 4, H: int = 
         with open(os.path.join(out_dir, split, "transforms.json"), "w") as f:
             json.dump({"camera_angle_x": angle_x,
                        "frames": [{"transform_matrix": c2w.tolist()} for c2w, _, _ in frames]}, f)
-    with h5py.File(os.path.join(out_dir, "ins_rgb.hdf5"), "w") as f:
-        f.create_dataset("datasets", data=palette)
+    _write_palette(out_dir, palette)
     with open(os.path.join(out_dir, "objs_info.json"), "w") as f:
         json.dump(objs_info, f)
     with open(os.path.join(out_dir, "color_dict.json"), "w") as f:
@@ -237,10 +236,7 @@ def build_dmsr_mani_scene(mode: str, n_test: int = 4, H: int = 64, W: int = 64,
 
 
 def _write_palette(out_dir: str, palette: np.ndarray) -> None:
-    import h5py
-
-    with h5py.File(os.path.join(out_dir, "ins_rgb.hdf5"), "w") as f:
-        f.create_dataset("datasets", data=palette)
+    write_dataset(os.path.join(out_dir, "ins_rgb.hdf5"), "datasets", palette)
 
 
 def _replica_scene(H, W, n_objects, ins_num, seed, ids):
@@ -280,8 +276,6 @@ def write_replica_scene(out_dir: str, H: int = 16, W: int = 16, n_objects: int =
     semantic_instance/semantic_instance_{i}.png, ins_rgb.hdf5, objs_info.json) with
     images only for the frames a loader with this ``testskip`` reads; returns the
     spec."""
-    import imageio.v2 as imageio
-
     train_ids, test_ids = replica.read_ids(Config(testskip=testskip))
     spec, traj, frames, palette, objs_info = _replica_scene(
         H, W, n_objects, ins_num, seed, sorted(set(train_ids) | set(test_ids)))
@@ -289,9 +283,8 @@ def write_replica_scene(out_dir: str, H: int = 16, W: int = 16, n_objects: int =
     os.makedirs(os.path.join(out_dir, "semantic_instance"), exist_ok=True)
     np.savetxt(os.path.join(out_dir, "traj_w_c.txt"), traj.reshape(len(traj), 16), delimiter=" ")
     for i, (rgb, label) in frames.items():
-        imageio.imwrite(os.path.join(out_dir, "rgb", f"rgb_{i}.png"), rgb)
-        imageio.imwrite(os.path.join(out_dir, "semantic_instance", f"semantic_instance_{i}.png"),
-                        label)
+        imwrite(os.path.join(out_dir, "rgb", f"rgb_{i}.png"), rgb)
+        imwrite(os.path.join(out_dir, "semantic_instance", f"semantic_instance_{i}.png"), label)
     _write_palette(out_dir, palette)
     if with_objs_info:
         with open(os.path.join(out_dir, "objs_info.json"), "w") as f:
@@ -348,8 +341,6 @@ def write_scannet_scene(out_dir: str, n_train: int = 5, n_test: int = 3, H: int 
     """Writes a ScanNet tree ({split}_split_idx.txt, {split}/{split}_images/{i}.jpg,
     {split}/{split}_pose/{i}.txt, {split}/{split}_ins/{i}.npz with ins_2d_label_id,
     intrinsic/intrinsic_{color,depth}.txt, ins_rgb.hdf5); returns the spec."""
-    import imageio.v2 as imageio
-
     spec, splits, intr, palette = _scannet_scene(n_train, n_test, H, W, n_objects, seed,
                                                  unlabeled_frac)
     os.makedirs(os.path.join(out_dir, "intrinsic"), exist_ok=True)
@@ -362,7 +353,7 @@ def write_scannet_scene(out_dir: str, n_train: int = 5, n_test: int = 3, H: int 
         for d in dirs:
             os.makedirs(d, exist_ok=True)
         for i, rgb, c2w_cv, raw in frames:
-            imageio.imwrite(os.path.join(dirs[0], f"{i}.jpg"), rgb)
+            imwrite(os.path.join(dirs[0], f"{i}.jpg"), rgb)
             np.savetxt(os.path.join(dirs[1], f"{i}.txt"), c2w_cv)
             np.savez(os.path.join(dirs[2], f"{i}.npz"), ins_2d_label_id=raw)
     _write_palette(out_dir, palette)

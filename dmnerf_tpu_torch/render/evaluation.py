@@ -24,14 +24,9 @@ from dmnerf_tpu_torch.objfield.metrics import compact_gt_one_hot_np, ins_eval
 from dmnerf_tpu_torch.render.renderer import make_image_renderer
 from dmnerf_tpu_torch.tools.visualizer import render_gt_label2img, render_label2img
 from dmnerf_tpu_torch.utils.device import resolve_device, world_size
+from dmnerf_tpu_torch.utils.image_io import imwrite as _imwrite
 from dmnerf_tpu_torch.utils.image_metrics import lpips_np, psnr_np, ssim_np, to8b
 from dmnerf_tpu_torch.utils.metrics_log import write_matching_log, write_test_results
-
-
-def _imwrite(path: str, img: np.ndarray) -> None:
-    import imageio.v2 as imageio
-
-    imageio.imwrite(path, img)
 
 
 def render_test(

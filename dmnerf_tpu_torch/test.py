@@ -13,6 +13,9 @@ group (``parallel.mesh``) and the mode renders sharded over the ranks; every ran
 the checkpoint, and only rank 0 writes (images, ``test_results.txt``, PLY files, the pose
 files), the others waiting for it at a barrier.
 
+With ``$DMNERF_REPORT`` set, the command prints its kernel launches as a last line
+``[report] {"launches": {...}}`` (``utils.metrics_log.report``).
+
 Usage:  python -m dmnerf_tpu_torch.test --config configs/test/dmsr/study.txt [key=value ...]
         [--device cpu]    (default: the CUDA card; without one it raises)
         torchrun --nproc_per_node=N -m dmnerf_tpu_torch.test --config ... [key=value ...]
@@ -30,10 +33,12 @@ from dmnerf_tpu_torch.configs import Config, parse_cli
 from dmnerf_tpu_torch.core.embedding import embed_dim
 from dmnerf_tpu_torch.core.mlp import init_dm_nerf
 from dmnerf_tpu_torch.data.scene import load_scene
+from dmnerf_tpu_torch.kernels import runtime
 from dmnerf_tpu_torch.parallel.mesh import init_process_group, multi_process
 from dmnerf_tpu_torch.render.evaluation import render_test
 from dmnerf_tpu_torch.utils.checkpoint import load_checkpoint, resolve_ckpt_path, restore_checkpoint
-from dmnerf_tpu_torch.utils.device import barrier, is_writer, resolve_device
+from dmnerf_tpu_torch.utils.device import barrier, is_writer, pop_device_flag, resolve_device
+from dmnerf_tpu_torch.utils.metrics_log import report
 
 def load_color_dict(cfg: Config):
     """data/color_dict.json keyed [dataset][scene]; else a per-scene
@@ -186,15 +191,9 @@ def _run_mode(cfg: Config, device, scene):
 
 
 def main(argv=None):
-    argv = list(sys.argv[1:] if argv is None else argv)
-    device = None
-    if "--device" in argv:
-        i = argv.index("--device")
-        if i + 1 == len(argv):
-            raise SystemExit("--device needs a value, e.g. --device cpu")
-        device = argv[i + 1]
-        del argv[i:i + 2]
+    device, argv = pop_device_flag(sys.argv[1:] if argv is None else argv)
     run_test(parse_cli(argv), device)
+    report(launches=dict(runtime.LAUNCHES))
 
 
 if __name__ == "__main__":

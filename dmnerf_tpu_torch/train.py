@@ -34,7 +34,13 @@ card, device activity), and their Chrome trace is written under ``profile_dir``
 FloatingPointError at the first step whose loss or parameter gradients are not finite,
 before Adam applies them (render.trainstep.check_finite).
 
+With ``$DMNERF_REPORT`` set, a resumed run prints the digest of the state it restored
+(``utils.checkpoint.state_digest``) and the command prints its kernel launches and peak
+device memory as a last line, each as ``[report] {...}`` (``utils.metrics_log.report``),
+for a parent that drives the command (``scripts/e2e_cycle_torch.py``).
+
 Usage:  python -m dmnerf_tpu_torch.train --config configs/train/dmsr/study.txt [key=value ...]
+        [--device cpu]    (default: the CUDA card; without one it raises)
         torchrun --nproc_per_node=N -m dmnerf_tpu_torch.train --config ... [key=value ...]
 """
 
@@ -60,10 +66,11 @@ from dmnerf_tpu_torch.render.packing import StepRunner
 from dmnerf_tpu_torch.render.trainstep import (
     TrainState, create_train_state, load_adam_state, make_train_step)
 from dmnerf_tpu_torch.test import init_params
+from dmnerf_tpu_torch.kernels import runtime
 from dmnerf_tpu_torch.utils.checkpoint import (
-    load_checkpoint, resolve_ckpt_path, restore_checkpoint, save_checkpoint)
-from dmnerf_tpu_torch.utils.device import is_writer, resolve_device
-from dmnerf_tpu_torch.utils.metrics_log import MetricsLogger
+    load_checkpoint, resolve_ckpt_path, restore_checkpoint, save_checkpoint, state_digest)
+from dmnerf_tpu_torch.utils.device import is_writer, pop_device_flag, resolve_device
+from dmnerf_tpu_torch.utils.metrics_log import MetricsLogger, report, report_wanted
 
 
 def _state_from(cfg: Config, loaded) -> TrainState:
@@ -197,6 +204,9 @@ def train(cfg: Config, scene: Optional[SceneData] = None, device=None) -> TrainS
         if restored is not None:
             state = _state_from(cfg, restored)
             print(f"[train] resumed from step {state.step}")
+            if report_wanted():
+                report(resumed_step=state.step, digest=state_digest(
+                    state.params_coarse, state.params_fine, state.opt.state_dict()))
     if cfg.ft_path:
         # the exact checkpoint the path names, never a silent substitute
         path, step = resolve_ckpt_path(cfg.ft_path)
@@ -264,7 +274,12 @@ def train(cfg: Config, scene: Optional[SceneData] = None, device=None) -> TrainS
 
 
 def main(argv=None):
-    train(parse_cli(sys.argv[1:] if argv is None else argv))
+    device, argv = pop_device_flag(sys.argv[1:] if argv is None else argv)
+    device = resolve_device(device)
+    train(parse_cli(argv), device=device)
+    report(launches=dict(runtime.LAUNCHES),
+           peak_device_gb=(torch.cuda.max_memory_allocated(device) / 1e9
+                           if device.type == "cuda" else None))
 
 
 if __name__ == "__main__":

@@ -12,6 +12,7 @@ only rank 0 writes, and every rank waits for it; every rank reads.
 
 from __future__ import annotations
 
+import hashlib
 import os
 import re
 from typing import Dict, Mapping, Optional, Tuple
@@ -60,7 +61,9 @@ def save_checkpoint(log_dir: str, params_coarse: Dict, params_fine: Dict, step: 
     return path
 
 
-def _steps(log_dir: str) -> Dict[int, str]:
+def checkpoint_steps(log_dir: str) -> Dict[int, str]:
+    """{step: file} of the complete checkpoints under ``log_dir`` (a ``.pt.tmp`` that a
+    kill left mid-write is not one)."""
     d = os.path.join(log_dir, "checkpoints")
     if not os.path.isdir(d):
         return {}
@@ -82,7 +85,7 @@ def resolve_ckpt_path(ft_path: str) -> Tuple[str, int]:
                                     "does not exist")
         return p, int(m.group(1))
     log_dir = os.path.dirname(p) if os.path.basename(p) == "checkpoints" else p
-    steps = _steps(log_dir)
+    steps = checkpoint_steps(log_dir)
     if not steps:
         raise FileNotFoundError(
             f"ft_path={ft_path!r} resolves to no checkpoint (expected a "
@@ -102,8 +105,29 @@ def load_checkpoint(path: str, device) -> Tuple[Dict, Dict, int, Optional[Dict]]
 def restore_checkpoint(log_dir: str, device):
     """(params_coarse, params_fine, step, opt_state) of the latest step under
     ``log_dir``, or None if there is none."""
-    steps = _steps(log_dir)
+    steps = checkpoint_steps(log_dir)
     return load_checkpoint(steps[max(steps)], device) if steps else None
+
+
+def state_digest(params_coarse: Mapping, params_fine: Mapping, opt_state: Optional[Dict]) -> Dict:
+    """SHA-256 hex digests of a training state's bits: ``params`` over the coarse then
+    the fine tensors, ``adam`` over each parameter's Adam step count, first and second
+    moments (``opt_state`` a ``state_dict``), each tensor's bytes on the host in its
+    own dtype. A restored state and its checkpoint file are equal bit for bit exactly
+    when their digests are."""
+    def feed(h, t):
+        h.update(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+        h.update(str(t.dtype).encode())
+
+    params = hashlib.sha256()
+    for t in [*params_coarse.values(), *params_fine.values()]:
+        feed(params, t)
+    adam = hashlib.sha256()
+    states = (opt_state or {}).get("state", {})
+    for i in sorted(states):
+        for key in ("step", "exp_avg", "exp_avg_sq"):
+            feed(adam, torch.as_tensor(states[i][key]))
+    return {"params": params.hexdigest(), "adam": adam.hexdigest()}
 
 
 def checkpoint_from_numpy(tree: Mapping) -> Tuple[Dict, Dict, int, Dict]:

@@ -24,6 +24,18 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     return torch.device("cuda")
 
 
+def pop_device_flag(argv):
+    """``(device, argv without it)`` of a command line that may hold ``--device D``;
+    device None when it holds none (the entry points then take the card)."""
+    argv = list(argv)
+    if "--device" not in argv:
+        return None, argv
+    i = argv.index("--device")
+    if i + 1 == len(argv):
+        raise SystemExit("--device needs a value, e.g. --device cpu")
+    return argv[i + 1], argv[:i] + argv[i + 2:]
+
+
 def distributed() -> bool:
     """True when a process group is up."""
     return dist.is_available() and dist.is_initialized()

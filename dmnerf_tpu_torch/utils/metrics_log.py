@@ -1,7 +1,8 @@
 """Structured metric logging, a copy of ``dmnerf_tpu/utils/metrics_log.py``.
 
 JSONL scalars per step window, and the reference's result files (test_results.txt
-in its 9-column layout, matching_log.json) that the evaluation writes. In a process
+in its 9-column layout, matching_log.json) that the evaluation writes; ``report`` prints
+what a parent process reads of a command's run. In a process
 group only rank 0 logs: the logger of another rank opens no file and writes nothing.
 """
 
@@ -15,6 +16,21 @@ from typing import Dict, List
 import numpy as np
 
 from dmnerf_tpu_torch.utils.device import is_writer
+
+
+REPORT_ENV = "DMNERF_REPORT"
+
+
+def report_wanted() -> bool:
+    return bool(os.environ.get(REPORT_ENV))
+
+
+def report(**fields) -> None:
+    """With ``$DMNERF_REPORT`` set, one line ``[report] {json}`` on stdout, for a parent
+    process that drives the entry points and reads what no file holds (a run's kernel
+    launches, the digest of a resumed state); nothing otherwise."""
+    if report_wanted():
+        print("[report] " + json.dumps(fields), flush=True)
 
 
 class MetricsLogger:
