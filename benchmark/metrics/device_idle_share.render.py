@@ -1,0 +1,8 @@
+"""device_idle_share.render: 1 - the union of the device's activity over the traced window,
+in %."""
+
+from benchmark.trace import idle_share
+
+
+def read(t):
+    return idle_share(t) if t.work.get("views") else None
