@@ -9,6 +9,7 @@ The point query is pluggable: ``make_torch_query_fn`` is the plain PyTorch path
 picks the fused Hopper kernels from the config, the pair named by
 ``cfg.pallas_pe_mode`` (``kernels.fused_mlp.resolve_pe_mode``). A ``QueryFn`` takes
 prepared parameters; ``prepare`` runs once per render (for the kernel: the packing).
+Under a profiler each fused point query records the span ``query`` (``utils.spans``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from dmnerf_tpu_torch.core.compositor import composite
 from dmnerf_tpu_torch.core.embedding import positional_encoding
 from dmnerf_tpu_torch.core.mlp import dm_nerf_apply
 from dmnerf_tpu_torch.core.sampling import perturb_z_vals, sample_pdf
+from dmnerf_tpu_torch.utils.spans import span
 
 
 def _identity(params):
@@ -66,7 +68,8 @@ def make_fused_query_fn(multires: int = 10, multires_views: int = 4, D: int = 8,
         return pack_params(params, multires, multires_views, D, tuple(skips))
 
     def query(packed, pts, viewdirs):
-        return fused_query(packed, pts, viewdirs, mode)
+        with span("query", pts.numel() // 3):
+            return fused_query(packed, pts, viewdirs, mode)
 
     return QueryFn(query, prepare)
 

@@ -17,7 +17,8 @@ predicted instance labels.
    target bundle's coarse rgb and accumulated instance map.
  * ``make_manipulator_renderer``: a Python loop over chunks of ``cfg.N_test`` rays
    under ``torch.no_grad``, rays zero-padded to whole chunks, parameters prepared (for
-   the kernel: packed) once per render.
+   the kernel: packed) once per render. Under a profiler each chunk records the span
+   ``mani.chunk`` (``utils.spans``).
 
 Randomness: ``sample_pdf`` draws either come injected (``u``: a list of 2K+2
 uniforms [n, N_importance] indexed like the JAX package's ``jax.random.split(key,
@@ -37,6 +38,7 @@ from dmnerf_tpu_torch.core.compositor import composite, composite_maps
 from dmnerf_tpu_torch.core.mlp import rgb_stub_params
 from dmnerf_tpu_torch.core.pipeline import QueryFn, make_query_fn
 from dmnerf_tpu_torch.core.sampling import sample_pdf, z_val_sample
+from dmnerf_tpu_torch.utils.spans import span
 
 
 def _point_labels(raw: torch.Tensor) -> torch.Tensor:
@@ -240,14 +242,16 @@ def make_manipulator_renderer(cfg: Config, n_targets: int, query_fn: Optional[Qu
         prepared = _prepare(query_fn, params_coarse, params_fine, rgb_stub=True)
         outs = []
         for c in range(nc):
-            s = slice(c * chunk, (c + 1) * chunk)
-            gen = None
-            if seeds is not None:
-                gen = torch.Generator(device=ori_o.device).manual_seed(seeds[c])
-            out = _manipulate(cfg, query_fn, prepared, (ori_o_p[s], guard(ori_d_p[s])),
-                              [(tar_o_p[k, s], guard(tar_d_p[k, s])) for k in range(n_targets)],
-                              move_labels, generator=gen)
-            outs.append({k: out[k] for k in ("rgb", "ins", "tar_rgb")})
+            with span("mani.chunk", min(chunk, n - c * chunk)):
+                s = slice(c * chunk, (c + 1) * chunk)
+                gen = None
+                if seeds is not None:
+                    gen = torch.Generator(device=ori_o.device).manual_seed(seeds[c])
+                out = _manipulate(cfg, query_fn, prepared, (ori_o_p[s], guard(ori_d_p[s])),
+                                  [(tar_o_p[k, s], guard(tar_d_p[k, s]))
+                                   for k in range(n_targets)],
+                                  move_labels, generator=gen)
+                outs.append({k: out[k] for k in ("rgb", "ins", "tar_rgb")})
         return {k: torch.cat([o[k] for o in outs])[:n] for k in outs[0]}
 
     return run

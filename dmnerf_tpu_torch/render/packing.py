@@ -27,6 +27,9 @@ Each step's aux goes into a static [P, len(aux)] buffer; with ``debug_nans`` eac
 pack writes its finiteness checks into device flags that are read after the pack,
 which raises FloatingPointError naming the first bad step (a one-step runner raises
 before the update, as ``render.trainstep.check_finite`` does).
+
+Under a profiler a call records the spans ``train.draw`` (the host draws and the copy),
+then ``train.replay`` on the card or ``train.eager`` otherwise (``utils.spans``).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import torch
 from dmnerf_tpu_torch.configs import Config
 from dmnerf_tpu_torch.render.trainstep import (
     TrainState, check_names, lr_at_step, raise_non_finite)
+from dmnerf_tpu_torch.utils.spans import span
 
 WARMUP_STEPS = 2
 
@@ -118,14 +122,17 @@ class StepRunner:
         returns each aux as a [P] device tensor, a view of the static buffer that the
         next call overwrites."""
         step0 = state.step
-        self.draw(step0, gen_batch, gen_step)
+        with span("train.draw", self.P):
+            self.draw(step0, gen_batch, gen_step)
         if self.cuda and self.P > 1:
             if self.graph_state != _addresses(state):
                 self._capture(state)
-            self.graph.replay()
+            with span("train.replay", self.P):
+                self.graph.replay()
             state.step += self.P
         else:
-            self._run(state, range(self.P))
+            with span("train.eager", self.P):
+                self._run(state, range(self.P))
         if self.cfg.debug_nans and self.P > 1:
             ok = self.finite.cpu()
             names = check_names(state)

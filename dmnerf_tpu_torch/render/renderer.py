@@ -3,7 +3,8 @@
 A Python loop over chunks of ``cfg.N_test`` rays under ``torch.no_grad()``; the rays
 are padded to a whole number of chunks, so every chunk has the same shape and the
 query runs at one size. Parameters are prepared (packed, for the kernel) once per
-render, not once per chunk.
+render, not once per chunk. Under a profiler each chunk records the span
+``render.chunk`` (``utils.spans``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from dmnerf_tpu_torch.core.compositor import composite, composite_maps
 from dmnerf_tpu_torch.core.mlp import sigma_stub_params
 from dmnerf_tpu_torch.core.pipeline import QueryFn, make_query_fn, render_rays
 from dmnerf_tpu_torch.core.sampling import sample_pdf, z_val_sample
+from dmnerf_tpu_torch.utils.spans import span
 
 
 def make_image_renderer(cfg: Config, query_fn: Optional[QueryFn] = None,
@@ -62,16 +64,17 @@ def make_image_renderer(cfg: Config, query_fn: Optional[QueryFn] = None,
         pf = query_fn.prepare(params_fine)
         outs = []
         for c0 in range(0, n + pad, chunk):
-            o, d = ro[c0:c0 + chunk], rd[c0:c0 + chunk]
-            # padding rays get d = 1, not 0/0 viewdirs
-            d = torch.where(torch.sum(d * d, -1, keepdim=True) > 0, d, torch.ones_like(d))
-            if sigma_only_coarse:
-                outs.append(_slim_chunk(pc, pf, o, d, z_coarse))
-            else:
-                info = render_rays(pc, pf, o, d, z_coarse, query_fn.query,
-                                   N_importance=cfg.N_importance, perturb=False)
-                outs.append({"rgb": info["rgb_fine"], "ins": info["ins_fine"],
-                             "depth": info["depth_fine"]})
+            with span("render.chunk", min(chunk, n - c0)):
+                o, d = ro[c0:c0 + chunk], rd[c0:c0 + chunk]
+                # padding rays get d = 1, not 0/0 viewdirs
+                d = torch.where(torch.sum(d * d, -1, keepdim=True) > 0, d, torch.ones_like(d))
+                if sigma_only_coarse:
+                    outs.append(_slim_chunk(pc, pf, o, d, z_coarse))
+                else:
+                    info = render_rays(pc, pf, o, d, z_coarse, query_fn.query,
+                                       N_importance=cfg.N_importance, perturb=False)
+                    outs.append({"rgb": info["rgb_fine"], "ins": info["ins_fine"],
+                                 "depth": info["depth_fine"]})
         return {k: torch.cat([o[k] for o in outs])[:n] for k in outs[0]}
 
     return render_fn

@@ -30,9 +30,10 @@ checkpoint to resume; only rank 0 writes checkpoints, ``metrics.jsonl``, images 
 traces. With ``profile_dir`` the steps ``profile_start`` to
 ``profile_start + profile_steps - 1`` run under ``torch.profiler`` (host and, on the
 card, device activity), and their Chrome trace is written under ``profile_dir``
-(``profile_trace``). ``debug_nans`` stops the run with
-FloatingPointError at the first step whose loss or parameter gradients are not finite,
-before Adam applies them (render.trainstep.check_finite).
+(``profile_trace``) with the program's spans of those steps (``utils.spans``).
+``debug_nans`` stops the run with FloatingPointError at the first step whose loss or
+parameter gradients are not finite, before Adam applies them
+(render.trainstep.check_finite).
 
 With ``$DMNERF_REPORT`` set, a resumed run prints the digest of the state it restored
 (``utils.checkpoint.state_digest``) and the command prints its kernel launches and peak
@@ -71,6 +72,7 @@ from dmnerf_tpu_torch.utils.checkpoint import (
     load_checkpoint, resolve_ckpt_path, restore_checkpoint, save_checkpoint, state_digest)
 from dmnerf_tpu_torch.utils.device import is_writer, pop_device_flag, resolve_device
 from dmnerf_tpu_torch.utils.metrics_log import MetricsLogger, report, report_wanted
+from dmnerf_tpu_torch.utils import spans
 
 
 def _state_from(cfg: Config, loaded) -> TrainState:
@@ -92,6 +94,7 @@ def profile_trace(device) -> torch.profiler.profile:
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(activities=acts)
+    spans.clear()
     prof.start()
     return prof
 
@@ -103,6 +106,7 @@ def _write_trace(prof, cfg: Config, device, first: int, last: int) -> str:
     os.makedirs(cfg.profile_dir, exist_ok=True)
     path = os.path.join(cfg.profile_dir, f"train_steps_{first:06d}-{last:06d}.json")
     prof.export_chrome_trace(path)
+    spans.write_chrome_trace(path)
     print(f"[train] wrote profiler trace to {path}")
     return path
 
