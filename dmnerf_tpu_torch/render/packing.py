@@ -28,8 +28,32 @@ pack writes its finiteness checks into device flags that are read after the pack
 which raises FloatingPointError naming the first bad step (a one-step runner raises
 before the update, as ``render.trainstep.check_finite`` does).
 
-Under a profiler a call records the spans ``train.draw`` (the host draws and the copy),
-then ``train.replay`` on the card or ``train.eager`` otherwise (``utils.spans``).
+A call of a runner of P > 1 steps takes its inputs from a draw it made ahead, or draws
+them, then replays (or runs), then draws the next pack ahead while the replay runs:
+
+1. use or redraw: the draw made ahead at the end of the last call holds when the same two
+   generators are passed, their ``get_state()`` equal the states saved just before that
+   draw, and ``state.step`` is the step it was made for; the generators are then set to
+   the states that draw left them in, and the static buffers are used as they are.
+   Otherwise the pack draws now, and a draw ahead it throws away is counted;
+2. capture if the state's addresses changed, then replay (or run the eager pack);
+3. draw ahead: right after the replay's launch and before any host read (the
+   ``debug_nans`` flags are read after it), the generators' states are saved, the next
+   P steps are drawn into the same static buffers, the states after the draw are saved,
+   and the generators are put back as they were (also when the draw raises: then nothing
+   is held for the next call). So whoever draws from them next (the one-step runner at a
+   pack boundary, another caller) sees no draw that no step used, and every interleaving
+   draws the parent's ids, uniforms and rates bit for bit. The draw's uniforms and its
+   pinned copy are queued on the current stream behind the replay that reads the
+   buffers, and the pinned buffer is written only after the last copy out of it has
+   ended (``copied``), so a draw never overwrites the inputs of the pack that runs.
+
+``ahead`` counts the draws ahead ``used`` and ``discarded``. A runner of one step draws at
+call time: its eager step keeps the host busy launching, so there is nothing to overlap.
+
+Under a profiler a call records the spans ``train.draw`` (the host draws and the copy:
+at the call's start when it draws then, and around the draw ahead), ``train.replay`` on
+the card or ``train.eager`` otherwise (``utils.spans``).
 """
 
 from __future__ import annotations
@@ -69,6 +93,8 @@ class StepRunner:
             self.u_z = torch.empty((P, N, cfg.N_samples), device=self.device)
             self.u_pdf = torch.empty((P, N, cfg.N_importance), device=self.device)
         self.copied = None          # the event after the last host-to-device copy
+        self.pending = None         # the draw ahead: (generators, step, states before, after)
+        self.ahead = {"used": 0, "discarded": 0}
         self.keys: Optional[List[str]] = None
         self.auxs: Optional[torch.Tensor] = None
         self.finite: Optional[torch.Tensor] = None
@@ -122,8 +148,10 @@ class StepRunner:
         returns each aux as a [P] device tensor, a view of the static buffer that the
         next call overwrites."""
         step0 = state.step
-        with span("train.draw", self.P):
-            self.draw(step0, gen_batch, gen_step)
+        gens = (gen_batch, gen_step)
+        if not self._take_ahead(step0, gens):
+            with span("train.draw", self.P):
+                self.draw(step0, gen_batch, gen_step)
         if self.cuda and self.P > 1:
             if self.graph_state != _addresses(state):
                 self._capture(state)
@@ -133,12 +161,34 @@ class StepRunner:
         else:
             with span("train.eager", self.P):
                 self._run(state, range(self.P))
+        if self.P > 1:
+            with span("train.draw", self.P):
+                before = _states(gens)
+                try:
+                    self.draw(step0 + self.P, gen_batch, gen_step)
+                    self.pending = (gens, step0 + self.P, before, _states(gens))
+                finally:    # a draw that raised leaves the generators as it found them too
+                    _set_states(gens, before)
         if self.cfg.debug_nans and self.P > 1:
             ok = self.finite.cpu()
             names = check_names(state)
             for k in range(self.P):
                 raise_non_finite(step0 + k, names, ok[k])
         return {key: self.auxs[:, i] for i, key in enumerate(self.keys)}
+
+    def _take_ahead(self, step0: int, gens) -> bool:
+        """Whether the draw made ahead holds for this call (module docstring); if so the
+        generators move on to where it left them."""
+        if self.pending is None:
+            return False
+        (drew_with, step, before, after), self.pending = self.pending, None
+        if not (all(a is b for a, b in zip(drew_with, gens)) and step == step0
+                and all(torch.equal(s, t) for s, t in zip(_states(gens), before))):
+            self.ahead["discarded"] += 1
+            return False
+        _set_states(gens, after)
+        self.ahead["used"] += 1
+        return True
 
     def _capture(self, state: TrainState) -> None:
         """Warm up on the capture stream, restore the state, capture the P steps."""
@@ -157,6 +207,15 @@ class StepRunner:
             self._run(state, range(self.P))
         state.step = saved["step"]
         self.graph, self.graph_state = graph, _addresses(state)
+
+
+def _states(gens) -> List[torch.Tensor]:
+    return [g.get_state() for g in gens]
+
+
+def _set_states(gens, states) -> None:
+    for g, s in zip(gens, states):
+        g.set_state(s)
 
 
 def _params(state: TrainState) -> List[torch.Tensor]:

@@ -18,8 +18,10 @@ trace the profiler exported, as ``user_annotation`` events (``train.profile_dir`
 The program's spans, which the benchmark's span metrics read (``benchmark/spans.py``;
 ``train.replay`` its clock check, ``train.eager`` a ``profile_dir`` trace's step):
 
- * ``render.packing.StepRunner``: ``train.draw`` (n: the steps drawn), then
-   ``train.replay`` (a pack's CUDA graph) or ``train.eager`` (n: the steps run);
+ * ``render.packing.StepRunner``: ``train.draw`` (n: the steps drawn) when a call draws
+   its own pack, then ``train.replay`` (a pack's CUDA graph) or ``train.eager`` (n: the
+   steps run), then, for a pack of P > 1, ``train.draw`` around the next pack's draw
+   made ahead while the replay runs (its generators put back after it);
  * ``render.renderer``: ``render.chunk`` (n: the chunk's real rays), one a chunk;
  * ``render.manipulator``: ``mani.chunk`` (n: the chunk's real rays), one a chunk;
  * ``core.pipeline``'s fused query: ``query`` (n: points), one a point query, inside a

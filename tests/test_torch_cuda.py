@@ -1026,16 +1026,22 @@ def test_assignment_chain_probe_launches(cuda):
     assert int(out) == 100 and runtime.LAUNCHES["assignment"] == 0
 
 
-def _pack_setup(cuda, P=3, **kw):
+def _pack_setup(cuda, P=3, kind="full", **kw):
+    """A tiny config, its sampler on the card (``kind``: DM-SR's full-image sampler, or
+    ScanNet's crop sampler), N_ins, and ``start()``: a fresh state and generators."""
     from dmnerf_tpu_torch.configs import Config
-    from dmnerf_tpu_torch.data.synthetic import build_dmsr_scene
+    from dmnerf_tpu_torch.data.synthetic import build_dmsr_scene, build_scannet_scene
     from dmnerf_tpu_torch.train import make_sampler
 
-    scene = build_dmsr_scene(n_train=4, n_test=1, H=32, W=32, n_objects=3, ins_num=8, seed=0)
+    if kind == "full":
+        scene = build_dmsr_scene(n_train=4, n_test=1, H=32, W=32, n_objects=3, ins_num=8, seed=0)
+    else:
+        scene = build_scannet_scene(Config(crop_width=32, crop_height=24, weakly_value=1.0),
+                                    n_train=3, n_test=1, H=32, W=40, n_objects=3, seed=0)
     cfg = Config(netdepth=2, netwidth=32, multires=4, multires_views=2, skips=(0,), N_samples=16,
-                 N_importance=16, N_train=256, near=2.0, far=7.0, ins_num=8, lrate=5e-3,
-                 perturb=1.0, penalize=True, tolerance=0.05, deta_w=0.05, steps_per_dispatch=P,
-                 i_print=P, **kw)
+                 N_importance=16, N_train=256, near=2.0, far=7.0, ins_num=scene.ins_num,
+                 lrate=5e-3, perturb=1.0, penalize=True, tolerance=0.05, deta_w=0.05,
+                 steps_per_dispatch=P, i_print=P, **kw)
     sampler, n_ins = make_sampler(cfg, scene, cuda)
 
     def start():
@@ -1070,6 +1076,50 @@ def test_graph_replay_equals_eager_steps(cuda, pe_mode):
     assert runtime.LAUNCHES[fwd] == 2 * 2 and runtime.LAUNCHES["assignment"] == 2   # warm-up only
     assert torch.equal(eager.view(torch.int32), packs.view(torch.int32))
     assert not cs._state_diffs(st_u, st_p)
+
+
+class _SlowSampler:
+    """A sampler whose host draw sleeps ``seconds`` a step: a pack's draw made ahead then
+    outlasts the replay it overlaps."""
+
+    def __init__(self, sampler, seconds):
+        self.sampler, self.seconds, self.gather = sampler, seconds, sampler.gather
+
+    def draw(self, generator):
+        import time
+
+        time.sleep(self.seconds)
+        return self.sampler.draw(generator)
+
+
+@pytest.mark.parametrize("kind, sleep_s", [("full", 0.0), ("crop", 0.0), ("full", 0.02)])
+def test_packs_drawn_ahead_equal_eager_steps_with_no_host_read_between(cuda, kind, sleep_s):
+    """Three packs of 3 called back to back (no host read between them, so each pack's
+    draw made ahead runs while its replay does) against 9 eager steps from the same
+    state and draws: every aux, parameters, Adam's state and both generators' states,
+    bit for bit; the second and third packs run from the draws made ahead. With DM-SR's
+    full sampler, ScanNet's crop sampler, and a sampler whose draws sleep 20 ms a step,
+    longer than a pack's replay."""
+    from dmnerf_tpu_torch.render.packing import StepRunner
+    from dmnerf_tpu_torch.render.trainstep import make_train_step
+    from dmnerf_tpu_torch.train import make_packed_steps
+
+    cs = _chip_smoke()
+    cfg, sampler, n_ins, start = _pack_setup(cuda, kind=kind)
+    assert (n_ins is None) == (kind == "full")
+    st_u, gb, gs = start()
+    single = StepRunner(cfg, sampler, make_train_step(cfg, N_ins=n_ins), cuda, 1)
+    eager = torch.cat([cs._aux_rows(single(st_u, gb, gs)) for _ in range(9)])
+    want_gens = [gb.get_state(), gs.get_state()]
+    st_p, gb, gs = start()
+    packed, P = make_packed_steps(cfg, _SlowSampler(sampler, sleep_s) if sleep_s else sampler,
+                                  n_ins, cuda)
+    packs = torch.cat([cs._aux_rows(packed(st_p, gb, gs)) for _ in range(3)])
+    torch.cuda.synchronize()
+    assert packed.ahead == {"used": 2, "discarded": 0}
+    assert torch.equal(eager.view(torch.int32), packs.view(torch.int32))
+    assert not cs._state_diffs(st_u, st_p)
+    assert all(torch.equal(a, b) for a, b in zip([gb.get_state(), gs.get_state()], want_gens))
 
 
 def test_a_pack_copies_nothing_to_the_host_and_launches_each_kernel_per_step(cuda):

@@ -1,11 +1,14 @@
 """``steps_per_dispatch`` in the port (``train.make_packed_steps``, ``render.packing``) on
 the CPU, where a pack runs its P steps eagerly from the buffers it drew ahead: packed
 training equals the same steps one by one, bit for bit, with the full-image sampler and
-with ScanNet's crop sampler; the effective pack size, its messages and the pack rule
+with ScanNet's crop sampler; a pack's draw made ahead of the next call is used when it
+still holds and thrown away otherwise, and packs between single steps (``pack_ok``'s
+pattern) draw what the steps one by one draw, leaving the generators where they leave
+them after every call; the effective pack size, its messages and the pack rule
 (``pack_ok``) are the JAX package's (``dmnerf_tpu/train.py:94-125, 175-190``); debug_nans
-inside a pack names the first bad step; train() with packing logs the iterations the
-JAX train() logs, within the training-parity bars; a checkpoint of a packed run resumes
-unpacked.
+inside a pack, the first or one drawn ahead, names the first bad step; train() with
+packing logs the iterations the JAX train() logs, within the training-parity bars; a
+checkpoint of a packed run resumes unpacked.
 
 Tolerances: packed against unpacked, exact; the port's train() against JAX's, 0.1 dB of
 PSNR and 2 % of the total loss at every logged iteration (tests/test_training_parity.py:
@@ -73,11 +76,20 @@ def _same_state(a, b) -> bool:
     return a.step == b.step
 
 
+def _rows(auxs):
+    return torch.stack(list(auxs.values()), -1).clone()
+
+
+def _gen_states(gb, gs):
+    return [gb.get_state(), gs.get_state()]
+
+
 @pytest.mark.parametrize("kind", ["full", "crop"])
 def test_packed_steps_equal_the_steps_one_by_one(scenes, kind):
-    """Two packs of 4 against 8 steps one by one from the same runner buffers, and
+    """Three packs of 4 against 12 steps one by one from the same runner buffers, and
     against the step function fed by the sampler and the generator directly (the draws
-    inside render_rays): parameters, Adam's state and every aux, bit for bit."""
+    inside render_rays): parameters, Adam's state and every aux, bit for bit; each pack
+    after the first runs from the draw the one before it made ahead."""
     scene = scenes[kind]
     cfg = Config(**TINY, ins_num=scene.ins_num, steps_per_dispatch=4, i_print=4)
     sampler, n_ins = ttrain.make_sampler(cfg, scene, "cpu")
@@ -86,21 +98,147 @@ def test_packed_steps_equal_the_steps_one_by_one(scenes, kind):
     st_d, gb, gs = _start(cfg)
     step = make_train_step(cfg, N_ins=n_ins)
     direct = torch.stack([torch.stack(list(step(st_d, sampler(gb), generator=gs).values()))
-                          for _ in range(8)])
+                          for _ in range(12)])
     st_u, gb, gs = _start(cfg)
     single = StepRunner(cfg, sampler, make_train_step(cfg, N_ins=n_ins), "cpu", 1)
-    one_by_one = torch.cat([torch.stack(list(single(st_u, gb, gs).values()), -1).clone()
-                            for _ in range(8)])
+    one_by_one = torch.cat([_rows(single(st_u, gb, gs)) for _ in range(12)])
+    want_gens = _gen_states(gb, gs)
     st_p, gb, gs = _start(cfg)
     runtime.reset_launches()
     packed, P = ttrain.make_packed_steps(cfg, sampler, n_ins, "cpu")
     assert P == 4
-    packs = torch.cat([torch.stack(list(packed(st_p, gb, gs).values()), -1).clone()
-                       for _ in range(2)])
+    packs = torch.cat([_rows(packed(st_p, gb, gs)) for _ in range(3)])
     assert not any(runtime.LAUNCHES.values())
     assert torch.equal(direct, one_by_one) and torch.equal(one_by_one, packs)
     assert torch.isfinite(packs).all()
-    assert _same_state(st_d, st_u) and _same_state(st_u, st_p) and st_p.step == 8
+    assert _same_state(st_d, st_u) and _same_state(st_u, st_p) and st_p.step == 12
+    assert packed.ahead == {"used": 2, "discarded": 0}
+    assert all(torch.equal(a, b) for a, b in zip(_gen_states(gb, gs), want_gens))
+    assert single.ahead == {"used": 0, "discarded": 0} and single.pending is None
+
+
+@pytest.mark.parametrize("kind", ["full", "crop"])
+@pytest.mark.parametrize("i_save", [6, 9])
+def test_packs_between_single_steps_draw_what_the_steps_one_by_one_draw(scenes, kind, i_save):
+    """train()'s pattern over 16 steps in packs of 4 with a checkpoint every i_save
+    steps (``pack_ok``): the packed runner and the one-step runner take turns on the
+    same generators. Every aux and the final state equal 16 steps one by one, bit for
+    bit, and after every call both generators' states equal the one-by-one run's after
+    as many steps. A pack right after a pack uses the draw made ahead; a pack after
+    single steps throws it away."""
+    scene = scenes[kind]
+    cfg = Config(**TINY, ins_num=scene.ins_num, steps_per_dispatch=4, i_print=4, N_iters=16,
+                 i_save=i_save, i_test=10 ** 6)
+    sampler, n_ins = ttrain.make_sampler(cfg, scene, "cpu")
+
+    st_u, gb, gs = _start(cfg)
+    single = StepRunner(cfg, sampler, make_train_step(cfg, N_ins=n_ins), "cpu", 1)
+    rows, gens = [], [_gen_states(gb, gs)]
+    for _ in range(cfg.N_iters):
+        rows.append(_rows(single(st_u, gb, gs)))
+        gens.append(_gen_states(gb, gs))
+
+    st, gb, gs = _start(cfg)
+    single = StepRunner(cfg, sampler, make_train_step(cfg, N_ins=n_ins), "cpu", 1)
+    packed, P = ttrain.make_packed_steps(cfg, sampler, n_ins, "cpu")
+    got, kinds, i = [], [], 0
+    while i < cfg.N_iters:
+        pack = ttrain.pack_ok(cfg, i, P, True)
+        got.append(_rows((packed if pack else single)(st, gb, gs)))
+        kinds.append(pack)
+        i += P if pack else 1
+        assert st.step == i
+        assert all(torch.equal(a, b) for a, b in zip(_gen_states(gb, gs), gens[i])), i
+    assert True in kinds and False in kinds
+    assert torch.equal(torch.cat(got), torch.cat(rows))
+    assert _same_state(st, st_u)
+    first = kinds.index(True)
+    used = sum(1 for k in range(first + 1, len(kinds)) if kinds[k] and kinds[k - 1])
+    discarded = sum(1 for k in range(first + 1, len(kinds)) if kinds[k] and not kinds[k - 1])
+    assert packed.ahead == {"used": used, "discarded": discarded}
+    assert discarded >= 1
+
+
+def _disturb(how, state, gb, gs):
+    """Something between two packed calls; returns the generators the next call takes."""
+    if how == "gen_batch drew":
+        torch.rand(3, generator=gb)
+    elif how == "gen_step drew":
+        torch.rand(3, generator=gs)
+    elif how == "state.step moved":
+        state.step += 1
+    elif how == "other generators":     # copies, in the same states
+        copies = torch.Generator(), torch.Generator()
+        for c, g in zip(copies, (gb, gs)):
+            c.set_state(g.get_state())
+        gb, gs = copies
+    return gb, gs
+
+
+@pytest.mark.parametrize("how", ["nothing", "gen_batch drew", "gen_step drew",
+                                 "state.step moved", "other generators"])
+def test_a_draw_ahead_is_used_only_while_it_holds(scenes, how):
+    """Two packed calls with ``how`` between them, against the same two calls where the
+    second is a fresh runner's, which has drawn nothing ahead: the second pack's auxs,
+    the state and the generators' states after it, bit for bit. Anything that changes
+    what the next pack would draw throws the draw ahead away."""
+    cfg = Config(**TINY, ins_num=8, steps_per_dispatch=4, i_print=4)
+    sampler, _ = ttrain.make_sampler(cfg, scenes["full"], "cpu")
+    runs = []
+    for fresh in (False, True):
+        state, gb, gs = _start(cfg)
+        packed, _ = ttrain.make_packed_steps(cfg, sampler, None, "cpu")
+        packed(state, gb, gs)
+        assert packed.pending is not None
+        gb, gs = _disturb(how, state, gb, gs)
+        runner = ttrain.make_packed_steps(cfg, sampler, None, "cpu")[0] if fresh else packed
+        runs.append((_rows(runner(state, gb, gs)), state, _gen_states(gb, gs), packed.ahead))
+    (rows, state, gens, ahead), (want_rows, want_state, want_gens, _) = runs
+    assert torch.equal(rows, want_rows) and _same_state(state, want_state)
+    assert all(torch.equal(a, b) for a, b in zip(gens, want_gens))
+    held = how == "nothing"
+    assert ahead == {"used": int(held), "discarded": int(not held)}
+
+
+class _FailsOnce:
+    """The sampler, but its draw number ``at`` (from 0) raises."""
+
+    def __init__(self, sampler, at: int):
+        self.sampler, self.at, self.n = sampler, at, 0
+
+    def draw(self, gen):
+        self.n += 1
+        if self.n == self.at + 1:
+            raise RuntimeError("the sampler failed")
+        return self.sampler.draw(gen)
+
+    def __getattr__(self, name):
+        return getattr(self.sampler, name)
+
+
+@pytest.mark.parametrize("at", [4, 6])
+def test_a_draw_ahead_that_raises_leaves_the_generators_as_it_found_them(scenes, at):
+    """The first pack's draw ahead raises at its first or a later step: the pack has run,
+    the generators are where a pack leaves them, nothing is held for the next call, and
+    the next call draws the second pack as a runner whose sampler never failed, bit for
+    bit."""
+    cfg = Config(**TINY, ins_num=8, steps_per_dispatch=4, i_print=4)
+    sampler, _ = ttrain.make_sampler(cfg, scenes["full"], "cpu")
+    want_state, gb, gs = _start(cfg)
+    clean, _ = ttrain.make_packed_steps(cfg, sampler, None, "cpu")
+    clean(want_state, gb, gs)
+    want_gens = _gen_states(gb, gs)
+    want_rows = _rows(clean(want_state, gb, gs))
+
+    state, gb, gs = _start(cfg)
+    failing, _ = ttrain.make_packed_steps(cfg, _FailsOnce(sampler, at), None, "cpu")
+    with pytest.raises(RuntimeError, match="the sampler failed"):
+        failing(state, gb, gs)
+    assert state.step == 4 and failing.pending is None
+    assert all(torch.equal(a, b) for a, b in zip(_gen_states(gb, gs), want_gens))
+    assert torch.equal(_rows(failing(state, gb, gs)), want_rows)
+    assert _same_state(state, want_state)
+    assert failing.ahead == {"used": 0, "discarded": 0}
 
 
 @pytest.mark.parametrize("spd, i_print", [(4, 4), (4, 6), (10, 100), (3, 4), (1, 7), (6, 1)])
@@ -153,22 +291,33 @@ def test_pack_ok_matches_jax(case):
     assert got == [bool(jok(i)) for i in range(n_iters + P)]
 
 
-def test_debug_nans_in_a_pack_names_the_first_bad_step(scenes):
-    """One train image of NaN: the first step of the pack that draws it has a NaN rgb loss;
-    the pack raises FloatingPointError naming that step (the steps before it are fine)."""
-    scene = dataclasses.replace(scenes["full"], images=scenes["full"].images.copy())
-    bad_img = 2
-    scene.images[bad_img] = np.nan
+@pytest.mark.parametrize("pack", [0, 1])
+def test_debug_nans_in_a_pack_names_the_first_bad_step(scenes, pack):
+    """One train image of NaN, first drawn by a later step of pack ``pack`` (the second
+    pack runs from the draw the first made ahead): that step has a NaN rgb loss, and the
+    pack raises FloatingPointError naming it (the steps before it are fine)."""
     cfg = Config(**TINY, ins_num=8, steps_per_dispatch=4, i_print=4, debug_nans=True)
+    sampler, _ = ttrain.make_sampler(cfg, scenes["full"], "cpu")
+    for seed in range(100):      # a seed whose draws first meet an image there
+        g = torch.Generator().manual_seed(seed + 1)
+        drawn = [int(sampler.draw(g)[0]) for _ in range(4 * (pack + 1))]
+        firsts = [k for k, img in enumerate(drawn) if img not in drawn[:k]]
+        if firsts[-1] > 4 * pack:
+            break
+    else:
+        pytest.fail("no seed first draws an image late in the pack")
+    first = firsts[-1]
+    cfg = cfg.replace(seed=seed)
+    scene = dataclasses.replace(scenes["full"], images=scenes["full"].images.copy())
+    scene.images[drawn[first]] = np.nan
     sampler, _ = ttrain.make_sampler(cfg, scene, "cpu")
-    g = torch.Generator().manual_seed(cfg.seed + 1)
-    drawn = [int(sampler.draw(g)[0]) for _ in range(4)]
-    assert bad_img in drawn[1:] and drawn[0] != bad_img, drawn     # a later step of the pack
-    first = drawn.index(bad_img)
     state, gb, gs = _start(cfg)
     packed, _ = ttrain.make_packed_steps(cfg, sampler, None, "cpu")
+    for _ in range(pack):
+        packed(state, gb, gs)
     with pytest.raises(FloatingPointError, match=rf"debug_nans: step {first}: non-finite loss rgb_loss"):
         packed(state, gb, gs)
+    assert packed.ahead == {"used": pack, "discarded": 0}
 
 
 def _jax_state_params(jcfg):
