@@ -22,10 +22,13 @@
    peak, or bytes over 3.35 TB/s, whichever is larger.
 3. Slice phase: a synthetic DM-SR scene built in memory (256x256, 2 test views,
    4 objects, ins_num 32, near 1, far 8) rendered by the port's render_test with
-   seeded full-width weights. Every map must be finite and in range, the kernel's
-   launch count must be 2 x chunks x views, and one view rendered with the plain
+   seeded full-width weights. Every map must be finite and in range, the wrappers'
+   K1 launch count must be 2 (the two queries of the renderer's warm-up chunk; its
+   chunks are CUDA graph replays), and one view rendered with the plain
    PyTorch query on the card must agree with the kernel's render (rgb PSNR >= 40 dB,
-   at most 1% of pixels with another argmax instance label).
+   at most 1% of pixels with another argmax instance label). Then render_test again on
+   a renderer that has captured, under torch.profiler: exactly 2 x chunks x views K1
+   kernels on the device, chunks x views cudaGraphLaunch and no wrapper launch.
 4. Backward kernel phase, at the flagship width and the training shapes
    (configs/train/dmsr/study.txt: N_train 3072; fine 3072 x 192 points, coarse
    3072 x 64, both through the full model), once for K2 and once for K4: each
@@ -110,10 +113,14 @@
    step and rays/s.
 11. ScanNet render phase: the test view, 640x480 (150 chunks of 2048 rays), through
    render_test with the crop mask under pallas_pe_mode = outside, with the weights of
-   the ScanNet train phase: exactly 2 K7 and 2 K5 launches a chunk, every map finite
+   the ScanNet train phase: exactly 2 K7 and 2 K5 wrapper launches, at the renderer's
+   warm-up chunk (its chunks are graph replays), every map finite
    and in range, and the same view through the plain PyTorch query on the card held
-   to the render phase's bars. Prints ms per view, and the device time of one more
-   kernel view by kernel (torch.profiler): K7's and K5's, the rest, and K7's share.
+   to the render phase's bars. Then render_test again on a renderer that has captured,
+   under torch.profiler: exactly 2 x chunks x views K7 and K5 kernels on the device,
+   chunks x views cudaGraphLaunch, no wrapper launch. Prints ms per view, and the
+   device time of one more view on that renderer by kernel (torch.profiler; 2 x chunks
+   K7 and K5, replays alone): K7's and K5's, the rest, and K7's share.
 12. Mesh phase, at the flagship width (configs/test/dmsr/study.txt, near 1, far 8,
    N_importance 128, ins_num 32) with seeded weights on a synthetic DM-SR scene built
    in memory: make_sigma_query over the full 256^3 grid (build_grid, identity frame)
@@ -127,8 +134,11 @@
    seeded weights the reference level 0.45 gives an empty surface (occupancy stays
    below 0.01), so the level is the 99.9th percentile of the kernel sweep's occupancy,
    printed. Then run_test's mesh mode at that level: a non-empty surface, mesh.ply
-   and color_mesh.ply written and read back, exactly 256 + 2 x ceil(V / N_test) K1
-   launches (the sweep, then the colour render of the V cleaned vertices), and the
+   and color_mesh.ply written and read back, exactly 256 + 2 K1 wrapper launches (the
+   sweep, then the colour render's warm-up chunk, its chunks replays); the vertex rays
+   again on a renderer of the mesh mode's config that has captured, under
+   torch.profiler: exactly 2 x ceil(V / N_test) K1 kernels on the device, ceil(V /
+   N_test) cudaGraphLaunch, no wrapper launch, and run_test's labels bit for bit; the
    same vertex rays through the plain query on the card with at most 1% of the
    vertices on another argmax label. Prints the vertex and face counts, each host
    stage's seconds, the peak resident memory and the peak device memory.
@@ -136,7 +146,9 @@
    width (configs/test/dmsr/study.txt, ins_num 32, near 1, far 8, seeded weights): the
    first test view (256x256) of a synthetic DM-SR scene through make_fused_renderer
    (exactly one K8c and one K8f launch a chunk and no K1) and through
-   make_image_renderer (K1) with the same weights: the fused view's maps finite and in
+   make_image_renderer (K1: 2 wrapper launches, at its warm-up chunk; the view again on
+   that captured renderer under torch.profiler, 2 x chunks K1 kernels on the device and
+   chunks cudaGraphLaunch) with the same weights: the fused view's maps finite and in
    range, its rgb PSNR >= 40 dB against the K1 view and at most 1% of its pixels on
    another argmax label; both views' ms (host clock, in turns) and, from one view of
    each under torch.profiler, the device activities a chunk, the busy ms and the idle
@@ -254,6 +266,11 @@ TRAIN_STEPS = 20
 KPE_TRAIN_STEPS = 5
 SCANNET_TRAIN_STEPS = 5
 SEED = 0
+# the image renderer's wrappers count a chunk's launches once, at its warm-up: the capture
+# records them uncounted and every chunk of a render on the card is a replay
+# (render/renderer.py, kernels/runtime.count_launch); replay_counts reads the replays'
+# kernels on the device
+RENDER_CHUNK_LAUNCHES = 1
 
 
 def _kernel_label(line: str) -> str:
@@ -925,10 +942,10 @@ def slice_phase(cfg, device):
     launches = dict(runtime.LAUNCHES)
 
     chunks = -(-H * W // cfg.N_test)
-    want = 2 * chunks * n_views
+    want = 2 * RENDER_CHUNK_LAUNCHES
     if launches["fused_mlp_fwd"] != want:
         raise AssertionError(f"fused_mlp_fwd launched {launches['fused_mlp_fwd']} times, want "
-                             f"2 x {chunks} chunks x {n_views} views = {want}")
+                             f"2 at the renderer's warm-up chunk = {want}")
     for img in res["images"]:
         if img.shape != (H, W, 3) or not np.isfinite(img).all() or img.min() < 0 or img.max() > 1:
             raise AssertionError(f"rendered rgb out of range: shape {img.shape}, "
@@ -939,9 +956,17 @@ def slice_phase(cfg, device):
     c2w = torch.as_tensor(scene.poses[ids[0]], device=device)
     rays_o, rays_d = rays_from_K(H, W, K, c2w)
     rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
-    ours = make_image_renderer(cfg)(pc, pf, rays_o, rays_d)
+    view = make_image_renderer(cfg)
+    ours = view(pc, pf, rays_o, rays_d)
     plain_q = make_torch_query_fn(cfg.multires, cfg.multires_views, cfg.netdepth, tuple(cfg.skips))
     plain = make_image_renderer(cfg, query_fn=plain_q)(pc, pf, rays_o, rays_d)
+    # the replays run the kernels: the views again through render_test, on that renderer
+    replays = replay_counts(
+        "render_test's views", lambda: render_test(
+            cfg, pc, pf, scene.poses[ids], scene.hwk, gt_imgs=scene.images[ids],
+            gt_labels=scene.gt_labels[ids], ins_rgbs=scene.ins_rgbs, savedir=None,
+            renderer=view, device=device, verbose=False),
+        ("fused_mlp_fwd_kernel",), chunks * n_views)
     for name, out in (("kernel", ours), ("plain", plain)):
         for k in ("rgb", "ins"):
             v = out[k]
@@ -957,7 +982,7 @@ def slice_phase(cfg, device):
 
     ms = [t * 1e3 for t in res["times"]]
     out = dict(views=n_views, H=H, W=W, chunks_per_view=chunks, launches=launches,
-               psnr=res["psnrs"], ssim=res["ssims"], ap=[list(a) for a in res["aps"]],
+               replays=replays, psnr=res["psnrs"], ssim=res["ssims"], ap=[list(a) for a in res["aps"]],
                ms_per_image=ms, rays_per_s=[H * W / (t * 1e-3) for t in ms],
                kernel_vs_plain=dict(rgb_psnr_db=psnr, label_flip_share=flip,
                                     depth_max_abs_err=depth_err))
@@ -966,7 +991,7 @@ def slice_phase(cfg, device):
         raise AssertionError(f"kernel render vs plain render: rgb PSNR {psnr:.2f} dB "
                              f"(want >= {MIN_PSNR_DB}), label flips {flip:.4f} "
                              f"(want <= {MAX_LABEL_FLIP})")
-    return launches
+    return launches, replays
 
 
 def _leaf_grads(query, params, pts, dirs, w):
@@ -1521,6 +1546,25 @@ def _count(names: dict, part: str) -> int:
     return sum(n for k, n in names.items() if part in k)
 
 
+def replay_counts(what, fn, kernels, chunks: int) -> dict:
+    """``fn()``, renders through a ``make_image_renderer`` that has already captured its
+    chunk, under torch.profiler: every kernel of ``kernels`` (device name parts) must run
+    2 x ``chunks`` times (each chunk's coarse and fine query, inside the replays), the
+    host must make ``chunks`` cudaGraphLaunch, and the port's wrappers launch nothing.
+    Returns those counts; raises on others."""
+    from dmnerf_tpu_torch.kernels import runtime
+
+    runtime.reset_launches()
+    prof = profile_calls(fn)
+    got = {k: _count(prof["kernels"], k) for k in kernels}
+    got["cudaGraphLaunch"] = prof["api"].get("cudaGraphLaunch", 0)
+    got["wrapper_launches"] = sum(runtime.LAUNCHES.values())
+    want = {**{k: 2 * chunks for k in kernels}, "cudaGraphLaunch": chunks, "wrapper_launches": 0}
+    if got != want:
+        raise AssertionError(f"{what}: device activity {got}, want {want}")
+    return got
+
+
 def packed_train_phase(device, card, pe_mode=None, dataset="dmsr", P=PACK_STEPS, packs=PACKS,
                        timed=True):
     """Phase 15: ``packs`` packs of P whole train steps (one CUDA graph replay each)
@@ -1699,10 +1743,10 @@ def render_scannet_phase(device, scene, params_coarse, params_fine):
     launches = dict(runtime.LAUNCHES)
     chunks = -(-H * W // cfg.N_test)
     for name in runtime.COUNTED:
-        want = 2 * chunks * len(ids) if name in ("fused_pe", "fused_mlp_fwd_pe") else 0
+        want = 2 * RENDER_CHUNK_LAUNCHES if name in ("fused_pe", "fused_mlp_fwd_pe") else 0
         if launches[name] != want:
             raise AssertionError(f"ScanNet render: {name} launched {launches[name]} times, want "
-                                 f"{want} ({chunks} chunks x {len(ids)} views)")
+                                 f"{want} (2 at the renderer's warm-up chunk)")
     for img in res["images"]:
         if img.shape != (cfg.crop_height, cfg.crop_width, 3):
             raise AssertionError(f"ScanNet render: crop image of shape {img.shape}")
@@ -1713,8 +1757,10 @@ def render_scannet_phase(device, scene, params_coarse, params_fine):
     rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
     plain_q = make_torch_query_fn(cfg.multires, cfg.multires_views, cfg.netdepth, tuple(cfg.skips))
 
+    view = make_image_renderer(cfg)
+
     def kernel_vs_plain(pc, pf):
-        ours = make_image_renderer(cfg)(pc, pf, rays_o, rays_d)
+        ours = view(pc, pf, rays_o, rays_d)
         plain = make_image_renderer(cfg, query_fn=plain_q)(pc, pf, rays_o, rays_d)
         for name, out in (("kernel", ours), ("plain", plain)):
             _check_maps(f"ScanNet view ({name})", rgb=out["rgb"], ins=out["ins"])
@@ -1732,9 +1778,16 @@ def render_scannet_phase(device, scene, params_coarse, params_fine):
     trained = kernel_vs_plain(pc, pf)
     init = kernel_vs_plain(*init_params(cfg, device))
     psnr, flip = trained["rgb_psnr_db"], trained["label_flip_share"]
-    # the device time by kernel of one view, from torch.profiler, and that view's host
-    # time: K7's share of the view
-    view, view_s = make_image_renderer(cfg), []
+    # the replays run the kernels: the views again through render_test, on that renderer
+    replays = replay_counts(
+        "ScanNet render_test's views", lambda: render_test(
+            cfg, pc, pf, scene.poses[ids], scene.hwk, gt_imgs=scene.images[ids],
+            gt_labels=scene.gt_labels[ids], ins_rgbs=scene.ins_rgbs, savedir=None,
+            crop_mask=scene.crop_mask, renderer=view, device=device, verbose=False),
+        ("fused_pe_kernel", "fused_mlp_fwd_kernel"), chunks * len(ids))
+    # the device time by kernel of one view on that renderer (captured: replays alone),
+    # from torch.profiler, and that view's host time: K7's share of the view
+    view_s = []
 
     def timed_view():
         torch.cuda.synchronize()
@@ -1745,11 +1798,14 @@ def render_scannet_phase(device, scene, params_coarse, params_fine):
     split = launch_split(timed_view, reps=1,
                          kinds=(("k7", ("fused_pe_kernel",)), ("k5", ("fused_mlp_fwd_kernel",))))
     profiled_view_ms = view_s[-1] * 1e3
+    if split["launches_per_call"] != {"k7": 2 * chunks, "k5": 2 * chunks}:
+        raise AssertionError(f"ScanNet profiled view: launches {split['launches_per_call']}, "
+                             f"want {2 * chunks} of K7 and of K5")
 
     ms = [t * 1e3 for t in res["times"]]
     out = dict(views=len(ids), H=H, W=W, crop=[cfg.crop_height, cfg.crop_width],
                chunks_per_view=chunks, ins_num=cfg.ins_num, launches=launches,
-               psnr=res["psnrs"], ap=[list(a) for a in res["aps"]], ms_per_view=ms,
+               replays=replays, psnr=res["psnrs"], ap=[list(a) for a in res["aps"]], ms_per_view=ms,
                rays_per_s=[H * W / (t * 1e-3) for t in ms], kernel_vs_plain=trained,
                init_weights_kernel_vs_plain=init, device_ms_by_kernel=split,
                profiled_view_ms=profiled_view_ms,
@@ -1759,7 +1815,7 @@ def render_scannet_phase(device, scene, params_coarse, params_fine):
     if psnr < MIN_PSNR_DB or flip > MAX_LABEL_FLIP:
         raise AssertionError(f"ScanNet view, kernel vs plain: rgb PSNR {psnr:.2f} dB (want >= "
                              f"{MIN_PSNR_DB}), label flips {flip:.4f} (want <= {MAX_LABEL_FLIP})")
-    return launches
+    return launches, replays
 
 
 def _check_maps(what, **maps):
@@ -1885,7 +1941,6 @@ def mesh_phase(cfg, device):
     """The mesh path: the 256^3 sigma sweep (K1) against the plain sweep, then
     run_test's mesh mode at a level the sweep sets, its colour render against the
     plain query."""
-    import math
     import tempfile
 
     import numpy as np
@@ -1994,16 +2049,30 @@ def mesh_phase(cfg, device):
             (len(v_col), len(f_col)) != (stats["clean_verts"], stats["clean_faces"]):
         raise AssertionError("mesh.ply / color_mesh.ply read back with other counts than written")
     n_verts = stats["clean_verts"]
-    want = n_chunks + 2 * math.ceil(n_verts / cfg.N_test)
+    want = n_chunks + 2 * RENDER_CHUNK_LAUNCHES      # the sweep, then the colour render
     for k in runtime.COUNTED:
         if launches[k] != (want if k == "fused_mlp_fwd" else 0):
             raise AssertionError(f"mesh mode launched {k} {launches[k]} times, want "
                                  f"{want if k == 'fused_mlp_fwd' else 0} ({n_chunks} sweep + "
-                                 f"2 x ceil({n_verts} / {cfg.N_test}) colour chunks)")
+                                 f"the colour render's warm-up chunk)")
+
+    # the colour render's replays run the kernels: the vertex rays again, on a renderer of
+    # the mesh mode's config that has captured; the labels are run_test's, bit for bit
+    mesh_cfg = cfg.replace(near=0.01, far=15.0, perturb=0.0)
+    colour = make_image_renderer(mesh_cfg)
+    colour(pc, pf, stats["rays_o"][:cfg.N_test], stats["rays_d"][:cfg.N_test])
+    colour_chunks = -(-n_verts // cfg.N_test)
+    labels = {}
+    replays = replay_counts(
+        "mesh colour render", lambda: labels.update(
+            ins=colour(pc, pf, stats["rays_o"], stats["rays_d"])["ins"].argmax(-1).cpu().numpy()),
+        ("fused_mlp_fwd_kernel",), colour_chunks)
+    if not np.array_equal(labels["ins"], stats["labels"]):
+        raise AssertionError("the vertex labels of a captured renderer differ from run_test's")
 
     # the vertex rays through the plain query: the labels against the kernel's
     plain_q = make_torch_query_fn(cfg.multires, cfg.multires_views, cfg.netdepth, tuple(cfg.skips))
-    plain = make_image_renderer(cfg.replace(near=0.01, far=15.0, perturb=0.0), query_fn=plain_q)
+    plain = make_image_renderer(mesh_cfg, query_fn=plain_q)
     plain_labels = plain(pc, pf, stats["rays_o"], stats["rays_d"])["ins"].argmax(-1).cpu().numpy()
     flip = float((plain_labels != stats["labels"]).mean())
 
@@ -2016,7 +2085,7 @@ def mesh_phase(cfg, device):
                verts=stats["verts"], faces=stats["faces"], clean_verts=n_verts,
                clean_faces=stats["clean_faces"], host_s=stats["seconds"],
                peak_rss_gb=stats["peak_rss_gb"], peak_mem_gb=peak_gb, launches=launches,
-               label_flip_share=flip)
+               colour_replays=replays, label_flip_share=flip)
     print(f"[mesh] level {level:.6g} (the {MESH_LEVEL_QUANTILE} quantile of the kernel sweep's "
           f"occupancy)", flush=True)
     print(f"[mesh] {json.dumps(out)}", flush=True)
@@ -2078,6 +2147,7 @@ def fused_render_phase(device):
     from dmnerf_tpu_torch.kernels import fused_mlp as fm
     from dmnerf_tpu_torch.kernels import fused_render as fr
     from dmnerf_tpu_torch.kernels import runtime
+    from dmnerf_tpu_torch.render.renderer import make_image_renderer
 
     probe = _script("fused_render_probe_torch")
     view = probe.compare_views(device, size=256, reps=2)
@@ -2085,9 +2155,16 @@ def fused_render_phase(device):
     launches = {k: 0 for k in runtime.COUNTED}
     launches.update(view["fused"]["launches"])
     want = {"fused_render_weights": chunks, "fused_render_maps": chunks}
-    if view["fused"]["launches"] != want or view["k1"]["launches"] != {"fused_mlp_fwd": 2 * chunks}:
+    k1_want = {"fused_mlp_fwd": 2 * RENDER_CHUNK_LAUNCHES}
+    if view["fused"]["launches"] != want or view["k1"]["launches"] != k1_want:
         raise AssertionError(f"fused view launched {view['fused']['launches']}, want {want}; K1 "
-                             f"view {view['k1']['launches']}, want 2 x {chunks} fused_mlp_fwd")
+                             f"view {view['k1']['launches']}, want {k1_want}")
+    # the K1 view's replays run K1: the view again on a renderer that has captured
+    vcfg, vpc, vpf, vro, vrd = probe.scene_view(device, 256)
+    k1_view = make_image_renderer(vcfg)
+    k1_view(vpc, vpf, vro, vrd)
+    k1_replays = replay_counts("the K1 view", lambda: k1_view(vpc, vpf, vro, vrd),
+                               ("fused_mlp_fwd_kernel",), chunks)
     for k in ("rgb", "ins"):
         v = view["fused"]["maps"][k]
         if not torch.isfinite(v).all() or float(v.min()) < 0 or float(v.max()) > 1:
@@ -2100,6 +2177,7 @@ def fused_render_phase(device):
                      **{k: r["profile"][k] for k in ("activities_per_chunk", "device_busy_ms",
                                                      "device_idle_share", "device_ms",
                                                      "port_kernel_ms")}}
+    out["k1"]["replays"] = k1_replays
     print(f"[fused render] view: {json.dumps(out)}", flush=True)
     if cmp["rgb_psnr_db"] < MIN_PSNR_DB or cmp["label_flip_share"] > MAX_LABEL_FLIP:
         raise AssertionError(f"fused view vs K1 view: rgb PSNR {cmp['rgb_psnr_db']:.2f} dB (want "
@@ -2780,7 +2858,7 @@ def main() -> int:
     kres = kernel_phase(cfg, device)
     kres_kpe = kernel_phase(cfg, device, "kernel")
     torch.cuda.empty_cache()
-    render_launches = slice_phase(cfg, device)
+    render_launches, render_replays = slice_phase(cfg, device)
     train_cfg = load_config(os.path.join(REPO, "configs", "train", "dmsr", "study.txt"),
                             ins_num=32, near=1.0, far=8.0)
     bres = bwd_kernel_phase(train_cfg, device)
@@ -2797,8 +2875,8 @@ def main() -> int:
     scannet_train_launches, scene, state, _ = train_phase(device, "outside", SCANNET_TRAIN_STEPS,
                                                           "scannet")
     torch.cuda.empty_cache()
-    scannet_render_launches = render_scannet_phase(device, scene, state.params_coarse,
-                                                   state.params_fine)
+    scannet_render_launches, scannet_replays = render_scannet_phase(
+        device, scene, state.params_coarse, state.params_fine)
     del scene, state
     torch.cuda.empty_cache()
     mesh_launches, mesh_launch = mesh_phase(cfg, device)
@@ -2840,7 +2918,8 @@ def main() -> int:
             raise AssertionError(f"{name} was never launched on the main paths")
     kernels = [
         _entry("fused_mlp_fwd", "dmnerf_tpu/kernels/fused_mlp.py:507", render_launches["fused_mlp_fwd"],
-               by_path, kres["fine"], mesh_launch=mesh_launch),
+               by_path, kres["fine"], mesh_launch=mesh_launch,
+               in_render_replays=render_replays["fused_mlp_fwd_kernel"]),
         _entry("fused_mlp_bwd", "dmnerf_tpu/kernels/fused_mlp.py:520", train_launches["fused_mlp_bwd"],
                by_path, bres["fine"], **_bwd_extra(bres["fine"])),
         _entry("fused_mlp_fwd_kpe", "dmnerf_tpu/kernels/fused_mlp.py:462",
@@ -2850,12 +2929,14 @@ def main() -> int:
                **_bwd_extra(bres_kpe["fine"])),
         _entry("fused_mlp_fwd_pe", "dmnerf_tpu/kernels/fused_mlp.py:471",
                scannet_render_launches["fused_mlp_fwd_pe"], by_path, kres_pe["fine"]["k5"],
-               vs_k1_differing=kres_pe["fine"]["k5"]["vs_k1_differing"]),
+               vs_k1_differing=kres_pe["fine"]["k5"]["vs_k1_differing"],
+               in_render_replays=scannet_replays["fused_mlp_fwd_kernel"]),
         _entry("fused_mlp_bwd_pe", "dmnerf_tpu/kernels/fused_mlp.py:494",
                scannet_train_launches["fused_mlp_bwd_pe"], by_path, bres_pe["fine"],
                **_bwd_extra(bres_pe["fine"])),
         _entry("fused_pe", "dmnerf_tpu/kernels/fused_mlp.py:689",
                scannet_render_launches["fused_pe"], by_path, kres_pe["fine"]["k7"],
+               in_render_replays=scannet_replays["fused_pe_kernel"],
                **{k: kres_pe["fine"]["k7"][k] for k in ("call_ms", "bytes_bound_ms",
                                                          "issue_bound_ms", "share_of_bound",
                                                          "card")}),

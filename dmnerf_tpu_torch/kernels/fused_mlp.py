@@ -223,6 +223,21 @@ class Packed:
     def bias(self, layer: Layer) -> torch.Tensor:
         return self.b[layer.b_off:layer.b_off + layer.N]
 
+    def clone(self) -> "Packed":
+        """The same parameters in tensors of their own, e.g. a CUDA graph's static ones."""
+        return dataclasses.replace(self, w=self.w.clone(), w_bf16=self.w_bf16.clone(),
+                                   wt_bf16=self.wt_bf16.clone(), b=self.b.clone())
+
+    def copy_(self, other: "Packed") -> None:
+        """``other``'s parameters into these tensors, in place; raises if ``other`` is laid
+        out otherwise (the layer table fixes every tensor's shape)."""
+        if (other.layers, other.multires, other.multires_views) != \
+                (self.layers, self.multires, self.multires_views):
+            raise ValueError("packed parameters of another layout than these")
+        for mine, theirs in ((self.w, other.w), (self.w_bf16, other.w_bf16),
+                             (self.wt_bf16, other.wt_bf16), (self.b, other.b)):
+            mine.copy_(theirs)
+
 
 def pack_params(params: Params, multires: int, multires_views: int, D: int,
                 skips: Sequence[int]) -> Packed:

@@ -65,6 +65,7 @@ import torch
 from dmnerf_tpu_torch.configs import Config
 from dmnerf_tpu_torch.render.trainstep import (
     TrainState, check_names, lr_at_step, raise_non_finite)
+from dmnerf_tpu_torch.utils.device import capture_graph
 from dmnerf_tpu_torch.utils.spans import span
 
 WARMUP_STEPS = 2
@@ -193,20 +194,17 @@ class StepRunner:
     def _capture(self, state: TrainState) -> None:
         """Warm up on the capture stream, restore the state, capture the P steps."""
         self.graph = None
-        cur = torch.cuda.current_stream(self.device)
         if self.stream is None:
             self.stream = torch.cuda.Stream(self.device)
-        self.stream.wait_stream(cur)
         saved = _snapshot(state)
-        with torch.cuda.stream(self.stream):
+
+        def warmup():
             self._run(state, range(min(WARMUP_STEPS, self.P)))
-        cur.wait_stream(self.stream)
-        _restore(state, saved)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self.stream):
-            self._run(state, range(self.P))
+            _restore(state, saved)
+
+        self.graph, _ = capture_graph(self.stream, warmup, lambda: self._run(state, range(self.P)))
         state.step = saved["step"]
-        self.graph, self.graph_state = graph, _addresses(state)
+        self.graph_state = _addresses(state)
 
 
 def _states(gens) -> List[torch.Tensor]:

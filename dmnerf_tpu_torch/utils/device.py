@@ -1,13 +1,16 @@
-"""Device resolution for the port's entry points, and this process's place in a
-``torch.distributed`` group (one process a GPU; ``parallel.mesh``)."""
+"""Device resolution for the port's entry points, this process's place in a
+``torch.distributed`` group (one process a GPU; ``parallel.mesh``), and the CUDA graph
+capture that the packed steps and the image renderer share."""
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Union
+from typing import Callable, Optional, Tuple, TypeVar, Union
 
 import torch
 import torch.distributed as dist
+
+T = TypeVar("T")
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -55,3 +58,20 @@ def barrier() -> None:
     """Every rank waits here for the others; nothing without a process group."""
     if distributed():
         dist.barrier()
+
+
+def capture_graph(stream: torch.cuda.Stream, warmup: Callable[[], object],
+                  body: Callable[[], T]) -> Tuple[torch.cuda.CUDAGraph, T]:
+    """``body`` captured as one CUDA graph on ``stream``, after ``warmup()`` ran there
+    eagerly (the kernels' builds, the allocator's blocks, cuBLAS's workspace for that
+    stream), behind the current stream's work and ahead of its next. Returns the graph
+    and what ``body`` returned, which every replay writes again. A failed capture raises."""
+    cur = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(cur)
+    with torch.cuda.stream(stream):
+        warmup()
+    cur.wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = body()
+    return graph, out

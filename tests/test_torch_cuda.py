@@ -1140,6 +1140,97 @@ def test_a_pack_copies_nothing_to_the_host_and_launches_each_kernel_per_step(cud
             cs._count(k, "assignment_kernel")) == (2 * P, 2 * P, P)
 
 
+# ---- the image renderer: a chunk as one CUDA graph replay (render/renderer.py) ----
+
+VIEW_RAYS = [2 * 2048, 3 * 2048 - 500]     # whole chunks; a padded last chunk
+
+
+def _view_case(cuda, kind, seed=0):
+    """The flagship's widths under DM-SR's K1 ('dmsr'), ScanNet's K7 + K5 ('scannet') or
+    the plain PyTorch query ('plain', DM-SR's config): the config, a renderer of it and a
+    coarse and a fine model."""
+    from dmnerf_tpu_torch.configs import Config
+    from dmnerf_tpu_torch.core.pipeline import make_torch_query_fn
+    from dmnerf_tpu_torch.render.renderer import make_image_renderer
+
+    if kind == "scannet":
+        cfg, ins = Config(ins_num=16, near=0.0, far=9.5, pallas_pe_mode="outside"), 16
+    else:
+        cfg, ins = Config(ins_num=32, near=4.0, far=15.0), 32
+    pc, _, _, _ = _inputs((10, 4, 8, 256, (4,), ins, 1, 1), cuda, seed=seed)
+    pf, _, _, _ = _inputs((10, 4, 8, 256, (4,), ins, 1, 1), cuda, seed=seed + 1)
+    query_fn = make_torch_query_fn(10, 4, 8, (4,)) if kind == "plain" else None
+    return cfg, make_image_renderer(cfg, query_fn=query_fn), pc, pf
+
+
+def _same_maps(got, want):
+    return set(got) == set(want) and all(
+        got[k].shape == want[k].shape and torch.equal(got[k].view(torch.int32),
+                                                      want[k].view(torch.int32)) for k in want)
+
+
+@pytest.mark.parametrize("n", VIEW_RAYS)
+@pytest.mark.parametrize("kind", ["dmsr", "scannet", "plain"])
+def test_image_renderer_graph_equals_the_eager_loop(cuda, kind, n):
+    """A view rendered by chunk graph replays against the same view with its chunks run
+    one by one (``render_fn.eager``): rgb, ins and depth bit for bit, under K1, under
+    K7 + K5 and under the plain PyTorch query, for whole chunks and for a padded last
+    chunk (its last real ray a zero direction)."""
+    cfg, render, pc, pf = _view_case(cuda, kind)
+    o, d, _ = _rays(n, 1, cuda, seed=n)
+    got = render(pc, pf, o, d)
+    want = render.eager(pc, pf, o, d)
+    assert _same_maps(got, want)
+    assert bool(torch.isfinite(got["rgb"]).all()) and got["ins"].shape == (n, cfg.ins_num)
+
+
+@pytest.mark.parametrize("kind", ["dmsr", "scannet"])
+def test_image_renderer_graph_takes_new_parameters(cuda, kind):
+    """One renderer, three renders: models A, then B, then A again. Each equals the eager
+    render of its own models bit for bit, so no packed weights of an earlier render stay
+    in the graph's buffers."""
+    _, render, pc_a, pf_a = _view_case(cuda, kind, seed=0)
+    _, _, pc_b, pf_b = _view_case(cuda, kind, seed=7)
+    o, d, _ = _rays(VIEW_RAYS[1], 1, cuda, seed=3)
+    for pc, pf in ((pc_a, pf_a), (pc_b, pf_b), (pc_a, pf_a)):
+        assert _same_maps(render(pc, pf, o, d), render.eager(pc, pf, o, d))
+    b = render(pc_b, pf_b, o, d)["rgb"]
+    assert not torch.equal(b, render(pc_a, pf_a, o, d)["rgb"])
+
+
+@pytest.mark.parametrize("kind", ["dmsr", "plain"])
+def test_image_renderer_graph_refuses_what_it_was_not_captured_for(cuda, kind):
+    """A renderer captured for one pair of models raises, rather than replay a graph of
+    other shapes, on a fine model with another instance count and on rays of another
+    dtype; the models it was captured for still render as the eager loop does."""
+    _, render, pc, pf = _view_case(cuda, kind)
+    pf16, _, _, _ = _inputs((10, 4, 8, 256, (4,), 16, 1, 1), cuda, seed=9)
+    o, d, _ = _rays(2048, 1, cuda, seed=1)
+    render(pc, pf, o, d)
+    with pytest.raises(ValueError):
+        render(pc, pf16, o, d)
+    with pytest.raises(ValueError):
+        render(pc, pf, o.double(), d.double())
+    assert _same_maps(render(pc, pf, o, d), render.eager(pc, pf, o, d))
+
+
+def test_image_renderer_chunk_is_one_graph_launch(cuda):
+    """A render of 3 chunks after the capture, under torch.profiler: 3 cudaGraphLaunch,
+    no stream capture, no copy to the host, and no kernel launched by the port's wrappers
+    from the host."""
+    cs = _chip_smoke()
+    _, render, pc, pf = _view_case(cuda, "dmsr")
+    o, d, _ = _rays(VIEW_RAYS[1], 1, cuda, seed=5)
+    render(pc, pf, o, d)
+    runtime.reset_launches()
+    prof = cs.profile_calls(lambda: render(pc, pf, o, d))
+    assert prof["api"].get("cudaGraphLaunch", 0) == 3
+    assert prof["api"].get("cudaStreamBeginCapture", 0) == 0
+    assert cs._count(prof["copies"], "DtoH") == 0
+    assert not any(runtime.LAUNCHES.values())
+    assert cs._count(prof["kernels"], "fused_mlp_fwd_kernel") == 2 * 3
+
+
 @pytest.fixture
 def nccl_world(cuda):
     """A world of one NCCL process on the card (``parallel.mesh``), torn down after."""

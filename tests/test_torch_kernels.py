@@ -129,6 +129,26 @@ def test_packed_layout_pads_to_the_kernel_grid():
     assert packed.c4 == 37 and stub.c4 == 5
 
 
+def test_packed_clone_and_copy_in_place():
+    """``Packed.clone`` holds the same values in tensors of its own; ``copy_`` writes
+    another model's values into them without moving them (a captured graph keeps their
+    addresses), and refuses a model of another layout."""
+    a = tfm.pack_params(tmlp.init_dm_nerf(ins_num=32, device="cpu"), 10, 4, 8, (4,))
+    g = torch.Generator().manual_seed(1)
+    b = tfm.pack_params(tmlp.init_dm_nerf(ins_num=32, device="cpu", generator=g), 10, 4, 8, (4,))
+    static = a.clone()
+    names = ("w", "w_bf16", "wt_bf16", "b")
+    ptrs = [getattr(static, k).data_ptr() for k in names]
+    assert all(torch.equal(getattr(static, k), getattr(a, k)) for k in names)
+    assert all(p != getattr(a, k).data_ptr() for p, k in zip(ptrs, names))
+    assert static.layers == a.layers and static.c4 == a.c4
+    static.copy_(b)
+    assert all(torch.equal(getattr(static, k), getattr(b, k)) for k in names)
+    assert [getattr(static, k).data_ptr() for k in names] == ptrs
+    with pytest.raises(ValueError):
+        static.copy_(tfm.pack_params(tmlp.init_dm_nerf(ins_num=16, device="cpu"), 10, 4, 8, (4,)))
+
+
 def test_import_guard():
     """No module of the port, nor chip_smoke.py, imports JAX, orbax or the JAX package."""
     code = (

@@ -60,6 +60,69 @@ def test_image_renderer(scene, sigma_only_coarse):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), err_msg=k, **RTOL)
 
 
+def _plain_chunk_loop(cfg, sigma_only_coarse, params_coarse, params_fine, rays_o, rays_d):
+    """The chunked render written out step by step: the rays padded to whole chunks, the
+    padding rays' directions set to 1, then per chunk the coarse pass (the sigma stub and
+    the fine maps by one reduction, or render_rays) and the maps concatenated."""
+    from dmnerf_tpu_torch.core.compositor import composite, composite_maps
+    from dmnerf_tpu_torch.core.mlp import sigma_stub_params
+    from dmnerf_tpu_torch.core.pipeline import make_query_fn, render_rays
+    from dmnerf_tpu_torch.core.sampling import sample_pdf, z_val_sample
+
+    q, chunk, n = make_query_fn(cfg), cfg.N_test, rays_o.shape[0]
+    pad = (-n) % chunk
+    ro = torch.nn.functional.pad(rays_o, (0, 0, 0, pad))
+    rd = torch.nn.functional.pad(rays_d, (0, 0, 0, pad))
+    z = z_val_sample(chunk, cfg.near, cfg.far, cfg.N_samples)
+    pc = q.prepare(sigma_stub_params(params_coarse) if sigma_only_coarse else params_coarse)
+    pf = q.prepare(params_fine)
+    maps = []
+    with torch.no_grad():
+        for c0 in range(0, n + pad, chunk):
+            o, d = ro[c0:c0 + chunk], rd[c0:c0 + chunk]
+            d = torch.where(torch.sum(d * d, -1, keepdim=True) > 0, d, torch.ones_like(d))
+            if not sigma_only_coarse:
+                info = render_rays(pc, pf, o, d, z, q.query, N_importance=cfg.N_importance,
+                                   perturb=False)
+                maps.append((info["rgb_fine"], info["ins_fine"], info["depth_fine"]))
+                continue
+            viewdirs = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+            w = composite(q.query(pc, o[..., None, :] + d[..., None, :] * z[..., :, None],
+                                  viewdirs), z, d).weights
+            z_fine = torch.sort(torch.cat([z, sample_pdf(0.5 * (z[..., 1:] + z[..., :-1]),
+                                                         w[..., 1:-1], cfg.N_importance)], -1),
+                                -1).values
+            raw_f = q.query(pf, o[..., None, :] + d[..., None, :] * z_fine[..., :, None], viewdirs)
+            maps.append(composite_maps(raw_f, z_fine, d, keep_air=False))
+    return {k: torch.cat(m)[:n] for k, m in zip(("rgb", "ins", "depth"), zip(*maps))}
+
+
+@pytest.mark.parametrize("sigma_only_coarse", [True, False])
+def test_image_renderer_cpu_stays_eager(scene, monkeypatch, sigma_only_coarse):
+    """On the CPU the renderer captures no CUDA graph and runs its chunks one by one: its
+    maps equal the chunk loop written out step by step, and ``render_fn.eager``, bit for
+    bit, over 2 chunks (the last one padded, its last ray a zero direction)."""
+    class NoGraph:
+        def __init__(self, *a, **k):
+            raise AssertionError("a CUDA graph made for CPU tensors")
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", NoGraph)
+    (_, tpc), (_, tpf) = _params(4), _params(5)
+    H, W, K = scene.hwk
+    ro, rd = j_rays_from_K(H, W, jnp.asarray(K), jnp.asarray(scene.poses[0]))
+    ro = torch.from_numpy(np.array(ro).reshape(-1, 3))
+    rd = torch.from_numpy(np.array(rd).reshape(-1, 3))
+    rd[-1] = 0.0
+    cfg = TConfig(**KW)
+    render = tren.make_image_renderer(cfg, sigma_only_coarse=sigma_only_coarse)
+    got = render(tpc, tpf, ro, rd)
+    for want in (_plain_chunk_loop(cfg, sigma_only_coarse, tpc, tpf, ro, rd),
+                 render.eager(tpc, tpf, ro, rd)):
+        assert set(got) == set(want)
+        for k in want:
+            assert got[k].shape == want[k].shape and torch.equal(got[k], want[k]), k
+
+
 def test_render_test(scene):
     (jpc, tpc), (jpf, tpf) = _params(2), _params(3)
     ids = scene.i_test
