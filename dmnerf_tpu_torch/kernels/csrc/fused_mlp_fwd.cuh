@@ -73,18 +73,37 @@
 //    outputs are equal bit for bit. K8f and K10 take SCHED_PIPELINED (PERF.md).
 // Shared memory: 4 weight stages of 32 KB (128 KB) + 2 x (e, ed) tiles of 16 KB (64 KB)
 // + 12 mbarriers, 193 KB with the 1 KB alignment slack, of the 227 KB a block can have;
-// with STASH also two 16 KB staging tiles, 225 KB; with ROWS_H two 16 KB ed tiles, 225 KB.
+// with STASH 3 weight stages (96 KB) and a 32 KB staging tile a consumer warpgroup, 225 KB;
+// with ROWS_H two 16 KB ed tiles, 225 KB.
 //
 // Training. With STASH the same kernel is the training forward: it also stores what
 // the parameter backward (fused_mlp_bwd.cuh) reads, in the layout of fused_mlp.py's
 // _bwd_plan: the point embedding and the per-point viewdir embedding as the embedding
 // warps made them (K1, K3; K5's come from its inputs), and every ReLU output (the trunk layers
-// and the head) as the bf16 values the next layer reads. The epilogue writes them, 128
-// columns at a time, into a swizzled staging tile of its warpgroup, and the warpgroup
-// copies its 64 rows of those columns out to the [P, N] stash block with 16-byte loads
-// and streaming stores, two 256-byte row halves a warp instruction, while the other
-// warpgroup's products run. The products and the output are the same code, so raw is
-// bit for bit the render path's. Without STASH the added code compiles away.
+// and the head) as the bf16 values the next layer reads. Every stash write is a TMA
+// tensor store from shared memory (one tensor map a stash block [P, N], 128-byte
+// swizzle; rows at or past P are clipped by the map), so no thread issues a global store:
+//  * The consumers' epilogue writes a ReLU output, all its columns, into the warpgroup's
+//    staging tile (four [64][64] boxes, swizzled as TMA reads them). Each thread fences
+//    its writes to the async proxy, the warpgroup meets at its named barrier, and its
+//    first thread issues the tile's boxes as one bulk group and goes on with the others
+//    to the next product. Before the tile is written again, a layer later, that thread
+//    waits until the group has been read out (cp.async.bulk.wait_group.read 0) and the
+//    warpgroup meets again: the wait falls a product after the issue. The tile takes the
+//    ring's fourth stage: two 8 KB tiles taken in turn, at 4 stages, cost a fence and a
+//    barrier a 64-column group, four times as many.
+//  * The embedding warps' first thread stores a tile's e and ed ([128][64], as built)
+//    once the three warps have built and fenced them, and before it builds into the same
+//    buffer two tiles later, waits until that store has been read out; it waits for all
+//    its stores before the block exits. The consumers wait at each tile's end.
+//  * The consumers have no register to spare: acc and af hold 192 of the 232. A wait
+//    after the walk, in place of the one at each tile's end, made ptxas spill 1.6 KB of
+//    their registers, the A fragments inside the products among them, and doubled the
+//    kernel's time. The stash epilogue derives its staging addresses from a thread index
+//    read there (tid_opaque), which the compiler cannot hoist out of the layer loop: 4 %
+//    faster than addresses it may hoist (PERF.md §6).
+// The products and the output are the same code, so raw is bit for bit the render path's.
+// Without STASH the added code compiles away.
 //
 // Rendering (CMP, K8c and K8f of fused_render.cu). The rows of a query are the samples
 // of rays, S a ray, and the kernel composites them into the ray's weights [N, S]
@@ -138,8 +157,14 @@ constexpr int FT = 128;                        // points per tile
 constexpr int EMB_THREADS = FWG - 32;          // warps 1-3 of the third warpgroup
 constexpr uint32_t F_STAGE_BYTES = 256 * 128;  // a weight box: <= 256 rows of N x 64 of K
 constexpr uint32_t EMB_BYTES = FT * 128;       // an embedding tile, [128][64] bf16
-constexpr uint32_t STG_BYTES = 64 * 256;       // a warpgroup's stash staging tile, [64][128]
+constexpr uint32_t STG_TILE_BYTES = 64 * 128;  // a TMA box of the stash staging, [64][64] bf16
+constexpr uint32_t STG_BYTES = 4 * STG_TILE_BYTES;   // a consumer warpgroup's staging tile
 constexpr int F_STAGES = 4;
+// the weight ring's stages: under STASH one fewer, which pays for the staging tiles
+template <bool STASH>
+__host__ __device__ constexpr int fwd_stages() {
+  return STASH ? F_STAGES - 1 : F_STAGES;
+}
 constexpr int MAX_FMAPS = 2 * MAX_LAYERS;
 constexpr int MAX_FCHUNKS = 7 * MAX_LAYERS;
 
@@ -234,8 +259,8 @@ __host__ __device__ constexpr size_t cmp_smem() {
                                (CMP == CMP_MAPS ? (size_t)FT * CMP_PITCH * 4 + 64 * 4 : 0);
 }
 
-// The mbarriers: the ring's full and empty, the embedding buffers' full and empty, CMP's
-// or ROWS_H's hand-off pair.
+// The mbarriers: the ring's full and empty (F_STAGES each; STASH uses one fewer), the
+// embedding buffers' full and empty, CMP's or ROWS_H's hand-off pair.
 template <int CMP, Rows ROWS>
 __host__ __device__ constexpr int fwd_barriers() {
   return 2 * F_STAGES + 4 + (CMP != CMP_NONE || ROWS == ROWS_H ? 2 : 0);
@@ -245,7 +270,7 @@ __host__ __device__ constexpr int fwd_barriers() {
 // two ed tiles, the staging tiles, the compositing buffers, mbarriers, the stamps' rows.
 template <bool STASH, int CMP = CMP_NONE, Rows ROWS = ROWS_RAY_TABLE>
 constexpr size_t fwd_smem() {
-  return 1024 + (size_t)F_STAGES * F_STAGE_BYTES + 4 * (size_t)EMB_BYTES +
+  return 1024 + (size_t)fwd_stages<STASH>() * F_STAGE_BYTES + 4 * (size_t)EMB_BYTES +
          (ROWS == ROWS_H ? 2 * (size_t)EMB_BYTES : 0) + (STASH ? 2 * (size_t)STG_BYTES : 0) +
          cmp_smem<CMP>() + fwd_barriers<CMP, ROWS>() * 8 + STAMP_BYTES;
 }
@@ -261,7 +286,7 @@ enum Cls { CLS_256 = 0, CLS_16, CLS_64x1, CLS_64x2, CLS_64x3, N_CLS };
 
 struct FLayer {
   int segs, cls, N, b_off, epi;
-  long long stash_off;   // its ReLU output's stash block [P, N], -1 for none
+  long long stash;   // STASH: its ReLU output's stash block's map in FwdParams::maps, or -1
 };
 
 // A weight box: map `map` at K column k0, 2 * half rows of 128 bytes; each block of the
@@ -277,13 +302,15 @@ struct FHeadOut {
   int o_col, o_n, sig_col;
 };
 
+// maps: the plan's weight maps, then under STASH the stash blocks of the ReLU outputs
 struct FwdParams {
   CUtensorMap maps[MAX_FMAPS];
-  CUtensorMap e_map, ed_map;   // K5: its input embeddings [P, EP], [P, EDP]
+  // K5: its input embeddings [P, EP], [P, EDP]; K1, K3 under STASH: their stash blocks
+  CUtensorMap e_map, ed_map;
   FLayer layers[MAX_LAYERS];
   FChunk chunks[MAX_FCHUNKS];
   const float *ray_o, *ray_d, *ray_z;   // K8: the rays [N, 3], [N, 3] and depths [N, S]
-  long long P, e_stash, ed_stash;
+  long long P, e_stash, ed_stash;       // e_stash, ed_stash: >= 0 where e, ed are stashed
   int n_layers, n_chunks, n_tiles, S, multires, multires_views, ep, edp, c4;
   int span, n_spans;   // the walk: tiles a span (1 without CMP), spans
   // ROWS_H: x [P, 256] is e_map's; edT [edt_rows, P] (or null); the layers' outputs
@@ -297,13 +324,18 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// The stash staging tile of a warpgroup: 64 rows of 256 bytes (128 columns), the
-// 16-byte chunk q of row r at chunk q ^ (r mod 8) of its group of 8, so that the
-// epilogue's writes (8 rows a warp instruction) and the copy-out's reads (two row halves
-// a warp instruction) meet no bank conflict.
-__device__ __forceinline__ int stg_chunk(int r, int q) { return (q & ~7) | ((q ^ r) & 7); }
-__device__ __forceinline__ int stg_word(int r, int col) {
-  return r * 64 + stg_chunk(r, col >> 3) * 4 + ((col & 7) >> 1);
+// threadIdx.x, read where it is called: the compiler cannot move the read, nor what
+// derives from it, out of a loop
+__device__ __forceinline__ uint32_t tid_opaque() {
+  uint32_t t;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(t));
+  return t;
+}
+
+// A 32-bit store to the shared-memory address `a`; kept in order with the other asm
+// statements (the fences and barriers), free to move against plain loads.
+__device__ __forceinline__ void st_shared_b32(uint32_t a, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a), "r"(v));
 }
 
 // relu(lo), relu(hi) rounded to bf16, packed (one cvt.rn.relu.bf16x2.f32).
@@ -361,12 +393,13 @@ __device__ __forceinline__ void ring_release(Ring& r, int stage, int lane) {
 
 // After a chunk's products are issued: commit them, wait for the chunk before, and give
 // that one's stage back.
+template <int STAGES>
 __device__ __forceinline__ void ring_next(Ring& r, int lane) {
   wg_commit();
   DM_TIMED(r.st[ST_PACE], wg_wait<1>());
   if (r.prev >= 0) ring_release(r, r.prev, lane);
   r.prev = r.stage;
-  if (++r.stage == F_STAGES) {
+  if (++r.stage == STAGES) {
     r.stage = 0;
     r.ph ^= 1;
   }
@@ -375,8 +408,8 @@ __device__ __forceinline__ void ring_next(Ring& r, int lane) {
 // acc = A W for one layer: its chunks in order (ed | e | h in four 64-column chunks |
 // e), each 4 k-steps of NI instructions of width NW. A from the embedding tiles (da_e,
 // da_ed: this warpgroup's 64 rows) or from the register fragments af. With HALVES (the
-// head probes) also h's first or last two chunks alone.
-template <int NW, int NI, bool HALVES = false>
+// head probes) also h's first or last two chunks alone. STAGES: the ring's stages.
+template <int NW, int NI, bool HALVES, int STAGES>
 __device__ __forceinline__ void layer_product(float (&acc)[128], uint32_t (&af)[16][4],
                                               int segs, uint64_t da_e, uint64_t da_ed, Ring& r,
                                               int lane) {
@@ -394,7 +427,7 @@ __device__ __forceinline__ void layer_product(float (&acc)[128], uint32_t (&af)[
       if constexpr (NI > 1) mma_ss<NW, 1>(acc, (DA) + 2 * ks, db + 2 * ks, on); \
       if constexpr (NI > 2) mma_ss<NW, 2>(acc, (DA) + 2 * ks, db + 2 * ks, on); \
     }                                                                  \
-    ring_next(r, lane);                                                \
+    ring_next<STAGES>(r, lane);                                        \
     acc_on = 1;                                                        \
   }
 #define DM_RS_CHUNK(C)                                                 \
@@ -409,7 +442,7 @@ __device__ __forceinline__ void layer_product(float (&acc)[128], uint32_t (&af)[
       if constexpr (NI > 1) mma_rs<NW, 1>(acc, af[4 * (C) + ks], db + 2 * ks, on); \
       if constexpr (NI > 2) mma_rs<NW, 2>(acc, af[4 * (C) + ks], db + 2 * ks, on); \
     }                                                                  \
-    ring_next(r, lane);                                                \
+    ring_next<STAGES>(r, lane);                                        \
     acc_on = 1;                                                        \
   }
   if (segs & SEG_ED) DM_SS_CHUNK(da_ed)
@@ -671,28 +704,17 @@ __device__ __forceinline__ void composite_tile(const FwdParams& p, float* __rest
   bar_sync(1, EMB_THREADS);   // the row buffers are free for the next tile
 }
 
-// Rows p0 .. of a swizzled [FT][64] tile, columns [0, width), to a row-major [P, width]
-// bf16 array; rows past P are not stored.
-__device__ __forceinline__ void store_tile(__nv_bfloat16* dst, const __nv_bfloat16* tile,
-                                           int width, long long p0, long long P, int tid) {
-  const int chunks = width / 8;
-  for (int c = tid; c < FT * chunks; c += EMB_THREADS) {
-    const int r = c / chunks, q = c - r * chunks;
-    if (p0 + r < P)
-      *reinterpret_cast<uint4*>(dst + (p0 + r) * width + q * 8) =
-          *reinterpret_cast<const uint4*>(tile + sw128(r, q * 8));
-  }
-}
-
 template <Rows ROWS, bool STASH, int CMP = CMP_NONE, int SCHED = SCHED_LOCKSTEP>
 __global__ void __launch_bounds__(F_THREADS, 1)
 fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict__ pt_src,
                      const void* __restrict__ ed_src, const float* __restrict__ biases,
-                     float* __restrict__ out, __nv_bfloat16* __restrict__ stash) {
+                     float* __restrict__ out,
+                     __nv_bfloat16* __restrict__ /* the stash: stored through p's maps */) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   unsigned char* ring = smem;                                   // [stage][<=256][64] bf16
-  unsigned char* emb = smem + F_STAGES * F_STAGE_BYTES;   // [buf][e, ed][128][64]; ROWS_H: x
+  constexpr int STAGES = fwd_stages<STASH>();
+  unsigned char* emb = smem + STAGES * F_STAGE_BYTES;     // [buf][e, ed][128][64]; ROWS_H: x
   unsigned char* hed = emb + 4 * EMB_BYTES;               // ROWS_H: [buf][128][64] ed tiles
   unsigned char* stg = hed + (ROWS == ROWS_H ? 2 * EMB_BYTES : 0);   // STASH: [wg][64][128]
   float* cmp = reinterpret_cast<float*>(stg + (STASH ? 2 * STG_BYTES : 0));   // cmp_smem
@@ -731,7 +753,7 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
   const int span = CMP != CMP_NONE ? p.span : 1;
   const int n_spans = CMP != CMP_NONE ? p.n_spans : p.n_tiles;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < F_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2 * F_CONSUMERS / 32);   // both blocks' consumer warps
     }
@@ -768,7 +790,7 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
               tma_load_2d_multicast(ring + stage * F_STAGE_BYTES + rank * ch.half * 128,
                                     &p.maps[ch.map], &full[stage], ch.k0, (int)rank * ch.half,
                                     (uint16_t)3);
-              if (++stage == F_STAGES) {
+              if (++stage == STAGES) {
                 stage = 0;
                 ph ^= 1;
               }
@@ -820,16 +842,26 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
             DM_STAMP_ADD(es[ST_E_BUILD], t_build);
           } else {
             DM_TIMED(es[ST_E_WAIT], mbar_wait(&emb_empty[b], ((it >> 1) & 1) ^ 1));
+            if constexpr (STASH) {
+              // the store of this buffer's tile before (one group a tile) has read it
+              if (tid == 0) bulk_wait_read<1>();
+              bar_sync(1, EMB_THREADS);
+            }
             DM_STAMP_START(t_build);
 #ifndef DMNERF_FWD_NO_BUILD
             build_tile<ROWS, CMP>(e, ed, pt_src, ed_src, p, p0, tid, cb.xs);
 #endif
+            fence_proxy_async();
             if constexpr (STASH) {
               bar_sync(1, EMB_THREADS);
-              if (p.e_stash >= 0) store_tile(stash + p.e_stash, e, p.ep, p0, p.P, tid);
-              if (p.ed_stash >= 0) store_tile(stash + p.ed_stash, ed, p.edp, p0, p.P, tid);
+              if (tid == 0) {
+                if (p0 < p.P) {
+                  if (p.e_stash >= 0) tma_store_2d(&p.e_map, e, 0, (int)p0);
+                  if (p.ed_stash >= 0) tma_store_2d(&p.ed_map, ed, 0, (int)p0);
+                }
+                bulk_commit();
+              }
             }
-            fence_proxy_async();
             mbar_arrive(&emb_full[b]);
             DM_STAMP_ADD(es[ST_E_BUILD], t_build);
           }
@@ -845,6 +877,9 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
         if (it > 0)
           DM_TIMED(es[ST_E_CMP],
                    composite_tile<CMP>(p, out, cb, prev_p0, it - 1, tid, carry, cmp_wait));
+      }
+      if constexpr (STASH) {
+        if (tid == 0) bulk_wait_all<0>();
       }
 #ifdef DMNERF_FWD_STAMPS
       const uint32_t walk = stamp_clock() - t_walk;
@@ -915,7 +950,7 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
       for (int l = 0; l < p.n_layers; ++l) {
         const FLayer L = p.layers[l];
 #define DM_LAYER(NW, NI) \
-  layer_product<NW, NI, ROWS == ROWS_H>(acc, af, L.segs, da_e, da_ed, r, lane)
+  layer_product<NW, NI, ROWS == ROWS_H, STAGES>(acc, af, L.segs, da_e, da_ed, r, lane)
         if constexpr (SCHED == SCHED_PIPELINED) {
           // the wider instruction reads stage rows past the layer's box into columns at
           // or past L.N, which no epilogue reads
@@ -945,7 +980,8 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
         }
 #else
         const float* bias = biases + L.b_off;
-        const bool stashed = STASH && L.epi == EPI_RELU && L.stash_off >= 0;
+        // under STASH every ReLU output is stashed (the launcher refuses a table without)
+        const bool stashed = STASH && L.epi == EPI_RELU;
         if (L.epi == EPI_RELU && L.N == 256 && !stashed) {
           // the full-width layers without a stash: no column guard, so the bias loads and
           // conversions of all 32 column groups can overlap
@@ -956,12 +992,60 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
             af[j >> 1][(j & 1) * 2 + 1] =
                 relu_bf16x2(acc[4 * j + 2] + bb.x, acc[4 * j + 3] + bb.y);
           }
+        } else if (stashed) {
+          // STASH: bias, ReLU, bf16 into the A fragments and into the warpgroup's staging
+          // tile, whose four 64-column boxes then go to the stash block (the design notes).
+          // No branch guards a column (past N a select zeroes it, and its bias load is
+          // clamped), so the bias loads of a box overlap. The staging addresses derive
+          // from a thread index read here, so none lives across the products.
+          const int n = L.N;
+          const uint32_t tx = tid_opaque();
+          const bool issuer = (tx & (FWG - 1)) == 0;
+          const uint32_t tile = smem_u32(stg) + (tx >> 7) * STG_BYTES;
+          // (row, column 8 i + 2 t) of box q lies at byte tile + 8 KB q + 128 row + 4 t +
+          // 16 ((i ^ row) & 7), row = lr0 or lr0 + 8 (+ 1 KB): with g = lr0 & 7 that is
+          // (sb + 8 KB q) ^ 16 i, sb holding 16 g in the bits that the XOR flips
+          const uint32_t sb = tile + 128 * (((tx >> 1) & 48) + ((tx >> 2) & 7)) + 4 * (tx & 3) +
+                              16 * ((tx >> 2) & 7);
+          if (issuer) bulk_wait_read<0>();   // the layer before's boxes have left the tile
+          bar_sync(2 + wg, FWG);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            float2 bb[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              bb[i] = __ldg(
+                  reinterpret_cast<const float2*>(bias + min(q * 64 + i * 8 + 2 * t, n - 2)));
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const int j = q * 8 + i, col = j * 8 + 2 * t;
+              const uint32_t h0 =
+                  col < n ? relu_bf16x2(acc[4 * j] + bb[i].x, acc[4 * j + 1] + bb[i].y) : 0u;
+              const uint32_t h1 =
+                  col < n ? relu_bf16x2(acc[4 * j + 2] + bb[i].x, acc[4 * j + 3] + bb[i].y) : 0u;
+              const uint32_t at = (sb + q * STG_TILE_BYTES) ^ (16 * i);
+              st_shared_b32(at, h0);
+              st_shared_b32(at + 1024, h1);
+              af[j >> 1][(j & 1) * 2] = h0;
+              af[j >> 1][(j & 1) * 2 + 1] = h1;
+            }
+          }
+          fence_proxy_async();
+          bar_sync(2 + wg, FWG);
+          if (issuer) {
+            // r0 is the issuer's first row, the warpgroup's (its lr0 is 0); the layer's map
+            // is read where it is used
+            const CUtensorMap* map = &p.maps[p.layers[l].stash];
+            if (r0 < P)
+              for (int q = 0; q < 4 && q * 64 < n; ++q)
+                tma_store_2d(map, stg + (tx >> 7) * STG_BYTES + q * STG_TILE_BYTES, q * 64,
+                             (int)r0);
+            bulk_commit();
+          }
         } else if (L.epi == EPI_RELU) {
-          // bias, ReLU, bf16: the next product's A fragments, and under STASH the stash's
-          // rows, in two halves of 128 columns through the staging tile
+          // bias, ReLU, bf16: the next product's A fragments
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
-            if (stashed) bar_sync(2 + wg, FWG);   // the last copy-out of the tile is done
 #pragma unroll
             for (int jj = 0; jj < 16; ++jj) {
               const int j = hh * 16 + jj, col = j * 8 + 2 * t;
@@ -970,34 +1054,9 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
                 const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + col));
                 h0 = relu_bf16x2(acc[4 * j] + bb.x, acc[4 * j + 1] + bb.y);
                 h1 = relu_bf16x2(acc[4 * j + 2] + bb.x, acc[4 * j + 3] + bb.y);
-                if constexpr (STASH) {
-                  if (stashed) {
-                    uint32_t* st = reinterpret_cast<uint32_t*>(stg + wg * STG_BYTES);
-                    st[stg_word(lr0, col - hh * 128)] = h0;
-                    st[stg_word(lr0 + 8, col - hh * 128)] = h1;
-                  }
-                }
               }
               af[j >> 1][(j & 1) * 2] = h0;
               af[j >> 1][(j & 1) * 2 + 1] = h1;
-            }
-            if constexpr (STASH) {
-              if (stashed && L.N > hh * 128) {
-                // the warpgroup's 64 rows of these columns: 16-byte loads from the staging
-                // tile, 16-byte streaming stores, two 256-byte row halves a warp
-                // instruction
-                bar_sync(2 + wg, FWG);
-                const unsigned char* st = stg + wg * STG_BYTES;
-                const long long row0 = p0 + wg * 64;
-                const int nq = min(L.N - hh * 128, 128) / 8;
-                __nv_bfloat16* dst = stash + L.stash_off + row0 * L.N + hh * 128;
-                for (int c = threadIdx.x & (FWG - 1); c < 64 * nq; c += FWG) {
-                  const int rr = c / nq, q = c - rr * nq;
-                  if (row0 + rr < P)
-                    __stcs(reinterpret_cast<uint4*>(dst + rr * L.N + q * 8),
-                           *reinterpret_cast<const uint4*>(st + rr * 256 + stg_chunk(rr, q) * 16));
-                }
-              }
             }
           }
         } else if (L.epi == EPI_SIGMA) {
@@ -1146,6 +1205,11 @@ fused_mlp_fwd_kernel(const __grid_constant__ FwdParams p, const void* __restrict
         }
       }
 #endif
+      // STASH: the tile's stores have read the staging tile (only the issuing thread has
+      // any), so that none still reads it when the block exits. Waiting once after the
+      // walk instead makes ptxas spill 1.6 KB of the consumers' registers, which doubles
+      // the kernel's time.
+      if constexpr (STASH) bulk_wait_read<0>();
       // every product that read this tile's embeddings has completed
       __syncwarp();
       if (lane == 0) mbar_arrive(&emb_empty[b]);
@@ -1228,7 +1292,11 @@ int run_fwd(Kernel kernel, size_t smem, const FwdParams& fp, int n_sms, void* st
 //   n_layers rows segs, N, b_off, epilogue
 //   n_chunks rows map, k0                      (the boxes of one tile, in order)
 // With a stash (the training forward), `stash_table` is _bwd_plan's (e_off, ed_off,
-// then one offset per layer); without one, the render path's kernel runs.
+// then one offset per layer, in elements, -1 for none: every ReLU layer has one); without
+// one, the render path's kernel runs. Each stash block gets a tensor map, which refuses a
+// block whose base or row pitch is not a multiple of 16 bytes; _bwd_plan starts every
+// block on 128 bytes and the backward reads each through a map of the same pitch, so no
+// block of a plan that the backward takes is refused.
 // Under CMP (ROWS_RAY_Z) `rays` is (o, d, z) and `span` the tiles of a span
 // (fused_render.py's _render_plan); `out` takes the weights [P] (CMP_WEIGHTS, the table
 // ending at sigma) or the maps [P / S, c4] (CMP_MAPS). SCHED is the consumers' schedule.
@@ -1269,6 +1337,8 @@ int launch_fused_mlp_fwd(const void* pt_src, const void* ed_src, const void* wt,
   int box[MAX_FMAPS], err;
   if ((err = encode_weight_maps(fp, w, row, n_maps, box))) return err;
   row += 4 * n_maps;
+  __nv_bfloat16* sb = static_cast<__nv_bfloat16*>(stash);
+  int stash_maps = n_maps;
   for (int l = 0; l < n_layers; ++l, row += 4) {
     int rows;
     const int N = (int)row[1];
@@ -1276,8 +1346,14 @@ int launch_fused_mlp_fwd(const void* pt_src, const void* ed_src, const void* wt,
     if (N <= 0 || N > 256 || row[0] <= 0 || row[0] > 15 || row[3] < 0 || row[3] > EPI_OUT ||
         (row[3] == EPI_OUT && h[3] > N))
       return (int)cudaErrorInvalidValue;
-    fp.layers[l] = FLayer{(int)row[0], layer_class(N, &rows), N, (int)row[2], (int)row[3],
-                          stash == nullptr ? -1 : stash_table[2 + l]};
+    fp.layers[l] = FLayer{(int)row[0], layer_class(N, &rows), N, (int)row[2], (int)row[3], -1};
+    if (stash != nullptr && row[3] == EPI_RELU) {
+      // the ReLU output's stash block [P, N], in 64 x 64 boxes, in the slots past the plan's
+      if (stash_table[2 + l] < 0 || stash_maps == MAX_FMAPS) return (int)cudaErrorInvalidValue;
+      if ((err = encode_map(&fp.maps[stash_maps], sb + stash_table[2 + l], N, P, N, 64, 64)))
+        return err;
+      fp.layers[l].stash = stash_maps++;
+    }
   }
   for (int c = 0; c < n_chunks; ++c, row += 2) {
     if (row[0] < 0 || row[0] >= n_maps) return (int)cudaErrorInvalidValue;
@@ -1297,8 +1373,17 @@ int launch_fused_mlp_fwd(const void* pt_src, const void* ed_src, const void* wt,
     return (int)cudaErrorInvalidValue;
 
   if (ROWS == ROWS_EMBEDDED) {
+    // K5's e and ed are its inputs, which the backward reads from there
+    if (fp.e_stash >= 0 || fp.ed_stash >= 0) return (int)cudaErrorInvalidValue;
     if ((err = encode_map(&fp.e_map, pt_src, fp.ep, P, fp.ep, 64, FT)) ||
         (err = encode_map(&fp.ed_map, ed_src, fp.edp, P, fp.edp, 64, FT)))
+      return err;
+  } else if (stash != nullptr) {
+    // the stash's e and ed blocks, a [128][64] embedding tile a box
+    if ((fp.e_stash >= 0 &&
+         (err = encode_map(&fp.e_map, sb + fp.e_stash, fp.ep, P, fp.ep, 64, FT))) ||
+        (fp.ed_stash >= 0 &&
+         (err = encode_map(&fp.ed_map, sb + fp.ed_stash, fp.edp, P, fp.edp, 64, FT))))
       return err;
   }
   auto run = [&](auto kernel, size_t smem) {

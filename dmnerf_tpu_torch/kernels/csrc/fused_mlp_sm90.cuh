@@ -96,6 +96,20 @@ __device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t 
                : "memory");
 }
 
+// TMA store of a 2D box from `src` (laid out as tma_load_2d leaves it) to the tensor at
+// box coordinates (c0, c1), as one member of this thread's bulk group; elements out of
+// the tensor's bounds are not written. The lines it writes are the first L2 evicts.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "{\n.reg .b64 pol;\n"
+      "createpolicy.fractional.L2::evict_first.b64 pol, 1.0;\n"
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint "
+      "[%0, {%2, %3}], [%1], pol;\n}\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }

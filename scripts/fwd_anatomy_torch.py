@@ -5,6 +5,7 @@ and the matrix-product chain ceiling that scripts/dev/mxu_probe.py, mfu_probe*.p
 epi_probe.py measured on the TPU.
 
     python3 scripts/fwd_anatomy_torch.py [--repo DIR] [--tag NAME] [--out FILE]
+                                         [--k7 | --split SCHEDULES | --stash]
 
 ``--repo`` is the root of the checkout whose ``dmnerf_tpu_torch`` is measured (default:
 this one); the measuring code is this checkout's ``chip_smoke.py``. Run it on two
@@ -71,6 +72,12 @@ registers, so read their shares, not their times), and the ablations, each a bui
 leaves out a part of the walk: DMNERF_FWD_NO_EPILOGUE (the epilogues), DMNERF_FWD_NO_BUILD
 (the embedding warps' tiles: points and sincosf, or K10's edT), DMNERF_FWD_NO_COMPOSITE
 (K8f's compositing), and their combinations.
+
+With ``--stash`` it times the training forward instead: for K1, K3 and K5 at the training
+queries (3072 x 192 fine, 3072 x 64 coarse) the device time (``chip_smoke.device_ms``) of
+the render path's launch and of the STASH launch into a stash buffer made once, the
+stash's bytes and the rate the STASH launch leaves them at; and K1's STASH walk at the
+fine query split by the stamps of a DMNERF_FWD_STAMPS build, as ``--split`` splits K8f's.
 
 In its default mode the script also times K8c and K8f at chip_smoke.py phase 13's render
 chunk and K9 / K10 at their probes' shapes under the checkout's path schedules, each
@@ -433,6 +440,48 @@ def probes_part(cs, device):
     return res
 
 
+def stash_part(cs, fm, runtime, repo, device, pc, pf, args, cfg):
+    """The training forward (``--stash``, see the docstring)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(cs.SEED + 3)
+    shapes = {"train_fine": (pf, cs._points(cfg.N_train, cfg.N_samples + cfg.N_importance, 1.0,
+                                            8.0, gen, device)),
+              "train_coarse": (pc, cs._points(cfg.N_train, cfg.N_samples, 1.0, 8.0, gen, device))}
+    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    stamped = _variant_lib(runtime, FWD["kernel_t"], repo, "DMNERF_FWD_STAMPS")
+    res = {}
+    for mode in ("kernel_t", "kernel", "outside"):
+        for shape, (params, (pts, dirs)) in shapes.items():
+            packed = fm.pack_params(params, *args)
+            a, b, P, S = _inputs(fm, packed, pts, dirs, mode)
+            plan = fm._bwd_plan(packed, P // S, S, n_sms, fm._ROWS[mode])
+            stash = torch.empty(plan["stash_size"], dtype=torch.bfloat16, device=device)
+
+            def render():
+                fm._launch_fwd(FWD[mode], packed, a, b, P, S)
+
+            def train():
+                fm._launch_fwd(FWD[mode], packed, a, b, P, S, stash, plan["fwd_stash"])
+            r = dict(points=P, stash_bytes=2 * plan["stash_size"],
+                     device_ms=cs.device_ms(render)["device_ms"],
+                     stash_device_ms=cs.device_ms(train)["device_ms"])
+            r["stash_tb_per_s"] = r["stash_bytes"] / (r["stash_device_ms"] * 1e-3) / 1e12
+            if mode == "kernel_t" and shape == "train_fine":
+                keep, runtime._LOADED[FWD[mode]] = runtime._LOADED.get(FWD[mode]), stamped
+                try:
+                    r["stamped_device_ms"] = cs.device_ms(train)["device_ms"]
+                    r.update(_split(_stamps(stamped, train), r["stamped_device_ms"]))
+                finally:
+                    runtime._LOADED[FWD[mode]] = keep
+            torch.cuda.synchronize()
+            print(f"[anatomy stash] {mode} {shape}: {json.dumps(r)}", flush=True)
+            res[f"{mode}/{shape}"] = r
+            del stash, a, b
+            torch.cuda.empty_cache()
+    return res
+
+
 def _inputs(fm, packed, pts, dirs, mode):
     """(a, b, P, S): the launch inputs of ``mode``'s forward kernel."""
     N, S, _ = pts.shape
@@ -448,6 +497,8 @@ def main() -> int:
     ap.add_argument("--k7", action="store_true", help="time K7 only (see the docstring)")
     ap.add_argument("--split", default="", help="split K8f's and K10's walks under these "
                     "schedules (comma-separated: lockstep, pipelined; see the docstring)")
+    ap.add_argument("--stash", action="store_true",
+                    help="time the training forward only (see the docstring)")
     a_ = ap.parse_args()
     import torch
 
@@ -494,6 +545,9 @@ def main() -> int:
         return _emit(res, a_.out)
     if a_.split:
         res["split"] = split_part(cs, runtime, repo, device, a_.split.split(","))
+        return _emit(res, a_.out)
+    if a_.stash:
+        res["stash"] = stash_part(cs, fm, runtime, repo, device, pc, pf, args, cfg)
         return _emit(res, a_.out)
     gen = torch.Generator().manual_seed(cs.SEED + 3)
     S_f, S_c = cfg.N_samples + cfg.N_importance, cfg.N_samples

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain version, at narrow
 widths and at the flagship's, with ragged point counts; the backward kernels'
 instance-head wall and their bit-identical repeats; the training forward's stash
-against the standalone backward and the no-grad forward, bit for bit. K1/K2 take per-ray viewdirs
+against the standalone backward and the no-grad forward, bit for bit, and its blocks
+themselves against the bf16 plain version's activations. K1/K2 take per-ray viewdirs
 (pe_mode 'kernel_t'), K3/K4 per-point directions (pe_mode 'kernel'), K5/K6 the
 embeddings that K7 and the per-ray viewdir table give (pe_mode 'outside'); K8c/K8f (the
 fused render passes) take rays and depths and composite in the kernel; K9/K10 (the head
@@ -591,6 +592,79 @@ def test_forward_template_stash_and_repeats_bit_exact(cuda, mode):
     torch.cuda.synchronize()
     assert torch.equal(first, second)
     assert torch.equal(stashed.detach(), first)
+
+
+CANARY = -1000.0   # neither an activation (ReLU, >= 0) nor an embedding ([-8, 8]) takes it
+
+
+def _stash_plain(mode, packed, pts, dirs):
+    """What the bf16 plain version of ``mode``'s forward would stash: the embeddings e
+    [P, EP] and ed [P, EDP] and each layer's ReLU output [P, N] (None for sigma and the
+    output layer, in the order of ``packed.layers``), fp32 holding bf16 values."""
+    rnd = fused_mlp._rounder(torch.bfloat16)
+    if mode == "kernel_t":
+        e, ed = fused_mlp._embeddings(packed, pts, dirs, rnd)
+    elif mode == "kernel":
+        e, ed = fused_mlp._embeddings_kpe(packed, *_flat(pts, dirs), rnd)
+    else:
+        e, ed = (t.float() for t in _embedded(packed, pts, dirs))
+    w_all, acts, h = packed.w_bf16.float(), [], None
+    for layer in packed.layers:
+        if layer.kind in ("sigma", "out"):
+            acts.append(None)
+            continue
+        if layer.kind == "split":
+            a = torch.cat([h, e], dim=-1)
+        elif layer.kind == "head":
+            a = torch.cat([ed, h], dim=-1)
+        else:
+            a = e if layer.kind == "emb0" else h
+        h = rnd(torch.relu(a @ fused_mlp._block(w_all, layer) + packed.bias(layer)))
+        acts.append(h)
+    return e, ed, acts
+
+
+@pytest.mark.parametrize("n_s", RAGGED)
+@pytest.mark.parametrize("mode", MODES)
+def test_training_forward_stash_blocks(cuda, mode, n_s):
+    """The stash itself, which the other tests see only through a backward that reads
+    the same stash. The launch that _stash_forward makes, into a buffer of canaries that
+    reaches past the plan's end: every block of the plan (e and ed under K1 and K3, each
+    ReLU output) holds the bf16 plain version's values within the 1e-3 of the block's
+    scale that _check_fwd allows raw, or one bf16 step (both round fp32 sums taken in
+    another order); two launches write the same bytes; and no element outside the blocks
+    changes (no row past P, no gap between blocks, nothing past the plan's end)."""
+    N, S = n_s
+    params, args, pts, dirs = _inputs((10, 4, 8, 256, (4,), 32, N, S), cuda, seed=8)
+    packed = pack_params(params, *args)
+    a, b = fused_mlp._kernel_inputs(packed, pts, dirs, mode)
+    n, s = (N, S) if mode == "kernel_t" else (N * S, 1)
+    plan = fused_mlp._bwd_plan(packed, n, s,
+                               torch.cuda.get_device_properties(cuda).multi_processor_count,
+                               fused_mlp._ROWS[mode])
+
+    def stash_forward():
+        stash = torch.full((plan["stash_size"] + 4096,), CANARY, dtype=torch.bfloat16,
+                           device=cuda)
+        fused_mlp._launch_fwd(fused_mlp._FWD_NAME[mode], packed, a, b, n * s, s, stash,
+                              plan["fwd_stash"])
+        return stash
+    first, second = stash_forward(), stash_forward()
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+    e, ed, acts = _stash_plain(mode, packed, pts, dirs)
+    inside = torch.zeros_like(first, dtype=torch.bool)
+    blocks = [(off, want) for off, want in
+              [(plan["e_off"], e), (plan["ed_off"], ed), *zip(plan["layer_off"], acts)]
+              if off >= 0]
+    assert len(blocks) == sum(layer.kind not in ("sigma", "out") for layer in packed.layers) \
+        + 2 * (mode != "outside")
+    for i, (off, want) in enumerate(blocks):
+        got = first[off:off + want.numel()].float().view(want.shape)
+        err = (got - want).abs() - 2.0 ** -7 * want.abs()
+        assert float(err.max()) <= 1e-3 * max(float(want.abs().max()), 1.0), (i, float(err.max()))
+        inside[off:off + want.numel()] = True
+    assert bool((first[~inside] == CANARY).all())
 
 
 @pytest.mark.parametrize("mode", MODES)
