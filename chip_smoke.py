@@ -601,19 +601,13 @@ def backward_macs(params) -> int:
 
 def library_query(packed, pts, viewdirs, mode="kernel_t"):
     """The same function as one bf16 torch.addmm per packed layer (cuBLAS), for
-    library_ms only; the viewdir embedding per ray, repeated ('kernel_t', 'outside'),
-    or of the per-point directions ('kernel')."""
+    library_ms only, over the bf16 plain embeddings of ``mode``'s route."""
     import torch
 
-    from dmnerf_tpu_torch.kernels.fused_mlp import _embedding, _point_dirs, view_embedding
+    from dmnerf_tpu_torch.kernels.fused_mlp import ROUTES
 
     N, S, _ = pts.shape
-    bf = torch.bfloat16
-    e = _embedding(pts.reshape(N * S, 3), packed.multires, packed.ep).to(bf)
-    if mode == "kernel":
-        ed = _embedding(_point_dirs(viewdirs, S), packed.multires_views, packed.edp).to(bf)
-    else:
-        ed = view_embedding(packed, viewdirs).to(bf).repeat_interleave(S, dim=0)
+    e, ed = ROUTES[mode].embeddings(packed, pts, viewdirs, torch.bfloat16)
     return library_chain(packed, e, ed).reshape(N, S, packed.c4)
 
 
@@ -644,64 +638,6 @@ def library_chain(packed, e, ed):
     raise ValueError("packed layer table has no output layer")
 
 
-def _plain_embedded(packed, pts, dirs, dtype):
-    """The plain versions of the 'outside' embeddings in ``dtype``: K7's e [P, EP] and
-    the per-point viewdir table ed [P, EDP]."""
-    from dmnerf_tpu_torch.kernels import fused_mlp as fm
-
-    N, S, _ = pts.shape
-    return (fm.pe_points_ref(packed, pts.reshape(N * S, 3), dtype),
-            fm.point_view_embedding(packed, dirs, S, dtype))
-
-
-def _kernel_embedded(packed, pts, dirs):
-    """K7's e and the bf16 per-point viewdir table, as the 'outside' query builds them."""
-    import torch
-
-    from dmnerf_tpu_torch.kernels import fused_mlp as fm
-
-    N, S, _ = pts.shape
-    return (fm.pe_points(packed, pts.reshape(N * S, 3).contiguous()),
-            fm.point_view_embedding(packed, dirs, S, torch.bfloat16))
-
-
-def _plain_fwd(mode, packed, pts, dirs, dtype):
-    """The plain version of the forward kernel(s) of ``mode``, raw [N, S, 4+C]."""
-    from dmnerf_tpu_torch.kernels.fused_mlp import (
-        _point_dirs, fused_query_kpe_ref, fused_query_pe_ref, fused_query_ref)
-
-    if mode == "kernel_t":
-        return fused_query_ref(packed, pts, dirs, dtype)
-    N, S, _ = pts.shape
-    if mode == "outside":
-        return fused_query_pe_ref(packed, *_plain_embedded(packed, pts, dirs, dtype),
-                                  dtype).reshape(N, S, -1)
-    return fused_query_kpe_ref(packed, pts.reshape(N * S, 3), _point_dirs(dirs, S),
-                               dtype).reshape(N, S, -1)
-
-
-def _bwd(mode, packed, pts, dirs, g, plain_dtype=None):
-    """(dw, db) of the backward kernel of ``mode`` (K2 / K4 / K6 over K7's embedding), or
-    of its plain version in ``plain_dtype``."""
-    from dmnerf_tpu_torch.kernels import fused_mlp as fm
-
-    if mode == "kernel_t":
-        if plain_dtype is None:
-            return fm.fused_query_bwd(packed, pts, dirs, g)
-        return fm.fused_query_bwd_ref(packed, pts, dirs, g, plain_dtype)
-    N, S, _ = pts.shape
-    if mode == "outside":
-        if plain_dtype is None:
-            return fm.fused_query_pe_bwd(packed, *_kernel_embedded(packed, pts, dirs),
-                                         g.reshape(N * S, -1))
-        return fm.fused_query_pe_bwd_ref(packed, *_plain_embedded(packed, pts, dirs, plain_dtype),
-                                         g.reshape(N * S, -1), plain_dtype)
-    args = (packed, pts.reshape(N * S, 3), fm._point_dirs(dirs, S), g.reshape(N * S, -1))
-    if plain_dtype is None:
-        return fm.fused_query_kpe_bwd(*args)
-    return fm.fused_query_kpe_bwd_ref(*args, plain_dtype)
-
-
 def _points(n_rays, n_samples, near, far, gen, device):
     """Rays from a camera at radius 4 looking at the origin; samples between near
     and far, sorted (fine-pass-like when random, coarse-like when linspace)."""
@@ -721,7 +657,7 @@ def kernel_phase(cfg, device, mode="kernel_t"):
 
     from dmnerf_tpu_torch.core.mlp import rgb_stub_params, sigma_stub_params
     from dmnerf_tpu_torch.kernels import runtime
-    from dmnerf_tpu_torch.kernels.fused_mlp import fused_query, pack_params
+    from dmnerf_tpu_torch.kernels.fused_mlp import ROUTES, fused_query, pack_params, query_fwd
     from dmnerf_tpu_torch.test import init_params
 
     pc, pf = init_params(cfg, device)
@@ -734,18 +670,17 @@ def kernel_phase(cfg, device, mode="kernel_t"):
         ("fine", pf, pack_params(pf, *args), fine_pts, fine_dirs),
         ("coarse_stub", sigma_stub_params(pc), pack_params(sigma_stub_params(pc), *args),
          coarse_pts, coarse_dirs),
+        ("fine_rgb_stub", rgb_stub_params(pf), pack_params(rgb_stub_params(pf), *args),
+         fine_pts, fine_dirs),
     ]
-    if mode == "kernel":
-        cases.append(("fine_rgb_stub", rgb_stub_params(pf), pack_params(rgb_stub_params(pf), *args),
-                      fine_pts, fine_dirs))
-    tag = "kernel" if mode == "kernel_t" else "kernel kpe"
+    tag = {"kernel_t": "kernel", "kernel": "kernel kpe"}[mode]
     results = {}
     with torch.no_grad():
         for name, params, packed, pts, dirs in cases:
             got = fused_query(packed, pts, dirs, mode)
             torch.cuda.synchronize()
-            ref32 = _plain_fwd(mode, packed, pts, dirs, torch.float32)
-            ref16 = _plain_fwd(mode, packed, pts, dirs, torch.bfloat16)
+            ref32 = query_fwd(packed, pts, dirs, mode, torch.float32)
+            ref16 = query_fwd(packed, pts, dirs, mode, torch.bfloat16)
             lib = library_query(packed, pts, dirs, mode)
             scale = float(ref32.abs().max())
             err32 = float((got - ref32).abs().max())
@@ -757,12 +692,12 @@ def kernel_phase(cfg, device, mode="kernel_t"):
                 raise AssertionError(f"{name}: kernel shape {tuple(got.shape)} vs {tuple(ref32.shape)}")
             P = pts.shape[0] * pts.shape[1]
             flops = 2.0 * query_macs(params) * P
-            # K3 reads a direction per point, K1 a viewdir per ray
-            n_dirs = P if mode == "kernel" else dirs.shape[0]
-            nbytes = (pts.numel() * 4 + n_dirs * 12 + packed.w_bf16.numel() * 2
-                      + packed.b.numel() * 4 + got.numel() * 4)
+            # its inputs (K3 a direction per point, K1 the bf16 viewdir table per ray)
+            nbytes = (sum(t.numel() * t.element_size()
+                          for t in ROUTES[mode].inputs(packed, pts, dirs))
+                      + packed.w_bf16.numel() * 2 + packed.b.numel() * 4 + got.numel() * 4)
             ms = _time_ms(lambda: fused_query(packed, pts, dirs, mode))
-            plain_ms = _time_ms(lambda: _plain_fwd(mode, packed, pts, dirs, torch.float32), reps=5)
+            plain_ms = _time_ms(lambda: query_fwd(packed, pts, dirs, mode, torch.float32), reps=5)
             library_ms = _time_ms(lambda: library_query(packed, pts, dirs, mode))
             t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
             r = dict(points=P, out_scale=scale, max_abs_err=err32, max_abs_err_bf16_plain=err16,
@@ -776,9 +711,8 @@ def kernel_phase(cfg, device, mode="kernel_t"):
             results[name] = r
 
         # the stubs' sigma column vs the full model's, both through the kernel
-        stubs = [("sigma stub", cases[1][2], pack_params(pc, *args), coarse_pts, coarse_dirs)]
-        if mode == "kernel":
-            stubs.append(("rgb stub", cases[2][2], cases[0][2], fine_pts, fine_dirs))
+        stubs = [("sigma stub", cases[1][2], pack_params(pc, *args), coarse_pts, coarse_dirs),
+                 ("rgb stub", cases[2][2], cases[0][2], fine_pts, fine_dirs)]
         for what, stub_packed, full_packed, pts, dirs in stubs:
             full_raw = fused_query(full_packed, pts, dirs, mode)
             stub_raw = fused_query(stub_packed, pts, dirs, mode)
@@ -830,8 +764,8 @@ def kernel_pe_phase(cfg, device, card):
         for name, params, packed, pts, dirs in cases:
             P = pts.shape[0] * pts.shape[1]
             x = pts.reshape(P, 3).contiguous()
-            e, ed = _kernel_embedded(packed, pts, dirs)
-            got = fm._forward_pe(packed, e, ed).reshape(pts.shape[0], pts.shape[1], -1)
+            e, ed = fm.ROUTES["outside"].inputs(packed, pts, dirs)
+            got = fm._launch_fwd("outside", packed, e, ed, P, 1).reshape(*pts.shape[:2], -1)
             torch.cuda.synchronize()
             if not torch.equal(fm.fused_query(packed, pts, dirs, "outside"), got):
                 raise AssertionError(f"{name}: fused_query(pe_mode='outside') is not K7 then K5")
@@ -866,8 +800,8 @@ def kernel_pe_phase(cfg, device, card):
             del e_timed
 
             # K5 over K7's embedding against the fp32 and bf16 plain versions and K1
-            ref32 = _plain_fwd("outside", packed, pts, dirs, torch.float32)
-            ref16 = _plain_fwd("outside", packed, pts, dirs, torch.bfloat16)
+            ref32 = fm.query_fwd(packed, pts, dirs, "outside", torch.float32)
+            ref16 = fm.query_fwd(packed, pts, dirs, "outside", torch.bfloat16)
             k1 = fm.fused_query(packed, pts, dirs)
             scale = float(ref32.abs().max())
             err32 = float((got - ref32).abs().max())
@@ -884,9 +818,9 @@ def kernel_pe_phase(cfg, device, card):
                       vs_k1_differing=int((got != k1).sum()), elements=got.numel(),
                       library_max_abs_err=float((library_chain(packed, e, ed).reshape(got.shape)
                                                  - ref32).abs().max()),
-                      ms=_time_ms(lambda: fm._forward_pe(packed, e, ed)),
-                      plain_ms=_time_ms(lambda: fm.fused_query_pe_ref(packed, e_f, ed_f,
-                                                                      torch.float32), reps=5),
+                      ms=_time_ms(lambda: fm._launch_fwd("outside", packed, e, ed, P, 1)),
+                      plain_ms=_time_ms(lambda: fm._walk_fwd(packed, e_f, ed_f, torch.float32),
+                                        reps=5),
                       library_ms=_time_ms(lambda: library_chain(packed, e, ed)),
                       query_ms=_time_ms(lambda: fm.fused_query(packed, pts, dirs, "outside")),
                       k1_ms=_time_ms(lambda: fm.fused_query(packed, pts, dirs)),
@@ -1008,14 +942,14 @@ def _plain16_leaf_grads(params, args, pts, dirs, w, mode):
     """The same gradients through the bf16 plain versions of both kernels of ``mode``."""
     import torch
 
-    from dmnerf_tpu_torch.kernels.fused_mlp import pack_params
+    from dmnerf_tpu_torch.kernels.fused_mlp import pack_params, query_bwd, query_fwd
 
     pp = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
     packed = pack_params(pp, *args)
     with torch.no_grad():
-        raw = _plain_fwd(mode, packed, pts, dirs, torch.bfloat16)
-        dw, db = _bwd(mode, packed, pts, dirs, (1.0 - torch.tanh(raw) ** 2) * w,
-                      plain_dtype=torch.bfloat16)
+        raw = query_fwd(packed, pts, dirs, mode, torch.bfloat16)
+        dw, db = query_bwd(packed, pts, dirs, (1.0 - torch.tanh(raw) ** 2) * w, mode,
+                           torch.bfloat16)
     torch.autograd.backward([packed.w, packed.b], [dw, db])
     return {k: v.grad for k, v in pp.items()}
 
@@ -1032,8 +966,9 @@ def _rel_err(got, want):
 def bwd_kernel_phase(cfg, device, mode="kernel_t"):
     """K2 (mode 'kernel_t'), K4 (mode 'kernel') or K6 (mode 'outside', over K7's
     embedding) against fp32 autograd of the plain query, its wall, its repeats and its
-    times (K6's over embeddings made once, as the train step's backward reuses the
-    forward's)."""
+    times: ``ms`` over inputs made once (the stash, and K6's embeddings, which the train
+    step's backward reuses from its forward), ``entry_ms`` the standalone call
+    ``query_bwd`` (the inputs, the training forward and the backward)."""
     import dataclasses
 
     import torch
@@ -1075,28 +1010,20 @@ def bwd_kernel_phase(cfg, device, mode="kernel_t"):
         with torch.no_grad():
             raw = fused_query(packed, pts, dirs, mode)
         g = ((1.0 - torch.tanh(raw) ** 2) * w).contiguous()
-        first, second = _bwd(mode, packed, pts, dirs, g), _bwd(mode, packed, pts, dirs, g)
+
+        def entry():
+            return fm.query_bwd(packed, pts, dirs, g, mode)
+        first, second = entry(), entry()
         same = torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
         P = pts.shape[0] * pts.shape[1]
-        # the backward's own launches over a stash the training forward wrote
-        if mode == "outside":
-            a, d = _kernel_embedded(packed, pts, dirs)
-            emb = (a, d)
-            in_bytes = a.numel() * 2 + d.numel() * 2
-
-            def entry():
-                return fm.fused_query_pe_bwd(packed, a, d, g.reshape(P, -1))
-        else:
-            a, d = fm._kernel_inputs(packed, pts, dirs, mode)
-            emb = ()
-            # K4 reads a direction per point, K2 a viewdir per ray
-            in_bytes = pts.numel() * 4 + (P if mode == "kernel" else dirs.shape[0]) * 12
-
-            def entry():
-                return _bwd(mode, packed, pts, dirs, g)
-        n_s = (pts.shape[0], pts.shape[1]) if mode == "kernel_t" else (P, 1)
-        _, plan, stash = fm._stash_forward(mode, packed, a, d, *n_s)
+        # the backward's own launches over a stash the training forward wrote, from its
+        # inputs (K4 a direction per point, K2 the bf16 viewdir table per ray, K6 the
+        # embeddings, which it reads again)
+        a, d = fm.ROUTES[mode].inputs(packed, pts, dirs)
+        emb = (a, d) if fm.ROUTES[mode].embedded else ()
+        in_bytes = a.numel() * a.element_size() + d.numel() * d.element_size()
+        _, plan, stash = fm._stash_forward(mode, packed, a, d, *pts.shape[:2])
         # the training forward's bound: its products, and its inputs, weights, raw and
         # stash each moved once
         stash_flops = 2.0 * query_macs(params) * P
@@ -1105,7 +1032,8 @@ def bwd_kernel_phase(cfg, device, mode="kernel_t"):
         s_ops, s_bytes = stash_flops / PEAK_BF16_FLOPS * 1e3, stash_bytes / PEAK_BYTES * 1e3
         g_flat = g.reshape(P, -1)
         ms = _time_ms(lambda: fm._launch_bwd(mode, packed, plan, stash, g_flat, *emb), reps=5)
-        stash_fwd_ms = _time_ms(lambda: fm._stash_forward(mode, packed, a, d, *n_s), reps=5)
+        stash_fwd_ms = _time_ms(lambda: fm._stash_forward(mode, packed, a, d, *pts.shape[:2]),
+                                reps=5)
         del stash
         entry_ms = _time_ms(entry, reps=5)
         launch_ms = launch_split(entry)
@@ -1159,10 +1087,12 @@ def bwd_kernel_phase(cfg, device, mode="kernel_t"):
     return results
 
 
-# the kernels each train step launches twice (coarse and fine), per pallas_pe_mode
-STEP_KERNELS = {None: ("fused_mlp_fwd", "fused_mlp_bwd"),
-                "kernel": ("fused_mlp_fwd_kpe", "fused_mlp_bwd_kpe"),
-                "outside": ("fused_pe", "fused_mlp_fwd_pe", "fused_mlp_bwd_pe")}
+def step_kernels(pe_mode):
+    """The kernels each train step launches twice (coarse and fine) under ``pe_mode``."""
+    from dmnerf_tpu_torch.kernels.fused_mlp import ROUTES, resolve_pe_mode
+
+    route = ROUTES[resolve_pe_mode(pe_mode)]
+    return (*route.launches, route.bwd)
 
 
 def scannet_scene(cfg):
@@ -1250,7 +1180,7 @@ def train_phase(device, pe_mode=None, steps=TRAIN_STEPS, dataset="dmsr"):
         with open(os.path.join(cfg.log_dir, "metrics.jsonl")) as f:
             recs = [json.loads(line) for line in f]
     for name in runtime.COUNTED:
-        want = 2 * steps if name in STEP_KERNELS[pe_mode] else steps if name == "assignment" else 0
+        want = 2 * steps if name in step_kernels(pe_mode) else steps if name == "assignment" else 0
         if launches[name] != want:
             raise AssertionError(f"{name} launched {launches[name]} times in {steps} train "
                                  f"steps under pallas_pe_mode={pe_mode}, want {want}")
@@ -1654,7 +1584,7 @@ def packed_train_phase(device, card, pe_mode=None, dataset="dmsr", P=PACK_STEPS,
     # one more pack under the profiler
     prof = profile_calls(lambda: packed(st_p, gb_p, gs_p))
     k = prof["kernels"]
-    fwd = "fused_pe_kernel" if pe_mode == "outside" else None
+    fwd = "fused_pe_kernel" if "fused_pe" in step_kernels(pe_mode) else None
     counts = {"fused_mlp_fwd_kernel": _count(k, "fused_mlp_fwd_kernel"),
               "bwd_data_kernel": _count(k, "bwd_data_kernel"),
               "assignment_kernel": _count(k, "assignment_kernel"),
@@ -1950,6 +1880,7 @@ def mesh_phase(cfg, device):
     from dmnerf_tpu_torch.core.pipeline import make_query_fn, make_torch_query_fn
     from dmnerf_tpu_torch.data.synthetic import build_dmsr_scene
     from dmnerf_tpu_torch.kernels import runtime
+    from dmnerf_tpu_torch.kernels.fused_mlp import query_fwd
     from dmnerf_tpu_torch.render.renderer import make_image_renderer
     from dmnerf_tpu_torch.test import init_params, run_test
     from dmnerf_tpu_torch.tools.mesh_extract import (DEFAULT_EXTENTS, build_grid,
@@ -2000,9 +1931,9 @@ def mesh_phase(cfg, device):
         full_sigma = query_fn.query(packed_full, pts, dirs)[..., 3]
         stub_err = float((raw[..., 3] - full_sigma).abs().max())
         sig_scale = float(full_sigma.abs().max())
-        ref32 = _plain_fwd("kernel_t", packed_stub, pts, dirs, torch.float32)
+        ref32 = query_fwd(packed_stub, pts, dirs, "kernel_t", torch.float32)
         ms = _time_ms(lambda: query_fn.query(packed_stub, pts, dirs))
-        plain_ms = _time_ms(lambda: _plain_fwd("kernel_t", packed_stub, pts, dirs, torch.float32),
+        plain_ms = _time_ms(lambda: query_fwd(packed_stub, pts, dirs, "kernel_t", torch.float32),
                             reps=5)
         library_ms = _time_ms(lambda: library_query(packed_stub, pts, dirs))
     flops = 2.0 * query_macs(stub) * pts.shape[0] * pts.shape[1]
@@ -2243,7 +2174,7 @@ def fused_render_phase(device):
             # without its point formation and compositing
             pts = (o[..., None, :] + d[..., None, :] * z[..., :, None]).contiguous()
             k1_packed = fr._sigma_table(packed) if weights_only else packed
-            k1 = device_ms(lambda: fm._launch_fwd("fused_mlp_fwd", k1_packed, pts, edr, P, S))
+            k1 = device_ms(lambda: fm._launch_fwd("kernel_t", k1_packed, pts, edr, P, S))
             r = dict(rays=N, samples=S, points=P, out_scale=scale, max_abs_err=err32,
                      max_abs_err_bf16_plain=err16, last_sample_jumps=int(jump.sum()),
                      max_abs_err_all_rays=float(diff32.max()),

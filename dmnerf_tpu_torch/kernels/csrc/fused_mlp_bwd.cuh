@@ -6,9 +6,9 @@
 //  * fused_mlp_bwd_kpe.cu (K4) replaces _bwd_kernel (:481), pe_mode 'kernel'.
 //  * fused_mlp_bwd_pe.cu (K6) replaces _bwd_kernel_pe (:494), pe_mode 'outside'.
 // All three carry _backward_core (:536) and _accumulate_grads (:653). What they
-// compute is set out in dmnerf_tpu_torch/kernels/fused_mlp.py, whose
-// fused_query_bwd_ref / fused_query_kpe_bwd_ref / fused_query_pe_bwd_ref are their
-// plain versions and whose _bwd_plan builds the tables they read. Numerics follow the
+// compute is set out in dmnerf_tpu_torch/kernels/fused_mlp.py, whose _walk_bwd over
+// each route's plain embeddings (ROUTES) is their plain version and whose _bwd_plan
+// builds the tables they read. Numerics follow the
 // JAX package: bf16 operands for every product (activations, cotangents cast once,
 // weights), fp32 accumulation, and bias gradients summed from the fp32 cotangents.
 // Nothing flows into the points, the directions or the embeddings (the JAX package

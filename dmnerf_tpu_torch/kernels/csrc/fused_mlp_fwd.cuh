@@ -15,8 +15,8 @@
 //  * head512.cu (K9) and heads_fused.cu (K10) run the walk over a hidden activation and
 //    a layer table of their own (ROWS_H, below): the JAX package's head probes.
 // K1, K3 and K5 differ only in how a tile's embeddings are built (Rows). What they compute
-// is set out in dmnerf_tpu_torch/kernels/fused_mlp.py, whose fused_query_ref /
-// fused_query_kpe_ref / fused_query_pe_ref are their plain versions, whose pack_params
+// is set out in dmnerf_tpu_torch/kernels/fused_mlp.py, whose _walk_fwd over each
+// route's plain embeddings (ROUTES) is their plain version, whose pack_params
 // builds the weights they read (wt, each layer's block transposed) and whose _fwd_plan
 // builds the table below.
 //

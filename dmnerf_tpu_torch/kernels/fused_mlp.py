@@ -1,25 +1,28 @@
 """The fused PE + DM-NeRF MLP point query and its parameter backward: three sets of
-hand-written Hopper kernels, their plain PyTorch versions, the wrappers that pick
-between them, the autograd function that joins them, and the host-side packing they
-consume. The set follows the JAX package's ``pe_mode`` (``resolve_pe_mode``):
+hand-written Hopper kernels, their plain PyTorch versions, the table that routes a query
+to one set, the autograd function that joins them, and the host-side packing they
+consume. ``ROUTES`` holds one ``Route`` for each of the JAX package's ``pe_mode``
+(``resolve_pe_mode``), and nothing else decides between them:
 
   'kernel_t'  K1 ``csrc/fused_mlp_fwd.cu``, K2 ``csrc/fused_mlp_bwd.cu``: the viewdir
               embedding is built per ray on the host and the kernels read row p / S
               (``_fwd_kernel_pet`` / ``_bwd_kernel_pet``, ``dmnerf_tpu/kernels/
-              fused_mlp.py:507,520``); plain versions ``fused_query_ref`` /
-              ``fused_query_bwd_ref``.
+              fused_mlp.py:507,520``).
   'kernel'    K3 ``csrc/fused_mlp_fwd_kpe.cu``, K4 ``csrc/fused_mlp_bwd_kpe.cu``: each
               point carries its own direction and the kernels embed it as they embed
               the point (``_fwd_kernel`` / ``_bwd_kernel`` with ``_embed_pair``,
-              :462,481,354); plain versions ``fused_query_kpe_ref`` /
-              ``fused_query_kpe_bwd_ref``.
+              :462,481,354).
   'outside'   K7 ``csrc/fused_pe.cu`` embeds the points into a bf16 array e [P, EP]
               (``make_pe_pallas``, :689); the per-ray viewdir embedding is repeated to
               one bf16 row per point, ed [P, EDP]; K5 ``csrc/fused_mlp_fwd_pe.cu`` and
               K6 ``csrc/fused_mlp_bwd_pe.cu`` are the matrix-product chain and its
               backward over those two arrays (``_fwd_kernel_pe`` / ``_bwd_kernel_pe``,
-              :471,494); plain versions ``pe_points_ref``, ``fused_query_pe_ref`` /
-              ``fused_query_pe_bwd_ref``.
+              :471,494).
+
+A query is pts [N, S, 3], viewdirs [N, 3]. ``query_fwd``, ``query_train_fwd`` and
+``query_bwd`` run it through its route's kernels, or through their plain version: the
+layer walks ``_walk_fwd`` / ``_walk_bwd`` over the route's plain embeddings
+(``pe_points_ref`` is K7's).
 
 Every set computes the point embedding ``[x | sin(2^f x) | cos(2^f x)]`` in fp32, the
 ReLU trunk with the embedding re-injected at each skip layer, and the fused head
@@ -71,7 +74,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -358,7 +361,7 @@ def _rounder(act_dtype):
 
 def _weights(packed: Packed, act_dtype) -> torch.Tensor:
     """The packed weights as the plain versions read them: detached, because their
-    gradient is ``fused_query_bwd``'s to give (autograd through the fused head
+    gradient is ``_walk_bwd``'s to give (autograd through the fused head
     product would send the instance head's cotangent into the trunk)."""
     return packed.w.detach() if act_dtype == torch.float32 else packed.w_bf16.float()
 
@@ -367,25 +370,13 @@ def _block(w_all: torch.Tensor, layer: Layer) -> torch.Tensor:
     return w_all[layer.w_off:layer.w_off + layer.K * layer.N].view(layer.K, layer.N)
 
 
-def _embeddings(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor, rnd):
-    """Point embedding [P, EP] and per-point viewdir embedding [P, EDP] of a K1/K2
-    query (pts [N, S, 3], viewdirs [N, 3]): the viewdir embedding per ray, repeated."""
-    N, S, _ = pts.shape
-    e = rnd(_embedding(pts.reshape(N * S, 3).float(), packed.multires, packed.ep))
-    ed = rnd(view_embedding(packed, viewdirs.float())).repeat_interleave(S, dim=0)
-    return e, ed
-
-
-def _embeddings_kpe(packed: Packed, pts: torch.Tensor, dirs: torch.Tensor, rnd):
-    """The same of a K3/K4 query (pts, dirs [P, 3]): each point's own direction
-    embedded, as the JAX package's ``_embed_pair``."""
-    e = rnd(_embedding(pts.float(), packed.multires, packed.ep))
-    ed = rnd(_embedding(dirs.float(), packed.multires_views, packed.edp))
-    return e, ed
-
-
 def _walk_fwd(packed: Packed, e: torch.Tensor, ed: torch.Tensor, act_dtype) -> torch.Tensor:
-    """The layer table over the embeddings e [P, EP], ed [P, EDP] -> raw [P, 4+C]."""
+    """The forward kernels' function in torch ops: the layer table over the embeddings
+    e [P, EP], ed [P, EDP] (fp32, holding ``act_dtype`` values) -> raw [P, 4+C] fp32.
+    With ``act_dtype=float32`` it is the CPU path and the fp32 yardstick. With
+    ``bfloat16`` it rounds weights and post-ReLU activations to bf16 where the kernels do
+    and keeps fp32 products and sums, so it differs from a kernel only in the order of
+    the fp32 sums (run it with TF32 off)."""
     rnd = _rounder(act_dtype)
     w_all = _weights(packed, act_dtype)
     h = sigma = None
@@ -408,38 +399,6 @@ def _walk_fwd(packed: Packed, e: torch.Tensor, ed: torch.Tensor, act_dtype) -> t
     raise ValueError("packed layer table has no output layer")
 
 
-def fused_query_ref(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor,
-                    act_dtype=torch.float32) -> torch.Tensor:
-    """K1's function in torch ops over the same packed layout.
-
-    pts [N, S, 3], viewdirs [N, 3] -> raw [N, S, 4+C] fp32. With
-    ``act_dtype=float32`` this is the CPU path and the fp32 yardstick. With
-    ``bfloat16`` it rounds embeddings, weights and post-ReLU activations to bf16
-    where the kernel does and keeps fp32 products and sums, so it differs from the
-    kernel only in the order of the fp32 sums (run it with TF32 off)."""
-    N, S, _ = pts.shape
-    e, ed = _embeddings(packed, pts, viewdirs, _rounder(act_dtype))
-    return _walk_fwd(packed, e, ed, act_dtype).reshape(N, S, packed.c4)
-
-
-def fused_query_kpe_ref(packed: Packed, pts: torch.Tensor, dirs: torch.Tensor,
-                        act_dtype=torch.float32) -> torch.Tensor:
-    """K3's function: pts [P, 3], dirs [P, 3] (one direction per point) -> raw
-    [P, 4+C] fp32, the layer walk of ``fused_query_ref`` over ``_embed_pair``'s
-    embeddings, with the same roundings per ``act_dtype``."""
-    e, ed = _embeddings_kpe(packed, pts, dirs, _rounder(act_dtype))
-    return _walk_fwd(packed, e, ed, act_dtype)
-
-
-def fused_query_pe_ref(packed: Packed, e: torch.Tensor, ed: torch.Tensor,
-                       act_dtype=torch.float32) -> torch.Tensor:
-    """K5's function: the layer walk of ``fused_query_ref`` over given embeddings e
-    [P, EP] and ed [P, EDP] (any float type, rounded to ``act_dtype``) -> raw
-    [P, 4+C] fp32."""
-    rnd = _rounder(act_dtype)
-    return _walk_fwd(packed, rnd(e.float()), rnd(ed.float()), act_dtype)
-
-
 def _split_layers(packed: Packed):
     """(trunk layers, sigma, head, out) of a packed table."""
     *trunk, sig, head, out = packed.layers
@@ -449,8 +408,15 @@ def _split_layers(packed: Packed):
 
 
 def _walk_bwd(packed: Packed, e: torch.Tensor, ed: torch.Tensor, g: torch.Tensor, act_dtype):
-    """Parameter cotangents (dw, db) over the embeddings e [P, EP], ed [P, EDP] for the
-    output cotangent g [P, 4+C]: the JAX package's ``_backward_core``."""
+    """The backward kernels' function in torch ops: the parameter cotangents (dw, db),
+    fp32 in ``Packed.w`` / ``Packed.b`` layout, over the embeddings e [P, EP], ed
+    [P, EDP] for the output cotangent g [P, 4+C]. It walks the layer table as the JAX
+    package's ``_backward_core`` walks its layers: out, head, sigma, then the trunk in
+    reverse through the ReLU masks. Only the head's rgb columns and sigma send a
+    cotangent into the trunk (the instance head's detach); nothing goes into e or ed.
+    With ``bfloat16`` it rounds where the kernels do: weights and activations, and each
+    cotangent once before it enters a product. Bias gradients are sums of the unrounded
+    fp32 cotangents either way."""
     rnd = _rounder(act_dtype)
     w_all = _weights(packed, act_dtype)
     trunk, sig, head, out = _split_layers(packed)
@@ -502,40 +468,6 @@ def _walk_bwd(packed: Packed, e: torch.Tensor, ed: torch.Tensor, g: torch.Tensor
     return dw, db
 
 
-def fused_query_bwd_ref(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor,
-                        g: torch.Tensor, act_dtype=torch.float32):
-    """K2's function in torch ops: the parameter cotangents ``(dw, db)`` of
-    ``fused_query`` in ``Packed.w`` / ``Packed.b`` layout, fp32, for the output
-    cotangent g [N, S, 4+C]. It walks the layer table as the JAX package's
-    ``_backward_core`` walks its layers: out, head, sigma, then the trunk in reverse
-    through the ReLU masks. Only the head's rgb columns and sigma send a cotangent
-    into the trunk (the instance head's detach); nothing goes into ``ed``.
-
-    With ``bfloat16`` it rounds where the kernel does: embeddings, weights and
-    activations, and each cotangent once before it enters a product. Bias gradients
-    are sums of the unrounded fp32 cotangents either way."""
-    e, ed = _embeddings(packed, pts, viewdirs, _rounder(act_dtype))
-    return _walk_bwd(packed, e, ed, g, act_dtype)
-
-
-def fused_query_kpe_bwd_ref(packed: Packed, pts: torch.Tensor, dirs: torch.Tensor,
-                            g: torch.Tensor, act_dtype=torch.float32):
-    """K4's function: ``fused_query_bwd_ref``'s walk for pts, dirs [P, 3] and the
-    output cotangent g [P, 4+C], over ``_embed_pair``'s embeddings. Nothing goes into
-    ``pts`` or ``dirs`` (the JAX package returns zeros for them)."""
-    e, ed = _embeddings_kpe(packed, pts, dirs, _rounder(act_dtype))
-    return _walk_bwd(packed, e, ed, g, act_dtype)
-
-
-def fused_query_pe_bwd_ref(packed: Packed, e: torch.Tensor, ed: torch.Tensor,
-                           g: torch.Tensor, act_dtype=torch.float32):
-    """K6's function: ``fused_query_bwd_ref``'s walk over given embeddings e [P, EP],
-    ed [P, EDP] for the output cotangent g [P, 4+C]. Nothing goes into e or ed (the
-    JAX package returns zeros for them)."""
-    rnd = _rounder(act_dtype)
-    return _walk_bwd(packed, rnd(e.float()), rnd(ed.float()), g, act_dtype)
-
-
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -581,18 +513,6 @@ def _check_ray_shapes(pts: torch.Tensor, viewdirs: torch.Tensor) -> None:
                          f"{tuple(pts.shape)} and {tuple(viewdirs.shape)}")
 
 
-def _check_point_shapes(pts: torch.Tensor, dirs: torch.Tensor) -> None:
-    if pts.dim() != 2 or pts.shape[-1] != 3 or dirs.shape != pts.shape:
-        raise ValueError(f"want pts [P, 3] and dirs [P, 3], got "
-                         f"{tuple(pts.shape)} and {tuple(dirs.shape)}")
-
-
-def _check_embedding_shapes(packed: Packed, e: torch.Tensor, ed: torch.Tensor) -> None:
-    if e.dim() != 2 or e.shape[1] != packed.ep or ed.shape != (e.shape[0], packed.edp):
-        raise ValueError(f"want e [P, {packed.ep}] and ed [P, {packed.edp}], got "
-                         f"{tuple(e.shape)} and {tuple(ed.shape)}")
-
-
 def _fwd_segments(packed: Packed, layer: Layer):
     """A forward layer's A segments in chunk order: (source, first K row, rows), the
     source one of 'ed', 'e_first', 'h', 'e_last' (csrc/fused_mlp_fwd.cuh Seg)."""
@@ -632,27 +552,30 @@ def _fwd_plan(packed: Packed) -> dict:
     return dict(table=table, maps=maps, layers=layers, chunks=chunks)
 
 
-def _launch_fwd(name: str, packed: Packed, pts: torch.Tensor, ed_src: torch.Tensor,
+def _launch_fwd(mode: str, packed: Packed, pts: torch.Tensor, ed_src: torch.Tensor,
                 P: int, S: int, stash=None, stash_table=None) -> torch.Tensor:
-    """One launch of K1 (``ed_src`` the per-ray viewdir embedding [P / S, EDP] bf16),
-    K3 (``ed_src`` the directions [P, 3] fp32) or K5 (``pts`` the point embedding e
+    """One launch of ``mode``'s forward kernel over its inputs (as ``Route.inputs``
+    gives them): K1 (``ed_src`` the per-ray viewdir embedding [P / S, EDP] bf16), K3
+    (``ed_src`` the directions [P, 3] fp32) or K5 (``pts`` the point embedding e
     [P, EP], ``ed_src`` the per-point viewdir embedding [P, EDP], both bf16); returns
     raw [P, 4+C]. With ``stash`` (a bf16 buffer) and ``stash_table`` (``_bwd_plan``'s
     ``fwd_stash``) it is the training forward, which also writes what the backward
     reads."""
+    route = ROUTES[mode]
     out = torch.empty((P, packed.c4), dtype=torch.float32, device=pts.device)
     if P == 0:
         return out
     table = _fwd_plan(packed)["table"]
     c_table = (ctypes.c_longlong * len(table))(*table)
     c_stash = None if stash is None else (ctypes.c_longlong * len(stash_table))(*stash_table)
+    name = route.fwd
     fn = getattr(runtime.load(name), f"dmnerf_{name}")
     dev = pts.device
-    head = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * (name == "fused_mlp_fwd")
+    head = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * route.takes_s
     fn.argtypes = head + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(pts.data_ptr(), ed_src.data_ptr(), packed.wt_bf16.data_ptr(), packed.b.data_ptr(),
-             out.data_ptr(), P, *((S,) if name == "fused_mlp_fwd" else ()),
+             out.data_ptr(), P, *((S,) if route.takes_s else ()),
              ctypes.addressof(c_table), None if stash is None else stash.data_ptr(),
              None if c_stash is None else ctypes.addressof(c_stash),
              torch.cuda.get_device_properties(dev).multi_processor_count,
@@ -662,36 +585,6 @@ def _launch_fwd(name: str, packed: Packed, pts: torch.Tensor, ed_src: torch.Tens
                            f"CUresult of the tensor-map encoder)")
     runtime.count_launch(name)
     return out
-
-
-def _forward(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
-    """K1 routing: the fp32 plain version for CPU tensors, the kernel for CUDA tensors.
-    pts [N, S, 3], viewdirs [N, 3] -> raw [N, S, 4+C]."""
-    if pts.device.type == "cpu":
-        return fused_query_ref(packed, pts, viewdirs, torch.float32)
-    N, S, _ = pts.shape
-    _, edr = _kernel_inputs(packed, pts, viewdirs, "kernel_t")
-    return _launch_fwd("fused_mlp_fwd", packed, pts, edr, N * S, S).reshape(N, S, packed.c4)
-
-
-def _forward_kpe(packed: Packed, pts: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
-    """K3 routing: the fp32 plain version for CPU tensors, the kernel for CUDA tensors.
-    pts [P, 3], dirs [P, 3] -> raw [P, 4+C]."""
-    if pts.device.type == "cpu":
-        return fused_query_kpe_ref(packed, pts, dirs, torch.float32)
-    _check_kernel_inputs("fused_mlp_fwd_kpe", packed, pts, dirs)
-    _check_point_shapes(pts, dirs)
-    return _launch_fwd("fused_mlp_fwd_kpe", packed, pts, dirs, pts.shape[0], 1)
-
-
-def _forward_pe(packed: Packed, e: torch.Tensor, ed: torch.Tensor) -> torch.Tensor:
-    """K5 routing: the fp32 plain version for CPU tensors, the kernel for CUDA tensors
-    (e [P, EP] and ed [P, EDP] bf16). -> raw [P, 4+C]."""
-    if e.device.type == "cpu":
-        return fused_query_pe_ref(packed, e, ed, torch.float32)
-    _check_kernel_inputs("fused_mlp_fwd_pe", packed, e, ed, ("e", "ed"), torch.bfloat16)
-    _check_embedding_shapes(packed, e, ed)
-    return _launch_fwd("fused_mlp_fwd_pe", packed, e, ed, e.shape[0], 1)
 
 
 def pe_points(packed: Packed, x: torch.Tensor) -> torch.Tensor:
@@ -789,12 +682,6 @@ def _pe_launcher(x: torch.Tensor, e: torch.Tensor, multires: int):
 _BWD_TILE, _DW_TILE_F, _DW_POINTS, _WBOX_K = 128, 128, 64, 64
 _DW_CTAS_PER_SM = 4
 _SEG_ALIGN = 64
-# the Rows of each pe_mode's kernel pair, and the pair's entry points
-_ROWS = {"kernel_t": "ray_table", "kernel": "point_dirs", "outside": "embedded"}
-_FWD_NAME = {"kernel_t": "fused_mlp_fwd", "kernel": "fused_mlp_fwd_kpe",
-             "outside": "fused_mlp_fwd_pe"}
-_BWD_NAME = {"kernel_t": "fused_mlp_bwd", "kernel": "fused_mlp_bwd_kpe",
-             "outside": "fused_mlp_bwd_pe"}
 
 
 def _bwd_plan(packed: Packed, N: int, S: int, n_sms: int, rows: str = "ray_table"):
@@ -820,7 +707,7 @@ def _bwd_plan(packed: Packed, N: int, S: int, n_sms: int, rows: str = "ray_table
     if hr % 16 or hr > 3 * _WBOX_K:
         raise ValueError(f"backward kernel wants the rgb hidden width % 16 == 0 and "
                          f"<= {3 * _WBOX_K}, got {hr}")
-    if rows not in _ROWS.values() or (rows == "embedded" and S != 1):
+    if rows not in {route.rows for route in ROUTES.values()} or (rows == "embedded" and S != 1):
         raise ValueError(f"unknown rows {rows!r} for S = {S}")
     li = {layer: i for i, layer in enumerate(packed.layers)}
 
@@ -913,45 +800,29 @@ def _check_cotangent(g: torch.Tensor, shape, device) -> None:
                          f"got {g.dtype} {tuple(g.shape)} on {g.device}")
 
 
-def _kernel_inputs(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor, pe_mode: str):
-    """The two inputs of ``pe_mode``'s kernels for a query pts [N, S, 3], viewdirs
-    [N, 3] on the card, checked: 'kernel_t' the points and the per-ray viewdir
-    embedding [N, EDP] bf16, 'kernel' the points and one direction per point [P, 3],
-    'outside' K7's point embedding e [P, EP] and the per-point viewdir embedding
-    [P, EDP], bf16."""
-    if pe_mode == "kernel_t":
-        _check_kernel_inputs(_FWD_NAME[pe_mode], packed, pts, viewdirs)
-        _check_ray_shapes(pts, viewdirs)
-        return pts, view_embedding(packed, viewdirs).to(torch.bfloat16).contiguous()
-    _check_ray_shapes(pts, viewdirs)
-    N, S, _ = pts.shape
-    if pe_mode == "kernel":
-        a, d = pts.reshape(N * S, 3).contiguous(), _point_dirs(viewdirs, S)
-        _check_kernel_inputs(_FWD_NAME[pe_mode], packed, a, d)
-        return a, d
-    e = pe_points(packed, pts.reshape(N * S, 3).contiguous())
-    ed = point_view_embedding(packed, viewdirs, S, torch.bfloat16)
-    _check_kernel_inputs(_FWD_NAME[pe_mode], packed, e, ed, ("e", "ed"), torch.bfloat16)
-    return e, ed
+def _query_plan(mode: str, packed: Packed, N: int, S: int, n_sms: int) -> dict:
+    """``_bwd_plan`` of ``mode``'s kernel pair for a query of N rays of S points."""
+    route = ROUTES[mode]
+    return _bwd_plan(packed, *((N, S) if route.takes_s else (N * S, 1)), n_sms, route.rows)
 
 
-def _stash_forward(pe_mode: str, packed: Packed, a: torch.Tensor, b: torch.Tensor, N: int, S: int):
-    """The training forward of ``pe_mode`` over its kernel inputs ``a``, ``b`` (as
-    ``_kernel_inputs`` gives them): one launch of K1, K3 or K5 that also writes the
-    stash. Returns (raw [N * S, 4+C], plan, stash)."""
-    plan = _bwd_plan(packed, N, S, torch.cuda.get_device_properties(a.device).multi_processor_count,
-                     _ROWS[pe_mode])
+def _stash_forward(mode: str, packed: Packed, a: torch.Tensor, b: torch.Tensor, N: int, S: int):
+    """The training forward of ``mode`` over its kernel inputs ``a``, ``b`` (as
+    ``Route.inputs`` gives them) for N rays of S points: one launch of K1, K3 or K5 that
+    also writes the stash. Returns (raw [N * S, 4+C], plan, stash)."""
+    plan = _query_plan(mode, packed, N, S,
+                       torch.cuda.get_device_properties(a.device).multi_processor_count)
     stash = torch.empty(plan["stash_size"], dtype=torch.bfloat16, device=a.device)
-    raw = _launch_fwd(_FWD_NAME[pe_mode], packed, a, b, N * S, S, stash, plan["fwd_stash"])
+    raw = _launch_fwd(mode, packed, a, b, N * S, S, stash, plan["fwd_stash"])
     return raw, plan, stash
 
 
-def _launch_bwd(pe_mode: str, packed: Packed, plan: dict, stash: torch.Tensor,
+def _launch_bwd(mode: str, packed: Packed, plan: dict, stash: torch.Tensor,
                 g: torch.Tensor, e_in=None, ed_in=None):
-    """One call of K2, K4 or K6 (``pe_mode``) over the stash that ``_stash_forward``
+    """One call of K2, K4 or K6 (``mode``'s) over the stash that ``_stash_forward``
     wrote, for the output cotangent g [P, 4+C] fp32 (K6 also reads its input
     embeddings e_in, ed_in): its four device launches, and (dw, db)."""
-    name = _BWD_NAME[pe_mode]
+    name = ROUTES[mode].bwd
     dev = stash.device
     P = plan["header"][0]
     _check_cotangent(g, (P, packed.c4), dev)
@@ -980,52 +851,9 @@ def _launch_bwd(pe_mode: str, packed: Packed, plan: dict, stash: torch.Tensor,
     return dw, db
 
 
-def fused_query_bwd(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor,
-                    g: torch.Tensor):
-    """Parameter cotangents ``(dw, db)`` of the K1 query for the output cotangent
-    g [N, S, 4+C] fp32, in ``Packed.w`` / ``Packed.b`` layout. CUDA tensors go
-    through the training forward (K1 writing the stash) and the Hopper kernel (K2),
-    CPU tensors through ``fused_query_bwd_ref`` in fp32; there is no fallback from one
-    to the other."""
-    if pts.device.type == "cpu":
-        return fused_query_bwd_ref(packed, pts, viewdirs, g, torch.float32)
-    a, b = _kernel_inputs(packed, pts, viewdirs, "kernel_t")
-    N, S, _ = pts.shape
-    _check_cotangent(g, (N, S, packed.c4), pts.device)
-    _, plan, stash = _stash_forward("kernel_t", packed, a, b, N, S)
-    return _launch_bwd("kernel_t", packed, plan, stash, g.reshape(N * S, packed.c4))
-
-
-def fused_query_kpe_bwd(packed: Packed, pts: torch.Tensor, dirs: torch.Tensor,
-                        g: torch.Tensor):
-    """Parameter cotangents ``(dw, db)`` of the K3 query (pts, dirs [P, 3]) for the
-    output cotangent g [P, 4+C] fp32. CUDA tensors go through K3 writing the stash and
-    the Hopper kernel (K4), CPU tensors through ``fused_query_kpe_bwd_ref`` in fp32;
-    there is no fallback."""
-    if pts.device.type == "cpu":
-        return fused_query_kpe_bwd_ref(packed, pts, dirs, g, torch.float32)
-    _check_kernel_inputs("fused_mlp_bwd_kpe", packed, pts, dirs)
-    _check_point_shapes(pts, dirs)
-    P = pts.shape[0]
-    _check_cotangent(g, (P, packed.c4), pts.device)
-    _, plan, stash = _stash_forward("kernel", packed, pts, dirs, P, 1)
-    return _launch_bwd("kernel", packed, plan, stash, g)
-
-
-def fused_query_pe_bwd(packed: Packed, e: torch.Tensor, ed: torch.Tensor, g: torch.Tensor):
-    """Parameter cotangents ``(dw, db)`` of the K5 query over the embeddings e [P, EP]
-    and ed [P, EDP] for the output cotangent g [P, 4+C] fp32. CUDA tensors (bf16
-    embeddings) go through K5 writing the stash and the Hopper kernel (K6), CPU
-    tensors through ``fused_query_pe_bwd_ref`` in fp32; there is no fallback."""
-    if e.device.type == "cpu":
-        return fused_query_pe_bwd_ref(packed, e, ed, g, torch.float32)
-    _check_kernel_inputs("fused_mlp_bwd_pe", packed, e, ed, ("e", "ed"), torch.bfloat16)
-    _check_embedding_shapes(packed, e, ed)
-    P = e.shape[0]
-    _check_cotangent(g, (P, packed.c4), e.device)
-    _, plan, stash = _stash_forward("outside", packed, e, ed, P, 1)
-    return _launch_bwd("outside", packed, plan, stash, g, e, ed)
-
+# ---------------------------------------------------------------------------
+# Which kernels serve a point query
+# ---------------------------------------------------------------------------
 
 def _point_dirs(viewdirs: torch.Tensor, S: int) -> torch.Tensor:
     """Per-ray viewdirs [N, 3] broadcast to one direction per point [N * S, 3], as the
@@ -1033,60 +861,161 @@ def _point_dirs(viewdirs: torch.Tensor, S: int) -> torch.Tensor:
     return viewdirs[:, None, :].expand(viewdirs.shape[0], S, 3).reshape(-1, 3).contiguous()
 
 
+def _ray_embeddings(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor, dtype):
+    """The plain embeddings of a query in ``dtype``: e [P, EP] (K7's function) and the
+    viewdir embedding per ray, repeated to one row per point, ed [P, EDP]."""
+    N, S, _ = pts.shape
+    return (pe_points_ref(packed, pts.reshape(N * S, 3), dtype),
+            point_view_embedding(packed, viewdirs, S, dtype))
+
+
+def _point_embeddings(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor, dtype):
+    """The same with each point's own direction embedded, as the JAX package's
+    ``_embed_pair`` does."""
+    N, S, _ = pts.shape
+    ed = _embedding(_point_dirs(viewdirs.float(), S), packed.multires_views, packed.edp)
+    return pe_points_ref(packed, pts.reshape(N * S, 3), dtype), ed.to(dtype)
+
+
+def _ray_table_inputs(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor):
+    """K1's inputs, checked: the points and the per-ray viewdir embedding [N, EDP] bf16."""
+    _check_kernel_inputs("fused_mlp_fwd", packed, pts, viewdirs)
+    _check_ray_shapes(pts, viewdirs)
+    return pts, view_embedding(packed, viewdirs).to(torch.bfloat16).contiguous()
+
+
+def _point_dirs_inputs(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor):
+    """K3's inputs, checked: the points [P, 3] and one direction per point [P, 3]."""
+    _check_ray_shapes(pts, viewdirs)
+    a, d = pts.reshape(-1, 3).contiguous(), _point_dirs(viewdirs, pts.shape[1])
+    _check_kernel_inputs("fused_mlp_fwd_kpe", packed, a, d)
+    return a, d
+
+
+def _embedded_inputs(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor):
+    """K5's inputs, checked: K7's point embedding e [P, EP] (one launch of K7) and the
+    per-point viewdir embedding [P, EDP], bf16."""
+    _check_ray_shapes(pts, viewdirs)
+    e = pe_points(packed, pts.reshape(-1, 3).contiguous())
+    ed = point_view_embedding(packed, viewdirs, pts.shape[1], torch.bfloat16)
+    _check_kernel_inputs("fused_mlp_fwd_pe", packed, e, ed, ("e", "ed"), torch.bfloat16)
+    return e, ed
+
+
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """The kernels that serve a point query under one ``pe_mode``, and how a query
+    (pts [N, S, 3], viewdirs [N, 3]) becomes what they read."""
+    fwd: str              # the forward kernel's library: K1, K3 or K5
+    bwd: str              # the backward's: K2, K4 or K6
+    rows: str             # the pair's Rows, as _bwd_plan takes them
+    takes_s: bool         # the forward's entry takes S: it reads viewdir row p / S (K1)
+    embedded: bool        # K7 embeds the points first, and the backward reads e, ed (K6)
+    inputs: Callable      # (packed, pts, viewdirs) -> the forward's two inputs on the card
+    embeddings: Callable  # (packed, pts, viewdirs, dtype) -> the plain version's e, ed
+
+    @property
+    def launches(self) -> Tuple[str, ...]:
+        """The libraries a query's forward launches, in order."""
+        return ("fused_pe", self.fwd) if self.embedded else (self.fwd,)
+
+
+ROUTES = {
+    "kernel_t": Route("fused_mlp_fwd", "fused_mlp_bwd", "ray_table", True, False,
+                      _ray_table_inputs, _ray_embeddings),
+    "kernel": Route("fused_mlp_fwd_kpe", "fused_mlp_bwd_kpe", "point_dirs", False, False,
+                    _point_dirs_inputs, _point_embeddings),
+    "outside": Route("fused_mlp_fwd_pe", "fused_mlp_bwd_pe", "embedded", False, True,
+                     _embedded_inputs, _ray_embeddings),
+}
+
+
+def query_fwd(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor, mode: str = "kernel_t",
+              plain=None) -> torch.Tensor:
+    """raw [N, S, 4+C] fp32 of the query pts [N, S, 3], viewdirs [N, 3] under ``mode``
+    (a key of ``ROUTES``): its kernels for CUDA tensors; its plain version with the
+    roundings of ``plain`` (float32 or bfloat16) when that is given, and in fp32 for CPU
+    tensors. There is no fallback from one to the other."""
+    route = ROUTES[mode]
+    N, S, _ = pts.shape
+    if plain is None and pts.device.type == "cpu":
+        plain = torch.float32
+    if plain is not None:
+        e, ed = route.embeddings(packed, pts, viewdirs, plain)
+        return _walk_fwd(packed, e.float(), ed.float(), plain).reshape(N, S, packed.c4)
+    a, b = route.inputs(packed, pts, viewdirs)
+    return _launch_fwd(mode, packed, a, b, N * S, S).reshape(N, S, packed.c4)
+
+
+def query_train_fwd(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor,
+                    mode: str = "kernel_t"):
+    """The training forward of the query: (raw [N, S, 4+C], plan, saved), what
+    ``_saved_bwd`` takes. On the card the forward kernel also writes the stash: ``plan``
+    is its ``_bwd_plan`` and ``saved`` the stash (and K6's input embeddings). On the CPU
+    it is the fp32 plain forward, ``plan`` is None and ``saved`` holds pts, viewdirs."""
+    if pts.device.type == "cpu":
+        return query_fwd(packed, pts, viewdirs, mode), None, (pts, viewdirs)
+    route = ROUTES[mode]
+    N, S, _ = pts.shape
+    a, b = route.inputs(packed, pts, viewdirs)
+    raw, plan, stash = _stash_forward(mode, packed, a, b, N, S)
+    return raw.reshape(N, S, packed.c4), plan, (stash, a, b) if route.embedded else (stash,)
+
+
+def _saved_bwd(mode: str, packed: Packed, plan, saved, g: torch.Tensor):
+    """(dw, db) for the output cotangent g from what ``query_train_fwd`` returned: the
+    backward kernel over the stash, or the fp32 plain backward where there is no plan."""
+    if plan is None:
+        return query_bwd(packed, *saved, g, mode)
+    return _launch_bwd(mode, packed, plan, saved[0], g.reshape(-1, packed.c4).contiguous(),
+                       *saved[1:])
+
+
+def query_bwd(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor, g: torch.Tensor,
+              mode: str = "kernel_t", plain=None):
+    """Parameter cotangents ``(dw, db)`` of the query under ``mode`` for the output
+    cotangent g [N, S, 4+C] fp32, in ``Packed.w`` / ``Packed.b`` layout. CUDA tensors go
+    through the training forward and the backward kernel; the plain version runs with
+    the roundings of ``plain`` when that is given, and in fp32 for CPU tensors. Nothing
+    goes into pts or viewdirs (the JAX package returns zeros for them)."""
+    if plain is None and pts.device.type == "cpu":
+        plain = torch.float32
+    if plain is not None:
+        e, ed = ROUTES[mode].embeddings(packed, pts, viewdirs, plain)
+        return _walk_bwd(packed, e.float(), ed.float(), g, plain)
+    _check_cotangent(g, pts.shape[:2] + (packed.c4,), pts.device)
+    _, plan, saved = query_train_fwd(packed, pts, viewdirs, mode)
+    return _saved_bwd(mode, packed, plan, saved, g)
+
+
 class _FusedQuery(torch.autograd.Function):
     """raw = query(w, b): differentiable in ``Packed.w`` and ``Packed.b`` only. The
     points and viewdirs get no cotangent, as in the JAX package, whose callers stop
     their gradient (``dmnerf_tpu/kernels/fused_mlp.py:905,915``) or whose backward
-    returns zeros for them (:819-820). ``pe_mode`` picks the kernels: 'kernel_t'
-    K1/K2, 'kernel' K3/K4 over per-point directions, 'outside' K7 and K5/K6 over the
-    embeddings, which the forward builds once and saves for the backward, as the JAX
-    rule saves ``(params, e, ed)`` (:846-847).
+    returns zeros for them (:819-820).
 
-    ``stash`` (decided by ``fused_query`` from the grad mode) makes the forward on the
-    card the training forward: the forward kernel also writes the activations the
-    backward reads, so the backward launches only K2 / K4 / K6 and recomputes nothing.
-    Without it (render, manipulation and ScanNet views under ``no_grad``, and every
-    CPU query) the forward is the render path's."""
+    ``train`` (decided by ``fused_query`` from the grad mode) makes the forward the
+    training forward: on the card the forward kernel also writes the activations the
+    backward reads, so the backward launches only K2 / K4 / K6 and recomputes nothing
+    ('outside' saves K7's embedding for K6, as the JAX rule saves ``(params, e, ed)``,
+    :846-847); on the CPU the backward is the plain one. Without it (render,
+    manipulation and ScanNet views under ``no_grad``) nothing is saved and the backward
+    gives no gradient."""
 
     @staticmethod
-    def forward(ctx, w, b, packed, pts, viewdirs, pe_mode, stash):
-        ctx.packed, ctx.pe_mode, ctx.plan = packed, pe_mode, None
-        N, S, _ = pts.shape
-        if stash and pts.device.type == "cuda":
-            a, d = _kernel_inputs(packed, pts, viewdirs, pe_mode)
-            n_s = (N, S) if pe_mode == "kernel_t" else (N * S, 1)
-            raw, ctx.plan, buf = _stash_forward(pe_mode, packed, a, d, *n_s)
-            ctx.save_for_backward(buf, *((a, d) if pe_mode == "outside" else ()))
-            return raw.reshape(N, S, packed.c4)
-        if pe_mode == "kernel_t":
-            ctx.save_for_backward(pts, viewdirs)
-            return _forward(packed, pts, viewdirs)
-        if pe_mode == "outside":
-            e = pe_points(packed, pts.reshape(N * S, 3).contiguous())
-            ed = point_view_embedding(packed, viewdirs, S, e.dtype)
-            ctx.save_for_backward(e, ed)
-            return _forward_pe(packed, e, ed).reshape(N, S, packed.c4)
-        ctx.save_for_backward(pts, viewdirs)
-        raw = _forward_kpe(packed, pts.reshape(N * S, 3), _point_dirs(viewdirs, S))
-        return raw.reshape(N, S, packed.c4)
+    def forward(ctx, w, b, packed, pts, viewdirs, mode, train):
+        ctx.packed, ctx.mode, ctx.train = packed, mode, train
+        if not train:
+            return query_fwd(packed, pts, viewdirs, mode)
+        raw, ctx.plan, saved = query_train_fwd(packed, pts, viewdirs, mode)
+        ctx.save_for_backward(*saved)
+        return raw
 
     @staticmethod
     def backward(ctx, g):
-        packed = ctx.packed
-        g = g.reshape(-1, packed.c4).contiguous()
-        if ctx.plan is not None:
-            stash, *emb = ctx.saved_tensors
-            dw, db = _launch_bwd(ctx.pe_mode, packed, ctx.plan, stash, g, *emb)
-        elif ctx.pe_mode == "kernel_t":
-            pts, viewdirs = ctx.saved_tensors
-            dw, db = fused_query_bwd(packed, pts, viewdirs, g.reshape(pts.shape[:2] + (-1,)))
-        elif ctx.pe_mode == "outside":
-            e, ed = ctx.saved_tensors
-            dw, db = fused_query_pe_bwd(packed, e, ed, g)
-        else:
-            pts, viewdirs = ctx.saved_tensors
-            N, S, _ = pts.shape
-            dw, db = fused_query_kpe_bwd(packed, pts.reshape(N * S, 3), _point_dirs(viewdirs, S), g)
+        if not ctx.train:
+            return (None,) * 7
+        dw, db = _saved_bwd(ctx.mode, ctx.packed, ctx.plan, ctx.saved_tensors, g)
         return dw, db, None, None, None, None, None
 
 
@@ -1094,13 +1023,13 @@ def fused_query(packed: Packed, pts: torch.Tensor, viewdirs: torch.Tensor,
                 pe_mode=None) -> torch.Tensor:
     """Point query pts [N, S, 3], viewdirs [N, 3] -> raw [N, S, 4+C] fp32.
 
-    ``pe_mode`` (``resolve_pe_mode``) picks the kernels: None or 'kernel_t' K1
-    forward / K2 backward, 'kernel' K3 / K4, 'outside' K7 then K5 / K6. CUDA tensors
-    go through the Hopper kernels, CPU tensors through their fp32 plain versions;
-    there is no fallback from one to the other. Gradients flow into ``packed.w`` and
-    ``packed.b`` when they require one: then the forward kernel writes the stash its
-    backward reads. Under ``torch.no_grad`` (the render path) nothing is recorded or
-    stashed and the backward kernel never runs."""
-    stash = torch.is_grad_enabled() and (packed.w.requires_grad or packed.b.requires_grad)
+    ``pe_mode`` (``resolve_pe_mode``) picks the route: None or 'kernel_t' K1 forward /
+    K2 backward, 'kernel' K3 / K4, 'outside' K7 then K5 / K6. CUDA tensors go through
+    the Hopper kernels, CPU tensors through their fp32 plain versions; there is no
+    fallback from one to the other. Gradients flow into ``packed.w`` and ``packed.b``
+    when they require one: then the forward kernel writes the stash its backward reads.
+    Under ``torch.no_grad`` (the render path) nothing is recorded or stashed and the
+    backward kernel never runs."""
+    train = torch.is_grad_enabled() and (packed.w.requires_grad or packed.b.requires_grad)
     return _FusedQuery.apply(packed.w, packed.b, packed, pts, viewdirs, resolve_pe_mode(pe_mode),
-                             stash)
+                             train)

@@ -39,7 +39,7 @@ from dmnerf_tpu_torch.core.compositor import _weights, composite_maps
 from dmnerf_tpu_torch.kernels import runtime
 from dmnerf_tpu_torch.kernels.fused_mlp import (
     LOCKSTEP, PIPELINED, Packed, _check_device_inputs, _check_kernel_inputs, _fwd_plan,
-    fused_query_ref, view_embedding)
+    query_fwd, view_embedding)
 
 _TILE = 128        # points a tile (csrc/fused_mlp_fwd.cuh FT)
 _CMP_PITCH = 53    # the staged output columns a row hold (csrc/fused_mlp_fwd.cuh CMP_PITCH)
@@ -63,12 +63,13 @@ def fused_render_ref(packed: Packed, rays_o: torch.Tensor, rays_d: torch.Tensor,
                      z: torch.Tensor, weights_only: bool,
                      act_dtype=torch.float32) -> torch.Tensor:
     """K8c's (``weights_only``) or K8f's function in torch ops: rays_o, rays_d [N, 3], z
-    [N, S] -> weights [N, S] or maps [N, 4 + C] fp32. The query is ``fused_query_ref``
-    with its roundings per ``act_dtype``; the compositing is the compositor's, fp32."""
+    [N, S] -> weights [N, S] or maps [N, 4 + C] fp32. The query is K1's plain version
+    (``query_fwd``) with its roundings per ``act_dtype``; the compositing is the
+    compositor's, fp32."""
     d = _fix_dirs(rays_d)
     viewdirs = d / torch.linalg.norm(d, dim=-1, keepdim=True)
     pts = rays_o[..., None, :] + d[..., None, :] * z[..., :, None]
-    raw = fused_query_ref(packed, pts, viewdirs, act_dtype)
+    raw = query_fwd(packed, pts, viewdirs, "kernel_t", act_dtype)
     if weights_only:
         return _weights(raw, z, d)
     rgb, ins, depth = composite_maps(raw, z, d, keep_air=True)

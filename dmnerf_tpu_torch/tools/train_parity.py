@@ -9,7 +9,7 @@ same Adam with exponential LR decay, differing only in the point query:
            or the pair of ``pallas_pe_mode``)
   plain    the plain fp32 PyTorch query (``make_torch_query_fn``), the reference
   control  the kernels' own function in PyTorch ops with their bf16 roundings
-           (``fused_query_ref`` / ``fused_query_bwd_ref`` at bfloat16): it differs
+           (``query_fwd`` / ``query_bwd`` at bfloat16): it differs
            from the kernel only in the order of its fp32 sums, so its distance from
            the plain run is what bf16 rounding alone does to the trajectory
 
@@ -38,7 +38,7 @@ from dmnerf_tpu_torch.configs import Config
 from dmnerf_tpu_torch.core.pipeline import QueryFn, make_query_fn, make_torch_query_fn
 from dmnerf_tpu_torch.core.rays import rays_for_pixels, rays_from_K
 from dmnerf_tpu_torch.data.synthetic import build_dmsr_scene
-from dmnerf_tpu_torch.kernels.fused_mlp import fused_query_bwd_ref, fused_query_ref, pack_params
+from dmnerf_tpu_torch.kernels.fused_mlp import pack_params, query_bwd, query_fwd, resolve_pe_mode
 from dmnerf_tpu_torch.objfield.metrics import compact_gt_one_hot_np, ins_eval
 from dmnerf_tpu_torch.render.renderer import make_image_renderer
 from dmnerf_tpu_torch.render.trainstep import Batch, create_train_state, make_train_step
@@ -106,31 +106,33 @@ def _on(params, device):
 
 
 class _Bf16PlainQuery(torch.autograd.Function):
-    """K1 / K2's functions in PyTorch ops with the kernels' bf16 roundings,
-    differentiable in ``Packed.w`` and ``Packed.b`` as ``fused_query`` is."""
+    """The kernels' functions in PyTorch ops with their bf16 roundings, differentiable
+    in ``Packed.w`` and ``Packed.b`` as ``fused_query`` is."""
 
     @staticmethod
-    def forward(ctx, w, b, packed, pts, viewdirs):
-        ctx.packed = packed
+    def forward(ctx, w, b, packed, pts, viewdirs, mode):
+        ctx.packed, ctx.mode = packed, mode
         ctx.save_for_backward(pts, viewdirs)
-        return fused_query_ref(packed, pts, viewdirs, torch.bfloat16)
+        return query_fwd(packed, pts, viewdirs, mode, torch.bfloat16)
 
     @staticmethod
     def backward(ctx, g):
         pts, viewdirs = ctx.saved_tensors
-        dw, db = fused_query_bwd_ref(ctx.packed, pts, viewdirs, g, torch.bfloat16)
-        return dw, db, None, None, None
+        dw, db = query_bwd(ctx.packed, pts, viewdirs, g, ctx.mode, torch.bfloat16)
+        return dw, db, None, None, None, None
 
 
 def make_bf16_plain_query_fn(cfg: Config) -> QueryFn:
-    """The control query: the plain versions of K1 and K2 at bfloat16."""
+    """The control query: the plain versions of the kernels of ``cfg.pallas_pe_mode`` at
+    bfloat16."""
+    mode = resolve_pe_mode(cfg.pallas_pe_mode)
 
     def prepare(params):
         return pack_params(params, cfg.multires, cfg.multires_views, cfg.netdepth,
                            tuple(cfg.skips))
 
     def query(packed, pts, viewdirs):
-        return _Bf16PlainQuery.apply(packed.w, packed.b, packed, pts, viewdirs)
+        return _Bf16PlainQuery.apply(packed.w, packed.b, packed, pts, viewdirs, mode)
 
     return QueryFn(query, prepare)
 

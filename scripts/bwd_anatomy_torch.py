@@ -13,7 +13,7 @@ the flagship training shapes (configs/train/dmsr/study.txt: fine 3072 x 192 poin
 coarse 3072 x 64, both through the full model, seeded random weights) it prints:
 
   launch_ms   device ms of each launch kind of one standalone backward call
-              (fused_query_bwd and its kin: the forward that writes the stash, the
+              (``query_bwd``: K7 under 'outside', the forward that writes the stash, the
               backward-data walk, the dW products, the reductions), from torch.profiler;
   entry_ms    CUDA-event median of that standalone call;
   fwd_bwd_ms  the query as training runs it: fused_query with gradients, then
@@ -70,7 +70,7 @@ def query_split(cs, device):
                                        gen, device)),
               ("coarse", pc, *cs._points(N, cfg.N_samples, cfg.near, cfg.far, gen, device))]
     out = {}
-    for mode in ("kernel_t", "kernel", "outside"):
+    for mode in fm.ROUTES:
         for name, params, pts, dirs in shapes:
             packed = fm.pack_params(params, *args)
             w = torch.linspace(0.5, 1.5, packed.c4, device=device)
@@ -78,15 +78,9 @@ def query_split(cs, device):
                 raw = fm.fused_query(packed, pts, dirs, mode)
             digest = hashlib.sha256(raw.cpu().numpy().tobytes()).hexdigest()[:16]
             g = ((1.0 - torch.tanh(raw) ** 2) * w).contiguous()
-            if mode == "outside":
-                e, ed = cs._kernel_embedded(packed, pts, dirs)
-                g_flat = g.reshape(-1, packed.c4)
 
-                def entry():
-                    return fm.fused_query_pe_bwd(packed, e, ed, g_flat)
-            else:
-                def entry():
-                    return cs._bwd(mode, packed, pts, dirs, g)
+            def entry():
+                return fm.query_bwd(packed, pts, dirs, g, mode)
             pk = dataclasses.replace(packed, w=packed.w.detach().requires_grad_(True),
                                      b=packed.b.detach().requires_grad_(True))
 

@@ -97,8 +97,7 @@ def main() -> int:
     with torch.no_grad():
         raw = fm.fused_query(packed, pts, dirs)
     g = (1.0 - torch.tanh(raw) ** 2).reshape(-1, packed.c4).contiguous()
-    a, b = fm._kernel_inputs(packed, pts, dirs, "kernel_t")
-    _, plan, stash = fm._stash_forward("kernel_t", packed, a, b, *pts.shape[:2])
+    _, plan, (stash,) = fm.query_train_fwd(packed, pts, dirs)
     want = fm._launch_bwd("kernel_t", packed, plan, stash, g)
     table = (ctypes.c_longlong * len(plan["table"]))(*plan["table"])
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count

@@ -8,8 +8,9 @@ epi_probe.py measured on the TPU.
                                          [--k7 | --split SCHEDULES | --stash]
 
 ``--repo`` is the root of the checkout whose ``dmnerf_tpu_torch`` is measured (default:
-this one); the measuring code is this checkout's ``chip_smoke.py``. Run it on two
-checkouts on one card, in turns (A, B, B, A), to compare two versions of the kernel.
+this one; its ``fused_mlp`` routes a query through ``ROUTES``); the measuring code is this
+checkout's ``chip_smoke.py``. Run it on two checkouts on one card, in turns (A, B, B, A),
+to compare two versions of the kernel.
 
 The variants are prefixes of the packed layer table, which every version of the
 forward template walks as it is given (flagship model, seeded random weights):
@@ -26,8 +27,8 @@ forward template walks as it is given (flagship model, seeded random weights):
 
 Each is timed (CUDA-event median of 10 launches) at the fine training query (3072 x
 192 points), for K1 ('kernel_t'), K3 ('kernel') and K5 ('outside', over K7's
-embedding). At the render chunk (2048 x 192 fine, full model; 2048 x 64 coarse, sigma
-stub; K3 also the rgb stub) and the training queries (3072 x 192 and 3072 x 64, full
+embedding). At the render chunk (2048 x 192 fine, full model and rgb stub; 2048 x 64
+coarse, sigma stub) and the training queries (3072 x 192 and 3072 x 64, full
 model) it times the full kernel (``ms``: one event pair around one launch, the host's work
 included; ``device_ms``: ``chip_smoke.device_ms``, 50 back-to-back launches), the
 training forward (not for the stubs, which never train) and the bf16 torch.addmm chain
@@ -102,7 +103,6 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FWD = {"kernel_t": "fused_mlp_fwd", "kernel": "fused_mlp_fwd_kpe", "outside": "fused_mlp_fwd_pe"}
 
 
 def _chip_smoke():
@@ -243,7 +243,7 @@ def k7_part(cs, fm, runtime, repo, device, pf, args):
     pts, dirs = cs._points(2048, 192, 1.0, 8.0, gen, device)
     with torch.no_grad():
         res["fwd_digests"] = {mode: cs.digest(fm.fused_query(packed, pts, dirs, mode))
-                              for mode in FWD}
+                              for mode in fm.ROUTES}
     print(f"[anatomy k7] forward digests, fine render chunk: {json.dumps(res['fwd_digests'])}",
           flush=True)
     return res
@@ -366,12 +366,13 @@ def pipelined_variants_part(cs, fm, runtime, repo, device, pf, args, shapes):
     from dmnerf_tpu_torch.kernels import head_probes as hpr
 
     h512 = cs._script("head512_probe_torch")
-    names = (FWD["kernel_t"], "head512")
+    k1 = fm.ROUTES["kernel_t"].fwd
+    names = (k1, "head512")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:   # nvcc in parallel
         variants = dict(zip(names, pool.map(lambda n: _variant_lib(
             runtime, n, repo, f"DMNERF_FWD_SCHED={fm.PIPELINED}"), names)))
     packed = fm.pack_params(pf, *args)
-    cases = [(f"k1_{shape}", FWD["kernel_t"], shape) for shape in ("render_fine", "train_fine")]
+    cases = [(f"k1_{shape}", k1, shape) for shape in ("render_fine", "train_fine")]
     cases += [(f"k9_{mode}", "head512", mode) for mode in hpr.H512_MODES]
     res = {}
     for case, lib_name, which in cases:
@@ -382,7 +383,7 @@ def pipelined_variants_part(cs, fm, runtime, repo, device, pf, args, shapes):
         else:
             pts, dirs = shapes[which][1]
             a, b, P, S = _inputs(fm, packed, pts, dirs, "kernel_t")
-            launch = lambda: fm._launch_fwd(lib_name, packed, a, b, P, S)   # noqa: E731
+            launch = lambda: fm._launch_fwd("kernel_t", packed, a, b, P, S)   # noqa: E731
         libs = {fm.LOCKSTEP: runtime.load(lib_name), fm.PIPELINED: variants[lib_name]}
         order = [fm.LOCKSTEP, fm.PIPELINED]
         r = {"turns_ms": {fm.SCHEDULE_NAMES[sc]: [] for sc in order}, "digest": {}}
@@ -449,31 +450,33 @@ def stash_part(cs, fm, runtime, repo, device, pc, pf, args, cfg):
                                             8.0, gen, device)),
               "train_coarse": (pc, cs._points(cfg.N_train, cfg.N_samples, 1.0, 8.0, gen, device))}
     n_sms = torch.cuda.get_device_properties(device).multi_processor_count
-    stamped = _variant_lib(runtime, FWD["kernel_t"], repo, "DMNERF_FWD_STAMPS")
+    k1 = fm.ROUTES["kernel_t"].fwd
+    stamped = {k1: _variant_lib(runtime, k1, repo, "DMNERF_FWD_STAMPS")}
     res = {}
-    for mode in ("kernel_t", "kernel", "outside"):
+    for mode, route in fm.ROUTES.items():
         for shape, (params, (pts, dirs)) in shapes.items():
             packed = fm.pack_params(params, *args)
             a, b, P, S = _inputs(fm, packed, pts, dirs, mode)
-            plan = fm._bwd_plan(packed, P // S, S, n_sms, fm._ROWS[mode])
+            plan = fm._query_plan(mode, packed, P // S, S, n_sms)
             stash = torch.empty(plan["stash_size"], dtype=torch.bfloat16, device=device)
 
             def render():
-                fm._launch_fwd(FWD[mode], packed, a, b, P, S)
+                fm._launch_fwd(mode, packed, a, b, P, S)
 
             def train():
-                fm._launch_fwd(FWD[mode], packed, a, b, P, S, stash, plan["fwd_stash"])
+                fm._launch_fwd(mode, packed, a, b, P, S, stash, plan["fwd_stash"])
             r = dict(points=P, stash_bytes=2 * plan["stash_size"],
                      device_ms=cs.device_ms(render)["device_ms"],
                      stash_device_ms=cs.device_ms(train)["device_ms"])
             r["stash_tb_per_s"] = r["stash_bytes"] / (r["stash_device_ms"] * 1e-3) / 1e12
-            if mode == "kernel_t" and shape == "train_fine":
-                keep, runtime._LOADED[FWD[mode]] = runtime._LOADED.get(FWD[mode]), stamped
+            if route.fwd in stamped and shape == "train_fine":
+                name = route.fwd
+                keep, runtime._LOADED[name] = runtime._LOADED.get(name), stamped[name]
                 try:
                     r["stamped_device_ms"] = cs.device_ms(train)["device_ms"]
-                    r.update(_split(_stamps(stamped, train), r["stamped_device_ms"]))
+                    r.update(_split(_stamps(stamped[name], train), r["stamped_device_ms"]))
                 finally:
-                    runtime._LOADED[FWD[mode]] = keep
+                    runtime._LOADED[name] = keep
             torch.cuda.synchronize()
             print(f"[anatomy stash] {mode} {shape}: {json.dumps(r)}", flush=True)
             res[f"{mode}/{shape}"] = r
@@ -483,10 +486,10 @@ def stash_part(cs, fm, runtime, repo, device, pc, pf, args, cfg):
 
 
 def _inputs(fm, packed, pts, dirs, mode):
-    """(a, b, P, S): the launch inputs of ``mode``'s forward kernel."""
+    """(a, b, P, S): the launch inputs of ``mode``'s forward kernel for N rays of S
+    points, P = N * S."""
     N, S, _ = pts.shape
-    a, b = fm._kernel_inputs(packed, pts, dirs, mode)
-    return (a, b, N * S, S) if mode == "kernel_t" else (a, b, N * S, 1)
+    return (*fm.ROUTES[mode].inputs(packed, pts, dirs), N * S, S)
 
 
 def main() -> int:
@@ -516,7 +519,8 @@ def main() -> int:
     from dmnerf_tpu_torch.test import init_params
 
     t0 = time.time()
-    names = ["fused_render", "heads_fused"] if a_.split else [*FWD.values(), "fused_pe"]
+    names = (["fused_render", "heads_fused"] if a_.split
+             else [*(route.fwd for route in fm.ROUTES.values()), "fused_pe"])
     reports = runtime.build(names)
     regs = {}
     for name in names:
@@ -566,17 +570,15 @@ def main() -> int:
     def launch(mode, packed, a, b, P, S, n_layers=None):
         pk = packed if n_layers is None else dataclasses.replace(packed,
                                                                  layers=packed.layers[:n_layers])
-        return fm._launch_fwd(FWD[mode], pk, a, b, P, S)
+        return fm._launch_fwd(mode, pk, a, b, P, S)
 
-    for mode in ("kernel_t", "kernel", "outside"):
+    for mode, route in fm.ROUTES.items():
         for shape, (params, (pts, dirs)) in shapes.items():
-            if shape == "render_fine_rgb_stub" and mode != "kernel":
-                continue
             packed = fm.pack_params(params, *args)
             a, b, P, S = _inputs(fm, packed, pts, dirs, mode)
             flops = 2.0 * cs.query_macs(params) * P
             bound = flops / cs.PEAK_BF16_FLOPS * 1e3
-            if mode == "outside":
+            if route.embedded:     # the chain over the embeddings the kernel reads
                 lib = lambda: cs.library_chain(packed, a, b)  # noqa: E731
             else:
                 lib = lambda: cs.library_query(packed, pts, dirs, mode)  # noqa: E731
@@ -589,11 +591,11 @@ def main() -> int:
             if "stub" not in shape:   # the backward, whose stash this is, takes no stub
                 r["stash_ms"] = cs._time_ms(lambda: fm._stash_forward(mode, packed, a, b,
                                                                       P // S, S), reps=5)
-                plan = fm._bwd_plan(packed, P // S, S, torch.cuda.get_device_properties(
-                    device).multi_processor_count, fm._ROWS[mode])
+                plan = fm._query_plan(mode, packed, P // S, S, torch.cuda.get_device_properties(
+                    device).multi_processor_count)
                 stash = torch.empty(plan["stash_size"], dtype=torch.bfloat16, device=device)
                 r["stash_kernel_ms"] = cs._time_ms(lambda: fm._launch_fwd(
-                    FWD[mode], packed, a, b, P, S, stash, plan["fwd_stash"]))
+                    mode, packed, a, b, P, S, stash, plan["fwd_stash"]))
                 del stash
             r["tflops"] = flops / (r["ms"] * 1e-3) / 1e12
             r["share_of_bound"] = bound / r["ms"]
@@ -605,7 +607,7 @@ def main() -> int:
                             launch(mode, packed, a, b, P, S, 0)
                             torch.cuda.synchronize()
                         except RuntimeError:
-                            name = FWD[mode]
+                            name = route.fwd
                             if name not in empty_libs:
                                 empty_libs[name] = _variant_lib(runtime, name, repo, None)
                             runtime._LOADED[name], keep = empty_libs[name], runtime._LOADED[name]
@@ -630,16 +632,16 @@ def main() -> int:
     a, b, P, S = _inputs(fm, packed, pts, dirs, "outside")
     flops = 2.0 * 8 * packed.width ** 2 * P
     probe = dict(points=P, layers=8, bound_ms=flops / cs.PEAK_BF16_FLOPS * 1e3,
-                 ms=cs._time_ms(lambda: fm._launch_fwd(FWD["outside"], chain, a, b, P, S)))
+                 ms=cs._time_ms(lambda: fm._launch_fwd("outside", chain, a, b, P, S)))
     probe["tflops"] = flops / (probe["ms"] * 1e-3) / 1e12
     header = open(runtime.CSRC / "fused_mlp_fwd.cuh").read()
     if "DMNERF_FWD_NO_EPILOGUE" in header:
-        name = FWD["outside"]
+        name = fm.ROUTES["outside"].fwd
         keep = runtime._LOADED.get(name)
         runtime._LOADED[name] = _variant_lib(runtime, name, repo, "DMNERF_FWD_NO_EPILOGUE")
         try:
             probe["no_epilogue_ms"] = cs._time_ms(
-                lambda: fm._launch_fwd(name, chain, a, b, P, S))
+                lambda: fm._launch_fwd("outside", chain, a, b, P, S))
         finally:
             runtime._LOADED[name] = keep
         probe["no_epilogue_tflops"] = flops / (probe["no_epilogue_ms"] * 1e-3) / 1e12

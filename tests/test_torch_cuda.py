@@ -26,11 +26,8 @@ torch = pytest.importorskip("torch")
 from dmnerf_tpu_torch.core.mlp import init_dm_nerf, rgb_stub_params, sigma_stub_params  # noqa: E402
 from dmnerf_tpu_torch.kernels import fused_mlp, runtime  # noqa: E402
 from dmnerf_tpu_torch.kernels.fused_mlp import (  # noqa: E402
-    LOCKSTEP, PIPELINED, _embedding, _forward, _forward_kpe, _forward_pe, _pe_launcher,
-    _point_dirs, fused_query, fused_query_bwd, fused_query_bwd_ref, fused_query_kpe_bwd,
-    fused_query_kpe_bwd_ref, fused_query_kpe_ref, fused_query_pe_bwd, fused_query_pe_bwd_ref,
-    fused_query_pe_ref, fused_query_ref, pack_params, pe_points, pe_points_ref,
-    point_view_embedding)
+    LOCKSTEP, PIPELINED, ROUTES, _embedding, _pe_launcher, fused_query, pack_params, pe_points,
+    pe_points_ref, query_bwd, query_fwd)
 
 SHAPES = [
     # (multires, multires_views, D, W, skips, ins_num, N, S)
@@ -38,6 +35,7 @@ SHAPES = [
     (4, 2, 2, 32, (0,), 4, 5, 7),         # tiny, one partial tile
     (6, 3, 5, 64, (1, 3), 8, 300, 13),    # two skips
 ]
+MODES = list(ROUTES)      # 'kernel_t' K1/K2, 'kernel' K3/K4, 'outside' K7 then K5/K6
 
 
 @pytest.fixture
@@ -60,29 +58,48 @@ def _inputs(shape, device, seed=0):
     return params, (mr, mrv, D, skips), pts, dirs
 
 
+def _launched():
+    return {k: v for k, v in runtime.LAUNCHES.items() if v}
+
+
 @pytest.mark.parametrize("shape", SHAPES)
-def test_fused_mlp_fwd_matches_plain(cuda, shape):
+@pytest.mark.parametrize("mode", MODES)
+def test_fused_mlp_fwd_matches_plain(cuda, mode, shape):
+    """``mode``'s forward kernel (K1, K3, or K5 over K7's embedding) for the full model
+    and the rgb stub: one launch of each library of its route, within 5e-3 of the fp32
+    plain query and within 1e-3 of its own bf16 plain version (the same roundings; only
+    the order of fp32 sums differs); fused_query gives the same bits, and K1 on the same
+    rays the same function (within 1e-3; bit for bit where K7 built the embedding, which
+    one function, embed_rows, builds in K1 too)."""
     params, args, pts, dirs = _inputs(shape, cuda)
-    packed = pack_params(params, *args)
-    runtime.reset_launches()
-    got = fused_query(packed, pts, dirs)
-    torch.cuda.synchronize()
-    assert runtime.LAUNCHES["fused_mlp_fwd"] == 1
-    ref32 = fused_query_ref(packed, pts, dirs, torch.float32)
-    ref16 = fused_query_ref(packed, pts, dirs, torch.bfloat16)
-    assert got.shape == ref32.shape and torch.isfinite(got).all()
-    scale = float(ref32.abs().max())
-    assert float((got - ref32).abs().max()) <= 5e-3 * max(scale, 1.0)
-    # same roundings as the kernel; only the order of fp32 sums differs
-    assert float((got - ref16).abs().max()) <= 1e-3 * max(scale, 1.0)
+    for p in (params, rgb_stub_params(params)):
+        packed = pack_params(p, *args)
+        runtime.reset_launches()
+        got = query_fwd(packed, pts, dirs, mode)
+        torch.cuda.synchronize()
+        assert _launched() == dict.fromkeys(ROUTES[mode].launches, 1)
+        ref32 = query_fwd(packed, pts, dirs, mode, torch.float32)
+        ref16 = query_fwd(packed, pts, dirs, mode, torch.bfloat16)
+        assert got.shape == ref32.shape and torch.isfinite(got).all()
+        scale = float(ref32.abs().max())
+        assert float((got - ref32).abs().max()) <= 5e-3 * max(scale, 1.0)
+        assert float((got - ref16).abs().max()) <= 1e-3 * max(scale, 1.0)
+        with torch.no_grad():
+            assert torch.equal(fused_query(packed, pts, dirs, mode), got)
+        k1 = query_fwd(packed, pts, dirs)
+        assert float((k1 - got).abs().max()) <= 1e-3 * max(scale, 1.0)
+        assert torch.equal(k1, got) or not ROUTES[mode].embedded
 
 
-@pytest.mark.parametrize("shape", SHAPES[:1])
-def test_fused_mlp_fwd_sigma_stub_exact(cuda, shape):
-    params, args, pts, dirs = _inputs(shape, cuda, seed=1)
-    full = fused_query(pack_params(params, *args), pts, dirs)[..., 3]
-    stub = fused_query(pack_params(sigma_stub_params(params), *args), pts, dirs)[..., 3]
-    assert float((stub - full).abs().max()) <= 1e-5 * max(float(full.abs().max()), 1.0)
+@pytest.mark.parametrize("mode", MODES)
+def test_fused_mlp_fwd_sigma_stub_exact(cuda, mode):
+    """The stubs' sigma column through ``mode``'s forward kernel within 1e-5 of the full
+    model's."""
+    params, args, pts, dirs = _inputs(SHAPES[0], cuda, seed=1)
+    full = query_fwd(pack_params(params, *args), pts, dirs, mode)[..., 3]
+    for stub in (sigma_stub_params(params), rgb_stub_params(params)):
+        got = query_fwd(pack_params(stub, *args), pts, dirs, mode)[..., 3]
+        assert float((got - full).abs().max()) <= 1e-5 * max(float(full.abs().max()), 1.0)
 
 
 def test_fused_mlp_fwd_refuses_what_it_cannot_hold(cuda):
@@ -112,153 +129,92 @@ def _block_errs(packed, got, want):
 
 
 @pytest.mark.parametrize("shape", SHAPES)
-def test_fused_mlp_bwd_matches_plain(cuda, shape):
-    """K2 against its plain version, block by packed layer, relative to the block's
-    largest entry. With a random cotangent: within 5e-3 of the bf16 plain version
-    (the same roundings; only the order of fp32 sums differs, and a sum that lands
-    on the other side of a bf16 rounding moves one cotangent by 2^-8). With the
-    cotangent of sum(tanh(raw) * w) (the JAX package's gradient gate, bench.py:388-401):
-    the kernel's error against the fp32 plain version is at most the bf16 plain
-    version's plus 5e-3, so all of it is bf16 rounding. (At these few hundred points
-    that rounding alone can exceed the 2e-2 gate, which chip_smoke.py holds at the
-    training shapes.)"""
+@pytest.mark.parametrize("mode", MODES)
+def test_fused_mlp_bwd_matches_plain(cuda, mode, shape):
+    """``mode``'s backward kernel (K2, K4, K6), the standalone call (the training forward,
+    then the backward: one launch of each), against its plain version, block by packed
+    layer, relative to the block's largest entry. With a random cotangent: within 5e-3
+    of the bf16 plain version (the same roundings; only the order of fp32 sums differs,
+    and a sum that lands on the other side of a bf16 rounding moves one cotangent by
+    2^-8). With the cotangent of sum(tanh(raw) * w) (the JAX package's gradient gate,
+    bench.py:388-401): the kernel's error against the fp32 plain version is at most the
+    bf16 plain version's plus 5e-3, so all of it is bf16 rounding. (At these few hundred
+    points that rounding alone can exceed the 2e-2 gate, which chip_smoke.py holds at
+    the training shapes.)"""
     params, args, pts, dirs = _inputs(shape, cuda)
     packed = pack_params(params, *args)
+    route = ROUTES[mode]
     g = _cotangent(packed, pts)
     runtime.reset_launches()
-    got = fused_query_bwd(packed, pts, dirs, g)
+    got = query_bwd(packed, pts, dirs, g, mode)
     torch.cuda.synchronize()
-    assert runtime.LAUNCHES["fused_mlp_bwd"] == 1
+    assert _launched() == dict.fromkeys((*route.launches, route.bwd), 1)
     assert torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
-    ref16 = fused_query_bwd_ref(packed, pts, dirs, g, torch.bfloat16)
+    ref16 = query_bwd(packed, pts, dirs, g, mode, torch.bfloat16)
     for layer, err, scale in _block_errs(packed, got, ref16):
         assert err <= 5e-3 * max(scale, 1e-6), (layer, err, scale)
 
-    raw = fused_query_ref(packed, pts, dirs, torch.float32)
+    raw = query_fwd(packed, pts, dirs, mode, torch.float32)
     w = torch.linspace(0.5, 1.5, raw.shape[-1], device=cuda)
     g = ((1.0 - torch.tanh(raw) ** 2) * w).contiguous()
-    ref32 = fused_query_bwd_ref(packed, pts, dirs, g, torch.float32)
-    kernel = _block_errs(packed, fused_query_bwd(packed, pts, dirs, g), ref32)
-    plain16 = _block_errs(packed, fused_query_bwd_ref(packed, pts, dirs, g, torch.bfloat16), ref32)
+    ref32 = query_bwd(packed, pts, dirs, g, mode, torch.float32)
+    kernel = _block_errs(packed, query_bwd(packed, pts, dirs, g, mode), ref32)
+    plain16 = _block_errs(packed, query_bwd(packed, pts, dirs, g, mode, torch.bfloat16), ref32)
     for (layer, err, scale), (_, err16, _) in zip(kernel, plain16):
         assert err <= err16 + 5e-3 * max(scale, 1e-6), (layer, err, err16, scale)
 
 
-def test_fused_mlp_bwd_wall(cuda):
-    """An instance-only loss gives exactly zero trunk, rgb and density gradients
-    through the kernel, and a nonzero instance head gradient."""
+@pytest.mark.parametrize("mode", MODES)
+def test_fused_mlp_bwd_wall(cuda, mode):
+    """Through autograd under ``mode``: one launch each of its route's forward libraries
+    and of its backward (under 'outside' the backward reuses the forward's embeddings);
+    an instance-only loss gives exactly zero trunk, rgb and density gradients, and a
+    nonzero instance head gradient."""
     params, args, pts, dirs = _inputs(SHAPES[0], cuda, seed=2)
     params = {k: v.requires_grad_(True) for k, v in params.items()}
     runtime.reset_launches()
-    raw = fused_query(pack_params(params, *args), pts, dirs)
+    raw = fused_query(pack_params(params, *args), pts, dirs, mode)
     raw[..., 4:].sum().backward()
-    assert runtime.LAUNCHES == {"fused_mlp_fwd": 1, "fused_mlp_bwd": 1, "fused_mlp_fwd_kpe": 0,
-                                "fused_mlp_bwd_kpe": 0, "fused_mlp_fwd_pe": 0,
-                                "fused_mlp_bwd_pe": 0, "fused_pe": 0, "fused_render_weights": 0,
-                                "fused_render_maps": 0, "head512": 0, "heads_fused": 0,
-                                "assignment": 0}
+    names = (*ROUTES[mode].launches, ROUTES[mode].bwd)
+    assert runtime.LAUNCHES == {k: int(k in names) for k in runtime.COUNTED}
     for k, v in params.items():
         if k.startswith(("trunk_", "rgb_", "density")):
             assert v.grad is None or int(torch.count_nonzero(v.grad)) == 0, k
     assert float(params["ins_out_w"].grad.abs().sum()) > 0
 
 
-def test_fused_mlp_bwd_repeats_bit_identical(cuda):
+@pytest.mark.parametrize("mode", MODES)
+def test_fused_mlp_bwd_repeats_bit_identical(cuda, mode):
     params, args, pts, dirs = _inputs(SHAPES[2], cuda, seed=3)
     packed = pack_params(params, *args)
     g = _cotangent(packed, pts, seed=3)
-    first = fused_query_bwd(packed, pts, dirs, g)
-    second = fused_query_bwd(packed, pts, dirs, g)
+    first, second = query_bwd(packed, pts, dirs, g, mode), query_bwd(packed, pts, dirs, g, mode)
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
-def _flat(pts, dirs):
-    """The K3/K4 inputs of a [N, S] query: pts [P, 3] and one direction per point."""
-    return pts.reshape(-1, 3).contiguous(), _point_dirs(dirs, pts.shape[1])
-
-
-@pytest.mark.parametrize("shape", SHAPES)
-def test_fused_mlp_fwd_kpe_matches_plain(cuda, shape):
-    params, args, pts, dirs = _inputs(shape, cuda)
-    for p in (params, rgb_stub_params(params)):
-        packed = pack_params(p, *args)
-        fp, fd = _flat(pts, dirs)
-        runtime.reset_launches()
-        got = _forward_kpe(packed, fp, fd)
-        torch.cuda.synchronize()
-        assert runtime.LAUNCHES["fused_mlp_fwd_kpe"] == 1 and runtime.LAUNCHES["fused_mlp_fwd"] == 0
-        ref32 = fused_query_kpe_ref(packed, fp, fd, torch.float32)
-        ref16 = fused_query_kpe_ref(packed, fp, fd, torch.bfloat16)
-        assert got.shape == ref32.shape and torch.isfinite(got).all()
-        scale = float(ref32.abs().max())
-        assert float((got - ref32).abs().max()) <= 5e-3 * max(scale, 1.0)
-        assert float((got - ref16).abs().max()) <= 1e-3 * max(scale, 1.0)
-        # through fused_query, and against K1 on the same rays (the same function)
-        via = fused_query(packed, pts, dirs, "kernel")
-        assert torch.equal(via.reshape(-1, packed.c4), got)
-        k1 = fused_query(packed, pts, dirs)
-        assert float((k1.reshape(-1, packed.c4) - got).abs().max()) <= 1e-3 * max(scale, 1.0)
-
-
-@pytest.mark.parametrize("shape", SHAPES[:1])
-def test_fused_mlp_fwd_kpe_stub_sigma_exact(cuda, shape):
-    params, args, pts, dirs = _inputs(shape, cuda, seed=1)
-    fp, fd = _flat(pts, dirs)
-    full = _forward_kpe(pack_params(params, *args), fp, fd)[:, 3]
-    for stub in (sigma_stub_params(params), rgb_stub_params(params)):
-        got = _forward_kpe(pack_params(stub, *args), fp, fd)[:, 3]
-        assert float((got - full).abs().max()) <= 1e-5 * max(float(full.abs().max()), 1.0)
-
-
-@pytest.mark.parametrize("shape", SHAPES)
-def test_fused_mlp_bwd_kpe_matches_plain(cuda, shape):
-    """K4 against its bf16 plain version, block by packed layer, as K2's test: within
-    5e-3 of each block's scale (the same roundings, another order of fp32 sums)."""
-    params, args, pts, dirs = _inputs(shape, cuda)
+@pytest.mark.parametrize("mode", MODES)
+def test_query_without_parameter_gradients_records_no_stash(cuda, monkeypatch, mode):
+    """Parameters that need no gradient, points that do (so autograd records the query):
+    the forward is the render path's launch, no stash is written, and the backward
+    launches no K2 / K4 / K6 and gives the points nothing."""
+    params, args, pts, dirs = _inputs(SHAPES[0], cuda, seed=4)
     packed = pack_params(params, *args)
-    fp, fd = _flat(pts, dirs)
-    g = _cotangent(packed, pts).reshape(-1, packed.c4)
+    with torch.no_grad():
+        want = fused_query(packed, pts, dirs, mode)
+
+    def refused(*a, **k):
+        raise AssertionError("a query without parameter gradients ran the training path")
+    monkeypatch.setattr(fused_mlp, "_stash_forward", refused)
+    monkeypatch.setattr(fused_mlp, "_launch_bwd", refused)
+    x = pts.clone().requires_grad_(True)
     runtime.reset_launches()
-    got = fused_query_kpe_bwd(packed, fp, fd, g)
+    raw = fused_query(packed, x, dirs, mode)
+    assert raw.requires_grad
+    raw.sum().backward()
     torch.cuda.synchronize()
-    assert runtime.LAUNCHES["fused_mlp_bwd_kpe"] == 1 and runtime.LAUNCHES["fused_mlp_bwd"] == 0
-    assert torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
-    ref16 = fused_query_kpe_bwd_ref(packed, fp, fd, g, torch.bfloat16)
-    for layer, err, scale in _block_errs(packed, got, ref16):
-        assert err <= 5e-3 * max(scale, 1e-6), (layer, err, scale)
-
-
-def test_fused_mlp_bwd_kpe_wall_and_repeats(cuda):
-    """pe_mode 'kernel' through autograd: an instance-only loss gives exactly zero
-    trunk, rgb and density gradients (K3 forward, K4 backward, one launch each), and
-    two K4 calls on the same inputs are bit-identical."""
-    params, args, pts, dirs = _inputs(SHAPES[0], cuda, seed=2)
-    params = {k: v.requires_grad_(True) for k, v in params.items()}
-    runtime.reset_launches()
-    raw = fused_query(pack_params(params, *args), pts, dirs, "kernel")
-    raw[..., 4:].sum().backward()
-    assert runtime.LAUNCHES == {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0, "fused_mlp_fwd_kpe": 1,
-                                "fused_mlp_bwd_kpe": 1, "fused_mlp_fwd_pe": 0,
-                                "fused_mlp_bwd_pe": 0, "fused_pe": 0, "fused_render_weights": 0,
-                                "fused_render_maps": 0, "head512": 0, "heads_fused": 0,
-                                "assignment": 0}
-    for k, v in params.items():
-        if k.startswith(("trunk_", "rgb_", "density")):
-            assert v.grad is None or int(torch.count_nonzero(v.grad)) == 0, k
-    assert float(params["ins_out_w"].grad.abs().sum()) > 0
-
-    params, args, pts, dirs = _inputs(SHAPES[2], cuda, seed=3)
-    packed = pack_params(params, *args)
-    fp, fd = _flat(pts, dirs)
-    g = _cotangent(packed, pts, seed=3).reshape(-1, packed.c4)
-    first, second = fused_query_kpe_bwd(packed, fp, fd, g), fused_query_kpe_bwd(packed, fp, fd, g)
-    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
-
-
-def _embedded(packed, pts, dirs):
-    """The K5/K6 inputs of a [N, S] query: K7's e and the per-point viewdir table, bf16."""
-    e = pe_points(packed, pts.reshape(-1, 3).contiguous())
-    return e, point_view_embedding(packed, dirs, pts.shape[1], torch.bfloat16)
+    assert _launched() == dict.fromkeys(ROUTES[mode].launches, 1)
+    assert x.grad is None
+    assert torch.equal(raw.detach(), want)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -325,11 +281,8 @@ def test_fused_pe_ragged_points_widths_and_guard_rows(cuda, multires, P):
     assert float((got[:, 3:n].float() - ref[:, 3:n]).abs().max()) <= 4e-3
     assert not got[:, n:].any()
     assert torch.equal(pe_points(packed, x), got)
-    e = pe_points(packed, x)
-    ed = point_view_embedding(packed, dirs, 1, torch.bfloat16)
-    with torch.no_grad():
-        assert torch.equal(_forward_pe(packed, e, ed), _forward(packed, x[:, None, :], dirs)
-                           .reshape(P, -1))
+    assert torch.equal(query_fwd(packed, x[:, None, :], dirs, "outside"),
+                       query_fwd(packed, x[:, None, :], dirs))
 
 
 @pytest.mark.parametrize("multires", [6, 10])
@@ -349,10 +302,8 @@ def test_fused_pe_slow_path_phases(cuda, multires):
     assert torch.equal(got[:, :3], x.to(torch.bfloat16))
     assert float((got[:, 3:n].float() - ref[:, 3:n]).abs().max()) <= 4e-3
     assert not got[:, n:].any()
-    ed = point_view_embedding(packed, dirs, 1, torch.bfloat16)
-    with torch.no_grad():
-        via_k7 = _forward_pe(packed, got, ed)
-        k1 = _forward(packed, x[:, None, :].contiguous(), dirs).reshape(P, -1)
+    via_k7 = query_fwd(packed, x[:, None, :], dirs, "outside")
+    k1 = query_fwd(packed, x[:, None, :], dirs)
     assert torch.equal(via_k7.view(torch.int32), k1.view(torch.int32))
 
 
@@ -408,87 +359,7 @@ def test_fused_pe_refuses_a_plan_off_its_tiling(cuda, monkeypatch, field, delta)
     assert runtime.LAUNCHES["fused_pe"] == 0 and not e.any()
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-def test_fused_mlp_fwd_pe_matches_plain(cuda, shape):
-    """K5 over K7's embedding against the fp32 plain query and its own bf16 plain
-    version, and bit-equal to K1 on the same rays: both read the same bf16 embeddings,
-    which one function (embed_rows) builds."""
-    params, args, pts, dirs = _inputs(shape, cuda)
-    for p in (params, rgb_stub_params(params)):
-        packed = pack_params(p, *args)
-        e, ed = _embedded(packed, pts, dirs)
-        runtime.reset_launches()
-        got = _forward_pe(packed, e, ed)
-        torch.cuda.synchronize()
-        assert runtime.LAUNCHES["fused_mlp_fwd_pe"] == 1 and runtime.LAUNCHES["fused_mlp_fwd"] == 0
-        ref32 = fused_query_ref(packed, pts, dirs, torch.float32).reshape(-1, packed.c4)
-        ref16 = fused_query_pe_ref(packed, e, ed, torch.bfloat16)
-        assert got.shape == ref32.shape and torch.isfinite(got).all()
-        scale = float(ref32.abs().max())
-        assert float((got - ref32).abs().max()) <= 5e-3 * max(scale, 1.0)
-        assert float((got - ref16).abs().max()) <= 1e-3 * max(scale, 1.0)
-        via = fused_query(packed, pts, dirs, "outside")
-        assert torch.equal(via.reshape(-1, packed.c4), got)
-        assert torch.equal(_forward(packed, pts, dirs).reshape(-1, packed.c4), got)
-
-
-@pytest.mark.parametrize("shape", SHAPES[:1])
-def test_fused_mlp_fwd_pe_stub_sigma_exact(cuda, shape):
-    params, args, pts, dirs = _inputs(shape, cuda, seed=1)
-    packed = pack_params(params, *args)
-    full = _forward_pe(packed, *_embedded(packed, pts, dirs))[:, 3]
-    for stub in (sigma_stub_params(params), rgb_stub_params(params)):
-        sp = pack_params(stub, *args)
-        got = _forward_pe(sp, *_embedded(sp, pts, dirs))[:, 3]
-        assert float((got - full).abs().max()) <= 1e-5 * max(float(full.abs().max()), 1.0)
-
-
-@pytest.mark.parametrize("shape", SHAPES)
-def test_fused_mlp_bwd_pe_matches_plain(cuda, shape):
-    """K6 against its bf16 plain version over the same embeddings, block by packed
-    layer, as K2's test: within 5e-3 of each block's scale."""
-    params, args, pts, dirs = _inputs(shape, cuda)
-    packed = pack_params(params, *args)
-    e, ed = _embedded(packed, pts, dirs)
-    g = _cotangent(packed, pts).reshape(-1, packed.c4)
-    runtime.reset_launches()
-    got = fused_query_pe_bwd(packed, e, ed, g)
-    torch.cuda.synchronize()
-    assert runtime.LAUNCHES["fused_mlp_bwd_pe"] == 1 and runtime.LAUNCHES["fused_mlp_bwd"] == 0
-    assert torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
-    ref16 = fused_query_pe_bwd_ref(packed, e, ed, g, torch.bfloat16)
-    for layer, err, scale in _block_errs(packed, got, ref16):
-        assert err <= 5e-3 * max(scale, 1e-6), (layer, err, scale)
-
-
-def test_fused_mlp_bwd_pe_wall_and_repeats(cuda):
-    """pe_mode 'outside' through autograd: one launch each of K7, K5 and K6 (the
-    backward reuses the forward's embeddings), an instance-only loss gives exactly zero
-    trunk, rgb and density gradients, and two K6 calls are bit-identical."""
-    params, args, pts, dirs = _inputs(SHAPES[0], cuda, seed=2)
-    params = {k: v.requires_grad_(True) for k, v in params.items()}
-    runtime.reset_launches()
-    raw = fused_query(pack_params(params, *args), pts, dirs, "outside")
-    raw[..., 4:].sum().backward()
-    assert runtime.LAUNCHES == {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0, "fused_mlp_fwd_kpe": 0,
-                                "fused_mlp_bwd_kpe": 0, "fused_mlp_fwd_pe": 1,
-                                "fused_mlp_bwd_pe": 1, "fused_pe": 1, "fused_render_weights": 0,
-                                "fused_render_maps": 0, "head512": 0, "heads_fused": 0,
-                                "assignment": 0}
-    for k, v in params.items():
-        if k.startswith(("trunk_", "rgb_", "density")):
-            assert v.grad is None or int(torch.count_nonzero(v.grad)) == 0, k
-    assert float(params["ins_out_w"].grad.abs().sum()) > 0
-
-    params, args, pts, dirs = _inputs(SHAPES[2], cuda, seed=3)
-    packed = pack_params(params, *args)
-    e, ed = _embedded(packed, pts, dirs)
-    g = _cotangent(packed, pts, seed=3).reshape(-1, packed.c4)
-    first, second = fused_query_pe_bwd(packed, e, ed, g), fused_query_pe_bwd(packed, e, ed, g)
-    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
-
-
-@pytest.mark.parametrize("pe_mode", ["kernel_t", "kernel", "outside"])
+@pytest.mark.parametrize("pe_mode", MODES)
 def test_training_forward_stashes_for_the_backward(cuda, pe_mode):
     """With gradients on, the forward kernel also writes the stash and the backward
     launches only its own kernels (one forward and one backward launch a query, and
@@ -506,17 +377,10 @@ def test_training_forward_stashes_for_the_backward(cuda, pe_mode):
     raw = fused_query(pk, pts, dirs, pe_mode)
     dw, db = torch.autograd.grad(raw, [pk.w, pk.b], g)
     torch.cuda.synchronize()
-    names = {"kernel_t": ("fused_mlp_fwd", "fused_mlp_bwd"),
-             "kernel": ("fused_mlp_fwd_kpe", "fused_mlp_bwd_kpe"),
-             "outside": ("fused_pe", "fused_mlp_fwd_pe", "fused_mlp_bwd_pe")}[pe_mode]
+    names = (*ROUTES[pe_mode].launches, ROUTES[pe_mode].bwd)
     assert runtime.LAUNCHES == {k: int(k in names) for k in runtime.COUNTED}
     assert torch.equal(raw, want_raw)
-    if pe_mode == "kernel_t":
-        alone = fused_query_bwd(packed, pts, dirs, g)
-    elif pe_mode == "kernel":
-        alone = fused_query_kpe_bwd(packed, *_flat(pts, dirs), g.reshape(-1, packed.c4))
-    else:
-        alone = fused_query_pe_bwd(packed, *_embedded(packed, pts, dirs), g.reshape(-1, packed.c4))
+    alone = query_bwd(packed, pts, dirs, g, pe_mode)
     assert torch.equal(dw, alone[0]) and torch.equal(db, alone[1])
 
 
@@ -524,17 +388,6 @@ def test_training_forward_stashes_for_the_backward(cuda, pe_mode):
 # point, less than a tile, a ragged last tile, and more tiles than the card's 132 SMs
 # with a remainder (N rays x S samples)
 RAGGED = [(1, 1), (4, 25), (8, 125), (11, 3079)]
-MODES = ["kernel_t", "kernel", "outside"]
-
-
-def _fwd_bf16_plain(mode, packed, pts, dirs):
-    """The bf16 plain version of ``mode``'s forward kernel, raw [P, 4+C]: the same
-    roundings as the kernel (K5's over K7's embedding)."""
-    if mode == "kernel_t":
-        return fused_query_ref(packed, pts, dirs, torch.bfloat16).reshape(-1, packed.c4)
-    if mode == "kernel":
-        return fused_query_kpe_ref(packed, *_flat(pts, dirs), torch.bfloat16)
-    return fused_query_pe_ref(packed, *_embedded(packed, pts, dirs), torch.bfloat16)
 
 
 def _check_fwd(mode, packed, pts, dirs):
@@ -543,12 +396,12 @@ def _check_fwd(mode, packed, pts, dirs):
     with torch.no_grad():
         got = fused_query(packed, pts, dirs, mode).reshape(-1, packed.c4)
     torch.cuda.synchronize()
-    ref32 = fused_query_ref(packed, pts, dirs, torch.float32).reshape(-1, packed.c4)
+    ref32 = query_fwd(packed, pts, dirs, mode, torch.float32).reshape(-1, packed.c4)
+    ref16 = query_fwd(packed, pts, dirs, mode, torch.bfloat16).reshape(-1, packed.c4)
     scale = float(ref32.abs().max())
     assert got.shape == ref32.shape and torch.isfinite(got).all()
     assert float((got - ref32).abs().max()) <= 5e-3 * max(scale, 1.0)
-    assert float((got - _fwd_bf16_plain(mode, packed, pts, dirs)).abs().max()) \
-        <= 1e-3 * max(scale, 1.0)
+    assert float((got - ref16).abs().max()) <= 1e-3 * max(scale, 1.0)
     return got
 
 
@@ -602,12 +455,7 @@ def _stash_plain(mode, packed, pts, dirs):
     [P, EP] and ed [P, EDP] and each layer's ReLU output [P, N] (None for sigma and the
     output layer, in the order of ``packed.layers``), fp32 holding bf16 values."""
     rnd = fused_mlp._rounder(torch.bfloat16)
-    if mode == "kernel_t":
-        e, ed = fused_mlp._embeddings(packed, pts, dirs, rnd)
-    elif mode == "kernel":
-        e, ed = fused_mlp._embeddings_kpe(packed, *_flat(pts, dirs), rnd)
-    else:
-        e, ed = (t.float() for t in _embedded(packed, pts, dirs))
+    e, ed = (t.float() for t in ROUTES[mode].embeddings(packed, pts, dirs, torch.bfloat16))
     w_all, acts, h = packed.w_bf16.float(), [], None
     for layer in packed.layers:
         if layer.kind in ("sigma", "out"):
@@ -637,17 +485,14 @@ def test_training_forward_stash_blocks(cuda, mode, n_s):
     N, S = n_s
     params, args, pts, dirs = _inputs((10, 4, 8, 256, (4,), 32, N, S), cuda, seed=8)
     packed = pack_params(params, *args)
-    a, b = fused_mlp._kernel_inputs(packed, pts, dirs, mode)
-    n, s = (N, S) if mode == "kernel_t" else (N * S, 1)
-    plan = fused_mlp._bwd_plan(packed, n, s,
-                               torch.cuda.get_device_properties(cuda).multi_processor_count,
-                               fused_mlp._ROWS[mode])
+    a, b = ROUTES[mode].inputs(packed, pts, dirs)
+    plan = fused_mlp._query_plan(mode, packed, N, S,
+                                 torch.cuda.get_device_properties(cuda).multi_processor_count)
 
     def stash_forward():
         stash = torch.full((plan["stash_size"] + 4096,), CANARY, dtype=torch.bfloat16,
                            device=cuda)
-        fused_mlp._launch_fwd(fused_mlp._FWD_NAME[mode], packed, a, b, n * s, s, stash,
-                              plan["fwd_stash"])
+        fused_mlp._launch_fwd(mode, packed, a, b, N * S, S, stash, plan["fwd_stash"])
         return stash
     first, second = stash_forward(), stash_forward()
     torch.cuda.synchronize()
@@ -658,7 +503,7 @@ def test_training_forward_stash_blocks(cuda, mode, n_s):
               [(plan["e_off"], e), (plan["ed_off"], ed), *zip(plan["layer_off"], acts)]
               if off >= 0]
     assert len(blocks) == sum(layer.kind not in ("sigma", "out") for layer in packed.layers) \
-        + 2 * (mode != "outside")
+        + 2 * (not ROUTES[mode].embedded)
     for i, (off, want) in enumerate(blocks):
         got = first[off:off + want.numel()].float().view(want.shape)
         err = (got - want).abs() - 2.0 ** -7 * want.abs()
@@ -684,8 +529,7 @@ def test_mesh_sweep_chunk_zero_viewdirs(cuda, mode):
     with torch.no_grad():
         once = fused_query(stub, pts, dirs, mode).reshape(-1, stub.c4)
     torch.cuda.synchronize()
-    want = {fused_mlp._FWD_NAME[mode]: 1, **({"fused_pe": 1} if mode == "outside" else {})}
-    assert {k: v for k, v in runtime.LAUNCHES.items() if v} == want
+    assert _launched() == dict.fromkeys(ROUTES[mode].launches, 1)
     got = _check_fwd(mode, stub, pts, dirs)
     assert torch.equal(got, once)
     with torch.no_grad():
@@ -971,8 +815,7 @@ def test_forward_template_outputs_unchanged(cuda):
     packed = pack_params(pf, cfg.multires, cfg.multires_views, cfg.netdepth, tuple(cfg.skips))
     pts, dirs = cs._points(2048, 192, 1.0, 8.0, torch.Generator().manual_seed(cs.SEED + 3), cuda)
     with torch.no_grad():
-        got = {mode: cs.digest(fused_query(packed, pts, dirs, mode))
-               for mode in ("kernel_t", "kernel", "outside")}
+        got = {mode: cs.digest(fused_query(packed, pts, dirs, mode)) for mode in MODES}
     assert got == dict.fromkeys(got, "854cbb6195d4a8e8")
 
 
@@ -1146,7 +989,7 @@ def test_graph_replay_equals_eager_steps(cuda, pe_mode):
     runtime.reset_launches()
     packs = torch.cat([cs._aux_rows(packed(st_p, gb, gs)) for _ in range(2)])
     torch.cuda.synchronize()
-    fwd = "fused_mlp_fwd_pe" if pe_mode == "outside" else "fused_mlp_fwd"
+    fwd = ROUTES[fused_mlp.resolve_pe_mode(pe_mode)].fwd
     assert runtime.LAUNCHES[fwd] == 2 * 2 and runtime.LAUNCHES["assignment"] == 2   # warm-up only
     assert torch.equal(eager.view(torch.int32), packs.view(torch.int32))
     assert not cs._state_diffs(st_u, st_p)

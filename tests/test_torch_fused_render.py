@@ -91,7 +91,7 @@ def test_weights_pass_matches_the_probe_kernel(case):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     df = torch.from_numpy(_fixed(d))
     pts = torch.from_numpy(o)[:, None, :] + df[:, None, :] * torch.from_numpy(z)[..., None]
-    raw = tfm.fused_query_ref(packed, pts, df / torch.linalg.norm(df, dim=-1, keepdim=True))
+    raw = tfm.query_fwd(packed, pts, df / torch.linalg.norm(df, dim=-1, keepdim=True))
     assert torch.equal(got, composite(raw, torch.from_numpy(z), df).weights)
 
 
@@ -115,7 +115,7 @@ def test_maps_pass_matches_jax_query_and_composite_maps(case):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     dt = torch.from_numpy(df)
     pts_t = torch.from_numpy(o)[:, None, :] + dt[:, None, :] * torch.from_numpy(z)[..., None]
-    raw_t = tfm.fused_query_ref(packed, pts_t, dt / torch.linalg.norm(dt, dim=-1, keepdim=True))
+    raw_t = tfm.query_fwd(packed, pts_t, dt / torch.linalg.norm(dt, dim=-1, keepdim=True))
     t_rgb, t_ins, t_depth = composite_maps(raw_t, torch.from_numpy(z), dt, keep_air=True)
     assert torch.equal(got, torch.cat([t_rgb, t_depth[:, None], t_ins], -1))
 
@@ -415,12 +415,12 @@ def test_entry_points_take_their_schedules(monkeypatch):
     tfr.fused_render(packs["stub"], o, d, z, True, (d, edr))
     tfr.fused_render(packs["full"], o, d, z, False, (d, edr))
     bf = torch.bfloat16
-    for name, a, b in (("fused_mlp_fwd", torch.zeros(N * S, 3), torch.zeros(N, 32, dtype=bf)),
-                       ("fused_mlp_fwd_kpe", torch.zeros(N * S, 3), torch.zeros(N * S, 3)),
-                       ("fused_mlp_fwd_pe", torch.zeros(N * S, 64, dtype=bf),
+    for mode, a, b in (("kernel_t", torch.zeros(N * S, 3), torch.zeros(N, 32, dtype=bf)),
+                       ("kernel", torch.zeros(N * S, 3), torch.zeros(N * S, 3)),
+                       ("outside", torch.zeros(N * S, 64, dtype=bf),
                         torch.zeros(N * S, 32, dtype=bf))):
         for kind in ("full", "stub"):
-            tfm._launch_fwd(name, packs[kind], meta(a), meta(b), N * S, S)
+            tfm._launch_fwd(mode, packs[kind], meta(a), meta(b), N * S, S)
     got = {}
     for name, args, table in calls:
         got.setdefault(name, []).append((len(args), args[-1], _digest(table)))

@@ -1,13 +1,13 @@
-"""dmnerf_tpu_torch.kernels.fused_mlp on the CPU: packing vs the JAX _pack, the
-forward kernel's fp32 plain version vs the Pallas kernel (interpret mode, pe_mode
-'kernel_t') and the XLA query at 2e-5 on the CASES of tests/test_kernels.py, the
-backward's plain version vs the Pallas backward (jax.grad through the interpret-mode
-kernel) and vs autograd of the plain PyTorch query at atol 3e-5 / rtol 3e-4
-(tests/test_kernels.py:64-71), the instance-head gradient wall, the sigma stub's
-exact sigma column, and the guards: no JAX import, no fallback, gradients that flow
-only when asked for, no silent CPU. The tables the backward kernels read (and the
-stash layout the training forward writes) are held to the plain backward through a
-plain interpreter of them.
+"""dmnerf_tpu_torch.kernels.fused_mlp on the CPU: packing vs the JAX _pack; for each
+pe_mode (its route in ``ROUTES``) the forward kernels' fp32 plain version vs the Pallas
+query of that mode (interpret mode) and the XLA query at 2e-5 on the CASES of
+tests/test_kernels.py, the backward's plain version vs the Pallas backward (jax.grad
+through the interpret-mode kernels) and vs autograd of the plain PyTorch query at atol
+3e-5 / rtol 3e-4 (tests/test_kernels.py:64-71), the instance-head gradient wall, the
+stubs' exact columns, and the three modes' plain queries against each other; and the
+guards: no JAX import, no fallback, gradients that flow only when asked for, no silent
+CPU. The tables the backward kernels read (and the stash layout the training forward
+writes) are held to the plain backward through a plain interpreter of them.
 
 The CUDA kernel itself runs only on the card: tests/test_torch_cuda.py."""
 
@@ -38,6 +38,7 @@ CASES = [
     (10, 4, 8, 64, (4,), 8),
     (6, 3, 5, 32, (1, 3), 4),
 ]
+MODES = ["kernel_t", "kernel", "outside"]
 
 
 def _setup(multires, multires_views, D, W, skips, ins_num, N=6, S=8, seed=0):
@@ -70,35 +71,77 @@ def test_pack_equals_jax_pack(case):
     assert tfm._layer_kinds(D, skips) == jfm._layer_kinds(D, skips)
 
 
+def _pallas(mode, mr, mrv, D, skips):
+    return jfm.make_pallas_query_fn(mr, mrv, D, skips, tile_fwd=16, tile_bwd=16,
+                                    interpret=True, pe_mode=mode)
+
+
+@pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("case", CASES)
-def test_plain_fp32_matches_pallas_and_xla(case):
+def test_plain_fp32_matches_pallas_and_xla(case, mode):
+    """``mode``'s plain version on the CPU (through fused_query, which launches nothing,
+    and query_fwd) vs the Pallas query of the same pe_mode in interpret mode and the XLA
+    query, at 2e-5; and the layer walk over the JAX package's own point embedding
+    (make_pe_pallas) gives the same."""
     mr, mrv, D, W, skips, ins = case
     jp, pts, dirs = _setup(*case)
-    q_pal = jfm.make_pallas_query_fn(mr, mrv, D, skips, tile_fwd=16, tile_bwd=16,
-                                     interpret=True, pe_mode="kernel_t")
-    q_xla = make_xla_query_fn(mr, mrv, D, skips)
     packed = tfm.pack_params(_torch(jp), mr, mrv, D, skips)
-    got = tfm.fused_query_ref(packed, torch.from_numpy(pts), torch.from_numpy(dirs)).numpy()
-    for q in (q_pal, q_xla):
+    pts_t, dirs_t = torch.from_numpy(pts), torch.from_numpy(dirs)
+    runtime.reset_launches()
+    got = tfm.fused_query(packed, pts_t, dirs_t, mode).numpy()
+    assert not any(runtime.LAUNCHES.values())
+    assert torch.equal(torch.from_numpy(got), tfm.query_fwd(packed, pts_t, dirs_t, mode))
+    for q in (_pallas(mode, mr, mrv, D, skips), make_xla_query_fn(mr, mrv, D, skips)):
         want = np.asarray(q(jp, jnp.asarray(pts), jnp.asarray(dirs)))
         assert got.shape == want.shape
         np.testing.assert_allclose(got, want, **TOL)
 
+    N, S, _ = pts.shape
+    e = np.asarray(jfm.make_pe_pallas(mr, jnp.float32, tile=16, interpret=True)(
+        jnp.asarray(pts.reshape(-1, 3))))
+    e = np.pad(e, ((0, 0), (0, packed.ep - e.shape[1])))
+    _, ed = tfm.ROUTES[mode].embeddings(packed, pts_t, dirs_t, torch.float32)
+    flat = tfm._walk_fwd(packed, torch.from_numpy(e), ed, torch.float32)
+    np.testing.assert_allclose(flat.numpy().reshape(N, S, -1), got, **TOL)
+
 
 @pytest.mark.parametrize("case", CASES)
-def test_stub_columns_exact(case):
+def test_modes_compute_one_function(case):
+    """The three modes' plain queries agree within 2e-5 at fp32, forward and backward:
+    their kernels compute one function and differ only in where the embeddings are
+    built."""
+    mr, mrv, D, W, skips, ins = case
+    jp, pts, dirs = _setup(*case)
+    packed = tfm.pack_params(_torch(jp), mr, mrv, D, skips)
+    pts_t, dirs_t = torch.from_numpy(pts), torch.from_numpy(dirs)
+    g = torch.from_numpy(np.random.RandomState(2).randn(*pts.shape[:2], packed.c4)
+                         .astype(np.float32))
+    raws = {m: tfm.query_fwd(packed, pts_t, dirs_t, m) for m in MODES}
+    grads = {m: tfm.query_bwd(packed, pts_t, dirs_t, g, m) for m in MODES}
+    for m in MODES[1:]:
+        torch.testing.assert_close(raws[m], raws[MODES[0]], **TOL)
+        for got, want in zip(grads[m], grads[MODES[0]]):
+            torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", CASES)
+def test_stub_columns_exact(case, mode):
     """The sigma stub's sigma column, and the rgb stub's sigma and instance columns,
-    are bit-equal to the full model's."""
+    are bit-equal to the full model's under ``mode``, whose query agrees with
+    'kernel_t''s in fp32."""
     mr, mrv, D, W, skips, ins = case
     jp, pts, dirs = _setup(*case)
     args = (mr, mrv, D, skips)
     pts_t, dirs_t = torch.from_numpy(pts), torch.from_numpy(dirs)
-    full = tfm.fused_query(tfm.pack_params(_torch(jp), *args), pts_t, dirs_t)
-    sig = tfm.fused_query(tfm.pack_params(_torch(sigma_stub_params(jp)), *args), pts_t, dirs_t)
-    rgb = tfm.fused_query(tfm.pack_params(_torch(rgb_stub_params(jp)), *args), pts_t, dirs_t)
+
+    def query(p, m=mode):
+        return tfm.fused_query(tfm.pack_params(_torch(p), *args), pts_t, dirs_t, m)
+    full, sig, rgb = query(jp), query(sigma_stub_params(jp)), query(rgb_stub_params(jp))
     assert sig.shape[-1] == 5 and rgb.shape == full.shape
     assert torch.equal(sig[..., 3], full[..., 3])
     assert torch.equal(rgb[..., 3:], full[..., 3:])
+    torch.testing.assert_close(full, query(jp, "kernel_t"), atol=1e-6, rtol=1e-6)
 
 
 def test_bf16_plain_rounds_like_the_kernel():
@@ -108,8 +151,8 @@ def test_bf16_plain_rounds_like_the_kernel():
     jp, pts, dirs = _setup(*CASES[1], N=8, S=16)
     packed = tfm.pack_params(_torch(jp), mr, mrv, D, skips)
     p, d = torch.from_numpy(pts), torch.from_numpy(dirs)
-    f32 = tfm.fused_query_ref(packed, p, d, torch.float32)
-    b16 = tfm.fused_query_ref(packed, p, d, torch.bfloat16)
+    f32 = tfm.query_fwd(packed, p, d, "kernel_t", torch.float32)
+    b16 = tfm.query_fwd(packed, p, d, "kernel_t", torch.bfloat16)
     scale = float(f32.abs().max())
     assert 0 < float((b16 - f32).abs().max()) <= 0.03 * scale
 
@@ -189,13 +232,13 @@ def test_cpu_wrapper_takes_the_plain_version():
     jp, pts, dirs = _setup(*CASES[0])
     packed = tfm.pack_params(_torch(jp), mr, mrv, D, skips)
     runtime.reset_launches()
-    got = tfm.fused_query(packed, torch.from_numpy(pts), torch.from_numpy(dirs))
-    want = tfm.fused_query_ref(packed, torch.from_numpy(pts), torch.from_numpy(dirs))
-    assert torch.equal(got, want)
-    dw, db = tfm.fused_query_bwd(packed, torch.from_numpy(pts), torch.from_numpy(dirs),
-                                 torch.ones_like(got))
-    want_dw, want_db = tfm.fused_query_bwd_ref(packed, torch.from_numpy(pts),
-                                               torch.from_numpy(dirs), torch.ones_like(got))
+    p, d = torch.from_numpy(pts), torch.from_numpy(dirs)
+    got = tfm.fused_query(packed, p, d)
+    assert torch.equal(got, tfm.query_fwd(packed, p, d))
+    assert torch.equal(got, tfm.query_fwd(packed, p, d, "kernel_t", torch.float32))
+    dw, db = tfm.query_bwd(packed, p, d, torch.ones_like(got))
+    want_dw, want_db = tfm.query_bwd(packed, p, d, torch.ones_like(got), "kernel_t",
+                                     torch.float32)
     assert torch.equal(dw, want_dw) and torch.equal(db, want_db)
     assert not any(runtime.LAUNCHES.values())
 
@@ -210,20 +253,20 @@ def _tanh_loss_grads(query, params, pts, dirs):
     return {k: v.grad.numpy() for k, v in pp.items()}
 
 
+@pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("case", CASES)
-def test_plain_backward_matches_pallas_backward(case):
-    """autograd through the fused query on the CPU (fused_query_bwd_ref, mapped to the
-    parameter dict by autograd over pack_params) vs jax.grad through the Pallas
-    kernel_t backward in interpret mode, and vs autograd of the plain PyTorch query,
-    at atol 3e-5 / rtol 3e-4."""
+def test_plain_backward_matches_pallas_backward(case, mode):
+    """autograd through the fused query on the CPU (``mode``'s plain backward, mapped to
+    the parameter dict by autograd over pack_params) vs jax.grad through the Pallas
+    backward of the same pe_mode in interpret mode, and vs autograd of the plain
+    PyTorch query, at atol 3e-5 / rtol 3e-4."""
     mr, mrv, D, W, skips, ins = case
     jp, pts, dirs = _setup(*case)
-    q_pal = jfm.make_pallas_query_fn(mr, mrv, D, skips, tile_fwd=16, tile_bwd=16,
-                                     interpret=True, pe_mode="kernel_t")
+    q_pal = _pallas(mode, mr, mrv, D, skips)
     w = jnp.asarray(np.linspace(0.5, 1.5, 4 + ins + 1), jnp.float32)
     want = jax.grad(lambda p: jnp.sum(jnp.tanh(q_pal(p, jnp.asarray(pts), jnp.asarray(dirs))) * w))(jp)
     runtime.reset_launches()
-    got = _tanh_loss_grads(make_fused_query_fn(mr, mrv, D, skips), _torch(jp), pts, dirs)
+    got = _tanh_loss_grads(make_fused_query_fn(mr, mrv, D, skips, mode), _torch(jp), pts, dirs)
     plain = _tanh_loss_grads(make_torch_query_fn(mr, mrv, D, skips), _torch(jp), pts, dirs)
     assert not any(runtime.LAUNCHES.values())
     assert set(got) == set(want) == set(plain)
@@ -232,15 +275,18 @@ def test_plain_backward_matches_pallas_backward(case):
         np.testing.assert_allclose(got[k], plain[k], **GRAD_TOL, err_msg=k)
 
 
+@pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("case", CASES)
-def test_instance_gradient_wall(case):
+def test_instance_gradient_wall(case, mode):
     """An instance-only loss gives exactly zero trunk, rgb and density gradients, and
-    a nonzero instance head gradient, through the fused query (autograd over
-    pack_params) and in the plain backward's packed layout itself."""
+    a nonzero instance head gradient, through the fused query under ``mode`` (autograd
+    over pack_params) and in the packed layout of its plain backward itself, in fp32 and
+    in bf16."""
     mr, mrv, D, W, skips, ins = case
     jp, pts, dirs = _setup(*case)
     pp = {k: v.requires_grad_(True) for k, v in _torch(jp).items()}
-    raw = make_fused_query_fn(mr, mrv, D, skips)(pp, torch.from_numpy(pts), torch.from_numpy(dirs))
+    raw = make_fused_query_fn(mr, mrv, D, skips, mode)(pp, torch.from_numpy(pts),
+                                                       torch.from_numpy(dirs))
     raw[..., 4:].sum().backward()
     for k, v in pp.items():
         if k.startswith(("trunk_", "rgb_", "density")):
@@ -251,8 +297,8 @@ def test_instance_gradient_wall(case):
     g = torch.zeros(raw.shape)
     g[..., 4:] = 1.0
     for dtype in (torch.float32, torch.bfloat16):
-        dw, db = tfm.fused_query_bwd_ref(packed, torch.from_numpy(pts), torch.from_numpy(dirs),
-                                         g, dtype)
+        dw, db = tfm.query_bwd(packed, torch.from_numpy(pts), torch.from_numpy(dirs), g, mode,
+                               dtype)
         *trunk, sig, head, out = packed.layers
         for layer in (*trunk, sig):
             assert not dw[layer.w_off:layer.w_off + layer.K * layer.N].any(), layer
@@ -280,7 +326,7 @@ def test_gradients_flow_and_the_render_path_stays_forward(monkeypatch):
     def no_backward(*args, **kwargs):
         raise AssertionError("the render path ran the backward")
 
-    monkeypatch.setattr(tfm, "fused_query_bwd", no_backward)
+    monkeypatch.setattr(tfm, "_walk_bwd", no_backward)
     cfg = Config(netdepth=D, netwidth=W, multires=mr, multires_views=mrv, skips=skips,
                  ins_num=ins, N_samples=6, N_importance=4, N_test=8, near=2.0, far=6.0)
     runtime.reset_launches()
@@ -308,105 +354,37 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch, tmp_path):
     assert pc["trunk_0_w"].device.type == "cpu"
 
 
-# ---- pe_mode 'kernel': K3 / K4 plain versions against the Pallas _fwd_kernel /
-# _bwd_kernel pair (interpret mode) ----
-
-@pytest.mark.parametrize("case", CASES)
-def test_kpe_plain_fp32_matches_pallas_kernel_mode(case):
-    """K3's plain version (per-point directions embedded as _embed_pair does) vs the
-    Pallas pe_mode='kernel' query, through fused_query and directly, at 2e-5."""
-    mr, mrv, D, W, skips, ins = case
-    jp, pts, dirs = _setup(*case)
-    q_pal = jfm.make_pallas_query_fn(mr, mrv, D, skips, tile_fwd=16, tile_bwd=16,
-                                     interpret=True, pe_mode="kernel")
-    want = np.asarray(q_pal(jp, jnp.asarray(pts), jnp.asarray(dirs)))
-    packed = tfm.pack_params(_torch(jp), mr, mrv, D, skips)
-    got = tfm.fused_query(packed, torch.from_numpy(pts), torch.from_numpy(dirs), "kernel")
-    np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
-    N, S, _ = pts.shape
-    flat = tfm.fused_query_kpe_ref(packed, torch.from_numpy(pts.reshape(-1, 3)),
-                                   torch.from_numpy(np.repeat(dirs, S, axis=0)))
-    np.testing.assert_allclose(flat.numpy().reshape(N, S, -1), want, **TOL)
-
-
-@pytest.mark.parametrize("case", CASES)
-def test_kpe_plain_backward_matches_pallas_kernel_mode(case):
-    """autograd through fused_query(pe_mode='kernel') on the CPU (K4's plain version,
-    mapped to the parameter dict by autograd over pack_params) vs jax.grad through the
-    Pallas pe_mode='kernel' backward in interpret mode, at atol 3e-5 / rtol 3e-4."""
-    mr, mrv, D, W, skips, ins = case
-    jp, pts, dirs = _setup(*case)
-    q_pal = jfm.make_pallas_query_fn(mr, mrv, D, skips, tile_fwd=16, tile_bwd=16,
-                                     interpret=True, pe_mode="kernel")
-    w = jnp.asarray(np.linspace(0.5, 1.5, 4 + ins + 1), jnp.float32)
-    want = jax.grad(lambda p: jnp.sum(jnp.tanh(q_pal(p, jnp.asarray(pts), jnp.asarray(dirs))) * w))(jp)
-    runtime.reset_launches()
-    got = _tanh_loss_grads(make_fused_query_fn(mr, mrv, D, skips, "kernel"), _torch(jp), pts, dirs)
-    assert not any(runtime.LAUNCHES.values())
-    assert set(got) == set(want)
-    for k in sorted(want):
-        np.testing.assert_allclose(got[k], np.asarray(want[k]), **GRAD_TOL, err_msg=k)
-
-
-@pytest.mark.parametrize("case", CASES)
-def test_kpe_stub_columns_exact_and_wall(case):
-    """pe_mode='kernel': the stubs' sigma (and the rgb stub's instance) columns are
-    bit-equal to the full model's, the two pairs agree in fp32 on the CPU, and an
-    instance-only cotangent reaches no trunk, sigma or rgb block of K4's plain version."""
-    mr, mrv, D, W, skips, ins = case
-    jp, pts, dirs = _setup(*case)
-    args = (mr, mrv, D, skips)
-    pts_t, dirs_t = torch.from_numpy(pts), torch.from_numpy(dirs)
-    full = tfm.fused_query(tfm.pack_params(_torch(jp), *args), pts_t, dirs_t, "kernel")
-    sig = tfm.fused_query(tfm.pack_params(_torch(sigma_stub_params(jp)), *args), pts_t, dirs_t,
-                          "kernel")
-    rgb = tfm.fused_query(tfm.pack_params(_torch(rgb_stub_params(jp)), *args), pts_t, dirs_t,
-                          "kernel")
-    assert torch.equal(sig[..., 3], full[..., 3])
-    assert torch.equal(rgb[..., 3:], full[..., 3:])
-    kt = tfm.fused_query(tfm.pack_params(_torch(jp), *args), pts_t, dirs_t, "kernel_t")
-    torch.testing.assert_close(full, kt, atol=1e-6, rtol=1e-6)
-
-    packed = tfm.pack_params(_torch(jp), *args)
-    g = torch.zeros(full.shape).reshape(-1, full.shape[-1])
-    g[:, 4:] = 1.0
-    S = pts.shape[1]
-    dw, db = tfm.fused_query_kpe_bwd_ref(packed, pts_t.reshape(-1, 3),
-                                         tfm._point_dirs(dirs_t, S), g, torch.bfloat16)
-    *trunk, sig_l, head, out = packed.layers
-    for layer in (*trunk, sig_l):
-        assert not dw[layer.w_off:layer.w_off + layer.K * layer.N].any(), layer
-    head_w = dw[head.w_off:head.w_off + head.K * head.N].view(head.K, head.N)
-    assert not head_w[:, :packed.hr].any() and head_w[packed.edp:, packed.hr:].any()
-
-
 def test_pe_mode_routing(monkeypatch):
-    """pallas_pe_mode picks the kernels: None / 'kernel_t' the K1/K2 plain versions on
-    the CPU, 'kernel' the K3/K4 ones, 'outside' K7's then K5's and K6's; an unknown
-    mode is refused by the config and by resolve_pe_mode."""
+    """pallas_pe_mode picks the route: None / 'kernel_t' K1/K2's, 'kernel' K3/K4's,
+    'outside' K7's then K5/K6's, whose plain embeddings the CPU query builds once for
+    its forward and once for its backward, and no other route's; an unknown mode is
+    refused by the config and by resolve_pe_mode."""
+    import dataclasses
+
     from dmnerf_tpu_torch.configs import Config
     from dmnerf_tpu_torch.core.pipeline import make_query_fn
 
     mr, mrv, D, W, skips, ins = CASES[0]
     jp, pts, dirs = _setup(*CASES[0])
     calls = []
-    for name in ("fused_query_ref", "fused_query_bwd_ref", "fused_query_kpe_ref",
-                 "fused_query_kpe_bwd_ref", "pe_points_ref", "fused_query_pe_ref",
-                 "fused_query_pe_bwd_ref"):
-        fn = getattr(tfm, name)
-        monkeypatch.setattr(tfm, name, lambda *a, _fn=fn, _name=name, **k:
-                            calls.append(_name) or _fn(*a, **k))
+    for mode, route in list(tfm.ROUTES.items()):
+        monkeypatch.setitem(tfm.ROUTES, mode, dataclasses.replace(
+            route, embeddings=lambda *a, _fn=route.embeddings, _mode=mode:
+            calls.append(_mode) or _fn(*a)))
     kw = dict(netdepth=D, netwidth=W, multires=mr, multires_views=mrv, skips=skips, ins_num=ins)
-    for mode, want in ((None, ["fused_query_ref", "fused_query_bwd_ref"]),
-                       ("kernel_t", ["fused_query_ref", "fused_query_bwd_ref"]),
-                       ("kernel", ["fused_query_kpe_ref", "fused_query_kpe_bwd_ref"]),
-                       ("outside", ["pe_points_ref", "fused_query_pe_ref",
-                                    "fused_query_pe_bwd_ref"])):
+    for mode, want in ((None, "kernel_t"), ("kernel_t", "kernel_t"), ("kernel", "kernel"),
+                       ("outside", "outside")):
         calls.clear()
         q = make_query_fn(Config(pallas_pe_mode=mode, **kw))
         pp = {k: v.requires_grad_(True) for k, v in _torch(jp).items()}
         q(pp, torch.from_numpy(pts), torch.from_numpy(dirs)).sum().backward()
-        assert calls == want, (mode, calls)
+        assert calls == [want, want], (mode, calls)
+    assert [(r.fwd, r.bwd, r.rows) for r in tfm.ROUTES.values()] == [
+        ("fused_mlp_fwd", "fused_mlp_bwd", "ray_table"),
+        ("fused_mlp_fwd_kpe", "fused_mlp_bwd_kpe", "point_dirs"),
+        ("fused_mlp_fwd_pe", "fused_mlp_bwd_pe", "embedded")]
+    assert [r.launches for r in tfm.ROUTES.values()] == [
+        ("fused_mlp_fwd",), ("fused_mlp_fwd_kpe",), ("fused_pe", "fused_mlp_fwd_pe")]
     with pytest.raises(ValueError, match="pallas_pe_mode"):
         Config(pallas_pe_mode="kernel_tt")
     with pytest.raises(ValueError, match="pallas_pe_mode"):
@@ -414,8 +392,7 @@ def test_pe_mode_routing(monkeypatch):
     assert make_query_fn(Config(pallas_pe_mode="outside", use_pallas=False, **kw)) is not None
 
 
-# ---- pe_mode 'outside': K7's plain version against make_pe_pallas, and K5 / K6's
-# against the Pallas _fwd_kernel_pe / _bwd_kernel_pe pair (interpret mode) ----
+# ---- pe_mode 'outside': K7's plain version against make_pe_pallas (interpret mode) ----
 
 @pytest.mark.parametrize("case", CASES)
 def test_pe_points_plain_matches_pallas(case):
@@ -438,86 +415,6 @@ def test_pe_points_plain_matches_pallas(case):
     assert not any(runtime.LAUNCHES.values())
     b16 = tfm.pe_points_ref(packed, torch.from_numpy(x), torch.bfloat16)
     assert b16.dtype == torch.bfloat16 and torch.equal(b16, got.to(torch.bfloat16))
-
-
-@pytest.mark.parametrize("case", CASES)
-def test_pe_plain_fp32_matches_pallas_outside(case):
-    """fused_query(pe_mode='outside') on the CPU (K7's and K5's plain versions) vs the
-    Pallas pe_mode='outside' query in interpret mode at 2e-5, and K5's plain version
-    over the JAX package's own embeddings."""
-    mr, mrv, D, W, skips, ins = case
-    jp, pts, dirs = _setup(*case)
-    q_pal = jfm.make_pallas_query_fn(mr, mrv, D, skips, tile_fwd=16, tile_bwd=16,
-                                     interpret=True, pe_mode="outside")
-    want = np.asarray(q_pal(jp, jnp.asarray(pts), jnp.asarray(dirs)))
-    packed = tfm.pack_params(_torch(jp), mr, mrv, D, skips)
-    runtime.reset_launches()
-    got = tfm.fused_query(packed, torch.from_numpy(pts), torch.from_numpy(dirs), "outside")
-    assert not any(runtime.LAUNCHES.values())
-    np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
-
-    N, S, _ = pts.shape
-    e = np.asarray(jfm.make_pe_pallas(mr, jnp.float32, tile=16, interpret=True)(
-        jnp.asarray(pts.reshape(-1, 3))))
-    e = np.pad(e, ((0, 0), (0, packed.ep - e.shape[1])))
-    ed = tfm.point_view_embedding(packed, torch.from_numpy(dirs), S)
-    flat = tfm.fused_query_pe_ref(packed, torch.from_numpy(e), ed)
-    np.testing.assert_allclose(flat.numpy().reshape(N, S, -1), want, **TOL)
-
-
-@pytest.mark.parametrize("case", CASES)
-def test_pe_plain_backward_matches_pallas_outside(case):
-    """autograd through fused_query(pe_mode='outside') on the CPU (K6's plain version,
-    mapped to the parameter dict by autograd over pack_params) vs jax.grad through the
-    Pallas pe_mode='outside' backward in interpret mode, at atol 3e-5 / rtol 3e-4."""
-    mr, mrv, D, W, skips, ins = case
-    jp, pts, dirs = _setup(*case)
-    q_pal = jfm.make_pallas_query_fn(mr, mrv, D, skips, tile_fwd=16, tile_bwd=16,
-                                     interpret=True, pe_mode="outside")
-    w = jnp.asarray(np.linspace(0.5, 1.5, 4 + ins + 1), jnp.float32)
-    want = jax.grad(lambda p: jnp.sum(jnp.tanh(q_pal(p, jnp.asarray(pts), jnp.asarray(dirs))) * w))(jp)
-    runtime.reset_launches()
-    got = _tanh_loss_grads(make_fused_query_fn(mr, mrv, D, skips, "outside"), _torch(jp), pts, dirs)
-    assert not any(runtime.LAUNCHES.values())
-    assert set(got) == set(want)
-    for k in sorted(want):
-        np.testing.assert_allclose(got[k], np.asarray(want[k]), **GRAD_TOL, err_msg=k)
-
-
-@pytest.mark.parametrize("case", CASES)
-def test_pe_stub_columns_exact_and_wall(case):
-    """pe_mode='outside': the stubs' sigma (and the rgb stub's instance) columns are
-    bit-equal to the full model's, the query agrees with K1's plain version in fp32,
-    and an instance-only cotangent reaches no trunk, sigma or rgb block of K6's plain
-    version, in fp32 and in bf16."""
-    mr, mrv, D, W, skips, ins = case
-    jp, pts, dirs = _setup(*case)
-    args = (mr, mrv, D, skips)
-    pts_t, dirs_t = torch.from_numpy(pts), torch.from_numpy(dirs)
-    full = tfm.fused_query(tfm.pack_params(_torch(jp), *args), pts_t, dirs_t, "outside")
-    sig = tfm.fused_query(tfm.pack_params(_torch(sigma_stub_params(jp)), *args), pts_t, dirs_t,
-                          "outside")
-    rgb = tfm.fused_query(tfm.pack_params(_torch(rgb_stub_params(jp)), *args), pts_t, dirs_t,
-                          "outside")
-    assert torch.equal(sig[..., 3], full[..., 3])
-    assert torch.equal(rgb[..., 3:], full[..., 3:])
-    kt = tfm.fused_query(tfm.pack_params(_torch(jp), *args), pts_t, dirs_t, "kernel_t")
-    torch.testing.assert_close(full, kt, atol=1e-6, rtol=1e-6)
-
-    packed = tfm.pack_params(_torch(jp), *args)
-    N, S, _ = pts.shape
-    g = torch.zeros((N * S, full.shape[-1]))
-    g[:, 4:] = 1.0
-    for dtype in (torch.float32, torch.bfloat16):
-        e = tfm.pe_points_ref(packed, pts_t.reshape(-1, 3), dtype)
-        ed = tfm.point_view_embedding(packed, dirs_t, S, dtype)
-        dw, db = tfm.fused_query_pe_bwd_ref(packed, e, ed, g, dtype)
-        *trunk, sig_l, head, out = packed.layers
-        for layer in (*trunk, sig_l):
-            assert not dw[layer.w_off:layer.w_off + layer.K * layer.N].any(), layer
-            assert not db[layer.b_off:layer.b_off + layer.N].any(), layer
-        head_w = dw[head.w_off:head.w_off + head.K * head.N].view(head.K, head.N)
-        assert not head_w[:, :packed.hr].any() and head_w[packed.edp:, packed.hr:].any()
 
 
 def test_pe_backward_plan_reads_the_embeddings_in_place():
@@ -621,35 +518,23 @@ def _interpret_bwd_plan(packed, plan, e, ed, g):
     return dw, db
 
 
-@pytest.mark.parametrize("rows", ["ray_table", "point_dirs", "embedded"])
+@pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("case", CASES)
-def test_bwd_plan_tables_interpret_to_the_plain_backward(case, rows):
+def test_bwd_plan_tables_interpret_to_the_plain_backward(case, mode):
     """The tables the backward kernels read (csrc/fused_mlp_bwd.cuh, and the stash the
-    training forward writes), read by a plain interpreter, give the plain backward's
-    (dw, db) at 2e-5, for each kernel pair's Rows (K2 per-ray viewdirs, K4 per-point
-    directions, K6 over given embeddings); and they meet TMA's constraints: 128-byte
-    segment offsets and 16-byte row pitches."""
+    training forward writes), read by a plain interpreter over the route's plain
+    embeddings, give the plain backward's (dw, db) at 2e-5, for each kernel pair's Rows
+    (K2 per-ray viewdirs, K4 per-point directions, K6 over given embeddings); and they
+    meet TMA's constraints: 128-byte segment offsets and 16-byte row pitches."""
     mr, mrv, D, W, skips, ins = case
     jp, pts, dirs = _setup(*case, N=7, S=9)
     packed = tfm.pack_params(_torch(jp), mr, mrv, D, skips)
     N, S, _ = pts.shape
     pts_t, dirs_t = torch.from_numpy(pts), torch.from_numpy(dirs)
     g = torch.from_numpy(np.random.RandomState(1).randn(N * S, packed.c4).astype(np.float32))
-    rnd = tfm._rounder(torch.float32)
-    if rows == "ray_table":
-        e, ed = tfm._embeddings(packed, pts_t, dirs_t, rnd)
-        want = tfm.fused_query_bwd_ref(packed, pts_t, dirs_t, g.reshape(N, S, -1))
-        plan = tfm._bwd_plan(packed, N, S, 132, rows)
-    elif rows == "point_dirs":
-        fp, fd = pts_t.reshape(-1, 3), tfm._point_dirs(dirs_t, S)
-        e, ed = tfm._embeddings_kpe(packed, fp, fd, rnd)
-        want = tfm.fused_query_kpe_bwd_ref(packed, fp, fd, g)
-        plan = tfm._bwd_plan(packed, N * S, 1, 132, rows)
-    else:
-        e = tfm.pe_points_ref(packed, pts_t.reshape(-1, 3))
-        ed = tfm.point_view_embedding(packed, dirs_t, S)
-        want = tfm.fused_query_pe_bwd_ref(packed, e, ed, g)
-        plan = tfm._bwd_plan(packed, N * S, 1, 132, rows)
+    e, ed = tfm.ROUTES[mode].embeddings(packed, pts_t, dirs_t, torch.float32)
+    want = tfm.query_bwd(packed, pts_t, dirs_t, g.reshape(N, S, -1), mode)
+    plan = tfm._query_plan(mode, packed, N, S, 132)
     dw, db = _interpret_bwd_plan(packed, plan, e, ed, g)
     torch.testing.assert_close(dw, want[0], atol=2e-5, rtol=2e-5)
     torch.testing.assert_close(db, want[1], atol=2e-5, rtol=2e-5)
@@ -734,7 +619,8 @@ def test_fwd_plan_tables_interpret_to_the_plain_forward(case, stub):
     e = tfm.pe_points_ref(packed, torch.from_numpy(pts).reshape(-1, 3))
     ed = tfm.point_view_embedding(packed, torch.from_numpy(dirs), pts.shape[1])
     got = _interpret_fwd_plan(packed, wt, e, ed)
-    torch.testing.assert_close(got, tfm.fused_query_pe_ref(packed, e, ed), atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(got, tfm._walk_fwd(packed, e, ed, torch.float32), atol=2e-5,
+                               rtol=2e-5)
     plan = tfm._fwd_plan(packed)
     assert all(off % 8 == 0 and pitch % 8 == 0 and 0 < rows <= 256
                for off, _, rows, pitch in plan["maps"])
