@@ -79,9 +79,10 @@
    (configs/manipulation/dmsr/manipulation_translation/study.txt: N_test 2048,
    N_samples 64, N_importance 128; target_label 1, an object of the scene):
    manipulator_eval over 2 views with K = 1 under pallas_pe_mode = kernel (exactly
-   chunks x (3 + 3K) K3 launches per view) against the manipulated ground truth, and
-   manipulator_demo over 2 frames with K = 2 (a translation and a sin deform) under
-   the default mode (chunks x 9 K1 launches per frame). Every map finite and in
+   3 + 3K K3 launches from the wrappers, at the renderer's warm-up chunk: its chunks
+   are CUDA graph replays) against the manipulated ground truth, and manipulator_demo
+   over 2 frames with K = 2 (a translation and a sin deform) under the default mode (9
+   K1 launches, at its warm-up chunk). Every map finite and in
    range; one manipulated view with deterministic draws through the kernel query and
    through the plain PyTorch query on the card, its rgb and labels held to the render
    phase's bars (the target bundle's coarse rgb is printed beside them). Prints ms per
@@ -266,10 +267,10 @@ TRAIN_STEPS = 20
 KPE_TRAIN_STEPS = 5
 SCANNET_TRAIN_STEPS = 5
 SEED = 0
-# the image renderer's wrappers count a chunk's launches once, at its warm-up: the capture
+# the renderers' wrappers count a chunk's launches once, at its warm-up: the capture
 # records them uncounted and every chunk of a render on the card is a replay
-# (render/renderer.py, kernels/runtime.count_launch); replay_counts reads the replays'
-# kernels on the device
+# (render/renderer.py, render/manipulator.py, kernels/runtime.count_launch); replay_counts
+# reads the image renderer's replays' kernels on the device
 RENDER_CHUNK_LAUNCHES = 1
 
 
@@ -1798,7 +1799,7 @@ def mani_phase(device):
     ev = manipulator_eval(cfg, pc, pf, scene.poses, scene.hwk, trans_dicts, None, scene.ins_rgbs,
                           gt_rgbs=scene.images, gt_labels=scene.gt_labels, device=device)
     eval_launches = dict(runtime.LAUNCHES)
-    expect(eval_launches, "fused_mlp_fwd_kpe", chunks * (3 + 3 * 1) * n_views, "mani_eval")
+    expect(eval_launches, "fused_mlp_fwd_kpe", (3 + 3 * 1) * RENDER_CHUNK_LAUNCHES, "mani_eval")
     for img in ev["images"]:
         _check_maps("mani_eval", rgb=img)
 
@@ -1812,7 +1813,7 @@ def mani_phase(device):
     dm = manipulator_demo(demo_cfg, pc, pf, base.hwk, demo_poses(objs, 2), None, base.ins_rgbs,
                           objs, base.view_poses, base.ins_map, device=device)
     demo_launches = dict(runtime.LAUNCHES)
-    expect(demo_launches, "fused_mlp_fwd", chunks * (3 + 3 * 2) * 2, "mani_demo")
+    expect(demo_launches, "fused_mlp_fwd", (3 + 3 * 2) * RENDER_CHUNK_LAUNCHES, "mani_demo")
     for img in dm["images"]:
         _check_maps("mani_demo", rgb=img)
 

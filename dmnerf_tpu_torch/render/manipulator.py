@@ -15,15 +15,35 @@ predicted instance labels.
    set (64 ∪ 128 ∪ K x 128 target samples), queries the original and each target bundle
    with the fine model on it, exchanges again and composites. It also returns the last
    target bundle's coarse rgb and accumulated instance map.
- * ``make_manipulator_renderer``: a Python loop over chunks of ``cfg.N_test`` rays
-   under ``torch.no_grad``, rays zero-padded to whole chunks, parameters prepared (for
-   the kernel: packed) once per render. Under a profiler each chunk records the span
+ * ``make_manipulator_renderer``: chunks of ``cfg.N_test`` rays under
+   ``torch.no_grad``, rays zero-padded to whole chunks, parameters prepared (for the
+   kernel: packed) once per render. Under a profiler each chunk records the span
    ``mani.chunk`` (``utils.spans``).
 
-Randomness: ``sample_pdf`` draws either come injected (``u``: a list of 2K+2
-uniforms [n, N_importance] indexed like the JAX package's ``jax.random.split(key,
-2K+2)``; entries 0, 1+k and K+1 are read) or from a ``torch.Generator``; with
-neither, the draws are the deterministic linspace of the JAX package's ``key=None``.
+On the card every chunk is a replay of one CUDA graph (``_ChunkGraph``), which holds the
+whole of ``_manipulate`` for the renderer's K targets: both passes' point queries, both
+exchanges, the composites and the union sort. A renderer's first render warms the chunk
+up on a side stream and captures it (``utils.device.capture_graph``, as the image
+renderer does). The graph reads static buffers: one chunk's rays [1 + K, N_test, 6]
+(the original's, then each target's; origins, then directions; the padding rays'
+guard runs in the graph), the K+2 importance uniforms [K+2, N_test, N_importance], the
+move labels [K] (int64; the exchange compares against each, so one graph serves any
+labels) and the four prepared parameter sets, into which every render first copies the
+ones it is given. It writes rgb, ins (air kept) and tar_rgb side by side into one static
+[N_test, 3 + ins_num + 1 + 3]. A render draws each chunk's uniforms into their buffer
+from the chunk's generator in the eager order (``draw_ahead``), or fills it once with
+the linspace without a generator, copies the chunk's rays in, replays and copies the
+maps out: nothing goes to the host inside the loop. Rays of another device or dtype,
+parameters of other shapes or another K raise; a failed capture or replay raises, and
+there is no eager path on the card. On the CPU the chunks run eagerly, one by one
+(``fn.eager``). Both give the same maps, bit for bit: the same kernels run in the same
+order on the same inputs and draws. ``exchange`` and ``composite_maps`` are looked up in
+this module's globals when the chunk runs, which on the card is at capture.
+
+Randomness: ``sample_pdf`` draws either come injected (``u``: at least K+2 uniforms
+[n, N_importance], such as the JAX package's ``jax.random.split(key, 2K+2)``; entries
+0, 1+k and K+1 are read) or from a ``torch.Generator``; with neither, the draws are the
+deterministic linspace of the JAX package's ``key=None``.
 """
 
 from __future__ import annotations
@@ -38,6 +58,7 @@ from dmnerf_tpu_torch.core.compositor import composite, composite_maps
 from dmnerf_tpu_torch.core.mlp import rgb_stub_params
 from dmnerf_tpu_torch.core.pipeline import QueryFn, make_query_fn
 from dmnerf_tpu_torch.core.sampling import sample_pdf, z_val_sample
+from dmnerf_tpu_torch.utils.device import capture_graph, copy_params, static_params
 from dmnerf_tpu_torch.utils.spans import span
 
 
@@ -125,8 +146,8 @@ def _manipulate(cfg: Config, query_fn: QueryFn, prepared, ori_rays, tar_rays,
     K = len(tar_rays)
     if K != len(move_labels):
         raise ValueError(f"{K} target bundles for {len(move_labels)} move labels")
-    if u is not None and len(u) != 2 * K + 2:
-        raise ValueError(f"want 2K+2 = {2 * K + 2} injected draws, got {len(u)}")
+    if u is not None and len(u) < K + 2:
+        raise ValueError(f"want at least K+2 = {K + 2} injected draws, got {len(u)}")
 
     def draws(i):
         return None if u is None else u[i]
@@ -205,7 +226,9 @@ def manipulate_rays(
 def make_manipulator_renderer(cfg: Config, n_targets: int, query_fn: Optional[QueryFn] = None):
     """Chunked full-image manipulation renderer. Returns fn(params_coarse,
     params_fine, ori_o [N,3], ori_d [N,3], tar_o [K,N,3], tar_d [K,N,3], move_labels,
-    generator=None) -> dict(rgb [N,3], ins [N,ins+1], tar_rgb [N,3]).
+    generator=None) -> dict(rgb [N,3], ins [N,ins+1], tar_rgb [N,3]) on the rays'
+    device; on the card each chunk is a CUDA graph replay (``_ChunkGraph``).
+    ``fn.eager`` is the same render with the chunks run one by one, the CPU's path.
 
     Without a generator the importance draws are the deterministic linspace; with one,
     each chunk draws from a generator of its own, seeded from it (the JAX package
@@ -221,13 +244,16 @@ def make_manipulator_renderer(cfg: Config, n_targets: int, query_fn: Optional[Qu
             x = torch.cat([x, z], dim=-2)
         return x
 
-    def guard(d):
-        # padding rays get d = 1, not 0/0 viewdirs
-        return torch.where(torch.sum(d * d, -1, keepdim=True) > 0, d, torch.ones_like(d))
+    def chunk_seeds(generator, nc):
+        """One seed a chunk, drawn from the caller's generator; None without one."""
+        if generator is None:
+            return None
+        return torch.randint(0, 2 ** 62, (nc,), generator=generator,
+                             device=generator.device).tolist()
 
     @torch.no_grad()
-    def run(params_coarse, params_fine, ori_o, ori_d, tar_o, tar_d, move_labels,
-            generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    def run_eager(params_coarse, params_fine, ori_o, ori_d, tar_o, tar_d, move_labels,
+                  generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         if tar_o.shape[0] != n_targets:
             raise ValueError(f"renderer built for {n_targets} targets, got {tar_o.shape[0]}")
         n = ori_o.shape[0]
@@ -235,10 +261,7 @@ def make_manipulator_renderer(cfg: Config, n_targets: int, query_fn: Optional[Qu
         ori_o_p, ori_d_p = padded(ori_o, pad), padded(ori_d, pad)
         tar_o_p, tar_d_p = padded(tar_o, pad), padded(tar_d, pad)
         nc = (n + pad) // chunk
-        seeds = None
-        if generator is not None:
-            seeds = torch.randint(0, 2 ** 62, (nc,), generator=generator,
-                                  device=generator.device).tolist()
+        seeds = chunk_seeds(generator, nc)
         prepared = _prepare(query_fn, params_coarse, params_fine, rgb_stub=True)
         outs = []
         for c in range(nc):
@@ -247,14 +270,109 @@ def make_manipulator_renderer(cfg: Config, n_targets: int, query_fn: Optional[Qu
                 gen = None
                 if seeds is not None:
                     gen = torch.Generator(device=ori_o.device).manual_seed(seeds[c])
-                out = _manipulate(cfg, query_fn, prepared, (ori_o_p[s], guard(ori_d_p[s])),
-                                  [(tar_o_p[k, s], guard(tar_d_p[k, s]))
+                out = _manipulate(cfg, query_fn, prepared, (ori_o_p[s], _guard(ori_d_p[s])),
+                                  [(tar_o_p[k, s], _guard(tar_d_p[k, s]))
                                    for k in range(n_targets)],
                                   move_labels, generator=gen)
                 outs.append({k: out[k] for k in ("rgb", "ins", "tar_rgb")})
         return {k: torch.cat([o[k] for o in outs])[:n] for k in outs[0]}
 
+    graph: Optional[_ChunkGraph] = None
+
+    @torch.no_grad()
+    def run(params_coarse, params_fine, ori_o, ori_d, tar_o, tar_d, move_labels,
+            generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        nonlocal graph
+        if ori_o.device.type != "cuda":
+            return run_eager(params_coarse, params_fine, ori_o, ori_d, tar_o, tar_d,
+                             move_labels, generator)
+        with torch.cuda.device(ori_o.device):
+            prepared = _prepare(query_fn, params_coarse, params_fine, rgb_stub=True)
+            if graph is None:
+                graph = _ChunkGraph(cfg, query_fn, prepared, n_targets, ori_o)
+            n = ori_o.shape[0]
+            seeds = chunk_seeds(generator, -(-n // chunk))
+            return graph(prepared, ori_o, ori_d, tar_o, tar_d, move_labels, seeds)
+
+    run.eager = run_eager
     return run
+
+
+def draw_ahead(u: torch.Tensor, generator: torch.Generator) -> None:
+    """A chunk's K+2 importance draws into ``u`` [K+2, n, N_importance], in the order
+    ``_manipulate`` draws them from ``generator``: the original's pass 1, each target's,
+    then the original's pass 2. Each row equals that draw bit for bit (``torch.rand`` is
+    ``uniform_`` on a fresh tensor)."""
+    for row in u:
+        row.uniform_(generator=generator)
+
+
+def _guard(d):
+    """Padding rays get d = 1, not 0/0 viewdirs."""
+    return torch.where(torch.sum(d * d, -1, keepdim=True) > 0, d, torch.ones_like(d))
+
+
+class _ChunkGraph:
+    """One chunk of a manipulated render, the whole of ``_manipulate`` for K targets,
+    captured as one CUDA graph on the current device (the module docstring);
+    ``graph(prepared, ori_o, ori_d, tar_o, tar_d, move_labels, seeds)`` renders all the
+    rays by its replays. It serves rays of the device and dtype it was captured for,
+    parameters of the same shapes and K move labels: others raise."""
+
+    def __init__(self, cfg: Config, query_fn: QueryFn, prepared, n_targets: int,
+                 like: torch.Tensor):
+        # every tensor the graph reads is held here: a freed one's memory would be reused
+        self.prepared = tuple(static_params(p) for p in prepared)
+        self.K, chunk = n_targets, cfg.N_test
+        dev, dtype = like.device, like.dtype
+        self.rays = torch.zeros((1 + n_targets, chunk, 6), dtype=dtype, device=dev)
+        self.u = torch.zeros((n_targets + 2, chunk, cfg.N_importance), dtype=dtype, device=dev)
+        self.labels = torch.zeros((n_targets,), dtype=torch.int64, device=dev)
+        self.linspace = torch.linspace(0.0, 1.0, cfg.N_importance, dtype=dtype, device=dev)
+
+        def chunk_maps():
+            o, d = self.rays[..., :3], _guard(self.rays[..., 3:])
+            out = _manipulate(cfg, query_fn, self.prepared, (o[0], d[0]),
+                              [(o[1 + k], d[1 + k]) for k in range(n_targets)],
+                              self.labels, u=self.u)
+            return torch.cat([out["rgb"], out["ins"], out["tar_rgb"]], -1), out["rgb"].shape[-1]
+
+        self.graph, (self.maps, self.n_rgb) = capture_graph(torch.cuda.Stream(), chunk_maps,
+                                                            chunk_maps)
+
+    def __call__(self, prepared, ori_o, ori_d, tar_o, tar_d, move_labels,
+                 seeds: Optional[List[int]]) -> Dict[str, torch.Tensor]:
+        want = f"{self.rays.dtype} on {self.rays.device}"
+        took = {f"{x.dtype} on {x.device}" for x in (ori_o, ori_d, tar_o, tar_d)}
+        if took != {want}:
+            raise ValueError(f"the manipulator's chunk graph takes rays of {want}, not "
+                             f"{', '.join(sorted(took))}: make a renderer for each")
+        if tar_o.shape[0] != self.K:
+            raise ValueError(f"renderer built for {self.K} targets, got {tar_o.shape[0]}")
+        if len(move_labels) != self.K:
+            raise ValueError(f"{self.K} target bundles for {len(move_labels)} move labels")
+        for static, p in zip(self.prepared, prepared):
+            copy_params(static, p)
+        self.labels.copy_(torch.as_tensor(move_labels, dtype=torch.int64))
+        if seeds is None:
+            self.u.copy_(self.linspace.expand_as(self.u))
+        n, chunk = ori_o.shape[0], self.rays.shape[1]
+        rays = torch.cat([torch.cat([ori_o, ori_d], -1)[None], torch.cat([tar_o, tar_d], -1)])
+        out = torch.empty((n + (-n) % chunk, self.maps.shape[-1]), dtype=self.maps.dtype,
+                          device=self.maps.device)
+        for c, c0 in enumerate(range(0, n, chunk)):
+            m = min(chunk, n - c0)
+            with span("mani.chunk", m):
+                if seeds is not None:
+                    draw_ahead(self.u, torch.Generator(device=self.u.device).manual_seed(seeds[c]))
+                self.rays[:, :m].copy_(rays[:, c0:c0 + m])
+                if m < chunk:
+                    self.rays[:, m:].zero_()
+                self.graph.replay()
+                out[c0:c0 + chunk].copy_(self.maps)
+        r, w = self.n_rgb, self.maps.shape[-1]
+        return {"rgb": out[:n, :r].contiguous(), "ins": out[:n, r:w - r].contiguous(),
+                "tar_rgb": out[:n, w - r:].contiguous()}
 
 
 def deform_ray_offsets(H: int, W: int, deform_func: str, deform_v: float) -> np.ndarray:

@@ -34,7 +34,7 @@ from dmnerf_tpu_torch.core.compositor import composite, composite_maps
 from dmnerf_tpu_torch.core.mlp import sigma_stub_params
 from dmnerf_tpu_torch.core.pipeline import QueryFn, make_query_fn, render_rays
 from dmnerf_tpu_torch.core.sampling import sample_pdf, z_val_sample
-from dmnerf_tpu_torch.utils.device import capture_graph
+from dmnerf_tpu_torch.utils.device import capture_graph, copy_params, static_params
 from dmnerf_tpu_torch.utils.spans import span
 
 
@@ -125,7 +125,7 @@ class _ChunkGraph:
 
     def __init__(self, render_chunk, pc, pf, z_coarse: torch.Tensor):
         # every tensor the graph reads is held here: a freed one's memory would be reused
-        self.pc, self.pf, self.z = _static(pc), _static(pf), z_coarse
+        self.pc, self.pf, self.z = static_params(pc), static_params(pf), z_coarse
         self.rays = torch.zeros((z_coarse.shape[0], 6), dtype=z_coarse.dtype,
                                 device=z_coarse.device)
         o, d = self.rays[:, :3], self.rays[:, 3:]
@@ -142,8 +142,8 @@ class _ChunkGraph:
             raise ValueError(f"the renderer's chunk graph takes {self.rays.dtype} rays on "
                              f"{self.rays.device}, not {rays_o.dtype} on {rays_o.device}: "
                              f"make a renderer for each")
-        _copy_into(self.pc, pc)
-        _copy_into(self.pf, pf)
+        copy_params(self.pc, pc)
+        copy_params(self.pf, pf)
         n, chunk = rays_o.shape[0], self.rays.shape[0]
         rays = torch.cat([rays_o, rays_d], -1)
         out = torch.empty((n + (-n) % chunk, self.maps.shape[-1]), dtype=self.maps.dtype,
@@ -159,24 +159,3 @@ class _ChunkGraph:
         r = self.n_rgb
         return {"rgb": out[:n, :r].contiguous(), "ins": out[:n, r + 1:].contiguous(),
                 "depth": out[:n, r].contiguous()}
-
-
-def _static(prepared):
-    """Tensors of their own holding ``prepared``: a parameter dict's (the plain query's),
-    or the kernels' ``Packed``."""
-    if isinstance(prepared, dict):
-        return {k: v.clone() for k, v in prepared.items()}
-    return prepared.clone()
-
-
-def _copy_into(static, prepared) -> None:
-    """``prepared``'s values into ``static`` (``_static``'s), in place; raises on a
-    parameter of another shape."""
-    if not isinstance(static, dict):
-        static.copy_(prepared)
-        return
-    if {k: v.shape for k, v in static.items()} != {k: v.shape for k, v in prepared.items()}:
-        raise ValueError("parameters of other shapes than the renderer's chunk graph was "
-                         "captured with: make a renderer for each")
-    for k, v in static.items():
-        v.copy_(prepared[k])

@@ -1,6 +1,7 @@
 """Device resolution for the port's entry points, this process's place in a
 ``torch.distributed`` group (one process a GPU; ``parallel.mesh``), and the CUDA graph
-capture that the packed steps and the image renderer share."""
+capture that the packed steps and the two renderers share, with the renderers' static
+copies of their prepared parameters."""
 
 from __future__ import annotations
 
@@ -75,3 +76,24 @@ def capture_graph(stream: torch.cuda.Stream, warmup: Callable[[], object],
     with torch.cuda.graph(graph, stream=stream):
         out = body()
     return graph, out
+
+
+def static_params(prepared):
+    """Tensors of their own holding ``prepared``: a parameter dict's (the plain query's),
+    or the kernels' ``Packed``."""
+    if isinstance(prepared, dict):
+        return {k: v.clone() for k, v in prepared.items()}
+    return prepared.clone()
+
+
+def copy_params(static, prepared) -> None:
+    """``prepared``'s values into ``static`` (``static_params``'s), in place; raises on a
+    parameter of another shape."""
+    if not isinstance(static, dict):
+        static.copy_(prepared)
+        return
+    if {k: v.shape for k, v in static.items()} != {k: v.shape for k, v in prepared.items()}:
+        raise ValueError("parameters of other shapes than the renderer's chunk graph was "
+                         "captured with: make a renderer for each")
+    for k, v in static.items():
+        v.copy_(prepared[k])

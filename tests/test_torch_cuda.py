@@ -9,9 +9,10 @@ fused render passes) take rays and depths and composite in the kernel; K9/K10 (t
 probes) take a hidden activation and their own layer tables, and the forward template
 they joined still gives K1/K3/K5 their earlier bits. In an NCCL world of one process
 (``parallel.mesh``) the sharded step matches the unsharded one, and a pack of sharded
-steps, its all-reduces captured in the graph, equals its steps one at a time. These tests
-need a CUDA card of capability 9.0 and skip without one; they import no JAX, so they
-run on a machine that has none:
+steps, its all-reduces captured in the graph, equals its steps one at a time. The image
+renderer and the manipulator, each chunk one CUDA graph replay, equal their eager chunk
+loops bit for bit. These tests need a CUDA card of capability 9.0 and skip without one;
+they import no JAX, so they run on a machine that has none:
 
     python -m pytest tests/test_torch_cuda.py -q
 """
@@ -1146,6 +1147,102 @@ def test_image_renderer_chunk_is_one_graph_launch(cuda):
     assert cs._count(prof["copies"], "DtoH") == 0
     assert not any(runtime.LAUNCHES.values())
     assert cs._count(prof["kernels"], "fused_mlp_fwd_kernel") == 2 * 3
+
+
+# ---- the manipulator: a chunk as one CUDA graph replay (render/manipulator.py) ----
+
+def _mani_case(cuda, pe_mode, K, seed=0, ins=32):
+    """The flagship's widths and DM-SR's sampling under ``pe_mode`` (None: K1; 'kernel':
+    K3): a renderer of K targets and a coarse and a fine model of ``ins`` instances."""
+    from dmnerf_tpu_torch.configs import Config
+    from dmnerf_tpu_torch.render.manipulator import make_manipulator_renderer
+
+    cfg = Config(ins_num=ins, near=4.0, far=15.0, pallas_pe_mode=pe_mode)
+    pc, _, _, _ = _inputs((10, 4, 8, 256, (4,), ins, 1, 1), cuda, seed=seed)
+    pf, _, _, _ = _inputs((10, 4, 8, 256, (4,), ins, 1, 1), cuda, seed=seed + 1)
+    return make_manipulator_renderer(cfg, K), pc, pf
+
+
+def _mani_rays(n, K, cuda, seed):
+    """The original bundle (its last ray a zero direction) and K targets moved off it."""
+    o, d, _ = _rays(n, 1, cuda, seed=seed, near=4.0, far=15.0)
+    shift = torch.tensor([[0.3 * (k + 1), -0.1 * k, 0.0] for k in range(K)], device=cuda)
+    return o, d, o[None] + shift[:, None], d[None].expand(K, -1, -1).contiguous()
+
+
+def _seeded(seed):
+    return {} if seed is None else {"generator": torch.Generator(device="cuda").manual_seed(seed)}
+
+
+@pytest.mark.parametrize("seed", [None, 3])
+@pytest.mark.parametrize("pe_mode", [None, "kernel"])
+@pytest.mark.parametrize("K", [1, 2])
+def test_manipulator_graph_equals_the_eager_loop(cuda, K, pe_mode, seed):
+    """A manipulated view of 3 chunks, the last one padded, rendered by chunk graph
+    replays against the same view with its chunks run one by one (``fn.eager``): rgb, ins
+    and tar_rgb bit for bit, at K = 1 and 2, under K1 and under K3, with the
+    deterministic draws and with a device generator (the same seed on both sides)."""
+    run, pc, pf = _mani_case(cuda, pe_mode, K)
+    rays = _mani_rays(VIEW_RAYS[1], K, cuda, seed=K)
+    labels = (8, 3)[:K]
+    got = run(pc, pf, *rays, labels, **_seeded(seed))
+    want = run.eager(pc, pf, *rays, labels, **_seeded(seed))
+    assert _same_maps(got, want)
+    assert bool(torch.isfinite(got["rgb"]).all()) and got["ins"].shape == (VIEW_RAYS[1], 33)
+
+
+@pytest.mark.parametrize("K", [1, 2])
+def test_manipulator_graph_takes_new_parameters_and_labels(cuda, K, monkeypatch):
+    """One renderer, three renders: model A with labels (8,), model B with other labels,
+    then A again. Each equals the eager render of its own models and labels bit for bit,
+    and nothing is captured after the first."""
+    from dmnerf_tpu_torch.render import manipulator
+
+    run, pc_a, pf_a = _mani_case(cuda, None, K, seed=0)
+    _, pc_b, pf_b = _mani_case(cuda, None, K, seed=7)
+    rays = _mani_rays(VIEW_RAYS[1], K, cuda, seed=4)
+    renders = [(pc_a, pf_a, (8, 3)[:K]), (pc_b, pf_b, (5, 8)[:K]), (pc_a, pf_a, (8, 3)[:K])]
+    for i, (pc, pf, labels) in enumerate(renders):
+        assert _same_maps(run(pc, pf, *rays, labels, **_seeded(i)),
+                          run.eager(pc, pf, *rays, labels, **_seeded(i)))
+        monkeypatch.setattr(manipulator, "capture_graph", None)     # a recapture would raise
+
+
+def test_manipulator_graph_refuses_what_it_was_not_captured_for(cuda):
+    """A renderer captured for K = 1 and one pair of models raises on two target bundles,
+    on a fine model with another instance count and on rays of another dtype; the models
+    it was captured for still render as the eager loop does."""
+    run, pc, pf = _mani_case(cuda, None, 1)
+    _, _, pf16 = _mani_case(cuda, None, 1, seed=9, ins=16)
+    o, d, to, td = _mani_rays(2048, 2, cuda, seed=1)
+    run(pc, pf, o, d, to[:1], td[:1], (8,))
+    with pytest.raises(ValueError):
+        run(pc, pf, o, d, to, td, (8, 3))
+    with pytest.raises(ValueError):
+        run(pc, pf16, o, d, to[:1], td[:1], (8,))
+    with pytest.raises(ValueError):
+        run(pc, pf, *(x.double() for x in (o, d, to[:1], td[:1])), (8,))
+    assert _same_maps(run(pc, pf, o, d, to[:1], td[:1], (8,)),
+                      run.eager(pc, pf, o, d, to[:1], td[:1], (8,)))
+
+
+@pytest.mark.parametrize("seed", [None, 3])
+def test_manipulator_chunk_is_one_graph_launch(cuda, seed):
+    """A render of 3 chunks after the capture, under torch.profiler: 3 cudaGraphLaunch,
+    no stream capture, no kernel launched by the port's wrappers from the host, the six
+    point queries of K = 1 a chunk, and no copy to the host but, with a generator, the
+    one read of the chunks' seeds before the loop."""
+    cs = _chip_smoke()
+    run, pc, pf = _mani_case(cuda, None, 1)
+    rays = _mani_rays(VIEW_RAYS[1], 1, cuda, seed=5)
+    run(pc, pf, *rays, (8,), **_seeded(seed))
+    runtime.reset_launches()
+    prof = cs.profile_calls(lambda: run(pc, pf, *rays, (8,), **_seeded(seed)))
+    assert prof["api"].get("cudaGraphLaunch", 0) == 3
+    assert prof["api"].get("cudaStreamBeginCapture", 0) == 0
+    assert cs._count(prof["copies"], "DtoH") == (seed is not None)
+    assert not any(runtime.LAUNCHES.values())
+    assert cs._count(prof["kernels"], "fused_mlp_fwd_kernel") == 6 * 3
 
 
 @pytest.fixture

@@ -177,6 +177,60 @@ def test_manipulator_renderer_ragged_chunks_matches_jax():
         assert torch.equal(a[k], b[k]) and torch.isfinite(a[k]).all(), k
 
 
+@pytest.mark.parametrize("K", [1, 2])
+def test_manipulate_draws_ahead_equal_the_generator_path(K):
+    """The K+2 uniforms drawn ahead into one buffer (``draw_ahead``, as the card's chunk
+    graph draws them) and injected give ``_manipulate``'s generator path bit for bit, with
+    the move labels as ints and as the graph's int64 tensor: entries 0, 1+k and K+1 are
+    the generator's draws in its order. The draws move the maps off the linspace."""
+    from dmnerf_tpu_torch.core.pipeline import make_query_fn
+
+    _, tp = _params(7)
+    ori, tar = _bundles(9, 12, K)
+    cfg = TConfig(pallas_pe_mode="kernel", **KW)
+    q = make_query_fn(cfg)
+    prepared = tman._prepare(q, tp, tp, rgb_stub=True)
+    labels = [2, 5][:K]
+    want = tman._manipulate(cfg, q, prepared, *_torch_args(ori, tar), labels,
+                            generator=torch.Generator().manual_seed(11))
+    u = torch.empty((K + 2, 12, KW["N_importance"]))
+    tman.draw_ahead(u, torch.Generator().manual_seed(11))
+    det = tman._manipulate(cfg, q, prepared, *_torch_args(ori, tar), labels)
+    assert not torch.equal(det["rgb"], want["rgb"])
+    for moves in (labels, torch.tensor(labels)):
+        got = tman._manipulate(cfg, q, prepared, *_torch_args(ori, tar), moves, u=u)
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+def test_manipulator_renderer_cpu_stays_eager(monkeypatch, seeded):
+    """On the CPU the manipulation renderer captures no CUDA graph and runs its chunks one
+    by one: 50 rays in chunks of 16, K = 2, its maps equal ``fn.eager``'s bit for bit,
+    with the deterministic draws and with a generator (the same seed on both sides)."""
+    class NoGraph:
+        def __init__(self, *a, **k):
+            raise AssertionError("a CUDA graph made for CPU tensors")
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", NoGraph)
+    _, tpc = _params(1)
+    _, tpf = _params(2)
+    ori, tar = _bundles(3, 50, 2)
+    run = tman.make_manipulator_renderer(TConfig(pallas_pe_mode="kernel", N_test=16, **KW), 2)
+    args = (tpc, tpf, torch.from_numpy(ori[0]), torch.from_numpy(ori[1]),
+            torch.from_numpy(np.stack([o for o, _ in tar])),
+            torch.from_numpy(np.stack([d for _, d in tar])), (2, 5))
+
+    def gen():
+        return {"generator": torch.Generator().manual_seed(4)} if seeded else {}
+
+    got, want = run(*args, **gen()), run.eager(*args, **gen())
+    assert set(got) == set(want) == {"rgb", "ins", "tar_rgb"}
+    for k in want:
+        assert got[k].shape == want[k].shape and torch.equal(got[k], want[k]), k
+
+
 @pytest.mark.parametrize("func", ["sin", "ex", "linear", "abs_linear", "ln"])
 def test_deform_ray_offsets_match_jax(func):
     got = tman.deform_ray_offsets(23, 7, func, 0.18)
