@@ -38,17 +38,25 @@
 //     for dX = G W^T) in flight through a 4-stage mbarrier ring. Two consumer
 //     warpgroups each own 64 points and run wgmma m64n256k16 with A from registers:
 //     the previous layer's fp32 accumulator, masked by the stashed ReLU output and
-//     cast to bf16, is exactly the next product's A fragment, so a cotangent never
-//     goes through shared memory. The ReLU mask is the layer's stash tile, copied into
-//     shared memory with cp.async while the product runs. Each layer's masked
-//     cotangent is also written bf16 to device memory for dW, and its fp32 column sums
-//     reduced over the tile in a fixed order into a per-tile bias partial. The walk is
-//     bound by those stash reads and cotangent writes, which the epilogue issues
-//     between products: the tensor cores wait for them. The head step reads two
-//     weight blocks as two K-chunks: the head's h rows x rgb-hidden columns, then the
-//     sigma block, whose A fragment takes the place of the first instance columns;
-//     the instance head's cotangent reaches dW but never the trunk (its detach), and
-//     nothing reaches ed.
+//     cast to bf16, is exactly the next product's A fragment. Each consumer warpgroup
+//     has a 32 KB tile in shared memory, four [64 points][64 columns] boxes with
+//     128-byte swizzle, through which a layer's ReLU mask comes in and its bf16
+//     cotangent (dW's operand) goes out, box by box: a second producer thread, the
+//     mover, loads each box of the layer's stash block by TMA while the product runs;
+//     the epilogue reads the box with ldmatrix, masks the accumulator (one bf16x2
+//     compare for two columns), writes the cotangent over the mask with stmatrix,
+//     fences and arrives on the box's barrier; the mover sends the box to d_pre as a
+//     TMA tensor store (rows at or past P clipped by the map), waits until the store
+//     has read it and loads the next step's box into it. So no consumer issues a
+//     global store or waits for one, and nothing more than the boxes' barrier phase is
+//     live across the products. The fp32 column sums are reduced over each
+//     warp's rows by halving exchanges (7 shuffles for 8 columns, pairing the rows as a
+//     butterfly would) and over the 8 warps in order into a per-tile bias partial. (The
+//     out and sigma layers' cotangents, g's columns cast to bf16 before the walk, the
+//     consumers store themselves.) The head step reads two weight blocks as two
+//     K-chunks: the head's h rows x rgb-hidden columns, then the sigma block, whose A
+//     fragment takes the place of the first instance columns; the instance head's
+//     cotangent reaches dW but never the trunk (its detach), and nothing reaches ed.
 //  2. dw_kernel: dW_l = A_l^T d_pre_l with the points as the reduction dimension, one
 //     job per (layer, A segment): A is a stash segment or an input embedding, both
 //     [point][feature] rows, so A and B are MN-major wgmma operands. A CTA owns 128
@@ -86,10 +94,11 @@ constexpr int MAX_CHUNKS = 4 * MAX_LAYERS + 8;
 constexpr int MAX_DMAPS = 3 * MAX_LAYERS + 4;
 constexpr int MAX_JOBS = 2 * MAX_LAYERS + 2;
 
-constexpr int LDM = N_MAX + 8;             // pitch of the ReLU-mask tile (conflict-free reads)
+constexpr uint32_t MBOX_BYTES = 64 * 128;  // bwd_data: a [64 points][64 columns] bf16 TMA box
+constexpr uint32_t MTILE_BYTES = 4 * MBOX_BYTES;  // a consumer warpgroup's mask / cotangent tile
 constexpr size_t BWD_DBS = (size_t)2 * 8 * N_MAX * 4 + (size_t)2 * 8 * 4;
-constexpr size_t BWD_SMEM = 1024 + (size_t)W_STAGES * WBOX_BYTES + BWD_DBS + (size_t)PT * LDM * 2 +
-                            (size_t)2 * W_STAGES * 8;
+constexpr size_t BWD_SMEM = 1024 + (size_t)W_STAGES * WBOX_BYTES + 2 * (size_t)MTILE_BYTES +
+                            BWD_DBS + (size_t)(2 * W_STAGES + 4) * 8;
 constexpr size_t DW_SMEM =
     1024 + (size_t)DW_STAGES * DW_STAGE_BOXES * DBOX_BYTES + (size_t)2 * DW_STAGES * 8;
 
@@ -99,15 +108,15 @@ struct WChunk {
   int map, k0, a0, n16;
 };
 
-// A backward-data step: its product's chunks, and the layer it writes (N columns,
-// bias at b_off, ReLU mask and cotangent blocks of pitch N).
+// A backward-data step: its product's chunks, and the layer it writes (N columns, bias
+// at b_off; its ReLU mask and cotangent blocks are the step's maps in BwdParams).
 struct BStep {
   int N, chunk0, n_chunks, b_off;
-  long long mask_off, dpre_off;
 };
 
 struct BwdParams {
   CUtensorMap wmaps[MAX_WMAPS];
+  CUtensorMap mask_maps[MAX_LAYERS], dpre_maps[MAX_LAYERS];   // [P, N] blocks, 64 x 64 boxes
   BStep steps[MAX_LAYERS];
   WChunk chunks[MAX_CHUNKS];
   long long P, dpre_out, dpre_sigma;
@@ -142,33 +151,51 @@ __device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// (lo, hi) where `keep` and the bf16 halves of the stashed ReLU output m are > 0, else 0:
+// the fp32 compare of each half (NaN and -0 fail, subnormals pass), both in one setp.
+__device__ __forceinline__ void relu_mask(uint32_t m, bool keep, float lo, float hi, float& xlo,
+                                          float& xhi) {
+  asm("{\n.reg .pred k, p, q;\n"
+      "setp.ne.b32 k, %3, 0;\n"
+      "setp.gt.and.bf16x2 p|q, %2, %6, k;\n"
+      "selp.f32 %0, %4, 0f00000000, p;\n"
+      "selp.f32 %1, %5, 0f00000000, q;\n}\n"
+      : "=f"(xlo), "=f"(xhi)
+      : "r"(m), "r"((uint32_t)keep), "f"(lo), "f"(hi), "r"(0u));
+}
+
 // ---- launch 1: the cotangent of every layer, walking the table in reverse ----
 __global__ void __launch_bounds__(BW_THREADS, 1)
 bwd_data_kernel(const __grid_constant__ BwdParams p, const float* __restrict__ gout,
-                const __nv_bfloat16* __restrict__ stash, __nv_bfloat16* __restrict__ dpre,
-                float* __restrict__ dbpart) {
+                __nv_bfloat16* __restrict__ dpre, float* __restrict__ dbpart) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   __nv_bfloat16* wbuf = reinterpret_cast<__nv_bfloat16*>(smem);          // [stage][256][64]
-  float* dbs = reinterpret_cast<float*>(smem + W_STAGES * WBOX_BYTES);   // [2][8 warps][N_MAX]
+  unsigned char* mtile = smem + W_STAGES * WBOX_BYTES;                    // [wg][4 boxes][64][64]
+  float* dbs = reinterpret_cast<float*>(mtile + 2 * MTILE_BYTES);         // [2][8 warps][N_MAX]
   float* sigs = dbs + 2 * 8 * N_MAX;                                      // [2][8 warps]
-  __nv_bfloat16* mtile = reinterpret_cast<__nv_bfloat16*>(smem + W_STAGES * WBOX_BYTES + BWD_DBS);
-  uint64_t* full = reinterpret_cast<uint64_t*>(mtile + PT * LDM);          // [PT][LDM]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sigs + 2 * 8);
   uint64_t* empty = full + W_STAGES;
+  uint64_t* mfull = empty + W_STAGES;   // [wg][box]: the step's mask box has arrived
+  uint64_t* staged = mfull + 8;         // [wg][box]: the step's cotangent box is written
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < W_STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], CONSUMERS / 32);
     }
+    for (int b = 0; b < 8; ++b) {
+      mbar_init(&mfull[b], 1);
+      mbar_init(&staged[b], WG / 32);
+    }
     mbar_fence_init();
   }
   __syncthreads();
 
   if (threadIdx.x >= CONSUMERS) {
-    // ---- producer: the weight boxes of every step of every tile, in order ----
     regs_dec<24>();
     if (threadIdx.x == CONSUMERS) {
+      // ---- producer: the weight boxes of every step of every tile, in order ----
       int stage = 0;
       uint32_t ph = 0;
       for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
@@ -185,15 +212,64 @@ bwd_data_kernel(const __grid_constant__ BwdParams p, const float* __restrict__ g
           }
         }
       }
+    } else if (threadIdx.x == CONSUMERS + WG / 4) {
+      // ---- mover: each warpgroup's tile takes a step's ReLU mask in and, box by box as
+      // the consumers write the cotangent over it, sends that out to d_pre; a box of the
+      // next step's mask comes in once its store has read the box ----
+      const int P = (int)p.P;
+      int tile = blockIdx.x, s = 0;
+      uint32_t ph = 0;
+      auto load = [&](int tl, int st, int w, int q) {
+        const int rw = tl * PT + 64 * w;
+        uint64_t* bar = &mfull[4 * w + q];
+        if (rw < P && q * 64 < p.steps[st].N) {
+          mbar_expect_tx(bar, MBOX_BYTES);
+          tma_load_2d(mtile + w * MTILE_BYTES + q * MBOX_BYTES, &p.mask_maps[st], bar, q * 64, rw);
+        } else {
+          mbar_arrive(bar);   // no point or column of this box: nothing to read
+        }
+      };
+      // the box loops are unrolled, so their indices are constants: the producer
+      // warpgroup's 24 registers then hold the loop without a spill
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int w = 0; w < 2; ++w) load(tile, 0, w, q);
+      for (;;) {
+        int nt = tile, ns = s + 1;
+        if (ns == p.n_steps) {
+          ns = 0;
+          nt += gridDim.x;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int w = 0; w < 2; ++w) {
+            const int rw = tile * PT + 64 * w;
+            mbar_wait(&staged[4 * w + q], ph);
+            if (rw < P && q * 64 < p.steps[s].N)
+              tma_store_2d(&p.dpre_maps[s], mtile + w * MTILE_BYTES + q * MBOX_BYTES, q * 64, rw);
+            bulk_commit();
+            if (nt < p.n_tiles) {
+              bulk_wait_read<0>();
+              load(nt, ns, w, q);
+            }
+          }
+        ph ^= 1;
+        if (nt >= p.n_tiles) break;
+        tile = nt;
+        s = ns;
+      }
+      bulk_wait_all<0>();
     }
   } else {
     // ---- consumers: warpgroup wg owns points [64 wg, 64 wg + 64) of each tile ----
     regs_inc<240>();
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int tid = threadIdx.x, wg = tid >> 7, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
     const long long P = p.P;
     int stage = 0, par = 0;
-    uint32_t ph = 0;
+    uint32_t ph = 0, mph = 0;
     float acc[128];
     uint32_t af[16][4];
 #pragma unroll
@@ -201,7 +277,7 @@ bwd_data_kernel(const __grid_constant__ BwdParams p, const float* __restrict__ g
 
     for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
       const long long p0 = (long long)tile * PT;
-      const long long r0 = p0 + (tid >> 7) * 64 + (warp & 3) * 16 + g, r1 = r0 + 8;
+      const long long r0 = p0 + wg * 64 + (warp & 3) * 16 + g, r1 = r0 + 8;
       const bool v0 = r0 < P, v1 = r1 < P;
       float* dbrow = dbpart + (long long)tile * p.total_b;
 
@@ -295,18 +371,8 @@ bwd_data_kernel(const __grid_constant__ BwdParams p, const float* __restrict__ g
               for (int v = 0; v < 4; ++v) af[ks][v] = sf[v];
             }
         }
-        // the ReLU mask of the layer this step writes, [PT][N] from the stash, copied
-        // into shared memory while the product runs
-        {
-          const __nv_bfloat16* src = stash + st.mask_off;
-          const int chunks = st.N / 8;
-          for (int c = tid; c < PT * chunks; c += CONSUMERS) {
-            const int r = c / chunks, q = c - r * chunks;
-            if (p0 + r < P) cp_async16(mtile + r * LDM + q * 8, src + (p0 + r) * st.N + q * 8);
-          }
-          cp_async_commit();
-        }
-        // dX = G W^T chunk by chunk, the weight boxes from the ring
+        // dX = G W^T chunk by chunk, the weight boxes from the ring; meanwhile the mover
+        // brings the ReLU mask of the layer this step writes into the warpgroup's tile
         for (int c = 0; c < st.n_chunks; ++c) {
           const WChunk ch = p.chunks[st.chunk0 + c];
           mbar_wait(&full[stage], ph);
@@ -330,51 +396,78 @@ bwd_data_kernel(const __grid_constant__ BwdParams p, const float* __restrict__ g
             ph ^= 1;
           }
         }
-        // epilogue: mask by the stashed ReLU output, write d_pre bf16, keep it as the
-        // next product's A fragments, and sum the fp32 columns over the warp's rows
-        cp_async_wait<0>();
-        bar_sync(1, CONSUMERS);
-        const int lr0 = (int)(r0 - p0);
-        __nv_bfloat16* dp = dpre + st.dpre_off;
+        // epilogue: mask by the stashed ReLU output, write the bf16 cotangent over the mask
+        // in the tile for the mover's stores, keep it as the next product's A fragments,
+        // and sum the fp32 columns over the warp's rows. The thread's rows are r = 16 (warp
+        // % 4) + g and r + 8 of the warpgroup's 64, its columns 8 i + 2 t, + 1 of each
+        // 16-byte chunk i of a box: the accumulator's layout, which ldmatrix and stmatrix
+        // move four 8 x 8 pieces at a time. Row r's chunk i of box q lies at byte 8 KB q +
+        // 128 r + 16 (i ^ (r & 7)) of the tile (128-byte swizzle). Lane l gives the row
+        // 16 (warp % 4) + l % 8 (+ 8 for l & 8), chunk i (+ 1 for l & 16), so its address
+        // is (lb + 8 KB q) ^ 16 i for even i. The addresses derive from a thread index read
+        // here, so none lives across the products.
+        const uint32_t tx = tid_opaque();
+        const uint32_t lb = (smem_u32(mtile) + (tx >> 7) * MTILE_BYTES +
+                             128 * (((tx >> 1) & 48) + (tx & 15)) + 16 * (tx & 7)) ^ (tx & 16);
         float* dbw = dbs + (par * 8 + warp) * N_MAX;
 #pragma unroll
-        for (int j = 0; j < 32; ++j) {
-          const int col = j * 8 + 2 * t;
-          float x0 = 0.f, x1 = 0.f, x2 = 0.f, x3 = 0.f;
-          uint32_t h0 = 0u, h1 = 0u;
-          if (col < st.N) {
-            if (v0) {
-              const __nv_bfloat162 m =
-                  *reinterpret_cast<const __nv_bfloat162*>(mtile + lr0 * LDM + col);
-              x0 = __bfloat162float(m.x) > 0.f ? acc[4 * j] : 0.f;
-              x1 = __bfloat162float(m.y) > 0.f ? acc[4 * j + 1] : 0.f;
-            }
-            if (v1) {
-              const __nv_bfloat162 m =
-                  *reinterpret_cast<const __nv_bfloat162*>(mtile + (lr0 + 8) * LDM + col);
-              x2 = __bfloat162float(m.x) > 0.f ? acc[4 * j + 2] : 0.f;
-              x3 = __bfloat162float(m.y) > 0.f ? acc[4 * j + 3] : 0.f;
-            }
-            h0 = bf16x2_bits(x0, x1);
-            h1 = bf16x2_bits(x2, x3);
-            if (v0) *reinterpret_cast<uint32_t*>(dp + r0 * st.N + col) = h0;
-            if (v1) *reinterpret_cast<uint32_t*>(dp + r1 * st.N + col) = h1;
-          }
-          af[j >> 1][(j & 1) * 2] = h0;
-          af[j >> 1][(j & 1) * 2 + 1] = h1;
-          float s0 = x0 + x2, s1 = x1 + x3;
+        for (int q = 0; q < 4; ++q) {
+          mbar_wait(&mfull[4 * wg + q], mph);
 #pragma unroll
-          for (int m = 4; m < 32; m <<= 1) {
-            s0 += __shfl_xor_sync(0xffffffffu, s0, m);
-            s1 += __shfl_xor_sync(0xffffffffu, s1, m);
+          for (int hb = 0; hb < 2; ++hb) {
+            // four column groups j = j0 + jj at a time: mk[k] holds the mask words of j0 +
+            // 2 k (rows r, r + 8) and of j0 + 2 k + 1, bf16 columns col (low half) and col +
+            // 1 (high half); rows past P and columns past N hold what the tile holds, which
+            // `keep` drops
+            const int j0 = 8 * q + 4 * hb;
+            uint32_t mk[2][4], hk[2][4];
+            float cs[8];
+            ldmatrix_x4((lb + q * MBOX_BYTES) ^ (16 * (4 * hb)), mk[0]);
+            ldmatrix_x4((lb + q * MBOX_BYTES) ^ (16 * (4 * hb + 2)), mk[1]);
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              const int j = j0 + jj, col = j * 8 + 2 * t;
+              const bool in = col < st.N, u0 = in && v0, u1 = in && v1;
+              const uint32_t m0 = mk[jj >> 1][2 * (jj & 1)], m1 = mk[jj >> 1][2 * (jj & 1) + 1];
+              float x0, x1, x2, x3;
+              relu_mask(m0, u0, acc[4 * j], acc[4 * j + 1], x0, x1);
+              relu_mask(m1, u1, acc[4 * j + 2], acc[4 * j + 3], x2, x3);
+              const uint32_t h0 = bf16x2_bits(x0, x1), h1 = bf16x2_bits(x2, x3);
+              hk[jj >> 1][2 * (jj & 1)] = h0;
+              hk[jj >> 1][2 * (jj & 1) + 1] = h1;
+              af[j >> 1][(j & 1) * 2] = h0;
+              af[j >> 1][(j & 1) * 2 + 1] = h1;
+              cs[2 * jj] = x0 + x2;
+              cs[2 * jj + 1] = x1 + x3;
+            }
+            stmatrix_x4((lb + q * MBOX_BYTES) ^ (16 * (4 * hb)), hk[0]);
+            stmatrix_x4((lb + q * MBOX_BYTES) ^ (16 * (4 * hb + 2)), hk[1]);
+            // the 8 column sums over the warp's 8 row pairs, by halving exchanges: at each
+            // level a lane keeps the half its g bit names and adds its partner's part of
+            // it, so the sums pair rows as a butterfly over each value would, (g, g ^ 1),
+            // then (g, g ^ 2), then (g, g ^ 4), and lane g ends with value 4 (g & 1) +
+            // 2 ((g >> 1) & 1) + (g >> 2): column group j0 + v / 2, column 2 t + v % 2
+#pragma unroll
+            for (int lv = 0; lv < 3; ++lv) {
+              const int n = 4 >> lv;
+              const bool hi = (g >> lv) & 1;
+#pragma unroll
+              for (int i = 0; i < n; ++i) {
+                const float send = hi ? cs[i] : cs[n + i];
+                cs[i] = (hi ? cs[n + i] : cs[i]) + __shfl_xor_sync(0xffffffffu, send, 4 << lv);
+              }
+            }
+            const int v = 4 * (g & 1) + 2 * ((g >> 1) & 1) + (g >> 2);
+            const int vcol = (j0 + (v >> 1)) * 8 + 2 * t + (v & 1);
+            if (vcol < st.N) dbw[vcol] = cs[0];
           }
-          if (g == 0 && col < st.N) {
-            dbw[col] = s0;
-            dbw[col + 1] = s1;
-          }
+          // hand the box to the mover's store
+          fence_proxy_async();
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&staged[4 * wg + q]);
         }
-        // the 8 warps' sums in order; dbs alternates, so one barrier a use suffices, and
-        // it also ends every read of the mask tile before the next step refills it
+        mph ^= 1;
+        // the 8 warps' sums in order; dbs alternates, so one barrier a use suffices
         bar_sync(1, CONSUMERS);
         if (tid < st.N) {
           float sum = 0.f;
@@ -573,8 +666,15 @@ inline int run_fused_mlp_bwd(const void* e_in, const void* ed_in, const void* we
   for (int i = 0; i < n_wmaps; ++i, row += 3)
     if ((err = encode_map(&bp.wmaps[i], wb + row[0], row[1], row[2], row[1], WBOX_K, WBOX_N)))
       return err;
-  for (int s = 0; s < n_steps; ++s, row += 6)
-    bp.steps[s] = BStep{(int)row[0], (int)row[1], (int)row[2], (int)row[3], row[4], row[5]};
+  const __nv_bfloat16* sb = reinterpret_cast<const __nv_bfloat16*>(stash);
+  __nv_bfloat16* db16 = reinterpret_cast<__nv_bfloat16*>(dpre);
+  for (int s = 0; s < n_steps; ++s, row += 6) {
+    bp.steps[s] = BStep{(int)row[0], (int)row[1], (int)row[2], (int)row[3]};
+    // the step's ReLU mask (a stash block) and its cotangent block, [P, N] each
+    if ((err = encode_map(&bp.mask_maps[s], sb + row[4], row[0], P, row[0], 64, 64)) ||
+        (err = encode_map(&bp.dpre_maps[s], db16 + row[5], row[0], P, row[0], 64, 64)))
+      return err;
+  }
   for (int c = 0; c < n_wchunks; ++c, row += 4)
     bp.chunks[c] = WChunk{(int)row[0], (int)row[1], (int)row[2], (int)row[3]};
   for (int s = 0; s < n_steps; ++s)
@@ -590,10 +690,8 @@ inline int run_fused_mlp_bwd(const void* e_in, const void* ed_in, const void* we
   dp.chunk = h[11];
   dp.total_w = total_w;
   dp.n_jobs = n_jobs;
-  const __nv_bfloat16* srcs[4] = {reinterpret_cast<const __nv_bfloat16*>(stash),
-                                  reinterpret_cast<const __nv_bfloat16*>(ed_in),
-                                  reinterpret_cast<const __nv_bfloat16*>(e_in),
-                                  reinterpret_cast<const __nv_bfloat16*>(dpre)};
+  const __nv_bfloat16* srcs[4] = {sb, reinterpret_cast<const __nv_bfloat16*>(ed_in),
+                                  reinterpret_cast<const __nv_bfloat16*>(e_in), db16};
   for (int i = 0; i < n_dmaps; ++i, row += 3) {
     if (row[0] < 0 || row[0] > 3 || srcs[row[0]] == nullptr) return (int)cudaErrorInvalidValue;
     if ((err = encode_map(&dp.maps[i], srcs[row[0]] + row[1], row[2], P, row[2], 64, KP)))
@@ -631,9 +729,7 @@ inline int run_fused_mlp_bwd(const void* e_in, const void* ed_in, const void* we
                                 (int)DW_SMEM)) != cudaSuccess)
     return (int)e;
   const unsigned grid = (unsigned)(bp.n_tiles < n_sms ? bp.n_tiles : n_sms);
-  bwd_data_kernel<<<grid, BW_THREADS, BWD_SMEM, st>>>(
-      bp, g, reinterpret_cast<const __nv_bfloat16*>(stash), reinterpret_cast<__nv_bfloat16*>(dpre),
-      dbpart);
+  bwd_data_kernel<<<grid, BW_THREADS, BWD_SMEM, st>>>(bp, g, db16, dbpart);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   dw_kernel<<<(unsigned)(tiles * n_chunks), BW_THREADS, DW_SMEM, st>>>(dp, dwpart);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;

@@ -1,5 +1,5 @@
 // Shared pieces of the fused PE + DM-NeRF MLP kernels (fused_mlp_fwd.cuh,
-// fused_mlp_bwd.cuh): the tiling, cp.async, the in-kernel positional encoding (whose
+// fused_mlp_bwd.cuh): the tiling, the in-kernel positional encoding (whose
 // bits K7, fused_pe.cu, builds too) and the 128-byte swizzle of the forward's embedding
 // tiles.
 #pragma once
@@ -14,21 +14,6 @@ constexpr int BM = 128;                  // points per tile
 constexpr int THREADS = 256;             // threads of the reductions
 constexpr int N_MAX = 256;               // widest layer output
 constexpr int MAX_LAYERS = 20;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Element (r, c) of a [rows][64] bf16 tile with 128-byte swizzle, as TMA writes it
 // and wgmma reads it (the 16-byte chunk index XOR the row index mod 8; the tile sits on

@@ -324,20 +324,6 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// threadIdx.x, read where it is called: the compiler cannot move the read, nor what
-// derives from it, out of a loop
-__device__ __forceinline__ uint32_t tid_opaque() {
-  uint32_t t;
-  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(t));
-  return t;
-}
-
-// A 32-bit store to the shared-memory address `a`; kept in order with the other asm
-// statements (the fences and barriers), free to move against plain loads.
-__device__ __forceinline__ void st_shared_b32(uint32_t a, uint32_t v) {
-  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a), "r"(v));
-}
-
 // relu(lo), relu(hi) rounded to bf16, packed (one cvt.rn.relu.bf16x2.f32).
 __device__ __forceinline__ uint32_t relu_bf16x2(float lo, float hi) {
   uint32_t r;

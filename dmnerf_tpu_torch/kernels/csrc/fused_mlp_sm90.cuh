@@ -73,6 +73,35 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// threadIdx.x, read where it is called: the compiler cannot move the read, nor what
+// derives from it, out of a loop
+__device__ __forceinline__ uint32_t tid_opaque() {
+  uint32_t t;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(t));
+  return t;
+}
+
+// A 32-bit store to the shared-memory address `a`; kept in order with the other asm
+// statements (the fences and barriers), free to move against plain loads.
+__device__ __forceinline__ void st_shared_b32(uint32_t a, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a), "r"(v));
+}
+
+// Four 8 x 8 b16 matrices between shared memory and a warp's registers (ldmatrix,
+// stmatrix): lanes 8 m .. 8 m + 7 give the addresses of matrix m's rows (16 bytes each),
+// and lane l holds row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 of matrix m in d[m],
+// the layout of an mma accumulator's 8 x 8 pieces. Kept in order with the other asm
+// statements.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t a, uint32_t (&d)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void stmatrix_x4(uint32_t a, const uint32_t (&d)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
+               "r"(d[0]), "r"(d[1]), "r"(d[2]), "r"(d[3]));
+}
+
 // ---- TMA: one thread copies a 2D box into shared memory; completion counts bytes
 // on `bar`. Out-of-bounds elements of the box are filled with zeros. ----
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,

@@ -6,12 +6,14 @@ time is read at the flagship fine training query (configs/train/dmsr/study.txt:
 
     python3 scripts/bwd_data_ablation_torch.py
 
-Variants: 'full' (the kernel as it is), 'no_store' (the bf16 cotangent stores left
-out), 'no_mask' (the ReLU-mask tile neither loaded nor applied), 'no_shuffle' (the
-bias column sums' warp shuffles left out), 'bare' (all three left out: the products,
-the ring and the A-fragment conversion alone). Only 'full' computes the gradients
-(it is checked bit for bit against the package's own launch); the others time the
-walk and nothing else. The sources are copied and edited under build/ablation/, and
+Variants: 'full' (the kernel as it is), 'no_store' (the mover's TMA stores of the bf16
+cotangents to d_pre left out; the consumers still write them into their tiles),
+'no_mask' (the ReLU mask neither loaded into the tiles, nor read, nor applied),
+'no_shuffle' (the bias column sums' warp shuffles left out), 'bare' (all three left
+out: the products, the ring, the A-fragment conversion and the tiles' hand-offs
+alone). Only 'full' computes the gradients (it is checked bit for bit against the
+package's own launch); the others time the walk and nothing else. Each edit names the
+source text it cuts, and the script raises when the source no longer holds it. The sources are copied and edited under build/ablation/, and
 each variant is compiled with nvcc as dmnerf_tpu_torch.kernels.runtime compiles the
 kernels. The last line of stdout is one JSON object of bwd_data ms per variant, with
 the card's name and power limit.
@@ -27,17 +29,32 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-STORE = ("            if (v0) *reinterpret_cast<uint32_t*>(dp + r0 * st.N + col) = h0;\n"
-         "            if (v1) *reinterpret_cast<uint32_t*>(dp + r1 * st.N + col) = h1;\n")
-MASK_LOAD = ("            if (p0 + r < P) cp_async16(mtile + r * LDM + q * 8, "
-             "src + (p0 + r) * st.N + q * 8);\n")
-MASK_USE = [(f"x{i} = __bfloat162float(m.{c}) > 0.f ? acc[4 * j{o}] : 0.f;", f"x{i} = acc[4 * j{o}];")
-            for i, c, o in ((0, "x", ""), (1, "y", " + 1"), (2, "x", " + 2"), (3, "y", " + 3"))]
+STORE = ("            if (rw < P && q * 64 < p.steps[s].N)\n"
+         "              tma_store_2d(&p.dpre_maps[s], mtile + w * MTILE_BYTES + q * MBOX_BYTES, "
+         "q * 64, rw);\n")
+MASK_LOAD = ("""        if (rw < P && q * 64 < p.steps[st].N) {
+          mbar_expect_tx(bar, MBOX_BYTES);
+          tma_load_2d(mtile + w * MTILE_BYTES + q * MBOX_BYTES, &p.mask_maps[st], bar, q * 64, rw);
+        } else {
+          mbar_arrive(bar);   // no point or column of this box: nothing to read
+        }
+""", "        mbar_arrive(bar);\n")
+MASK_READ = ("            ldmatrix_x4((lb + q * MBOX_BYTES) ^ (16 * (4 * hb)), mk[0]);\n"
+             "            ldmatrix_x4((lb + q * MBOX_BYTES) ^ (16 * (4 * hb + 2)), mk[1]);\n", "")
+MASK_USE = [(f"relu_mask(m{i}, u{i}, acc[4 * j{a}], acc[4 * j{b}], x{2 * i}, x{2 * i + 1});",
+             f"x{2 * i} = acc[4 * j{a}], x{2 * i + 1} = acc[4 * j{b}];")
+            for i, a, b in ((0, "", " + 1"), (1, " + 2", " + 3"))]
 SHUFFLE = """#pragma unroll
-          for (int m = 4; m < 32; m <<= 1) {
-            s0 += __shfl_xor_sync(0xffffffffu, s0, m);
-            s1 += __shfl_xor_sync(0xffffffffu, s1, m);
-          }"""
+            for (int lv = 0; lv < 3; ++lv) {
+              const int n = 4 >> lv;
+              const bool hi = (g >> lv) & 1;
+#pragma unroll
+              for (int i = 0; i < n; ++i) {
+                const float send = hi ? cs[i] : cs[n + i];
+                cs[i] = (hi ? cs[n + i] : cs[i]) + __shfl_xor_sync(0xffffffffu, send, 4 << lv);
+              }
+            }
+"""
 
 
 def _cut(src: str, edits) -> str:
@@ -49,7 +66,7 @@ def _cut(src: str, edits) -> str:
 
 
 def variants(src: str) -> dict:
-    store, mask, shuffle = [(STORE, "")], [(MASK_LOAD, "")] + MASK_USE, [(SHUFFLE, "")]
+    store, mask, shuffle = [(STORE, "")], [MASK_LOAD, MASK_READ] + MASK_USE, [(SHUFFLE, "")]
     return {"full": src, "no_store": _cut(src, store), "no_mask": _cut(src, mask),
             "no_shuffle": _cut(src, shuffle), "bare": _cut(src, store + mask + shuffle)}
 

@@ -11,6 +11,7 @@ writes) are held to the plain backward through a plain interpreter of them.
 
 The CUDA kernel itself runs only on the card: tests/test_torch_cuda.py."""
 
+import os
 import subprocess
 import sys
 
@@ -695,3 +696,33 @@ def test_pe_plan_interprets_to_the_plain_embedding(multires, P):
         assert torch.equal(writes[:P], torch.ones_like(writes[:P])) and not writes[P:].any()
         assert torch.equal(e[:P].view(torch.int16), want.view(torch.int16))
         assert torch.isnan(e[P:].float()).all()
+
+
+# what each variant of scripts/bwd_data_ablation_torch.py leaves out of bwd_data_kernel:
+# text of csrc/fused_mlp_bwd.cuh that the variant must no longer hold
+ABLATED = {"no_store": ["tma_store_2d(&p.dpre_maps"],
+           "no_mask": ["tma_load_2d(mtile", "ldmatrix_x4(", "relu_mask(m"],
+           "no_shuffle": ["__shfl_xor_sync(0xffffffffu, send"]}
+ABLATED["bare"] = sum(ABLATED.values(), [])
+
+
+@pytest.mark.parametrize("variant", sorted(ABLATED))
+def test_bwd_data_ablation_cuts_the_kernel_source(variant):
+    """The ablation script builds its variants by cutting named text out of the backward
+    kernel's source, and raises where the source no longer holds it: on this source each
+    variant leaves out what it names, and keeps the rest of the kernel."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts",
+                        "bwd_data_ablation_torch.py")
+    spec = importlib.util.spec_from_file_location("bwd_data_ablation_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    src = (runtime.CSRC / "fused_mlp_bwd.cuh").read_text()
+    got = mod.variants(src)
+    assert got["full"] == src and set(got) == {"full", *ABLATED}
+    for text in ABLATED[variant]:
+        assert text in src and text not in got[variant], text
+    assert "wgmma_rs_n256(" in got[variant] and "stmatrix_x4(" in got[variant]
+    with pytest.raises(RuntimeError, match="no longer holds"):
+        mod.variants(src.replace("tma_store_2d(&p.dpre_maps", "tma_store_2d(&p.other_maps"))
