@@ -4,7 +4,7 @@
 
 0. Requires a CUDA card of capability 9.0 and prints its name and power limit.
    TF32 is off, so the fp32 plain path is really fp32.
-1. Builds every kernel of the render, train and manipulation paths and the probes (K1-K11) from
+1. Builds every kernel of the render, train and manipulation paths and the probes (K1-K12) from
    dmnerf_tpu_torch/kernels/csrc with nvcc (sm_90a), one process per source, all
    started together, and prints the build time and the compiler's register report.
 2. Kernel phase, at the flagship model's width (configs/test/dmsr/study.txt:
@@ -53,25 +53,34 @@
    N_importance 128, over_penalize with tolerance = deta_w = 0.05, lrate 5e-4,
    perturb on) for 20 steps through dmnerf_tpu_torch.train on a synthetic DM-SR scene
    built in memory (256x256, 4 train views, 4 objects, ins_num 32, near 1, far 8).
-   Exactly 2 launches of each kernel per step and one of K11 (the coarse and fine
-   assignments), every logged loss finite (the instance loss included), and one step's
-   full-loss gradients through the kernels within 2e-2 per parameter of the plain
-   PyTorch query's, from the same parameters, batch and draws. Prints the steady ms per
-   step and rays/s. Then K11 against its plain version on 1,000 seeded [2, 32, 32]
-   batches (uniform costs, integer costs with ties, NaN and +-inf entries, wide costs;
-   valid 0 ... 32), col4row equal, through the entry (the warp design at n <= 32) and
-   the block design forced (assignment_block); then timed at that step's own costs and
-   valid count: device_us from 50 back-to-back launches (device_ms), profiler_us (K11's
-   own duration in torch.profiler over 50 launches), the plain version's and the host
-   scipy solve's times (the step's earlier host round trip, a yardstick), and the
-   bounds: chain_floor_us, the Dijkstra iterations those costs need over the valid rows
-   times the latency of the shortest warp step one iteration can take (a dependent
-   shared load, redux.sync, vote.ballot + __ffs, a shuffle; the chain probe, which
-   calls nothing of K11) plus one L2 load's latency, and bytes_bound_us (costs read
+   Exactly 2 launches of each kernel per step (K12's forward and backward among them) and
+   one of K11 (the coarse and fine assignments), every logged loss finite (the instance
+   loss included), and one step's full-loss gradients through the kernels within 2e-2 per
+   parameter of the plain PyTorch query's, from the same parameters, batch and draws.
+   Prints the steady ms per step and rays/s. Then K11 against its plain version on 1,000
+   seeded [2, 32, 32] batches (uniform costs, integer costs with ties, NaN and +-inf
+   entries, wide costs; valid 0 ... 32), col4row equal, through the entry (the warp
+   design at n <= 32) and the block design forced (assignment_block); then timed at that
+   step's own costs and valid count: device_us from 50 back-to-back launches (device_ms),
+   profiler_us (K11's own duration in torch.profiler over 50 launches), the plain
+   version's and the host scipy solve's times (the step's earlier host round trip, a
+   yardstick), and the bounds: chain_floor_us, the Dijkstra iterations those costs need
+   over the valid rows times the latency of the shortest warp step one iteration can take
+   (a dependent shared load, redux.sync, vote.ballot + __ffs, a shuffle; the chain probe,
+   which calls nothing of K11) plus one L2 load's latency, and bytes_bound_us (costs read
    once, col4row written once, over 3.35 TB/s); the earlier bound by the block design's
    own argmin latency beside them (own_block_argmin_*), and the K11 kernels' register
    lines. Phase 15 adds in_pack_us: K11's durations in a replayed pack.
    (scripts/assignment_anatomy_torch.py times a parent's build in turns with this one.)
+   Then K12 (kernels/instance_terms.py) against its plain fp32 version at the train cells'
+   four bundles (3072 rays of 192 and 64 samples, C' 33 and 17) with one logit in ten at
+   +-30: the logits, each ray's BCE sums and raw's gradient through a loss of them all
+   within 1e-5 (sum order), the mask counts and the penalizer's gradient zeros exactly the
+   plain version's, rgb and sigma's gradient zero, two launches the same bits; each
+   launch's device ms (device_ms) beside the plain forward's and autograd backward's
+   device busy ms and the bytes bound, in the `kernels` line as instance_terms_fwd / _bwd.
+   The step's gradient above runs K12 on the kernel side (2 launches of each) against
+   composite and the penalizer from raw on the plain side.
 6. Train phase under pallas_pe_mode = kernel: the same for 5 steps, with exactly 2
    launches of K3 and of K4 per step and none of K1 or K2.
 7. Manipulation phase, on a synthetic DM-SR scene built in memory (256x256, 4
@@ -190,13 +199,14 @@
    at a time from the same draws: parameters, Adam's moments and counts and every step's
    aux bit for bit; train() with steps_per_dispatch 10 over the same 30 steps logs 0,
    10, 20 and ends in the same state. One more pack under torch.profiler: exactly 20
-   launches of K1's forward and of K2's bwd_data, 10 of K11, no device-to-host copy, one
-   cudaGraphLaunch. Then 10 steps each way timed in turns (unpacked, packed, packed,
-   unpacked: CUDA events, ms a step and rays/s, peak device memory) and profiled (device
-   busy share, host runtime-API ms without the synchronising waits, cudaLaunchKernel
-   calls a step), beside the card's name and power limit. The same checks (without the
-   timing) for 2 packs of 5 ScanNet steps under pallas_pe_mode = outside: 10 launches
-   each of K7, K5 and K6's bwd_data and 5 of K11 a pack.
+   launches of K1's forward, of K2's bwd_data and of K12's forward and backward, 10 of
+   K11, no device-to-host copy, one cudaGraphLaunch. Then 10 steps each way timed in
+   turns (unpacked, packed, packed, unpacked: CUDA events, ms a step and rays/s, peak
+   device memory) and profiled (device busy share, host runtime-API ms without the
+   synchronising waits, cudaLaunchKernel calls a step), beside the card's name and power
+   limit. The same checks (without the timing) for 2 packs of 5 ScanNet steps under
+   pallas_pe_mode = outside: 10 launches each of K7, K5, K6's bwd_data and K12's two
+   kernels and 5 of K11 a pack.
 16. Sharded phase (dmnerf_tpu_torch.parallel.mesh), at the flagship train config of
    phase 5. (a) An NCCL world of one process on the card: 5 sharded steps (every sum of
    the losses and the gradient all-reduced) against the unsharded step from the same
@@ -1089,11 +1099,12 @@ def bwd_kernel_phase(cfg, device, mode="kernel_t"):
 
 
 def step_kernels(pe_mode):
-    """The kernels each train step launches twice (coarse and fine) under ``pe_mode``."""
+    """The kernels each train step launches twice (coarse and fine) under ``pe_mode``:
+    the point query's and K12's forward and backward."""
     from dmnerf_tpu_torch.kernels.fused_mlp import ROUTES, resolve_pe_mode
 
     route = ROUTES[resolve_pe_mode(pe_mode)]
-    return (*route.launches, route.bwd)
+    return (*route.launches, route.bwd, "instance_terms_fwd", "instance_terms_bwd")
 
 
 def scannet_scene(cfg):
@@ -1165,7 +1176,7 @@ def train_phase(device, pe_mode=None, steps=TRAIN_STEPS, dataset="dmsr"):
     from dmnerf_tpu_torch.core.sampling import z_val_sample
     from dmnerf_tpu_torch.kernels import runtime
     from dmnerf_tpu_torch.objfield.losses import compact_one_hot, pairwise_costs
-    from dmnerf_tpu_torch.render.trainstep import compute_losses
+    from dmnerf_tpu_torch.render.trainstep import compute_losses, make_instance_fn
     from dmnerf_tpu_torch.train import make_sampler, train
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1197,17 +1208,24 @@ def train_phase(device, pe_mode=None, steps=TRAIN_STEPS, dataset="dmsr"):
     u_pdf = torch.rand((cfg.N_train, cfg.N_importance), generator=gdev, device=device)
     z = z_val_sample(cfg.N_train, cfg.near, cfg.far, cfg.N_samples, device=device)
 
-    def step_grads(query_fn):
+    def step_grads(query_fn, instance_fn=None):
         pc = {k: v.detach().clone().requires_grad_(True) for k, v in state.params_coarse.items()}
         pf = {k: v.detach().clone().requires_grad_(True) for k, v in state.params_fine.items()}
         info = render_rays(pc, pf, batch.rays_o, batch.rays_d, z, query_fn,
-                           N_importance=cfg.N_importance, perturb=True, u_z=u_z, u_pdf=u_pdf)
+                           N_importance=cfg.N_importance, perturb=True, u_z=u_z, u_pdf=u_pdf,
+                           instance_fn=instance_fn)
         total, aux = compute_losses(cfg, info, batch, n_ins)
         grads = torch.autograd.grad(total, [*pc.values(), *pf.values()])
         names = [f"coarse.{k}" for k in pc] + [f"fine.{k}" for k in pf]
         return dict(zip(names, grads)), {k: float(v) for k, v in aux.items()}
 
-    gk, aux_k = step_grads(make_query_fn(cfg))
+    runtime.reset_launches()
+    gk, aux_k = step_grads(make_query_fn(cfg), make_instance_fn(cfg))
+    torch.cuda.synchronize()
+    k12_calls = (runtime.LAUNCHES["instance_terms_fwd"], runtime.LAUNCHES["instance_terms_bwd"])
+    if k12_calls != (2, 2):
+        raise AssertionError(f"the kernel step's gradient launched K12 {k12_calls} times, "
+                             "want 2 forward and 2 backward")
     gp, aux_p = step_grads(make_torch_query_fn(cfg.multires, cfg.multires_views, cfg.netdepth,
                                                tuple(cfg.skips)))
     rel, err, _ = _rel_err(gk, gp)
@@ -1390,6 +1408,194 @@ def assignment_phase(cfg, device, step_cost, step_valid):
                              f"{ASSIGNMENT_BATCHES} batches ({block_differing} by the block "
                              f"design)")
     return r
+
+
+K12_RAYS = 3072
+K12_BUNDLES = [(192, 33), (64, 33), (192, 17), (64, 17)]   # (samples, C'), DM-SR's fine first
+K12_TOL = 1e-5       # sum order: the logits, the rays' BCE sums and raw's gradient
+K12_PENALIZER = (0.05, 0.05)    # tolerance, deta_w of the train configs
+
+
+def k12_inputs(N, S, C, device, seed=SEED):
+    """A bundle's K12 inputs: raw [N, S, 4 + C] (logits of scale 4, one entry in ten at
+    +-30, so every clamp of the penalizer is active), weights, sorted z in [4, 15], each
+    ray's depth at one of its samples (every mask holds somewhere), rays_d, and a
+    cotangent of the instance map [N, C - 1]."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    raw = 4.0 * torch.randn((N, S, 4 + C), generator=g, device=device)
+    sat = torch.rand((N, S, C), generator=g, device=device) < 0.1
+    sign = torch.where(torch.rand((N, S, C), generator=g, device=device) < 0.5, -30.0, 30.0)
+    raw[..., 4:] = torch.where(sat, sign, raw[..., 4:])
+    w = torch.rand((N, S), generator=g, device=device) * (2.0 / S)
+    z = torch.sort(4.0 + 11.0 * torch.rand((N, S), generator=g, device=device), -1).values
+    depth = torch.gather(z, 1, torch.randint(0, S, (N, 1), generator=g, device=device))[:, 0]
+    d = torch.randn((N, 3), generator=g, device=device)
+    g_ins = torch.randn((N, C - 1), generator=g, device=device)
+    return raw, w, z, depth, d, g_ins
+
+
+def k12_loss(fn, raw, w, z, depth, d, g_ins=None):
+    """(loss, logits, sums) of ``fn`` (``instance_terms`` or ``instance_terms_ref``) on
+    raw: the penalizer's ratios, and with ``g_ins`` the instance map (sigmoid, air
+    dropped) against that cotangent, as compute_losses and composite take them."""
+    import torch
+
+    from dmnerf_tpu_torch.objfield.penalizer import penalty
+
+    logits, sums = fn(raw, w, z, depth, d, *K12_PENALIZER, True)
+    loss = penalty(sums, logits.shape[-1])
+    if g_ins is not None:
+        loss = loss + (torch.sigmoid(logits)[..., :-1] * g_ins).sum()
+    return loss, logits, sums
+
+
+def k12_bytes(N, S, C):
+    """K12's least traffic (forward, backward): each launch reads raw's instance columns,
+    the weights and z, depth and the norms; the forward writes the logits and the rays'
+    sums, the backward reads their cotangents and writes d_raw whole."""
+    pts = N * S
+    fwd = 4 * (pts * C + 2 * pts + 2 * N + N * C + 4 * N)
+    return fwd, fwd + 4 * pts * (4 + C)
+
+
+def k12_launches(raw, w, z, depth, d, penalize=True, seed=SEED):
+    """Two closures that each enqueue one K12 launch on a bundle's inputs, the forward
+    and the backward (cotangents: the logits' normal, the BCE sums' uniform in [0, 1),
+    the counts' zero)."""
+    import torch
+
+    from dmnerf_tpu_torch.kernels import instance_terms as it
+
+    norm = torch.linalg.norm(d, dim=-1)
+    g = torch.Generator(device=raw.device).manual_seed(seed)
+    N, C = raw.shape[0], raw.shape[-1] - 4
+    g_logits = torch.randn((N, C), generator=g, device=raw.device)
+    g_sums = torch.rand((N, 4), generator=g, device=raw.device) \
+        * torch.tensor([1.0, 0.0, 1.0, 0.0], device=raw.device)
+    fwd = lambda: it.instance_terms_fwd(  # noqa: E731
+        raw, w, z, depth, norm, *K12_PENALIZER, penalize)
+    bwd = lambda: it.instance_terms_bwd(  # noqa: E731
+        raw, w, z, depth, norm, g_logits, g_sums, *K12_PENALIZER, penalize)
+    return fwd, bwd
+
+
+def k12_check(N, S, C, device, seed=SEED):
+    """K12 against its plain fp32 version (``instance_terms_ref``: the instance map and
+    the penalizer as the step ran them before K12) on ``k12_inputs``: the logits, each
+    ray's BCE sums and raw's gradient through a loss of them all within K12_TOL (sum
+    order), the mask counts equal (and both masks hold somewhere), rgb and sigma's
+    gradient zero, and with the penalizer alone the gradient zero exactly where the
+    plain one is (the clamp gates at saturated logits, the masks), zero at the logits of
+    +30; one launch each of the forward and the backward a call; two launches of each
+    on the same inputs the same bits. Returns (the readings, the names of the checks
+    that failed)."""
+    import torch
+
+    from dmnerf_tpu_torch.kernels import instance_terms as it
+    from dmnerf_tpu_torch.kernels import runtime
+
+    raw, w, z, depth, d, g_ins = k12_inputs(N, S, C, device, seed)
+    runtime.reset_launches()
+    rk = raw.clone().requires_grad_(True)
+    loss_k, logits, sums = k12_loss(it.instance_terms, rk, w, z, depth, d, g_ins)
+    (gk,) = torch.autograd.grad(loss_k, rk)
+    torch.cuda.synchronize()
+    calls = (runtime.LAUNCHES["instance_terms_fwd"], runtime.LAUNCHES["instance_terms_bwd"])
+    rp = raw.clone().requires_grad_(True)
+    loss_p, want_logits, want_sums = k12_loss(it.instance_terms_ref, rp, w, z, depth, d, g_ins)
+    (gp,) = torch.autograd.grad(loss_p, rp)
+    logits, sums = logits.detach(), sums.detach()
+    want_logits, want_sums = want_logits.detach(), want_sums.detach()
+    mag = torch.sum(w[..., None] * raw[..., 4:].abs(), dim=-2)
+    # the BCE terms are not negative, so a ray's sum is its terms' magnitude
+    counts = [float(x) for x in want_sums[:, 1::2].sum(0)]
+    # the penalizer alone
+    (pk,) = torch.autograd.grad(k12_loss(it.instance_terms, rk, w, z, depth, d)[0], rk)
+    (pp,) = torch.autograd.grad(k12_loss(it.instance_terms_ref, rp, w, z, depth, d)[0], rp)
+    fwd, bwd = k12_launches(raw, w, z, depth, d)
+    (l1, s1), (l2, s2) = fwd(), fwd()
+    row = dict(rays=N, samples=S, channels=C, launches=calls,
+               logit_rel_err=float(((logits - want_logits).abs() / (mag + 1e-30)).max()),
+               bce_sum_rel_err=float(((sums[:, 0::2] - want_sums[:, 0::2]).abs()
+                                      / (want_sums[:, 0::2] + 1e-30)).max()),
+               grad_rel_err=float((gk - gp).abs().max() / gp.abs().max()),
+               counts=counts, counts_equal=torch.equal(sums[:, 1::2], want_sums[:, 1::2]),
+               penalizer_zeros_equal=torch.equal(pk == 0, pp == 0),
+               penalizer_grad_rel_err=float((pk - pp).abs().max() / pp.abs().max()),
+               saturated_grad_max=float(pk[..., 4:][raw[..., 4:] == 30.0].abs().max()),
+               rgb_sigma_grad_max=float(gk[..., :4].abs().max()),
+               repeats_equal=torch.equal(l1, l2) and torch.equal(s1, s2)
+               and torch.equal(bwd(), bwd()),
+               max_abs_err={"fwd": float((logits - want_logits).abs().max()),
+                            "bwd": float((gk - gp).abs().max())})
+    runtime.reset_launches()
+    bad = [what for what, ok in (
+        ("launches", calls == (1, 1)), ("logits", row["logit_rel_err"] <= K12_TOL),
+        ("bce sums", row["bce_sum_rel_err"] <= K12_TOL),
+        ("gradient", row["grad_rel_err"] <= K12_TOL),
+        ("penalizer gradient", row["penalizer_grad_rel_err"] <= K12_TOL),
+        ("counts", row["counts_equal"]), ("masks", all(0 < c < N * S for c in counts)),
+        ("penalizer zeros", row["penalizer_zeros_equal"]),
+        ("gates", row["saturated_grad_max"] == 0.0),
+        ("rgb/sigma", row["rgb_sigma_grad_max"] == 0.0),
+        ("repeats", row["repeats_equal"])) if not ok]
+    return row, bad
+
+
+def instance_terms_phase(device):
+    """``k12_check`` at the train cells' four bundles (K12_RAYS rays), then each launch
+    timed (device_ms) beside the plain version's forward and its autograd backward (device
+    busy ms under torch.profiler, the median of 5: many small launches) and the bytes
+    bound over 3.35 TB/s. Returns the forward's and the backward's entries of the
+    ``kernels`` line, DM-SR's fine bundle as the main case."""
+    import torch
+
+    from dmnerf_tpu_torch.kernels import instance_terms as it
+    from dmnerf_tpu_torch.kernels import runtime
+
+    rows, failures = {}, []
+    for S, C in K12_BUNDLES:
+        row, bad = k12_check(K12_RAYS, S, C, device)
+        key = f"{K12_RAYS}x{S}x{C}"
+        failures += [f"{key}: {what}" for what in bad]
+        raw, w, z, depth, d, g_ins = k12_inputs(K12_RAYS, S, C, device)
+        fwd, bwd = k12_launches(raw, w, z, depth, d)
+
+        def plain_fwd():
+            with torch.no_grad():
+                k12_loss(it.instance_terms_ref, raw, w, z, depth, d, g_ins)
+        rg = raw.clone().requires_grad_(True)
+        graph = k12_loss(it.instance_terms_ref, rg, w, z, depth, d, g_ins)[0]
+        plain_bwd = lambda: torch.autograd.grad(graph, rg, retain_graph=True)  # noqa: E731
+        for part, launch, plain, nbytes in zip(("fwd", "bwd"), (fwd, bwd), (plain_fwd, plain_bwd),
+                                               k12_bytes(K12_RAYS, S, C)):
+            plain()
+            row[f"{part}_ms"] = device_ms(launch)["device_ms"]
+            row[f"{part}_plain_ms"] = statistics.median(
+                profile_calls(plain)["device_busy_ms"] for _ in range(5))
+            row[f"{part}_bound_ms"] = nbytes / PEAK_BYTES * 1e3
+            row[f"{part}_share_of_bound"] = row[f"{part}_bound_ms"] / row[f"{part}_ms"]
+        del graph, rg
+        rows[key] = row
+        print(f"[instance_terms] {key}: {json.dumps(row)}", flush=True)
+    runtime.reset_launches()
+    log = runtime.library_path("instance_terms").with_suffix(".log").read_text()
+    # a kernel's bool template argument reads <stash> in register_lines: here <penalize>
+    registers = [f"{fn.replace('<stash>', '<penalize>')}: {line}"
+                 for fn, line in register_lines(log)]
+    print(f"[instance_terms] registers: {json.dumps(registers)}", flush=True)
+    if failures:
+        raise AssertionError(f"K12 against its plain version: {failures}")
+    main_row = rows[f"{K12_RAYS}x{K12_BUNDLES[0][0]}x{K12_BUNDLES[0][1]}"]
+    keys = ("ms", "plain_ms", "bound_ms", "share_of_bound")
+    return {part: dict(**{k: main_row[f"{part}_{k}"] for k in keys}, bound_by="bytes",
+                       library_ms=None,
+                       max_abs_err=max(r["max_abs_err"][part] for r in rows.values()),
+                       by_bundle={b: {k: r[f"{part}_{k}"] for k in keys} for b, r in rows.items()},
+                       registers=[r for r in registers if f"instance_terms_{part}" in r])
+            for part in ("fwd", "bwd")}
 
 
 PACK_STEPS = 10     # steps_per_dispatch (and i_print) of the flagship pack
@@ -1589,9 +1795,12 @@ def packed_train_phase(device, card, pe_mode=None, dataset="dmsr", P=PACK_STEPS,
     counts = {"fused_mlp_fwd_kernel": _count(k, "fused_mlp_fwd_kernel"),
               "bwd_data_kernel": _count(k, "bwd_data_kernel"),
               "assignment_kernel": _count(k, "assignment_kernel"),
+              "instance_terms_fwd_kernel": _count(k, "instance_terms_fwd_kernel"),
+              "instance_terms_bwd_kernel": _count(k, "instance_terms_bwd_kernel"),
               "device_to_host_copies": _count(prof["copies"], "DtoH"),
               "cudaGraphLaunch": prof["api"].get("cudaGraphLaunch", 0)}
     want = {"fused_mlp_fwd_kernel": 2 * P, "bwd_data_kernel": 2 * P, "assignment_kernel": P,
+            "instance_terms_fwd_kernel": 2 * P, "instance_terms_bwd_kernel": 2 * P,
             "device_to_host_copies": 0, "cudaGraphLaunch": 1}
     if fwd:
         counts[fwd], want[fwd] = _count(k, fwd), 2 * P
@@ -2629,6 +2838,8 @@ def _gloo_compare(res, ref, card):
     return out
 
 
+# what K12 replaces: XLA's fusion of composite's instance map and the emptiness penalizer
+K12_REPLACES = "dmnerf_tpu/core/compositor.py:58 + dmnerf_tpu/objfield/penalizer.py:24"
 K11_KEYS = ("device_us", "profiler_us", "in_pack_us", "chain_floor_us", "bytes_bound_us",
             "share_of_chain_floor", "share_of_chain_floor_profiler",
             "share_of_chain_floor_in_pack", "warp_step_us", "l2_load_us",
@@ -2797,6 +3008,8 @@ def main() -> int:
     bres_kpe = bwd_kernel_phase(train_cfg, device, "kernel")
     train_launches, _, _, k11 = train_phase(device)
     torch.cuda.empty_cache()
+    k12 = instance_terms_phase(device)
+    torch.cuda.empty_cache()
     kpe_train_launches, _, _, _ = train_phase(device, "kernel", KPE_TRAIN_STEPS)
     torch.cuda.empty_cache()
     eval_launches, demo_launches = mani_phase(device)
@@ -2901,6 +3114,12 @@ def main() -> int:
     kernels.append(_entry("assignment", "dmnerf_tpu/objfield/hungarian.py:123",
                           train_launches["assignment"], by_path, k11,
                           **{k: k11[k] for k in K11_KEYS if k in k11}))
+    for part in ("fwd", "bwd"):
+        name = f"instance_terms_{part}"
+        kernels.append({**_entry(name, K12_REPLACES, train_launches[name], by_path, k12[part],
+                                 **{k: k12[part][k] for k in ("share_of_bound", "by_bundle",
+                                                              "registers")}),
+                        "source": "dmnerf_tpu_torch/kernels/csrc/instance_terms.cu"})
     print(f"[done] {time.time() - t0:.1f} s from the build on", flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -42,6 +42,16 @@ def _weights(raw, z_vals, rays_d, use_log_scan=True):
     return alpha * exclusive_cumprod_one_minus(alpha, use_log_scan)
 
 
+def composite_geometry(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
+                       use_log_scan: bool = True):
+    """(weights [N, S], rgb_map [N, 3], depth_map [N]): ``composite`` without the
+    instance map, which a training step takes from ``kernels.instance_terms``."""
+    weights = _weights(raw, z_vals, rays_d, use_log_scan)
+    rgb_map = torch.sum(weights[..., None] * torch.sigmoid(raw[..., :3]), dim=-2)
+    depth_map = torch.sum(weights * z_vals, dim=-1)
+    return weights, rgb_map, depth_map
+
+
 def composite(
     raw: torch.Tensor,      # [N, S, 4 + ins_num + 1] = [rgb, sigma, ins_logits]
     z_vals: torch.Tensor,   # [N, S]
@@ -50,9 +60,7 @@ def composite(
     detach_ins_weights: bool = True,
     use_log_scan: bool = True,
 ) -> Composited:
-    weights = _weights(raw, z_vals, rays_d, use_log_scan)
-    rgb_map = torch.sum(weights[..., None] * torch.sigmoid(raw[..., :3]), dim=-2)
-    depth_map = torch.sum(weights * z_vals, dim=-1)
+    weights, rgb_map, depth_map = composite_geometry(raw, z_vals, rays_d, use_log_scan)
     w_ins = weights.detach() if detach_ins_weights else weights
     ins_map = torch.sigmoid(torch.sum(w_ins[..., None] * raw[..., 4:], dim=-2))
     if not keep_air:

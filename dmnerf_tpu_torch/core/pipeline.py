@@ -19,7 +19,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from dmnerf_tpu_torch.core.compositor import composite
+from dmnerf_tpu_torch.core.compositor import Composited, composite, composite_geometry
 from dmnerf_tpu_torch.core.embedding import positional_encoding
 from dmnerf_tpu_torch.core.mlp import dm_nerf_apply
 from dmnerf_tpu_torch.core.sampling import perturb_z_vals, sample_pdf
@@ -87,6 +87,16 @@ def make_query_fn(cfg) -> QueryFn:
     return make_torch_query_fn(mr, mrv, cfg.netdepth, tuple(cfg.skips))
 
 
+def _composite(raw, z_vals, rays_d, instance_fn):
+    """composite(), or with ``instance_fn`` its geometry and ``instance_fn``'s instance
+    map: (Composited, the penalizer's sums or None)."""
+    if instance_fn is None:
+        return composite(raw, z_vals, rays_d), None
+    weights, rgb, depth = composite_geometry(raw, z_vals, rays_d)
+    logits, sums = instance_fn(raw, weights, z_vals, depth, rays_d)
+    return Composited(rgb, weights, depth, torch.sigmoid(logits)[..., :-1]), sums
+
+
 def render_rays(
     params_coarse,
     params_fine,
@@ -99,13 +109,19 @@ def render_rays(
     generator: Optional[torch.Generator] = None,
     u_z: Optional[torch.Tensor] = None,
     u_pdf: Optional[torch.Tensor] = None,
+    instance_fn: Optional[Callable] = None,
 ) -> Dict[str, torch.Tensor]:
     """The coarse + fine render; gradients flow to both parameter dicts through the
     queries, except across the walls: the instance head's detached trunk feature,
     the detached instance-composite weights and the detached fine z. The draws are
     random when ``perturb`` and a generator or injected uniforms (``u_z`` for the
     jitter, ``u_pdf`` for sample_pdf) are given; otherwise the pass is
-    deterministic, as the reference's perturb == 0."""
+    deterministic, as the reference's perturb == 0.
+
+    ``instance_fn(raw, weights, z_vals, depth, rays_d) -> (ins_logits, sums or None)``
+    (a training step's ``kernels.instance_terms`` with its penalizer settings) takes each
+    bundle's instance map in place of composite's, and its penalizer sums of each ray
+    [N, 4], when it gives them, go to ``penalizer_coarse`` / ``penalizer_fine``."""
     viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
 
     randomized = perturb and (generator is not None or u_z is not None)
@@ -114,7 +130,7 @@ def render_rays(
 
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals_coarse[..., :, None]
     raw_coarse = query_fn(params_coarse, pts, viewdirs)
-    out_c = composite(raw_coarse, z_vals_coarse, rays_d)
+    out_c, pen_c = _composite(raw_coarse, z_vals_coarse, rays_d, instance_fn)
 
     z_mids = 0.5 * (z_vals_coarse[..., 1:] + z_vals_coarse[..., :-1])
     z_samples = sample_pdf(z_mids, out_c.weights[..., 1:-1].detach(), N_importance,
@@ -124,9 +140,9 @@ def render_rays(
     z_vals_fine = torch.sort(torch.cat([z_vals_coarse, z_samples], dim=-1), dim=-1).values
     pts_fine = rays_o[..., None, :] + rays_d[..., None, :] * z_vals_fine[..., :, None]
     raw_fine = query_fn(params_fine, pts_fine, viewdirs)
-    out_f = composite(raw_fine, z_vals_fine, rays_d)
+    out_f, pen_f = _composite(raw_fine, z_vals_fine, rays_d, instance_fn)
 
-    return {
+    info = {
         "rgb_fine": out_f.rgb,
         "ins_fine": out_f.ins,
         "z_vals_fine": z_vals_fine,
@@ -138,3 +154,6 @@ def render_rays(
         "depth_fine": out_f.depth,
         "depth_coarse": out_c.depth,
     }
+    if pen_c is not None:
+        info.update(penalizer_coarse=pen_c, penalizer_fine=pen_f)
+    return info

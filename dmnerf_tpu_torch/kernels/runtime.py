@@ -33,12 +33,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # the sources: K1, K2 (pe_mode 'kernel_t'), K3, K4 (pe_mode 'kernel'), K5, K6, K7 (pe_mode
 # 'outside': the forward and backward over precomputed embeddings, and the embedding),
 # the fused render passes K8c, K8f (two entry points of one source), the head probes
-# K9, K10 and the instance loss's assignment K11
+# K9, K10, the instance loss's assignment K11 and a training bundle's instance channels
+# K12 (a forward and a backward entry point)
 KERNELS = ("fused_mlp_fwd", "fused_mlp_bwd", "fused_mlp_fwd_kpe", "fused_mlp_bwd_kpe",
            "fused_mlp_fwd_pe", "fused_mlp_bwd_pe", "fused_pe", "fused_render", "head512",
-           "heads_fused", "assignment")
-COUNTED = tuple(k for k in KERNELS if k != "fused_render") + ("fused_render_weights",
-                                                               "fused_render_maps")
+           "heads_fused", "assignment", "instance_terms")
+ENTRIES = {"fused_render": ("fused_render_weights", "fused_render_maps"),
+           "instance_terms": ("instance_terms_fwd", "instance_terms_bwd")}
+COUNTED = tuple(e for k in KERNELS for e in ENTRIES.get(k, (k,)))
 LAUNCHES: Dict[str, int] = {name: 0 for name in COUNTED}
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

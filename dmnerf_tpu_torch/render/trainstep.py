@@ -23,18 +23,20 @@ losses over the ranks (``objfield.losses``), all-reduces the gradient as one fla
 buffer and then updates its replica of the parameters.
 
 The step runs eagerly: the point queries are the fused kernels' autograd function
-on the card (kernels.fused_mlp) and the two assignments of a step one launch of K11
-(objfield.hungarian), so a step on the card reads nothing back to the host and can be
-captured in a CUDA graph (``render.packing``). For that, the Adam of parameters on the
-card is ``capturable`` with its learning rate a device tensor, which each step writes
-(``lr`` may be a device value, as a graph's step reads it); on the CPU it is the plain
-Adam with a float learning rate. ``finite`` takes debug_nans' checks as device flags
-instead of a host read, for a step inside a graph.
+on the card (kernels.fused_mlp), each bundle's instance map and penalizer sums one K12
+forward and one backward launch (kernels.instance_terms) and the two assignments of a
+step one launch of K11 (objfield.hungarian), so a step on the card reads nothing back to
+the host and can be captured in a CUDA graph (``render.packing``). For that, the Adam of
+parameters on the card is ``capturable`` with its learning rate a device tensor, which
+each step writes (``lr`` may be a device value, as a graph's step reads it); on the CPU
+it is the plain Adam with a float learning rate. ``finite`` takes debug_nans' checks as
+device flags instead of a host read, for a step inside a graph.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -42,8 +44,9 @@ import torch
 from dmnerf_tpu_torch.configs import Config
 from dmnerf_tpu_torch.core.pipeline import QueryFn, make_query_fn, render_rays
 from dmnerf_tpu_torch.core.sampling import z_val_sample
+from dmnerf_tpu_torch.kernels.instance_terms import instance_terms
 from dmnerf_tpu_torch.objfield.losses import img2mse, ins_criterion, mse2psnr
-from dmnerf_tpu_torch.objfield.penalizer import ins_penalizer
+from dmnerf_tpu_torch.objfield.penalizer import penalizer_sums, penalty
 
 
 class Batch(NamedTuple):
@@ -115,11 +118,23 @@ def create_train_state(cfg: Config, params_coarse, params_fine, step: int = 0) -
     return TrainState(step, pc, pf, make_adam(pc, pf, lr_at_step(cfg, step)))
 
 
+def _penalizer_sums(cfg: Config, info: Dict[str, torch.Tensor], which: str,
+                    rays_d: torch.Tensor) -> torch.Tensor:
+    """The rays' penalizer sums of bundle ``which``: render_rays' own, else from raw."""
+    sums = info.get(f"penalizer_{which}")
+    if sums is None:
+        sums = penalizer_sums(info[f"raw_{which}"], info[f"z_vals_{which}"],
+                              info[f"depth_{which}"], rays_d, cfg.tolerance, cfg.deta_w)
+    return sums
+
+
 def compute_losses(cfg: Config, info: Dict[str, torch.Tensor], batch: Batch,
                    N_ins: Optional[int], reduce=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The step's total loss and its aux. ``N_ins``: the instance loss sees the last
     N_ins rays (0: none of this rank's). ``reduce``: the rays are one rank's share and
-    every sum is reduced over the ranks (``objfield.losses``)."""
+    every sum is reduced over the ranks (``objfield.losses``). The penalizer takes its
+    rays' sums from ``info`` where render_rays' ``instance_fn`` gave them (a training
+    step's K12), else computes them from the raw bundles."""
     rgb_loss_coarse = img2mse(info["rgb_coarse"], batch.target_c, reduce)
     rgb_loss_fine = img2mse(info["rgb_fine"], batch.target_c, reduce)
 
@@ -139,10 +154,10 @@ def compute_losses(cfg: Config, info: Dict[str, torch.Tensor], batch: Batch,
     total = rgb_loss_coarse + rgb_loss_fine + ins_losses[0] + ins_losses[1]
     emptiness = torch.zeros((), dtype=total.dtype, device=total.device)
     if cfg.penalize:
-        emptiness = ins_penalizer(info["raw_coarse"], info["z_vals_coarse"], info["depth_coarse"],
-                                  batch.rays_d, cfg.tolerance, cfg.deta_w, reduce) \
-            + ins_penalizer(info["raw_fine"], info["z_vals_fine"], info["depth_fine"],
-                            batch.rays_d, cfg.tolerance, cfg.deta_w, reduce)
+        coarse, fine = (penalty(_penalizer_sums(cfg, info, which, batch.rays_d),
+                                info[f"raw_{which}"].shape[-1] - 4, reduce)
+                        for which in ("coarse", "fine"))
+        emptiness = coarse + fine
         total = total + emptiness
 
     aux = {
@@ -200,6 +215,13 @@ def check_finite(state: TrainState, aux: Dict[str, torch.Tensor]) -> None:
     raise_non_finite(state.step, check_names(state), finite_flags(state, aux).cpu())
 
 
+def make_instance_fn(cfg: Config):
+    """render_rays' ``instance_fn`` of a training step: ``kernels.instance_terms`` with
+    the config's penalizer settings."""
+    return functools.partial(instance_terms, tolerance=cfg.tolerance, deta_w=cfg.deta_w,
+                             penalize=cfg.penalize)
+
+
 def make_train_step(cfg: Config, query_fn: Optional[QueryFn] = None,
                     N_ins: Optional[int] = None, shard=None):
     """Returns ``step_fn(state, batch, generator=None, u_z=None, u_pdf=None, lr=None,
@@ -218,13 +240,15 @@ def make_train_step(cfg: Config, query_fn: Optional[QueryFn] = None,
     if query_fn is None:
         query_fn = make_query_fn(cfg)
     perturb = cfg.perturb > 0.0
+    instance_fn = make_instance_fn(cfg)
 
     def loss_fn(state: TrainState, batch: Batch, generator, u_z, u_pdf, n_ins, reduce):
         z = z_val_sample(batch.rays_o.shape[0], cfg.near, cfg.far, cfg.N_samples,
                          device=batch.rays_o.device)
         info = render_rays(state.params_coarse, state.params_fine, batch.rays_o, batch.rays_d,
                            z, query_fn, N_importance=cfg.N_importance,
-                           perturb=perturb, generator=generator, u_z=u_z, u_pdf=u_pdf)
+                           perturb=perturb, generator=generator, u_z=u_z, u_pdf=u_pdf,
+                           instance_fn=instance_fn)
         return compute_losses(cfg, info, batch, n_ins, reduce)
 
     def shard_inputs(batch: Batch, generator, u_z, u_pdf):

@@ -968,6 +968,64 @@ def test_assignment_chain_probe_launches(cuda):
     assert int(out) == 100 and runtime.LAUNCHES["assignment"] == 0
 
 
+# ---- K12: a training bundle's instance channels (kernels/instance_terms.py) ----
+
+# the train cells' bundles: 3072 rays of 64 (coarse) and 192 (fine) samples, C' = 33
+# (DM-SR's ins_num 32 and air) and 17 (ScanNet's 16); and a ragged one
+K12_SHAPES = [(3072, 64, 33), (3072, 192, 33), (3072, 64, 17), (3072, 192, 17), (37, 19, 6)]
+
+
+@pytest.mark.parametrize("N, S, C", K12_SHAPES)
+def test_instance_terms_matches_plain(cuda, N, S, C):
+    """K12 against its plain fp32 version on the card (the operations the step ran before
+    it), by chip_smoke's ``k12_check``, with one logit in ten at +-30: the logits, each
+    ray's two BCE sums and raw's gradient through a loss of all of them within 1e-5 of
+    their magnitudes (the sums are taken in another order), each ray's mask counts
+    equal, the gradient zero in rgb and sigma, and with the penalizer alone zero exactly
+    where the plain gradient is (the clamp gates at saturated logits and the masks); one
+    launch each of the forward and the backward; repeated launches the same bits."""
+    row, bad = _chip_smoke().k12_check(N, S, C, cuda)
+    assert not bad, (bad, row)
+
+
+@pytest.mark.parametrize("penalize", [True, False])
+def test_instance_terms_repeats_bit_identical(cuda, penalize):
+    """Two launches of K12's forward and of its backward on the same inputs give the same
+    bits (the sums are reduced in a fixed order, with no atomics); without the penalizer
+    the logits are the same bits and the gradient is w times the logits' cotangent."""
+    cs = _chip_smoke()
+    raw, w, z, depth, d, _ = cs.k12_inputs(*K12_SHAPES[1], cuda, seed=3)
+    fwd, bwd = cs.k12_launches(raw, w, z, depth, d, penalize)
+    outs, grads = [fwd(), fwd()], [bwd(), bwd()]
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(grads[0], grads[1])
+    if penalize:
+        assert torch.equal(outs[0][1], outs[1][1])
+    else:
+        on = cs.k12_launches(raw, w, z, depth, d)[0]()[0]
+        assert torch.equal(on, outs[0][0])
+        assert float(grads[0][..., :4].abs().max()) == 0.0
+        g = torch.randn(outs[0][0].shape, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(cs.SEED))
+        want = w[..., None] * g[:, None, :]
+        assert float((grads[0][..., 4:] - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+def test_instance_terms_refuses_what_it_cannot_take(cuda):
+    from dmnerf_tpu_torch.kernels import instance_terms as it
+
+    raw, w, z, depth, d, _ = _chip_smoke().k12_inputs(5, 7, 6, cuda)
+    norm = torch.linalg.norm(d, dim=-1)
+    tol, dw = 0.05, 0.05
+    with pytest.raises(ValueError, match="contiguous"):
+        it.instance_terms_fwd(raw.transpose(0, 1).contiguous().transpose(0, 1), w, z, depth,
+                              norm, tol, dw, True)
+    with pytest.raises(ValueError, match="float32"):
+        it.instance_terms_fwd(raw, w.double(), z, depth, norm, tol, dw, True)
+    with pytest.raises(ValueError, match=r"4 \+ C'"):
+        it.instance_terms_fwd(torch.zeros((5, 7, 300), device=cuda), w, z, depth, norm, tol,
+                              dw, True)
+
+
 def _pack_setup(cuda, P=3, kind="full", **kw):
     """A tiny config, its sampler on the card (``kind``: DM-SR's full-image sampler, or
     ScanNet's crop sampler), N_ins, and ``start()``: a fresh state and generators."""
@@ -1016,7 +1074,35 @@ def test_graph_replay_equals_eager_steps(cuda, pe_mode):
     torch.cuda.synchronize()
     fwd = ROUTES[fused_mlp.resolve_pe_mode(pe_mode)].fwd
     assert runtime.LAUNCHES[fwd] == 2 * 2 and runtime.LAUNCHES["assignment"] == 2   # warm-up only
+    assert runtime.LAUNCHES["instance_terms_fwd"] == runtime.LAUNCHES["instance_terms_bwd"] \
+        == 2 * 2
     assert torch.equal(eager.view(torch.int32), packs.view(torch.int32))
+    assert not cs._state_diffs(st_u, st_p)
+
+
+def test_pack_of_ten_equals_its_steps_and_each_step_takes_k12(cuda):
+    """One pack of 10 steps (one CUDA graph replay, K12 inside it) against the same 10
+    steps one at a time: parameters, Adam's state and every aux, bit for bit; each eager
+    step launches K12's forward and backward twice (coarse and fine), 4 a step."""
+    from dmnerf_tpu_torch.render.packing import StepRunner
+    from dmnerf_tpu_torch.render.trainstep import make_train_step
+    from dmnerf_tpu_torch.train import make_packed_steps
+
+    cs = _chip_smoke()
+    cfg, sampler, n_ins, start = _pack_setup(cuda, P=10)
+    st_u, gb, gs = start()
+    single = StepRunner(cfg, sampler, make_train_step(cfg, N_ins=n_ins), cuda, 1)
+    runtime.reset_launches()
+    eager = torch.cat([cs._aux_rows(single(st_u, gb, gs)) for _ in range(10)])
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["instance_terms_fwd"] + runtime.LAUNCHES["instance_terms_bwd"] \
+        == 4 * 10
+    st_p, gb, gs = start()
+    packed, P = make_packed_steps(cfg, sampler, n_ins, cuda)
+    assert P == 10
+    pack = cs._aux_rows(packed(st_p, gb, gs))
+    torch.cuda.synchronize()
+    assert torch.equal(eager.view(torch.int32), pack.view(torch.int32))
     assert not cs._state_diffs(st_u, st_p)
 
 
@@ -1066,7 +1152,8 @@ def test_packs_drawn_ahead_equal_eager_steps_with_no_host_read_between(cuda, kin
 
 def test_a_pack_copies_nothing_to_the_host_and_launches_each_kernel_per_step(cuda):
     """One pack under torch.profiler: one cudaGraphLaunch, no device-to-host copy, 2P
-    forward launches (the training forward), 2P bwd_data launches and P of K11."""
+    forward launches (the training forward), 2P bwd_data launches, P of K11 and 2P of
+    each of K12's kernels (its forward and its backward)."""
     from dmnerf_tpu_torch.train import make_packed_steps
 
     cs = _chip_smoke()
@@ -1080,6 +1167,8 @@ def test_a_pack_copies_nothing_to_the_host_and_launches_each_kernel_per_step(cud
     assert cs._count(prof["copies"], "DtoH") == 0
     assert (cs._count(k, "fused_mlp_fwd_kernel"), cs._count(k, "bwd_data_kernel"),
             cs._count(k, "assignment_kernel")) == (2 * P, 2 * P, P)
+    assert (cs._count(k, "instance_terms_fwd_kernel"),
+            cs._count(k, "instance_terms_bwd_kernel")) == (2 * P, 2 * P)
 
 
 # ---- the image renderer: a chunk as one CUDA graph replay (render/renderer.py) ----

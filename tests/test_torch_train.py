@@ -142,6 +142,143 @@ def test_ins_penalizer_matches_jax():
     assert raw_t.grad.abs().sum() > 0
 
 
+def _pre_change_penalizer(raw, z_vals, depth, rays_d, tolerance, deta_w):
+    """emptiness_penalizer as it was before K12: the four sums over the bundle, then the
+    two ratios; and the four sums' terms, [N, S, C'] and [N, S]."""
+    import math
+
+    depth = depth.detach()[..., None]
+    norm = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    dists_before = (depth - tolerance) * norm
+    dists_after = (depth + tolerance) * norm
+    p_dists = z_vals * norm
+    delta = depth * norm - p_dists
+    gauss = torch.exp(-(delta ** 2) / (2.0 * deta_w ** 2)) / (0.4 * math.sqrt(2.0 * math.pi)) + 1e-8
+    mask_before = (p_dists < dists_before).to(raw.dtype)
+    mask_after = (p_dists > dists_after).to(raw.dtype)
+    mask_middle = 1.0 - (mask_after + mask_before)
+    pred_ins = torch.sigmoid(raw[..., 4:])
+    n_ch = pred_ins.shape[-1]
+    air = (torch.arange(n_ch) == n_ch - 1).to(raw.dtype)
+    bce_before = -air * torch.log(torch.clamp(pred_ins, min=1e-8)) \
+        - (1.0 - air) * torch.log(torch.clamp(1.0 - pred_ins, min=1e-8))
+    bce_middle = -torch.log(torch.clamp(1.0 - pred_ins[..., -1], min=1e-8))
+    terms = (bce_before * ((1.0 - gauss) * mask_before)[..., None], mask_before,
+             bce_middle * (gauss * mask_middle), mask_middle)
+    sums = [torch.sum(t) for t in terms]
+    loss = sums[0] / (n_ch * torch.clamp(sums[1], min=1e-8)) + sums[2] / torch.clamp(sums[3],
+                                                                                     min=1e-8)
+    return sums, loss, terms
+
+
+def _k12_case(N, S, ins_num, seed=0):
+    """Logits of scale 4 with one in ten at +-30 (every clamp of the penalizer active),
+    weights, sorted z, each ray's depth at one of its samples, rays_d."""
+    rng = np.random.RandomState(seed)
+    raw = 4.0 * rng.randn(N, S, 5 + ins_num)
+    sat = rng.rand(N, S, ins_num + 1) < 0.1
+    raw[..., 4:] = np.where(sat, np.where(rng.rand(N, S, ins_num + 1) < 0.5, -30.0, 30.0),
+                            raw[..., 4:])
+    z = np.sort(rng.uniform(4.0, 15.0, (N, S)), -1)
+    depth = z[np.arange(N), rng.randint(0, S, N)]
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    return (t(raw), t(rng.rand(N, S) * 2.0 / S), t(z), t(depth), t(rng.randn(N, 3)),
+            t(rng.randn(N, ins_num)))
+
+
+@pytest.mark.parametrize("S", [64, 192])
+@pytest.mark.parametrize("ins_num", [5, 16, 32])
+def test_instance_terms_plain_route_matches_the_pre_change_formula(S, ins_num):
+    """kernels.instance_terms on CPU tensors (its plain route, K12's function) against the
+    step's formulas before K12, which this test keeps: composite's instance map and the
+    pre-change penalizer at 37 rays (ragged against K12's blocks), logits at +-30 so
+    every clamp is active. The instance map, each ray's four sums of the pre-change terms
+    and raw's gradient through a loss of them all are the same bits; the rays' sums
+    summed, and the penalizer's value, are the pre-change whole-bundle sums' within 1e-6
+    (another sum order; the counts exact); nothing is launched."""
+    from dmnerf_tpu_torch.core.compositor import composite
+    from dmnerf_tpu_torch.kernels.instance_terms import instance_terms
+
+    raw, w, z, depth, d, g_ins = _k12_case(37, S, ins_num)
+    runtime.reset_launches()
+    rk = raw.clone().requires_grad_(True)
+    logits, sums = instance_terms(rk, w, z, depth, d, 0.05, 0.05, True)
+    got_loss = tpen.penalty(sums, ins_num + 1)
+    got_ins = torch.sigmoid(logits)[..., :-1]
+    (gk,) = torch.autograd.grad((got_ins * g_ins).sum() + got_loss, rk)
+    assert not any(runtime.LAUNCHES.values())
+
+    # composite's instance map, over the weights composite takes from raw's sigma
+    rp = raw.clone().requires_grad_(True)
+    comp = composite(rp, z, d)
+    logits_c, _ = instance_terms(rp, comp.weights, z, depth, d, 0.05, 0.05, False)
+    assert torch.equal(torch.sigmoid(logits_c)[..., :-1], comp.ins)
+    want_sums, want_loss, terms = _pre_change_penalizer(rp, z, depth, d, 0.05, 0.05)
+    want_ins = torch.sigmoid(torch.sum(w[..., None] * rp[..., 4:], dim=-2))[..., :-1]
+    (gp,) = torch.autograd.grad((want_ins * g_ins).sum() + want_loss, rp)
+    assert torch.equal(got_ins, want_ins.detach())
+    per_ray = [t.reshape(37, -1).sum(-1) for t in terms]
+    assert sums.shape == (37, 4)
+    assert all(torch.equal(a, b.detach()) for a, b in zip(sums.unbind(-1), per_ray))
+    total = sums.detach().sum(0)
+    assert float(total[1]) == float(want_sums[1]) and float(total[3]) == float(want_sums[3])
+    assert 0 < float(want_sums[1]) < 37 * S and 0 < float(want_sums[3]) < 37 * S
+    for i in (0, 2):
+        np.testing.assert_allclose(float(total[i]), float(want_sums[i].detach()), rtol=1e-6)
+    np.testing.assert_allclose(float(got_loss.detach()), float(want_loss.detach()), rtol=1e-6)
+    assert torch.equal(gk, gp) and float(gk[..., :4].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_compute_losses_on_the_instance_terms_path_match_the_plain_path(world):
+    """One step's losses and gradient on the CPU, rendered as the train step renders
+    (``instance_fn``: the instance map and the penalizer's sums from
+    ``kernels.instance_terms``) and as before it (composite's instance map, the penalizer
+    from the raw bundles in ``compute_losses``): every aux and every parameter gradient
+    the same bits. ``world`` 2 is the sharded reduce of two ranks whose rays are alike
+    (each sum doubled); there the penalizer also equals the one of the batch twice over."""
+    import functools
+
+    from dmnerf_tpu_torch.core.pipeline import make_query_fn, render_rays
+    from dmnerf_tpu_torch.core.sampling import z_val_sample
+    from dmnerf_tpu_torch.kernels.instance_terms import instance_terms
+    from dmnerf_tpu_torch.test import init_params
+
+    cfg = Config(**{**TINY, "perturb": 1.0, "N_train": 29})
+    pc0, pf0 = init_params(cfg, "cpu")
+    rng = np.random.RandomState(4)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    n = cfg.N_train
+    batch = tts.Batch(t(rng.randn(n, 3) * 0.1), t(rng.randn(n, 3)), t(rng.rand(n, 3)),
+                      torch.from_numpy(rng.randint(0, cfg.ins_num, n)))
+    u_z, u_pdf = t(rng.rand(n, cfg.N_samples)), t(rng.rand(n, cfg.N_importance))
+    reduce = None if world == 1 else (lambda x: x + x)
+    instance_fn = functools.partial(instance_terms, tolerance=cfg.tolerance,
+                                    deta_w=cfg.deta_w, penalize=True)
+
+    def step(fn):
+        pc = {k: v.clone().requires_grad_(True) for k, v in pc0.items()}
+        pf = {k: v.clone().requires_grad_(True) for k, v in pf0.items()}
+        z = z_val_sample(n, cfg.near, cfg.far, cfg.N_samples)
+        info = render_rays(pc, pf, batch.rays_o, batch.rays_d, z, make_query_fn(cfg),
+                           N_importance=cfg.N_importance, perturb=True, u_z=u_z, u_pdf=u_pdf,
+                           instance_fn=fn)
+        total, aux = tts.compute_losses(cfg, info, batch, None, reduce)
+        return info, aux, torch.autograd.grad(total, [*pc.values(), *pf.values()])
+
+    info_k, aux_k, grads_k = step(instance_fn)
+    info_p, aux_p, grads_p = step(None)
+    assert "penalizer_fine" in info_k and "penalizer_fine" not in info_p
+    assert float(aux_k["emptiness_loss"]) > 0
+    assert all(torch.equal(aux_k[k], aux_p[k]) for k in aux_p)
+    assert all(torch.equal(a, b) for a, b in zip(grads_k, grads_p))
+    if world == 2:
+        twice = [torch.cat([info_k[k]] * 2) for k in ("raw_fine", "z_vals_fine", "depth_fine")]
+        whole = tpen.ins_penalizer(*twice, torch.cat([batch.rays_d] * 2), 0.05, 0.05)
+        got = tpen.penalty(info_k["penalizer_fine"], cfg.ins_num + 1, reduce)
+        np.testing.assert_allclose(float(got.detach()), float(whole.detach()), rtol=1e-6)
+
+
 @pytest.fixture(scope="module")
 def scene():
     return build_dmsr_scene(n_train=4, n_test=1, H=16, W=16, n_objects=3, ins_num=8, seed=0)
